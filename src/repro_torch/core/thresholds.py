@@ -1,0 +1,78 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""The geometric threshold ladder (port of ``repro/core/thresholds.py``).
+
+  * ``Ladder``        — static: the bounds (ilo/ihi/num_rungs) come from
+                        float64 Python ``math``, exactly as in the JAX
+                        package; ``HyperParams.build`` derives per-session
+                        rows from it.
+  * ``rung_value`` /  — the same rung values from 0-dim (or batched)
+    ``TracedLadder``    tensors, geometry in float32.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Ladder:
+    """Rungs are indexed j = 0 (largest) .. num_rungs-1 (smallest)."""
+
+    eps: float
+    m: float  # max singleton value
+    K: int
+
+    def __post_init__(self):
+        if not (isinstance(self.eps, (int, float))
+                and math.isfinite(self.eps) and self.eps > 0):
+            raise ValueError(
+                f"eps must be a positive finite number, got {self.eps!r} "
+                "(the threshold ladder is geometric in 1 + eps)")
+        if int(self.K) < 1:
+            raise ValueError(f"K must be >= 1, got {self.K!r}")
+        if not (math.isfinite(self.m) and self.m > 0):
+            raise ValueError(
+                f"max singleton value m must be positive and finite, got "
+                f"{self.m!r} (m = f({{e}}) of a normalized kernel)")
+
+    @property
+    def ilo(self) -> int:
+        return math.ceil(math.log(self.m) / math.log1p(self.eps) - 1e-9)
+
+    @property
+    def ihi(self) -> int:
+        return math.floor(math.log(self.K * self.m) / math.log1p(self.eps)
+                          + 1e-9)
+
+    @property
+    def num_rungs(self) -> int:
+        return max(self.ihi - self.ilo + 1, 1)
+
+
+def rung_value(base, ihi, num_rungs, j, dtype=torch.float32):
+    """Threshold at rung ``j``: clamp to the live rung range, then
+    ``base ** (ihi - j)`` in f32, delivered in ``dtype``.
+
+    The CUDA pod-step kernel evaluates the same formula with ``powf``
+    (``csrc/pod_step.cu``)."""
+    jc = torch.minimum(torch.clamp_min(j, 0), num_rungs - 1)
+    v = torch.pow(base, (ihi - jc).to(torch.float32))
+    return v.to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TracedLadder:
+    """Rung math over tensor hyperparameters (``HyperParams`` rows)."""
+
+    base: torch.Tensor  # () float32 — 1 + eps
+    ihi: torch.Tensor  # () int32
+    num_rungs: torch.Tensor  # () int32
+
+    @classmethod
+    def of(cls, hp) -> "TracedLadder":
+        return cls(base=hp.base, ihi=hp.ihi, num_rungs=hp.num_rungs)
+
+    def value(self, j, dtype=torch.float32):
+        return rung_value(self.base, self.ihi, self.num_rungs, j, dtype)

@@ -1,0 +1,191 @@
+// Gain rows shared by both CUDA kernels of the port (rbf_gain.cu and
+// pod_step.cu), as kernelmath.traced_gain_rows is shared by the two
+// Pallas kernels it replaces:
+//
+//   Km   = a * k(X, feats[:n])                 (rows x n)
+//   c    = Km @ Linv[:c_rows, :n]^T            (rows x c_rows)
+//   gain = 1/2 log(max((1 + a) - |c_row|^2, GAIN_EPS))
+//
+// k is rbf, exp(-inv2l2 * max(|x|^2 + |f|^2 - 2 x.f, 0)), or linear_norm,
+// (x.f / (max(|x|, eps) max(|f|, eps)) + 1) / 2, both read from the one
+// Gram product, with the kind and inv2l2 as runtime scalars.
+//
+// Arithmetic is FP32 FMA on the CUDA cores (no TF32): the accept decision
+// compares a gain with a threshold, and TF32's 10-bit mantissa would move
+// decisions.  Both contractions go through one simple tiled product
+// (gemm_nt): DK-deep slices of A and B staged in shared memory with a
+// padded stride, each of the NT threads holding M = BT*KT/NT outputs in
+// registers.  Making it fast (wgmma is TF32-or-lower only, so FP32 stays
+// on the CUDA cores; cp.async/TMA staging) is later work.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace repro {
+
+constexpr int NT = 256;       // threads per block, both kernels
+constexpr int KT = 64;        // output columns of one product tile
+constexpr int DK = 32;        // depth of one staged slice
+constexpr int LDT = DK + 1;   // padded stride: column walks avoid bank conflicts
+constexpr float GAIN_EPS = 1e-12f;
+constexpr float NORM_EPS = 1e-12f;
+
+__device__ __forceinline__ float kernel_value(float g, float xn2, float yn2,
+                                              float inv2l2, int kind) {
+  if (kind == 0) {
+    float d2 = fmaxf(xn2 + yn2 - 2.0f * g, 0.0f);
+    return expf(-inv2l2 * d2);
+  }
+  float nx = fmaxf(sqrtf(xn2), NORM_EPS);
+  float ny = fmaxf(sqrtf(yn2), NORM_EPS);
+  return 0.5f * (g / (nx * ny) + 1.0f);
+}
+
+__device__ __forceinline__ float gain_of(float cn2, float a) {
+  return 0.5f * logf(fmaxf((1.0f + a) - cn2, GAIN_EPS));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Squared norms of rows [0, rows) of X (row stride ld, width d): one warp
+// per row.  The same routine prices candidates and summary rows, so an
+// appended row keeps the norm its candidate had.
+__device__ __forceinline__ void row_norms2(const float* X, int ld, int rows,
+                                           int d, float* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += NT / 32) {
+    float s = 0.0f;
+    for (int e = lane; e < d; e += 32) {
+      float v = X[(size_t)r * ld + e];
+      s = fmaf(v, v, s);
+    }
+    s = warp_sum(s);
+    if (lane == 0) out[r] = s;
+  }
+}
+
+// Block-wide sum; every thread gets the same value.  red holds NT/32 floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+template <int BT>
+struct Tile {
+  static constexpr int M = BT * KT / NT;  // outputs per thread
+  static_assert(M >= 1 && BT * KT % NT == 0, "tile does not divide the block");
+};
+
+// acc[m] += sum_e A[b][e] * B[k][e] for output (b, k) = (p / KT, p % KT),
+// p = threadIdx.x + NT * m.  A has a_rows rows (stride lda), B has b_rows
+// rows (stride ldb), both kdim deep; missing rows and depth read as zero.
+// A and B may point to global or shared memory.
+template <int BT>
+__device__ __forceinline__ void gemm_nt(const float* A, int lda, int a_rows,
+                                        const float* B, int ldb, int b_rows,
+                                        int kdim, float* As, float* Bs,
+                                        float (&acc)[Tile<BT>::M]) {
+  for (int e0 = 0; e0 < kdim; e0 += DK) {
+    for (int p = threadIdx.x; p < BT * DK; p += NT) {
+      const int r = p / DK, e = p % DK;
+      As[r * LDT + e] = (r < a_rows && e0 + e < kdim)
+                            ? A[(size_t)r * lda + e0 + e] : 0.0f;
+    }
+    for (int p = threadIdx.x; p < KT * DK; p += NT) {
+      const int r = p / DK, e = p % DK;
+      Bs[r * LDT + e] = (r < b_rows && e0 + e < kdim)
+                            ? B[(size_t)r * ldb + e0 + e] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < Tile<BT>::M; ++m) {
+      const int p = threadIdx.x + NT * m;
+      const float* a = As + (p / KT) * LDT;
+      const float* b = Bs + (p % KT) * LDT;
+      float s = acc[m];
+#pragma unroll
+      for (int e = 0; e < DK; ++e) s = fmaf(a[e], b[e], s);
+      acc[m] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// Shared-memory floats gain_tile needs for a summary of up to K rows.
+__host__ __device__ constexpr int gain_tile_floats(int bt, int K) {
+  return bt * LDT + KT * LDT + 2 * bt + bt * K;
+}
+
+// Gains of candidate rows [0, rows) of X (stride ldx, width d) against
+// the first n summary rows (feats stride ldf, squared norms fn2) and
+// rows [0, c_rows) of Linv (stride ldl).  Writes gains[0, rows) and ends
+// on a barrier.  Must be reached by every thread of the block.
+template <int BT>
+__device__ void gain_tile(const float* X, int ldx, int rows, int d,
+                          const float* feats, int ldf, const float* fn2,
+                          const float* linv, int ldl, int c_rows, int n,
+                          float a, float inv2l2, int kind, float* scratch,
+                          float* gains) {
+  constexpr int M = Tile<BT>::M;
+  float* As = scratch;
+  float* Bs = As + BT * LDT;
+  float* xn2 = Bs + KT * LDT;
+  float* red = xn2 + BT;
+  float* Km = red + BT;  // BT x n, stride n
+  row_norms2(X, ldx, rows, d, xn2);
+  for (int b = threadIdx.x; b < BT; b += NT) {
+    red[b] = 0.0f;
+    if (b >= rows) xn2[b] = 0.0f;
+  }
+  __syncthreads();
+
+  for (int k0 = 0; k0 < n; k0 += KT) {
+    float acc[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc[m] = 0.0f;
+    gemm_nt<BT>(X, ldx, rows, feats + (size_t)k0 * ldf, ldf,
+                min(KT, n - k0), d, As, Bs, acc);
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int p = threadIdx.x + NT * m;
+      const int b = p / KT, k = k0 + p % KT;
+      if (k < n)
+        Km[b * n + k] = a * kernel_value(acc[m], xn2[b], fn2[k], inv2l2, kind);
+    }
+  }
+  __syncthreads();
+
+  float sq[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) sq[m] = 0.0f;
+  for (int i0 = 0; i0 < c_rows; i0 += KT) {
+    float acc[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc[m] = 0.0f;
+    gemm_nt<BT>(Km, n, BT, linv + (size_t)i0 * ldl, ldl, min(KT, c_rows - i0),
+                n, As, Bs, acc);
+#pragma unroll
+    for (int m = 0; m < M; ++m) sq[m] = fmaf(acc[m], acc[m], sq[m]);
+  }
+  // the KT threads that share a candidate row are two whole warps
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const float v = warp_sum(sq[m]);
+    if (threadIdx.x % 32 == 0) atomicAdd(&red[(threadIdx.x + NT * m) / KT], v);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < rows; b += NT) gains[b] = gain_of(red[b], a);
+  __syncthreads();
+}
+
+}  // namespace repro

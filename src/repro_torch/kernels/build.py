@@ -1,0 +1,128 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""Build the CUDA sources with ``nvcc`` and bind them with ``ctypes``.
+
+Each ``CudaKernel`` names one ``.cu`` file under ``repro_torch/csrc``.
+The shared library is built at first use into ``build/repro_torch/`` at
+the root of the checkout (listed in ``.gitignore``), keyed by a hash of
+the sources, so an edited source rebuilds and an unchanged one loads.
+``build_all`` starts one ``nvcc`` per source at once.
+
+The C entry points take plain pointers and return ``cudaGetLastError()``
+after the launch; the wrappers raise on a non-zero code.  Nothing here
+runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda; "
+                       "the CUDA kernels are built on the machine with "
+                       "the card")
+
+
+class CudaKernel:
+    """One CUDA source file, its shared library and its launch count.
+
+    ``launches`` is a plain integer that the wrapper adds one to where it
+    launches the kernel, and nowhere else.
+    """
+
+    def __init__(self, name: str, source: str,
+                 signatures: Dict[str, Sequence]):
+        self.name = name
+        self.source = CSRC / source
+        self.signatures = signatures  # C function -> ctypes argtypes
+        self.launches = 0
+        self.lib: Optional[ctypes.CDLL] = None
+        self.ptxas_log = ""
+        self.build_seconds: Optional[float] = None
+
+    def _digest(self) -> str:
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for p in sorted(CSRC.glob("*.cuh")) + [self.source]:
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+        return h.hexdigest()[:16]
+
+    def so_path(self) -> Path:
+        return BUILD_DIR / f"lib{self.name}-{self._digest()}.so"
+
+    def _bind(self, path: Path) -> None:
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in self.signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        self.lib = lib
+
+    def get(self) -> ctypes.CDLL:
+        """The bound library, building it first if needed."""
+        if self.lib is None:
+            build_all([self])
+        return self.lib
+
+
+def build_all(kernels: List[CudaKernel]) -> None:
+    """Build every kernel not yet loaded, one ``nvcc`` each, in parallel."""
+    with _lock:
+        todo = [k for k in kernels if k.lib is None]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for k in todo:
+            out = k.so_path()
+            if out.exists():
+                k._bind(out)
+                continue
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC),
+                   "-o", str(tmp), str(k.source)]
+            t0 = time.perf_counter()
+            procs.append((k, out, tmp, t0, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failures = []
+        for k, out, tmp, t0, p in procs:
+            log, _ = p.communicate()
+            k.build_seconds = time.perf_counter() - t0
+            k.ptxas_log = log
+            if p.returncode != 0:
+                failures.append(f"{k.source.name} (nvcc exit "
+                                f"{p.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
+            k._bind(out)
+        if failures:
+            raise RuntimeError("CUDA build failed: " + "\n".join(failures))
+
+
+def check(kernel: CudaKernel, err: int, what: str) -> None:
+    """Raise when a C entry point returned a CUDA error code."""
+    if err != 0:
+        describe = kernel.lib.error_string
+        describe.argtypes = [ctypes.c_int]
+        describe.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {err} at launch: "
+                           f"{describe(err).decode()}")

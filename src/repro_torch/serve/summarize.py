@@ -1,0 +1,303 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""SummarizerPod: many summarization sessions as one stacked state
+(port of ``repro/serve/summarize.py``).
+
+S ThreeSieves sessions share one stacked state (every tensor has a
+leading (S,) slot axis) plus per-slot metadata.  ``ingest`` routes a
+tagged batch ``(session_id, x)`` into per-session chunk buffers with one
+scatter and advances every session with ONE pod step: the CUDA
+``pod_step`` kernel on the card, its plain per-slot loop on the CPU.
+Admit, evict and drift reset reuse slots through masked row selects.
+
+Per-session hyperparameters (K, T, eps, lengthscale, kernel kind) are
+state rows stamped at ``admit(..., spec=SessionSpec(...))``.
+
+The pod step updates the algorithm state IN PLACE (the stand-in for
+JAX's donation): tensors returned by ``readout`` are views of the live
+state, so clone them to keep a snapshot across an ingest.  The
+lifecycle methods (admit, evict, reset) return fresh state.
+
+``save``/``restore`` wait for the checkpoint port, ``make_sharded_update``
+and ``serve`` for the ingest front end (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.sieve_family import (SieveAlgorithm, stack_states,
+                                           tree_select)
+from repro_torch.core.spec import HyperParams, SessionSpec
+from repro_torch.core.threesieves import TSState
+from repro_torch.device import resolve_device
+from repro_torch.kernels.pod_step import pod_step
+from repro_torch.tree import leaves_with_keys, tree_map
+
+
+class PodReadout(NamedTuple):
+    """Per-session readout of a pod."""
+
+    feats: torch.Tensor  # (S, K, d)
+    n: torch.Tensor  # (S,)
+    fval: torch.Tensor  # (S,)
+    active: torch.Tensor  # (S,) bool
+    drops: Dict[str, torch.Tensor]
+    specs: Optional[HyperParams]
+
+
+@dataclasses.dataclass(frozen=True)
+class PodState:
+    """Stacked state of S summarizer sessions; every tensor is (S, ...)."""
+
+    algo: TSState  # stacked algorithm state (leading session axis)
+    sid: torch.Tensor  # (S,) int32 — session id in the slot, -1 when free
+    active: torch.Tensor  # (S,) bool — slot hosts a live session
+    items: torch.Tensor  # (S,) int32 — items routed since admission
+    accepts: torch.Tensor  # (S,) int32 — summary insertions since admission
+    win_items: torch.Tensor  # (S,) int32 — items since the last check/reset
+    win_accepts: torch.Tensor  # (S,) int32 — accepts since then
+    resets: torch.Tensor  # (S,) int32 — drift resets of the slot
+    drops_overflow: torch.Tensor  # (S,) int32 — items past the slot's C
+    drops_unknown: torch.Tensor  # (S,) int32 — unknown-sid drops, on slot 0
+
+    @property
+    def S(self) -> int:
+        return self.sid.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class SummarizerPod:
+    """S summarizer sessions as one stacked state.
+
+    ``chunk`` is the per-session capacity of one ingest (the tail is
+    counted as dropped).  ``device=None`` means ``cuda`` and must be the
+    device of ``algo``'s objective; the pod step runs the CUDA kernel
+    there and its plain per-slot loop on the CPU.
+    """
+
+    algo: SieveAlgorithm
+    sessions: int
+    chunk: int
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        dev = resolve_device(self.device)
+        if dev != self.algo.f.device:
+            raise ValueError(f"pod device {dev} != the objective's device "
+                             f"{self.algo.f.device}")
+        object.__setattr__(self, "device", dev)
+
+    # ------------------------------------------------------------------ state
+    def _zeros(self) -> torch.Tensor:
+        return torch.zeros((self.sessions,), dtype=torch.int32,
+                           device=self.device)
+
+    def init(self) -> PodState:
+        S = self.sessions
+        return PodState(
+            algo=stack_states(self.algo.init(), S),
+            sid=torch.full((S,), -1, dtype=torch.int32, device=self.device),
+            active=torch.zeros((S,), dtype=torch.bool, device=self.device),
+            items=self._zeros(), accepts=self._zeros(),
+            win_items=self._zeros(), win_accepts=self._zeros(),
+            resets=self._zeros(), drops_overflow=self._zeros(),
+            drops_unknown=self._zeros(),
+        )
+
+    # -------------------------------------------------------------- lifecycle
+    def _hyper_of(self, spec) -> Optional[HyperParams]:
+        """``None`` -> pod default; ``HyperParams`` passes through;
+        ``SessionSpec`` is validated against the pod's algorithm."""
+        if spec is None:
+            return None
+        if isinstance(spec, HyperParams):
+            return spec
+        if not isinstance(spec, SessionSpec):
+            raise TypeError("spec must be a SessionSpec, HyperParams or "
+                            f"None, got {type(spec).__name__}")
+        from repro_torch.core.api import _ALIASES, algo_name
+
+        want = _ALIASES.get(spec.algo.lower(), spec.algo.lower())
+        have = algo_name(self.algo)
+        if want != have:
+            raise ValueError(
+                f"spec.algo={spec.algo!r} does not match this pod's "
+                f"compiled program ({have}); only K/T/eps vary per slot")
+        f = self.algo.f
+        if spec.d is not None and int(spec.d) != f.d:
+            raise ValueError(f"spec.d={spec.d} != pod objective d={f.d}")
+        if float(spec.a) != f.a:
+            raise ValueError(f"spec.a={spec.a} != pod a={f.a}")
+        return self.algo.hyper(K=spec.K, T=spec.T, eps=spec.eps,
+                               lengthscale=spec.lengthscale,
+                               kernel_kind=spec.kernel_kind)
+
+    def admit(self, state: PodState, session_id, spec=None
+              ) -> Tuple[PodState, torch.Tensor, torch.Tensor]:
+        """Admit a session into the first free slot -> (state, slot, ok).
+
+        Idempotent for a live session id; a live session re-admitted with
+        a different explicit spec returns ``ok=False``, state unchanged.
+        """
+        hyper = self._hyper_of(spec)
+        sess = torch.as_tensor(session_id, dtype=torch.int32,
+                               device=self.device)
+        existing = state.active & (state.sid == sess)
+        present = existing.any()
+        free = ~state.active
+        slot = torch.where(present, existing.to(torch.uint8).argmax(),
+                           free.to(torch.uint8).argmax())
+        if hyper is None:
+            spec_ok = torch.ones((), dtype=torch.bool, device=self.device)
+        else:
+            row = leaves_with_keys(tree_map(lambda l: l[slot],
+                                            state.algo.hp))
+            want = leaves_with_keys(hyper)
+            spec_ok = torch.stack([row[k] == want[k] for k in row]).all()
+            spec_ok = torch.where(present, spec_ok, True)
+        ok = (sess >= 0) & torch.where(present, spec_ok, free.any())
+        hot = ((torch.arange(self.sessions, device=self.device) == slot)
+               & ok & ~present)
+        fresh = stack_states(self.algo.init(hyper), self.sessions)
+        z = self._zeros()
+        state = dataclasses.replace(
+            state,
+            algo=tree_select(hot, fresh, state.algo),
+            sid=torch.where(hot, sess, state.sid),
+            active=state.active | hot,
+            items=torch.where(hot, z, state.items),
+            accepts=torch.where(hot, z, state.accepts),
+            win_items=torch.where(hot, z, state.win_items),
+            win_accepts=torch.where(hot, z, state.win_accepts),
+            resets=torch.where(hot, z, state.resets),
+            drops_overflow=torch.where(hot, z, state.drops_overflow),
+        )
+        return state, slot, ok
+
+    def evict(self, state: PodState, session_id) -> PodState:
+        """Free the slot hosting ``session_id`` (no-op when absent)."""
+        return self.evict_sids(state, torch.as_tensor(
+            session_id, dtype=torch.int32, device=self.device).reshape(1))
+
+    def evict_sids(self, state: PodState, session_ids) -> PodState:
+        """Free every slot hosting one of ``session_ids`` at once."""
+        sids = torch.as_tensor(session_ids, dtype=torch.int32,
+                               device=self.device).reshape(-1)
+        gone = state.active & (state.sid[:, None] == sids[None, :]).any(1)
+        return dataclasses.replace(
+            state, active=state.active & ~gone,
+            sid=torch.where(gone, -1, state.sid))
+
+    def routing_table(self, state: PodState) -> Dict[int, int]:
+        """Host export of the live slot table: {session_id: slot}."""
+        sid = state.sid.tolist()
+        active = state.active.tolist()
+        return {s: i for i, s in enumerate(sid) if active[i]}
+
+    def reset_slots(self, state: PodState, mask: torch.Tensor) -> PodState:
+        """Drift reset: re-arm the masked sessions' summaries, each from
+        its own hyperparameter row."""
+        mask = mask & state.active
+        fresh = dataclasses.replace(
+            stack_states(self.algo.init(), self.sessions),
+            hp=state.algo.hp)
+        z = self._zeros()
+        return dataclasses.replace(
+            state,
+            algo=tree_select(mask, fresh, state.algo),
+            win_items=torch.where(mask, z, state.win_items),
+            win_accepts=torch.where(mask, z, state.win_accepts),
+            resets=state.resets + mask.to(torch.int32),
+        )
+
+    def drift_check(self, state: PodState, *, min_items: int,
+                    min_rate: float) -> Tuple[PodState, torch.Tensor]:
+        """Reset sessions whose windowed accept rate collapsed
+        -> (state, reset_mask)."""
+        rate = (state.win_accepts.to(torch.float32)
+                / torch.clamp_min(state.win_items, 1).to(torch.float32))
+        mask = (state.active & (state.win_items >= min_items)
+                & (rate < min_rate))
+        return self.reset_slots(state, mask), mask
+
+    # ---------------------------------------------------------------- routing
+    def route(self, state: PodState, sids: torch.Tensor, X: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+        """Scatter a tagged batch to per-session chunk buffers.
+
+        sids (N,) int32 (-1 = padding), X (N, d) -> (chunks (S, C, d),
+        counts (S,), unknown (), overflow (S,)).  Items with no live
+        session go to a trash row S; a stable sort keeps stream order per
+        slot.  ``unknown`` counts items of no live session, ``overflow``
+        items past a slot's C, per slot.
+        """
+        S, C = self.sessions, self.chunk
+        N = sids.shape[0]
+        dev = sids.device
+        match = (sids[:, None] == state.sid[None, :]) & state.active[None, :]
+        found = match.any(1)
+        slot = torch.where(found, match.to(torch.uint8).argmax(1),
+                           torch.full_like(sids, S, dtype=torch.int64))
+        order = torch.argsort(slot, stable=True)
+        sorted_slot = slot[order]
+        seg_start = torch.searchsorted(sorted_slot, sorted_slot, side="left")
+        pos_sorted = torch.arange(N, device=dev) - seg_start
+        pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+
+        keep = found & (pos < C)
+        slot_f = torch.where(keep, slot, S)
+        pos_f = torch.clamp_max(pos, C - 1)
+        chunks = torch.zeros((S + 1, C) + tuple(X.shape[1:]), dtype=X.dtype,
+                             device=dev)
+        chunks[slot_f, pos_f] = X  # duplicates only ever hit the trash row
+        counts = torch.bincount(slot_f, minlength=S + 1)[:S].to(torch.int32)
+        unknown = (~found & (sids >= 0)).sum().to(torch.int32)
+        over_slot = torch.where(found & (pos >= C), slot, S)
+        overflow = torch.bincount(over_slot,
+                                  minlength=S + 1)[:S].to(torch.int32)
+        return chunks[:S], counts, unknown, overflow
+
+    # ----------------------------------------------------------------- ingest
+    def ingest(self, state: PodState, sids: torch.Tensor, X: torch.Tensor
+               ) -> Tuple[PodState, Dict[str, torch.Tensor]]:
+        """Route one tagged batch and advance every session."""
+        chunks, counts, unknown, overflow = self.route(state, sids, X)
+        return self.ingest_routed(state, chunks, counts, unknown, overflow)
+
+    def ingest_routed(self, state: PodState, chunks: torch.Tensor,
+                      counts: torch.Tensor, unknown: torch.Tensor,
+                      overflow: torch.Tensor
+                      ) -> Tuple[PodState, Dict[str, torch.Tensor]]:
+        """Advance every session from pre-routed chunk buffers.
+
+        The algorithm state is stepped in place; the counters are new."""
+        n_before = self.algo.insertions(state.algo).clone()
+        algo2 = pod_step(self.algo, state.algo, chunks, counts)
+        acc = self.algo.insertions(algo2) - n_before
+        unk = unknown.to(torch.int32).sum()
+        drops_unknown = state.drops_unknown.clone()
+        drops_unknown[0] += unk
+        state2 = dataclasses.replace(
+            state, algo=algo2,
+            items=state.items + counts,
+            accepts=state.accepts + acc,
+            win_items=state.win_items + counts,
+            win_accepts=state.win_accepts + acc,
+            drops_overflow=state.drops_overflow + overflow,
+            drops_unknown=drops_unknown,
+        )
+        return state2, {"counts": counts, "dropped_unknown": unk[None],
+                        "dropped_overflow": overflow}
+
+    # ---------------------------------------------------------------- readout
+    def readout(self, state: PodState) -> PodReadout:
+        """Per-session summaries, drop ledgers and hyperparameter rows
+        (views of the live state)."""
+        feats, n, fval = self.algo.summary(state.algo)
+        drops = {"overflow": state.drops_overflow,
+                 "unknown": state.drops_unknown.sum()}
+        return PodReadout(feats=feats, n=n, fval=fval, active=state.active,
+                          drops=drops, specs=state.algo.hp)

@@ -1,0 +1,40 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""Nested frozen dataclasses of tensors as the port's pytrees.
+
+The JAX package registers its state dataclasses as pytrees; the port
+keeps plain frozen dataclasses and walks them here.  Leaves are tensors;
+``None`` fields pass through untouched.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+import torch
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leafwise over dataclasses of identical structure."""
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def leaves_with_keys(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``{"ld/feats": tensor, ...}`` — the key scheme of the JAX
+    package's ``ckpt.store._flatten_with_keys`` (field names joined by
+    ``/`` in declaration order)."""
+    out: Dict[str, torch.Tensor] = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        key = f"{prefix}{f.name}"
+        if dataclasses.is_dataclass(v):
+            out.update(leaves_with_keys(v, key + "/"))
+        elif v is not None:
+            out[key] = v
+    return out

@@ -1,0 +1,71 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""Shared helpers of the tests/test_torch_*.py files: the same numpy
+inputs through the JAX package and its PyTorch port, compared leaf by
+leaf (integers equal; floats within f32 tolerance)."""
+import numpy as np
+import torch
+
+RTOL = ATOL = 1e-5  # f32, different summation order (XLA vs ATen) at K <= 8
+TIE = 1e-4  # decision margins of the fixtures must exceed this
+
+
+def jax_algo(K=8, d=5, T=10, eps=0.2, lengthscale=1.5, kind="rbf"):
+    from repro.core import api
+    from repro.core.spec import SessionSpec
+
+    return api.make(SessionSpec(K=K, d=d, T=T, eps=eps,
+                                lengthscale=lengthscale, kernel_kind=kind,
+                                backend="jnp"))
+
+
+def torch_algo(K=8, d=5, T=10, eps=0.2, lengthscale=1.5, kind="rbf",
+               backend="torch"):
+    from repro_torch.core import api
+    from repro_torch.core.spec import SessionSpec
+
+    return api.make(SessionSpec(K=K, d=d, T=T, eps=eps,
+                                lengthscale=lengthscale, kernel_kind=kind,
+                                backend=backend), device="cpu")
+
+
+def jax_leaves(tree):
+    from repro.ckpt.store import _flatten_with_keys
+
+    return {k: np.asarray(v) for k, v in _flatten_with_keys(tree).items()}
+
+
+def torch_leaves(tree):
+    from repro_torch.tree import leaves_with_keys
+
+    return {k: v.detach().cpu().numpy()
+            for k, v in leaves_with_keys(tree).items()}
+
+
+def assert_leaves_match(jl, tl, msg=""):
+    assert set(jl) == set(tl), set(jl) ^ set(tl)
+    for k in sorted(jl):
+        a, b = np.asarray(jl[k]), np.asarray(tl[k])
+        assert a.shape == b.shape, (msg, k, a.shape, b.shape)
+        assert a.dtype == b.dtype, (msg, k, a.dtype, b.dtype)
+        if a.dtype.kind in "iub":
+            np.testing.assert_array_equal(a, b, err_msg=f"{msg} {k}")
+        else:
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{msg} {k}")
+
+
+def assert_states_match(jax_state, torch_state, msg=""):
+    assert_leaves_match(jax_leaves(jax_state), torch_leaves(torch_state), msg)
+
+
+def assert_clear_margins(margins, bound=TIE):
+    """Every decided item sits further than ``bound`` (relative) from its
+    threshold, so one ulp of summation order cannot flip a decision."""
+    ms = [m for d in margins for m in d.values()]
+    assert ms, "no decisions were made"
+    assert min(ms) > bound, f"near-tie fixture: min margin {min(ms)}"
+
+
+def stream(seed, n, d, scale=0.5):
+    return (scale * np.random.default_rng(seed).standard_normal(
+        (n, d))).astype(np.float32)

@@ -110,6 +110,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "timeout(seconds): per-test timeout for tests that touch sockets")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's CUDA "
+        "kernels); skipped where there is none")
 
 
 def pytest_sessionfinish(session, exitstatus):
