@@ -6,31 +6,54 @@
 Phases, one JSON line each; any failure ends the run with a non-zero
 exit and no result line:
 
-  1. build     both CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-               each, started together), ptxas register/smem lines;
-  2. gain      ``gain_traced`` against its plain version at B=1024, K=100,
-               d=256, n in {0, 37, 100}, both kernel kinds, two inv2l2;
-  3. pod_step  the kernel against ``pod_step_ref`` (16 sessions, K=100,
-               d=256, C=1024, three tiers): ragged counts, a C=1 chunk, a
-               saturating chunk, a round after saturation;
-  4. pod       the main path: ``make`` + ``SummarizerPod(S=256,
-               chunk=1024)``, 256 tenants in three tiers, ingests of
-               262,144 tagged items (the first is cold; items/s counts
-               the rest), one ``drift_check`` that re-arms the full
-               summaries before the last ingest, ``readout``;
-               each summary's fval is checked against a float64 slogdet
-               and the last ingest is replayed through ``pod_step_ref``;
-  5. sieve     standalone ``ThreeSieves.run_batched`` through the gain
-               oracle (``auto`` -> the kernel), 64 chunks of 1024 items,
-               against the same run under backend ``torch``.
+  1. build           the three CUDA kernels from the two sources in
+                     ``src/repro_torch/csrc`` (one nvcc each, started
+                     together), ptxas lines;
+  2. gain            ``gain_traced`` against its plain version at B=1024,
+                     K=100, d=256, n in {0, 37, 100}, both kernel kinds,
+                     two inv2l2;
+  3. pod_step        the kernel against ``pod_step_ref`` (16 sessions,
+                     K=100, d=256, C=1024, three tiers): ragged counts, a
+                     C=1 chunk, a saturating chunk, a round after it;
+  4. pod             the main path: ``make`` + ``SummarizerPod(S=256,
+                     chunk=1024)``, 256 tenants in three tiers, ingests of
+                     262,144 tagged items (the first is cold; items/s
+                     counts the rest), one ``drift_check`` that re-arms the
+                     full summaries before the last ingest, ``readout``;
+                     each summary's fval is checked against a float64
+                     slogdet and the last ingest is replayed through
+                     ``pod_step_ref``;
+  5. sieve           standalone ``ThreeSieves.run_batched`` through the
+                     gain oracle (``auto`` -> the kernel), 64 chunks of
+                     1024 items, against the same run under ``torch``;
+  6. gain_static     ``gain_static`` against ``gain_ref``, the cases of
+                     ``gain`` at B=65,536 (a Greedy round) and B=1 (an ISI
+                     query);
+  7. gain_stacked    ``gain_traced`` over I=147 stacked summaries (Salsa
+                     at K=100, eps=0.1: 3 rules x 49 rungs), B=1024;
+  8. pod_step_large  the pod step past what shared memory could hold:
+                     8 sessions at K_max=512 (tiers 128/256/512: ragged
+                     fill, saturating, after saturation), then one ragged
+                     round of 4 sessions at K_max=1024;
+  9. paper           the paper's comparison through ``make`` at K=100,
+                     d=256 on a drifting stream of tight clusters (rungs
+                     reject, ISI and Preemption replace; the phase fails
+                     if one of them never did): Greedy over N=65,536
+                     items, ThreeSieves,
+                     SieveStreaming(++) and Salsa (eps=0.1) with
+                     ``run_batched`` over 64 chunks, Random, ISI,
+                     Preemption and QuickStream over the first 4,096
+                     items; each under ``auto`` (the kernels) and under
+                     ``torch``, reported as f / f_greedy.
 
-"Held against" (both kernels): integers equal (n, j, t, n_fused,
+"Held against" (every kernel): integers equal (n, j, t, n_fused,
 n_queries, accepted items); floats within rtol = atol = 1e-5 (f32 with a
-different summation order at K <= 100).  A session whose accept
-decisions first differ at an item whose reference margin
+different summation order at K <= 100).  A run whose accept decisions
+first differ at an item whose reference margin
 |gain - thr| / max(1, |thr|) is at most 1e-4 is a near-tie: printed, not
-failed.  Then the kernels' summary line, the card's name and power limit,
-and the result line.
+failed (for Greedy: a first differing round whose two largest reference
+gains are within 1e-4 relative).  Then the phases' seconds, the kernels'
+summary line, the card's name and power limit, and the result line.
 """
 from __future__ import annotations
 
@@ -49,6 +72,20 @@ TIE = 1e-4
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM, CUDA cores (NVIDIA data sheet)
 PEAK_BW = 3.35e12  # bytes/s, H100 SXM HBM3
 K_MAX, D, CHUNK, SESSIONS = 100, 256, 1024, 256
+GREEDY_B = 65536  # a Greedy round over the paper phase's ground set
+SALSA_I = 147  # Salsa's stack at K=100, eps=0.1: 3 rules x 49 rungs
+PAPER_CHUNKS, PAPER_EPS, BASELINE_ITEMS = 64, 0.1, 4096
+# the paper phase's stream: 8 tight clusters per chunk (in-cluster rbf
+# ~exp(-0.09) at the stream lengthscale), drawn afresh for every chunk, so
+# summaries fill with near-duplicates, rungs reject, and later chunks
+# bring items that ISI and Preemption swap in
+PAPER_CLUSTERS, PAPER_SPREAD = 8, 0.3
+SPREAD_FAR = 400.0  # items far apart: every one accepted until k_cap
+LARGE_PODS = [  # K_max, sessions, tier budgets, rounds (name, item spread)
+    (512, 8, (128, 256, 512), [("ragged", 1.0), ("saturate", SPREAD_FAR),
+                               ("after_saturation", 1.0)]),
+    (1024, 4, (256, 1024), [("ragged", 1.0)]),
+]
 DEV = "cuda"
 
 
@@ -117,6 +154,19 @@ def bound(flops, nbytes):
                                        else "bytes")
 
 
+def gain_work(B, ns):
+    """The least work of pricing B candidates against summaries of ns
+    live rows -> (FLOP, bytes): per candidate and summary the Gram row
+    (2 d n), the kernel values (~10 n) and the whitening against the
+    lower-triangular Linv[:n, :n] (n (n + 1)); one read of the candidates,
+    of each summary's live rows and live Linv triangle, one write of each
+    gain."""
+    flops = sum(B * (2 * D * n + n * (n + 1) + 10 * n) for n in ns)
+    nbytes = 4 * (B * D + sum(n * D + n * (n + 1) // 2 for n in ns)
+                  + B * len(ns))
+    return flops, nbytes
+
+
 TIERS = {  # name: (K, T, eps, lengthscale rule)
     "small": (10, 500, 0.05, "batch"),
     "default": (50, 1000, 0.01, "stream"),
@@ -147,7 +197,8 @@ def spec_of(i):
 
 def mixture(torch, gen, n, *, clusters=64, spread=1.0):
     """Gaussian mixture at the scale of the paper's kernels: in-cluster
-    rbf values ~exp(-1) at the stream lengthscale 1/sqrt(d)."""
+    rbf values ~exp(-spread^2) at the stream lengthscale 1/sqrt(d),
+    across clusters ~exp(-4 - spread^2)."""
     centers = (2.0 / D) * torch.randn(clusters, D, generator=gen,
                                       device=DEV)
     z = torch.randint(0, clusters, (n,), generator=gen, device=DEV)
@@ -263,13 +314,18 @@ def phase_build(torch):
     from repro_torch.kernels import build
     from repro_torch.kernels.pod_step import KERNEL as POD
     from repro_torch.kernels.rbf_gain import KERNEL as GAIN
+    from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
 
+    kernels = (GAIN, STATIC, POD)
     t0 = time.perf_counter()
-    build.build_all([GAIN, POD])
-    ptxas = [ln.strip() for k in (GAIN, POD) for ln in k.ptxas_log.splitlines()
+    build.build_all(list(kernels))
+    sources = {k.source.name: k for k in kernels}  # gain kernels share one
+    ptxas = [ln.strip() for k in sources.values()
+             for ln in k.ptxas_log.splitlines()
              if "registers" in ln or "spill" in ln]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
-         per_kernel_seconds={k.name: k.build_seconds for k in (GAIN, POD)},
+         per_source_seconds={name: k.build_seconds
+                             for name, k in sources.items()},
          ptxas=ptxas, nvcc=build.nvcc_path())
 
 
@@ -320,13 +376,117 @@ def phase_gain(torch, gen):
                                     "gain_traced_kernel")
                     plain = timed_ms(torch, lambda: gain_traced_ref(
                         X, st.feats, st.Linv, nt[0], kern, a=f.a))
-                    flops = B * (2 * D * n + 2 * K_MAX * n + 10 * n)
-                    nbytes = 4 * (B * D + K_MAX * D + K_MAX * K_MAX + B)
-                    b_ms, b_by = bound(flops, nbytes)
+                    b_ms, b_by = bound(*gain_work(B, [n]))
                     timing = {"ms": dev, "call_ms": call,
                               "plain_ms": plain, "bound_ms": b_ms,
                               "bound_by": b_by, "shape": [B, K_MAX, D, n]}
     emit("gain", cases=cases, max_abs_err=max_err, **timing)
+    return {"max_abs_err": max_err, **timing}
+
+
+def _refactored(torch, f, pool, n):
+    """A LogDet state holding rows [0, n) of ``pool`` (one factorization,
+    batched when ``n`` is a tensor of counts)."""
+    return f.refactor(pool, torch.as_tensor(n, dtype=torch.int32,
+                                            device=DEV))
+
+
+def phase_gain_static(torch, gen):
+    from repro_torch.core.functions import KernelConfig, LogDet
+    from repro_torch.kernels.rbf_gain import gain_ref, gain_static
+
+    X = mixture(torch, gen, GREEDY_B)
+    pool = mixture(torch, gen, K_MAX)
+    cases, max_err, timing = [], 0.0, {}
+    for kind in ("rbf", "linear_norm"):
+        for inv2l2 in (D / 2.0, 2.0 * D):  # stream and batch lengthscales
+            ls = (2.0 * inv2l2) ** -0.5
+            f = LogDet(K=K_MAX, d=D, kernel=KernelConfig(kind, ls),
+                       device=DEV)
+            for n in (0, 37 * K_MAX // 100, K_MAX):
+                st = _refactored(torch, f, pool, n)
+                nt = st.n.reshape(1)
+                mask = (torch.arange(K_MAX, device=DEV) < n).float()[None]
+                for B in (GREEDY_B, 1):
+                    x = X[:B]
+
+                    def kern(x=x):
+                        return gain_static(x, st.feats, st.Linv, nt, a=f.a,
+                                           inv2l2=inv2l2, kind=kind)
+
+                    def plain(x=x):
+                        return gain_ref(x, st.feats, st.Linv, mask, a=f.a,
+                                        inv2l2=inv2l2, kind=kind)[:, 0]
+
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    e = (got - want).abs().max().item()
+                    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                        fail(f"gain_static kind={kind} inv2l2={inv2l2} "
+                             f"n={n} B={B}: max err {e}")
+                    max_err = max(max_err, e)
+                    cases.append({"kind": kind, "inv2l2": inv2l2, "n": n,
+                                  "B": B, "max_abs_err": e})
+                    if kind == "rbf" and inv2l2 == D / 2.0 and n == K_MAX:
+                        b_ms, b_by = bound(*gain_work(B, [n]))
+                        timing[B] = {
+                            "ms": device_ms(torch, kern, "gain_static_kernel"),
+                            "call_ms": timed_ms(torch, kern),
+                            "plain_ms": timed_ms(torch, plain),
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "shape": [B, K_MAX, D, n]}
+    emit("gain_static", cases=cases, max_abs_err=max_err,
+         greedy_round=timing[GREEDY_B], isi_query=timing[1],
+         library_ms=None,
+         library="none: no single PyTorch call computes the gain pass")
+    return {"max_abs_err": max_err, **timing[GREEDY_B]}
+
+
+def phase_gain_stacked(torch, gen):
+    from repro_torch.core.functions import (KernelConfig, LogDet,
+                                            rbf_lengthscale_stream)
+    from repro_torch.kernelmath import KernelParams
+    from repro_torch.kernels.rbf_gain import gain_traced, gain_traced_ref
+
+    B = CHUNK
+    f = LogDet(K=K_MAX, d=D, kernel=KernelConfig(
+        "rbf", rbf_lengthscale_stream(D)), device=DEV)
+    pool = mixture(torch, gen, SALSA_I * K_MAX).reshape(SALSA_I, K_MAX, D)
+    ns = [i % (K_MAX + 1) for i in range(SALSA_I)]
+    st = _refactored(torch, f, pool, ns)
+    X = mixture(torch, gen, B)
+    cases, max_err, timing = [], 0.0, None
+    for kind in (0, 1):
+        kern = KernelParams(
+            inv2l2=torch.tensor(D / 2.0, dtype=torch.float32, device=DEV),
+            kind_id=torch.tensor(kind, dtype=torch.int32, device=DEV))
+
+        def kernel(kern=kern):
+            return gain_traced(X, st.feats, st.Linv, st.n,
+                               kern.inv2l2.reshape(1),
+                               kern.kind_id.reshape(1), a=f.a)
+
+        def plain(kern=kern):
+            return gain_traced_ref(X, st.feats, st.Linv, st.n, kern, a=f.a)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        if got.shape != (SALSA_I, B) or not torch.allclose(
+                got, want, rtol=RTOL, atol=ATOL):
+            fail(f"gain_traced (I={SALSA_I}) kind={kind}: shape "
+                 f"{tuple(got.shape)}, max err {e}")
+        max_err = max(max_err, e)
+        cases.append({"kind": kind, "max_abs_err": e})
+        if kind == 0:
+            b_ms, b_by = bound(*gain_work(B, ns))
+            timing = {"ms": device_ms(torch, kernel, "gain_traced_kernel"),
+                      "call_ms": timed_ms(torch, kernel),
+                      "plain_ms": timed_ms(torch, plain),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "shape": [SALSA_I, B, K_MAX, D]}
+    emit("gain_stacked", instances=SALSA_I, cases=cases, max_abs_err=max_err,
+         **timing)
     return {"max_abs_err": max_err, **timing}
 
 
@@ -361,9 +521,8 @@ def phase_pod_step(torch, gen):
     ker = _stacked_tiers(torch, algo, S)
     ref = clone_state(ker)
     rounds = []
-    spread_far = 400.0  # items far apart: every one accepted until k_cap
     plan = [("ragged", CHUNK, 1.0), ("c1", 1, 1.0),
-            ("saturate", CHUNK, spread_far), ("after_saturation", CHUNK, 1.0)]
+            ("saturate", CHUNK, SPREAD_FAR), ("after_saturation", CHUNK, 1.0)]
     max_err = 0.0
     for name, C, spread in plan:
         chunks = mixture(torch, gen, S * C, spread=spread).reshape(S, C, D)
@@ -395,6 +554,80 @@ def phase_pod_step(torch, gen):
              "k_cap")
     emit("pod_step", sessions=S, rounds=rounds, max_abs_err=max_err)
     return max_err
+
+
+def once_ms(torch, fn):
+    """One call bracketed by CUDA events (for calls that change state)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_pod_step_large(torch, gen):
+    """The pod step against ``pod_step_ref`` where a session's state is
+    far past shared memory: K_max = 512 over three rounds, then one round
+    at K_max = 1024."""
+    from repro_torch.core.api import make
+    from repro_torch.core.functions import rbf_lengthscale_stream
+    from repro_torch.core.spec import SessionSpec
+    from repro_torch.kernels.pod_step import layout, pod_step, pod_step_ref
+    from repro_torch.tree import tree_map
+
+    rounds, max_err, state_mb = [], 0.0, {}
+    for k_max, S, tiers, plan in LARGE_PODS:
+        bt, smem = layout(k_max)
+        spec = SessionSpec(K=k_max, T=1000, eps=0.01, d=D,
+                           lengthscale=rbf_lengthscale_stream(D))
+        algo = make(spec, device=DEV)
+        algo_ref = make(spec.replace(backend="torch"), device=DEV)
+        ker = tree_map(lambda *xs: torch.stack(xs), *[
+            algo.init(algo.hyper(K=tiers[i % len(tiers)],
+                                 kernel_kind=("linear_norm" if i % 4 == 3
+                                              else "rbf")))
+            for i in range(S)])
+        ref = clone_state(ker)
+        state_mb[k_max] = 4 * S * (k_max * D + 2 * k_max * k_max) / 1e6
+        for name, spread in plan:
+            chunks = mixture(torch, gen, S * CHUNK,
+                             spread=spread).reshape(S, CHUNK, D)
+            if name == "saturate":
+                counts = torch.full((S,), CHUNK, dtype=torch.int32,
+                                    device=DEV)
+            else:
+                counts = torch.randint(0, CHUNK + 1, (S,), generator=gen,
+                                       device=DEV).to(torch.int32)
+                counts[0] = CHUNK
+            before = clone_state(ker)
+            ms = once_ms(torch, lambda: pod_step(algo, ker, chunks, counts,
+                                                 backend="cuda"))
+            margins = [dict() for _ in range(S)]
+            plain_ms, ref = host_ms(torch, lambda: pod_step_ref(
+                algo_ref, ref, chunks, counts, margins=margins))
+            err, ties = compare_sessions(torch, ker, ref, chunks,
+                                         before.ld.n, margins,
+                                         f"pod_step K_max={k_max} {name}")
+            flops, nbytes = pod_work(torch, before, ker, chunks, margins)
+            resync(ker, ref, [t["session"] for t in ties])
+            max_err = max(max_err, err)
+            b_ms, b_by = bound(flops, nbytes)
+            rounds.append({"K_max": k_max, "bt": bt,
+                           "smem_bytes": smem, "sessions": S, "round": name,
+                           "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "max_abs_err": err, "near_ties": ties,
+                           "n": ker.ld.n.tolist()})
+            if name == "saturate":
+                rbf = ker.hp.kernel_kind == 0
+                if not bool((ker.ld.n == ker.hp.k_cap)[rbf].all()):
+                    fail("pod_step_large: the saturating round left an rbf "
+                         "summary below k_cap")
+    emit("pod_step_large", rounds=rounds, max_abs_err=max_err,
+         state_mb=state_mb)
+    return {"max_abs_err": max_err, "rounds": rounds}
 
 
 def phase_pod(torch, gen, ingests):
@@ -559,6 +792,250 @@ def phase_sieve(torch, gen):
     return {"launches": launches, "max_abs_err": err, "ties": ties}
 
 
+def _instances(state):
+    """(feats (I, K, d), n list) of the summaries a state holds, or None
+    (QuickStream's ring)."""
+    for attr in ("lds", "ld"):
+        if hasattr(state, attr):
+            state = getattr(state, attr)
+            break
+    if not (hasattr(state, "feats") and hasattr(state, "n")):
+        return None
+    if state.feats.dim() == 2:
+        return state.feats[None], [int(state.n)]
+    return state.feats, state.n.tolist()
+
+
+# the algorithms whose summaries leave the stream's prefix only by
+# rejecting (the sieve family) or replacing (ISI, Preemption) an item
+SKIPPERS = ("threesieves", "sievestreaming", "sievestreaming++", "salsa",
+            "independentsetimprovement", "preemptionstreaming")
+
+
+def _not_prefix(torch, state, X) -> int:
+    """Instances of a state whose summary is not the first n items of the
+    stream X: each of them rejected or replaced at least one item."""
+    feats, ns = _instances(state)
+    return sum(not torch.equal(feats[i, :n], X[:n]) for i, n in enumerate(ns))
+
+
+def _queries(state) -> int:
+    """Oracle queries a state counted (Random counts none)."""
+    if hasattr(state, "n_queries"):
+        return int(state.n_queries)
+    return int(state.ld.n_queries) if hasattr(state, "ld") else 0
+
+
+def hold_states(torch, ker, ref, before, X, margins, what):
+    """Hold a kernel-run algorithm state against the reference run on the
+    same chunk -> (max abs float error, near-tie or None).  Integers
+    equal, floats within tolerance; where they are not, the first item
+    any summary accepted in one run and not the other must be a near-tie
+    of the reference (``margins``), or the run fails."""
+    from repro_torch.tree import leaves_with_keys
+
+    lk, lr = leaves_with_keys(ker), leaves_with_keys(ref)
+    err, bad = 0.0, []
+    for key in lk:
+        a, b = lk[key], lr[key]
+        if a.dtype.is_floating_point:
+            if a.shape == b.shape and torch.allclose(a, b, rtol=RTOL,
+                                                     atol=ATOL):
+                if a.numel():
+                    err = max(err, (a - b).abs().max().item())
+                continue
+        elif torch.equal(a, b):
+            continue
+        bad.append(key)
+    if not bad:
+        return err, None
+    if _instances(ker) is None:
+        fail(f"{what}: leaves {bad} differ")
+    fk, nk = _instances(ker)
+    fr, nr = _instances(ref)
+    _, nb = _instances(before)
+    diff = set()
+    for i, n0 in enumerate(nb):
+        diff |= (set(accepted_at(torch, fk[i, n0:nk[i]], X))
+                 ^ set(accepted_at(torch, fr[i, n0:nr[i]], X)))
+    if not diff:
+        fail(f"{what}: leaves {bad} differ with the same accepted items")
+    first = min(diff)
+    m = margins.get(first)
+    if m is None or m > TIE:
+        fail(f"{what}: accepts differ first at item {first} with reference "
+             f"margin {m} (> {TIE}); leaves {bad}")
+    return err, {"item": first, "margin": m}
+
+
+def _counted(torch, kernels, fn):
+    """Run ``fn`` with every kernel's count set to 0 just before -> (out,
+    seconds, {kernel: launches})."""
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {k.name: k.launches
+                                           for k in kernels}
+
+
+def phase_paper(torch, gen):
+    """The paper's comparison on the card, f / f_greedy per algorithm."""
+    from repro_torch.core.api import make
+    from repro_torch.core.functions import (KernelConfig, naive_logdet,
+                                            rbf_lengthscale_stream)
+    from repro_torch.core.spec import SessionSpec
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.kernels.rbf_gain import KERNEL as GAIN
+    from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
+
+    kernels = (GAIN, STATIC, POD)
+    ls = rbf_lengthscale_stream(D)
+    base = SessionSpec(K=K_MAX, d=D, a=1.0, lengthscale=ls, eps=PAPER_EPS,
+                       T=1000, c=4)
+    chunks = [mixture(torch, gen, CHUNK, clusters=PAPER_CLUSTERS,
+                      spread=PAPER_SPREAD) for _ in range(PAPER_CHUNKS)]
+    X = torch.cat(chunks)
+    Xb = X[:BASELINE_ITEMS]
+    N = X.shape[0]
+
+    def pair(name):
+        return (make(base.replace(algo=name), device=DEV),
+                make(base.replace(algo=name, backend="torch"), device=DEV))
+
+    rows, max_err = [], 0.0
+
+    def record(name, algo, summary, items, queries, secs, launches, err,
+               ties):
+        feats, n, fval = summary
+        n = int(n)
+        want = naive_logdet(feats[:n].double(), KernelConfig("rbf", ls),
+                            algo.f.a)
+        fe = abs(float(fval) - float(want))
+        if not fe <= 1e-4 + 1e-4 * abs(float(want)):
+            fail(f"paper {name}: fval {float(fval)} vs slogdet "
+                 f"{float(want)}")
+        rows.append({"algo": name, "items": items, "n": n,
+                     "fval": float(fval), "fval_vs_slogdet_err": fe,
+                     "queries_per_item": queries / items, "seconds": secs,
+                     "launches": launches, "max_abs_err": err,
+                     "near_ties": ties})
+
+    # Greedy: the yardstick
+    greedy, greedy_ref = pair("greedy")
+    sel, secs, launches = _counted(torch, kernels, lambda: greedy.select(X))
+    gaps = []
+    ref = greedy_ref.select(X, margins=gaps)
+    ties, err = [], 0.0
+    if torch.equal(sel[0], ref[0]):
+        if not torch.allclose(sel[2], ref[2], rtol=RTOL, atol=ATOL):
+            fail(f"paper greedy: fval {float(sel[2])} vs {float(ref[2])}")
+        err = abs(float(sel[2]) - float(ref[2]))
+    else:
+        r = int(torch.nonzero((sel[0] != ref[0]).any(-1))[0, 0])
+        if gaps[r] > TIE:
+            fail(f"paper greedy: rounds differ first at {r} with the two "
+                 f"largest reference gains {gaps[r]} apart (> {TIE})")
+        ties.append({"round": r, "gap": gaps[r]})
+    record("greedy", greedy, sel, N, K_MAX * N, secs, launches, err, ties)
+    rows[-1]["memory_elements"] = N  # offline: it holds the ground set
+    f_greedy = float(sel[2])
+
+    # the sieve family over every chunk, held chunk by chunk
+    for name in ("threesieves", "sievestreaming", "sievestreaming++",
+                 "salsa"):
+        algo, algo_ref = pair(name)
+        st, sr = algo.init(), algo_ref.init()
+        secs, ties, err = 0.0, [], 0.0
+        launches = {k.name: 0 for k in kernels}
+        for i, Xc in enumerate(chunks):
+            before = st
+            st, dt, ln = _counted(torch, kernels,
+                                  lambda: algo.run_batched(st, Xc))
+            secs += dt
+            for k, v in ln.items():
+                launches[k] += v
+            margins = {}
+            sr = algo_ref.run_batched(sr, Xc, margins=margins)
+            e, tie = hold_states(torch, st, sr, before, Xc, margins,
+                                 f"paper {name} chunk {i}")
+            err = max(err, e)
+            if tie:
+                ties.append({"chunk": i, **tie})
+                st = clone_state(sr)
+        record(name, algo, algo.summary(st), N, _queries(st), secs,
+               launches, err, ties)
+        rows[-1]["memory_elements"] = int(algo.memory_elements(st))
+        rows[-1]["insertions"] = int(algo.insertions(st))
+        rows[-1]["not_prefix"] = _not_prefix(torch, st, X)
+
+    # the per-item baselines over the first BASELINE_ITEMS items
+    for name in ("random", "independentsetimprovement",
+                 "preemptionstreaming", "quickstream"):
+        algo, algo_ref = pair(name)
+        init = ((lambda a: a.init(seed=0)) if name == "random"
+                else (lambda a: a.init()))
+        sk, sr = init(algo), init(algo_ref)
+        secs, ties, err = 0.0, [], 0.0
+        launches = {k.name: 0 for k in kernels}
+        if name == "independentsetimprovement":
+            # lockstep: each replacement decision is held as it is made
+            for i, x in enumerate(Xb):
+                sk, dt, ln = _counted(torch, kernels,
+                                      lambda: algo.step(sk, x))
+                secs += dt
+                for k, v in ln.items():
+                    launches[k] += v
+                prev, sr = sr, algo_ref.step(sr, x)
+                if int(sk.ld.n) == int(sr.ld.n) and torch.equal(
+                        sk.ld.feats, sr.ld.feats):
+                    continue
+                g = float(algo_ref.f.gain1(prev.ld, x))
+                w2 = 2.0 * float(prev.w.min())
+                m = abs(g - w2) / max(1.0, abs(w2))
+                if int(prev.ld.n) < algo.f.K or m > TIE:
+                    fail(f"paper isi: item {i} decided differently with "
+                         f"reference margin {m} (> {TIE})")
+                ties.append({"item": i, "margin": m})
+                sk = clone_state(sr)
+        else:
+            sk, secs, launches = _counted(
+                torch, kernels, lambda: algo.run_batched(sk, Xb))
+            sr = algo_ref.run_batched(sr, Xb)
+        e, _ = hold_states(torch, sk, sr, sk, Xb, {}, f"paper {name}")
+        err = max(err, e)
+        record(name, algo, algo.summary(sk), BASELINE_ITEMS, _queries(sk),
+               secs, launches, err, ties)
+        rows[-1]["memory_elements"] = int(algo.memory_elements(sk))
+        if name in SKIPPERS:
+            rows[-1]["not_prefix"] = _not_prefix(torch, sk, Xb)
+
+    for r in rows:
+        r["f_over_greedy"] = r["fval"] / f_greedy
+        max_err = max(max_err, r["max_abs_err"])
+    static = sum(r["launches"]["gain_static"] for r in rows)
+    stacked = sum(r["launches"]["gain_traced"] for r in rows
+                  if r["algo"] in ("sievestreaming", "sievestreaming++",
+                                   "salsa"))
+    for r in rows:
+        if r["algo"] in SKIPPERS and not r["not_prefix"]:
+            fail(f"paper {r['algo']}: every summary is the stream's prefix, "
+                 "so no item was ever rejected or replaced and the check "
+                 "could not tell a wrong gain from a right one")
+    if not static:
+        fail("paper: gain_static never launched")
+    if not stacked:
+        fail("paper: the stacked gain_traced never launched")
+    emit("paper", K=K_MAX, d=D, eps=PAPER_EPS, items=N,
+         baseline_items=BASELINE_ITEMS, algorithms=rows,
+         max_abs_err=max_err)
+    return {"gain_static": static,
+            "gain_traced": sum(r["launches"]["gain_traced"] for r in rows),
+            "max_abs_err": max_err}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -588,26 +1065,50 @@ def main(argv=None):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(args.seed)
 
-    phase_build(torch)
-    gain = phase_gain(torch, gen)
-    pod_err = phase_pod_step(torch, gen)
-    pod = phase_pod(torch, gen, args.ingests)
-    sieve = phase_sieve(torch, gen)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    # the phases of the first slice first, on the seed's draws as before
+    timed("build", phase_build, torch)
+    gain = timed("gain", phase_gain, torch, gen)
+    pod_err = timed("pod_step", phase_pod_step, torch, gen)
+    pod = timed("pod", phase_pod, torch, gen, args.ingests)
+    sieve = timed("sieve", phase_sieve, torch, gen)
+    static = timed("gain_static", phase_gain_static, torch, gen)
+    stacked = timed("gain_stacked", phase_gain_stacked, torch, gen)
+    large = timed("pod_step_large", phase_pod_step_large, torch, gen)
+    paper = timed("paper", phase_paper, torch, gen)
+    emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
         {"name": "gain_traced", "route": "cuda",
          "source": "src/repro_torch/csrc/rbf_gain.cu",
          "replaces": "src/repro/kernels/rbf_gain/kernel.py:126",
-         "launches": sieve["launches"],
-         "max_abs_err": max(gain["max_abs_err"], sieve["max_abs_err"]),
+         "launches": sieve["launches"] + paper["gain_traced"],
+         "max_abs_err": max(gain["max_abs_err"], stacked["max_abs_err"],
+                            sieve["max_abs_err"], paper["max_abs_err"]),
          "ms": gain["ms"], "plain_ms": gain["plain_ms"],
          "bound_ms": gain["bound_ms"], "bound_by": gain["bound_by"],
+         "library_ms": None},
+        {"name": "gain_static", "route": "cuda",
+         "source": "src/repro_torch/csrc/rbf_gain.cu",
+         "replaces": "src/repro/kernels/rbf_gain/kernel.py:74",
+         "launches": paper["gain_static"],
+         "max_abs_err": max(static["max_abs_err"], paper["max_abs_err"]),
+         "ms": static["ms"], "plain_ms": static["plain_ms"],
+         "bound_ms": static["bound_ms"], "bound_by": static["bound_by"],
          "library_ms": None},
         {"name": "pod_step", "route": "cuda",
          "source": "src/repro_torch/csrc/pod_step.cu",
          "replaces": "src/repro/kernels/pod_step/kernel.py:160",
          "launches": pod["launches"],
-         "max_abs_err": max(pod_err, pod["max_abs_err"]),
+         "max_abs_err": max(pod_err, large["max_abs_err"],
+                            pod["max_abs_err"]),
          "ms": pod["ms"], "plain_ms": pod["plain_ms"],
          "bound_ms": pod["bound_ms"], "bound_by": pod["bound_by"],
          "library_ms": None},

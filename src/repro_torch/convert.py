@@ -1,11 +1,16 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Carry a pod's state across packages as flat numpy leaves.
+"""Carry states across packages as flat numpy leaves.
 
-Keys are the names the JAX package's checkpoint store gives its
-``PodState`` leaves (``repro/ckpt/store.py:_flatten_with_keys``): field
-names joined by ``/``, e.g. ``algo/ld/feats``, ``algo/hp/k_cap``,
-``sid``.  A pod checkpointed by the JAX package therefore loads into the
-port leaf for leaf, and back.
+Keys are the names the JAX package's checkpoint store gives its leaves
+(``repro/ckpt/store.py:_flatten_with_keys``): field names joined by
+``/``, e.g. ``algo/ld/feats``, ``lds/Linv``, ``hp/k_cap``, ``sid``.  A
+pod (``PodState``) or an algorithm state (``TSState``, ``SieveState``,
+``ISIState``, ``QSState``, a bare ``LogDetState``) saved by the JAX
+package therefore loads into the port leaf for leaf, and back.
+
+``RandomState`` carries its counters (feats, n, seen) only: the JAX PRNG
+key has no ``torch.Generator`` counterpart, so its ``key`` leaf is not
+read and the port's generator starts fresh from ``seed``.
 """
 from __future__ import annotations
 
@@ -16,18 +21,19 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.serve.summarize import PodState
 from repro_torch.tree import leaves_with_keys
 
 
-def _build(cls, flat: Dict[str, np.ndarray], prefix: str, device):
+def _build(cls, flat: Dict[str, np.ndarray], prefix: str, device, seed):
     hints = typing.get_type_hints(cls)
     kw = {}
     for f in dataclasses.fields(cls):
         key = prefix + f.name
         sub = hints[f.name]
         if dataclasses.is_dataclass(sub):
-            kw[f.name] = _build(sub, flat, key + "/", device)
+            kw[f.name] = _build(sub, flat, key + "/", device, seed)
+        elif sub is torch.Generator:
+            kw[f.name] = torch.Generator(device=device).manual_seed(seed)
         else:
             if key not in flat:
                 raise KeyError(f"missing leaf {key!r}")
@@ -35,26 +41,28 @@ def _build(cls, flat: Dict[str, np.ndarray], prefix: str, device):
     return cls(**kw)
 
 
-def pod_state_from_numpy(flat: Dict[str, np.ndarray], *, device) -> PodState:
-    """A port ``PodState`` on ``device`` from flat numpy leaves."""
-    extra = set(flat) - set(_keys())
+def _keys(cls, prefix=""):
+    hints = typing.get_type_hints(cls)
+    for f in dataclasses.fields(cls):
+        sub = hints[f.name]
+        if dataclasses.is_dataclass(sub):
+            yield from _keys(sub, prefix + f.name + "/")
+        elif sub is not torch.Generator:
+            yield prefix + f.name
+
+
+def state_from_numpy(cls, flat: Dict[str, np.ndarray], *, device,
+                     seed: int = 0):
+    """A port state of dataclass ``cls`` on ``device`` from flat numpy
+    leaves; a ``torch.Generator`` field is seeded with ``seed``."""
+    extra = set(flat) - set(_keys(cls))
     if extra:
         raise KeyError(f"unknown leaves {sorted(extra)}")
-    return _build(PodState, flat, "", torch.device(device))
+    return _build(cls, flat, "", torch.device(device), seed)
 
 
-def pod_state_to_numpy(state: PodState) -> Dict[str, np.ndarray]:
-    """Flat numpy leaves of a port ``PodState`` (host copies)."""
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """Flat numpy leaves of a port state (host copies)."""
     return {k: v.detach().cpu().numpy()
             for k, v in leaves_with_keys(state).items()}
 
-
-def _keys():
-    def walk(cls, prefix):
-        hints = typing.get_type_hints(cls)
-        for f in dataclasses.fields(cls):
-            if dataclasses.is_dataclass(hints[f.name]):
-                yield from walk(hints[f.name], prefix + f.name + "/")
-            else:
-                yield prefix + f.name
-    return list(walk(PodState, ""))

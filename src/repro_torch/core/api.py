@@ -1,29 +1,51 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Algorithm registry (port of ``repro/core/api.py``), ThreeSieves only.
+"""Uniform registry over all summary-selection algorithms (port of
+``repro/core/api.py``).
 
-``make(spec)`` with a ``SessionSpec`` is the canonical constructor; the
-kwarg form ``make(name, K, d, ...)`` is a shim over it.  The other
-algorithms of the JAX registry raise ``NotImplementedError`` until they
-are ported (ROADMAP.md, section 1).
+Every algorithm exposes ``init / step / run / run_batched / summary /
+memory_elements`` (Greedy: ``select``); the sieve family also carries its
+(K, T, eps) as state (``init(algo.hyper(...))``) and counts
+``insertions``.  ``make(spec)`` with a ``SessionSpec`` is the canonical
+constructor; the kwarg form ``make(name, K, d, ...)`` is a shim over it.
+``backend`` selects the gain oracle (``auto`` | ``torch`` | ``cuda``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Union
 
+from .baselines import (IndependentSetImprovement, PreemptionStreaming,
+                        QuickStream, RandomReservoir)
 from .functions import KernelConfig, LogDet, rbf_lengthscale_batch
+from .greedy import Greedy
+from .salsa import Salsa
+from .sieves import SieveStreaming
 from .spec import SessionSpec
 from .threesieves import ThreeSieves
 
+# name -> constructor(f, spec): the single registry ``ALGORITHMS``,
+# ``make`` and (inverted) ``algo_name`` all derive from
 _CONSTRUCTORS = {
     "threesieves": lambda f, s: ThreeSieves(f=f, T=s.T, eps=s.eps),
+    "sievestreaming": lambda f, s: SieveStreaming(f=f, eps=s.eps,
+                                                  plus_plus=False),
+    "sievestreaming++": lambda f, s: SieveStreaming(f=f, eps=s.eps,
+                                                    plus_plus=True),
+    "salsa": lambda f, s: Salsa(f=f, eps=s.eps),
+    "random": lambda f, s: RandomReservoir(f=f),
+    "independentsetimprovement": lambda f, s: IndependentSetImprovement(f=f),
+    "preemptionstreaming": lambda f, s: PreemptionStreaming(f=f),
+    "quickstream": lambda f, s: QuickStream(f=f, c=s.c),
+    "greedy": lambda f, s: Greedy(f=f),
 }
 
 ALGORITHMS = tuple(_CONSTRUCTORS)
 
-# registered in the JAX package, not yet in the port
-NOT_PORTED = ("sievestreaming", "sievestreaming++", "salsa", "random",
-              "independentsetimprovement", "preemptionstreaming",
-              "quickstream", "greedy")
+# the sieve family: the threshold-ladder accept rule, a batched
+# ``run_batched`` (one gain pass per state change) and per-instance
+# hyperparameters as state
+SIEVE_FAMILY = ("threesieves", "sievestreaming", "sievestreaming++",
+                "salsa")
 
 _ALIASES = {
     "sievestreamingpp": "sievestreaming++",
@@ -45,10 +67,28 @@ def make_objective(K: int, d: int, a: float = 1.0,
 
 
 def algo_name(algo: Any) -> str:
-    """Canonical registry name of an algorithm instance."""
-    if type(algo) is ThreeSieves:
-        return "threesieves"
+    """Canonical registry name of an algorithm instance (the inverse of
+    ``make``), derived from the registry: each entry is built once on a
+    throwaway CPU objective and matched by type and by the fields that
+    tell entries of the same class apart (SieveStreaming vs ++)."""
+    for name, probe in _registry_probes().items():
+        if type(algo) is type(probe) and all(
+                getattr(algo, f) == getattr(probe, f)
+                for f in _DISTINGUISHING.get(type(probe).__name__, ())):
+            return name
     raise ValueError(f"unknown algorithm instance {type(algo).__name__}")
+
+
+# fields that tell registry entries of the SAME class apart
+_DISTINGUISHING = {"SieveStreaming": ("plus_plus",)}
+
+
+@functools.cache
+def _registry_probes() -> dict:
+    """One throwaway instance per registry entry."""
+    spec = SessionSpec(K=1, d=1)
+    f = LogDet(K=1, d=1, device="cpu")
+    return {name: ctor(f, spec) for name, ctor in _CONSTRUCTORS.items()}
 
 
 def make(spec: Union[SessionSpec, str], K: int | None = None,
@@ -73,10 +113,6 @@ def make(spec: Union[SessionSpec, str], K: int | None = None,
                          "algorithm (admission specs may omit it; "
                          "construction cannot)")
     name = _ALIASES.get(spec.algo.lower(), spec.algo.lower())
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported to repro_torch yet; only "
-            f"{ALGORITHMS} is (see ROADMAP.md, section 1)")
     if name not in _CONSTRUCTORS:
         raise ValueError(f"unknown algorithm {spec.algo!r}; choose from "
                          f"{ALGORITHMS}")

@@ -15,7 +15,10 @@ live row count ``n`` and ``fval``.  Appending e:
 
 Every method is functional: it returns new tensors and leaves its input
 untouched.  (``kernels.pod_step`` is the one place that updates these
-buffers in place.)
+buffers in place.)  ``maybe_append_stacked`` is the twin of
+``jax.vmap(f.maybe_append)`` over stacked instances; ``refactor`` and
+``evaluate`` factor an explicit summary buffer from scratch (the
+replacement baselines), over any leading batch axes.
 """
 from __future__ import annotations
 
@@ -45,18 +48,18 @@ class KernelConfig:
     lengthscale: float = 1.0
 
     def pairwise(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """k(x_i, y_j) for x (N, d), y (M, d) -> (N, M)."""
+        """k(x_i, y_j) for x (..., N, d), y (..., M, d) -> (..., N, M)."""
         if self.kind == "rbf":
             xn = torch.sum(x * x, dim=-1, keepdim=True)  # (N, 1)
-            yn = torch.sum(y * y, dim=-1, keepdim=True).T  # (1, M)
-            d2 = torch.clamp_min(xn + yn - 2.0 * (x @ y.T), 0.0)
+            yn = torch.sum(y * y, dim=-1, keepdim=True).mT  # (1, M)
+            d2 = torch.clamp_min(xn + yn - 2.0 * (x @ y.mT), 0.0)
             return torch.exp(-d2 / (2.0 * self.lengthscale ** 2))
         if self.kind == "linear_norm":
             xs = x / torch.clamp_min(
                 torch.linalg.norm(x, dim=-1, keepdim=True), NORM_EPS)
             ys = y / torch.clamp_min(
                 torch.linalg.norm(y, dim=-1, keepdim=True), NORM_EPS)
-            return 0.5 * (xs @ ys.T + 1.0)
+            return 0.5 * (xs @ ys.mT + 1.0)
         raise ValueError(f"unknown kernel {self.kind}")
 
 
@@ -191,6 +194,60 @@ class LogDet:
         """Conditionally append (a select, no host branch)."""
         appended = self.append(state, x, kern)
         return tree_map(lambda a, b: torch.where(take, a, b), appended, state)
+
+    def maybe_append_stacked(self, states: LogDetState, x: torch.Tensor,
+                             takes: torch.Tensor,
+                             kern: KernelParams | None = None
+                             ) -> LogDetState:
+        """``maybe_append`` of one item into I stacked states (leading
+        axis), instance i where ``takes[i]`` — the twin of
+        ``jax.vmap(f.maybe_append)`` (``torch.func.vmap``, same ops)."""
+        def one(feats, L, Linv, n, fval, n_queries, take):
+            st = self.maybe_append(
+                LogDetState(feats, L, Linv, n, fval, n_queries), x, take,
+                kern)
+            return st.feats, st.L, st.Linv, st.n, st.fval, st.n_queries
+
+        leaves = (states.feats, states.L, states.Linv, states.n,
+                  states.fval, states.n_queries)
+        return LogDetState(*torch.func.vmap(one)(*leaves, takes))
+
+    # -- batch (re)evaluation ---------------------------------------------------
+    def refactor(self, feats: torch.Tensor, n: torch.Tensor) -> LogDetState:
+        """Full O(K^3) factorization of an explicit summary buffer.
+
+        feats (..., K, d), n (...) live rows, over any leading batch axes
+        (Preemption factors its K swaps in one batched call).  Padded rows
+        and columns are identity, so they add 0 to the log-determinant.
+        Any buffer length works (QuickStream evaluates rings larger than
+        K).  Library Cholesky and triangular solve, as the JAX package
+        leaves them to XLA outside any kernel.
+        """
+        K = feats.shape[-2]
+        n = n.to(torch.int32)
+        live = torch.arange(K, device=feats.device) < n[..., None]  # (..., K)
+        m2 = live[..., :, None] & live[..., None, :]
+        eye = torch.eye(K, dtype=self.dtype, device=feats.device)
+        Kmat = self.kernel.pairwise(feats, feats)
+        M = torch.where(m2, eye + self.a * Kmat, eye)
+        L = torch.linalg.cholesky(M).contiguous()
+        Linv = torch.linalg.solve_triangular(L, eye.expand_as(L),
+                                             upper=False).contiguous()
+        logd = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
+        fval = torch.sum(torch.where(live, logd, 0.0), dim=-1)
+        return LogDetState(
+            feats=torch.where(live[..., None], feats, 0.0).to(self.dtype),
+            L=L,
+            Linv=Linv,
+            n=n,
+            fval=fval.to(self.dtype),
+            n_queries=torch.zeros(n.shape, dtype=torch.int32,
+                                  device=feats.device),
+        )
+
+    def evaluate(self, feats: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+        """f(S) for an explicit summary buffer — the naive oracle."""
+        return self.refactor(feats, n).fval
 
 
 def naive_logdet(feats: torch.Tensor, kernel: KernelConfig,

@@ -1,20 +1,28 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
 """The batched marginal-gain oracle (port of ``repro/core/oracle.py``).
 
+Two query forms, each with a CUDA kernel:
+
+    kern=KernelParams  the session's kernel as tensors (ThreeSieves, the
+                       stacked sieves): ``gain_traced``, twin of the TPU
+                       kernel ``gain_pallas_traced``; stacked summaries
+                       (feats (I, K, d)) take one launch;
+    kern=None          the objective's static ``KernelConfig`` (Greedy,
+                       the baselines): ``gain_static``, twin of
+                       ``gain_pallas``.
+
 Backends:
 
-    auto    the ``gain_traced`` CUDA kernel for a CUDA tensor, the plain
-            PyTorch version for a CPU tensor;
-    torch   the plain version on any device (the yardstick the kernel is
-            held against on the card);
+    auto    the kernel for a CUDA tensor, its plain PyTorch version for a
+            CPU tensor (``kernels.rbf_gain.ops``);
+    torch   the plain version on any device (the yardstick the kernels
+            are held against on the card); for ``kern=None`` the
+            ``KernelConfig.pairwise`` form, twin of the JAX oracle's
+            ``jnp`` branch;
     cuda    the kernel; a CPU tensor raises.
 
-There is no fallback between them.  The static-``KernelConfig`` path
-(``kern=None``, the twin of the TPU kernel ``gain_pallas``) has no CUDA
-kernel yet: it runs the plain version on CPU tensors (and under
-``torch``) and raises ``NotImplementedError`` for CUDA tensors.
-ThreeSieves always passes its per-session ``KernelParams``, so the pod
-never reaches it.
+There is no fallback between them: a kernel that cannot build or launch
+raises.
 """
 from __future__ import annotations
 
@@ -23,8 +31,8 @@ import dataclasses
 import torch
 
 from repro_torch.constants import GAIN_EPS
-from repro_torch.kernels.rbf_gain import fused_gains_traced
-from repro_torch.kernels.rbf_gain.ref import gain_traced_ref
+from repro_torch.kernels.rbf_gain import (fused_gains, fused_gains_traced,
+                                          gain_traced_ref)
 
 from .functions import KernelConfig, KernelParams
 
@@ -49,21 +57,26 @@ class GainOracle:
             raise ValueError(f"backend {self.backend!r} invalid; choose "
                              f"from {BACKENDS}")
 
+    @property
+    def inv2l2(self) -> float:
+        """1/(2 l^2) of the static kernel (a by-value kernel constant)."""
+        return 1.0 / (2.0 * float(self.kernel.lengthscale) ** 2)
+
     def gains(self, feats: torch.Tensor, linv: torch.Tensor, n: torch.Tensor,
               X: torch.Tensor, kern: KernelParams | None = None
               ) -> torch.Tensor:
-        """feats (K, d), linv (K, K), n () live rows, X (B, d) -> (B,)."""
+        """feats (K, d), linv (K, K), n () live rows, X (B, d) -> (B,);
+        with ``kern``, also stacked feats (I, K, d), linv (I, K, K),
+        n (I,) -> (I, B)."""
         if self.backend == "cuda" and not X.is_cuda:
             raise ValueError("oracle backend 'cuda' needs CUDA tensors, got "
                              f"X on {X.device}")
         if kern is None:
-            if X.is_cuda and self.backend != "torch":
-                raise NotImplementedError(
-                    "the static-KernelConfig gain kernel (TPU twin "
-                    "repro/kernels/rbf_gain/kernel.py:gain_pallas) is not "
-                    "yet ported to CUDA; pass kern=KernelParams or use "
-                    "backend='torch' (see ROADMAP.md)")
-            return self._static_gains(feats, linv, n, X)
+            if self.backend == "torch":
+                return self._static_gains(feats, linv, n, X)
+            return fused_gains(X, feats, linv, n, a=self.a,
+                               inv2l2=self.inv2l2,
+                               kind=self.kernel.kind).to(self.dtype)
         if self.backend == "torch":
             return gain_traced_ref(X, feats, linv, n, kern,
                                    a=self.a).to(self.dtype)
@@ -83,8 +96,9 @@ class GainOracle:
     def gain1(self, feats: torch.Tensor, linv: torch.Tensor, n: torch.Tensor,
               x: torch.Tensor, kern: KernelParams | None = None
               ) -> torch.Tensor:
-        """Single-item query (d,) -> () — a B=1 batch."""
-        return self.gains(feats, linv, n, x[None, :], kern=kern)[0]
+        """Single-item query (d,) -> () — a B=1 batch ((I,) for stacked
+        summaries)."""
+        return self.gains(feats, linv, n, x[None, :], kern=kern)[..., 0]
 
 
 def make(kernel: KernelConfig, a: float = 1.0, *, backend: str | None = None,

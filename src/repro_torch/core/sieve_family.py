@@ -1,16 +1,15 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
 """Shared machinery of the sieve family (port of
 ``repro/core/sieve_family.py``): the residual accept threshold, stacking
-and row selection of state dataclasses, and the ``SieveAlgorithm`` base
-(ladder, hyperparameters, the per-item ``run`` over ``step``).
-
-``StackedSieve`` (SieveStreaming, SieveStreaming++, Salsa) is not ported
-yet; see ROADMAP.md.
+and row selection of state dataclasses, the ``SieveAlgorithm`` base
+(ladder, hyperparameters, the per-item ``run`` over ``step``) and
+``StackedSieve``, the engine of the algorithms that keep one summary per
+stacked instance (SieveStreaming, SieveStreaming++, Salsa).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -80,11 +79,16 @@ class SieveAlgorithm:
                 f"K={K} exceeds this program's summary capacity "
                 f"K_max={self.f.K}; construct the algorithm (or pod) with "
                 "K >= the largest tenant budget")
+        self._check_hyper_capacity(K=K, eps=eps)
         return HyperParams.build(K=K, T=T, eps=eps,
                                  m=self.f.singleton_value,
                                  lengthscale=lengthscale,
                                  kernel_kind=kernel_kind,
                                  device=self.f.device)
+
+    def _check_hyper_capacity(self, *, K: int, eps: float) -> None:
+        """Hook: shape-capacity checks beyond K_max (stacked sieves add
+        the rung-axis bound)."""
 
     def init(self, hyper: HyperParams | None = None):
         raise NotImplementedError
@@ -111,3 +115,115 @@ class SieveAlgorithm:
     def insertions(self, state) -> torch.Tensor:
         """Total summary insertions so far — monotone over the stream."""
         raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedSieve(SieveAlgorithm):
+    """Sieve algorithms that keep one summary per stacked instance.
+
+    Subclasses provide the per-item decision pieces; ``step`` and
+    ``run_batched`` are derived from them, so the two cannot drift apart:
+
+      * ``_thresholds(state) -> (n_inst,)``   accept bars (pre-item state)
+      * ``_can_accept(state) -> (n_inst,)``   eligibility mask
+      * ``_apply_item(state, x, takes)``      appends + bookkeeping for one
+                                              item with known accept mask
+      * ``_bulk_reject(state, r)``            bookkeeping for r consecutive
+                                              all-reject items, closed form
+
+    The instance axis is sized by the default (eps, K) ladder; a smaller
+    per-session ladder (``init(hyper)``) occupies a prefix of it and the
+    rest never accepts (``TracedLadder.valid``).
+    """
+
+    @property
+    def n_instances(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def rung_cap(self) -> int:
+        """Rung capacity of the stacked axis (per rule)."""
+        return self.ladder.num_rungs
+
+    def _check_hyper_capacity(self, *, K: int, eps: float) -> None:
+        need = Ladder(eps=eps, m=self.f.singleton_value, K=K).num_rungs
+        if need > self.rung_cap:
+            raise ValueError(
+                f"(K={K}, eps={eps}) needs {need} threshold rungs; this "
+                f"algorithm stacks {self.rung_cap} — construct it with "
+                "eps <= the smallest tenant eps and K >= the largest "
+                "tenant budget")
+
+    def _thresholds(self, state) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _can_accept(self, state) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _apply_item(self, state, x: torch.Tensor, takes: torch.Tensor):
+        raise NotImplementedError
+
+    def _bulk_reject(self, state, r: int):
+        raise NotImplementedError
+
+    def _gains_all(self, state, X: torch.Tensor) -> torch.Tensor:
+        """Gains of X against every instance -> (n_inst, B): ONE oracle
+        call over the stacked summaries (one ``gain_traced`` launch on the
+        card), all with the session's kernel ``state.hp.kern``."""
+        lds = state.lds
+        return self.f.oracle.gains(lds.feats, lds.Linv, lds.n, X,
+                                   kern=state.hp.kern)
+
+    def insertions(self, state) -> torch.Tensor:
+        """Insertions across all stacked instances (monotone)."""
+        return state.lds.n.sum(dtype=torch.int32)
+
+    def step(self, state, x: torch.Tensor):
+        """Process one stream item across all instances."""
+        g = self._gains_all(state, x[None, :])[:, 0]
+        takes = (g >= self._thresholds(state)) & self._can_accept(state)
+        return self._apply_item(state, x, takes)
+
+    def run_batched(self, state, X: torch.Tensor, n_valid=None, *,
+                    margins: Optional[Dict[int, float]] = None):
+        """Same result as ``run``, with one gain pass per state change.
+
+        Between accepts no instance's (f(S), |S|, liveness) changes, so
+        one stacked pass prices the rest of the chunk for every instance
+        and the earliest accepting item is found with one host sync.  At
+        that item every instance decides with its pre-item state, the
+        rejected prefix is folded into ``_bulk_reject``, and gains are
+        recomputed only after the accept.  ``n_valid`` restricts the run
+        to ``X[:n_valid]``.  ``margins``, when given a dict, receives for
+        every item this call decides the smallest relative margin
+        ``|gain - thr| / max(1, |thr|)`` over the eligible instances
+        (keyed by row of ``X``): the near-tie test of comparisons with
+        other implementations.
+        """
+        B = X.shape[0]
+        nv = B if n_valid is None else min(max(int(n_valid), 0), B)
+        idx = torch.arange(B, device=X.device)
+        cursor = 0
+        while cursor < nv:
+            gains = self._gains_all(state, X)  # (n_inst, B)
+            thr = self._thresholds(state)
+            can = self._can_accept(state)
+            acc = (gains >= thr[:, None]) & can[:, None]
+            acc_item = acc.any(dim=0) & (idx >= cursor) & (idx < nv)
+            hits = torch.nonzero(acc_item)
+            p = int(hits[0, 0]) if hits.numel() else nv
+            if margins is not None:
+                end = min(p + 1, nv)
+                rel = ((gains[:, cursor:end] - thr[:, None]).abs()
+                       / torch.clamp_min(thr.abs(), 1.0)[:, None])
+                rel = torch.where(can[:, None], rel, torch.inf).amin(dim=0)
+                margins.update((i, m) for i, m in
+                               zip(range(cursor, end), rel.tolist())
+                               if m != float("inf"))
+            if p == nv:
+                state = self._bulk_reject(state, nv - cursor)
+                break
+            state = self._bulk_reject(state, p - cursor)
+            state = self._apply_item(state, X[p], acc[:, p])
+            cursor = p + 1
+        return state

@@ -6,7 +6,8 @@
                         package; ``HyperParams.build`` derives per-session
                         rows from it.
   * ``rung_value`` /  — the same rung values from 0-dim (or batched)
-    ``TracedLadder``    tensors, geometry in float32.
+    ``TracedLadder``    tensors, geometry in float32; ``values``/``valid``
+                        materialize a stacked sieve's rung axis.
 """
 from __future__ import annotations
 
@@ -76,3 +77,19 @@ class TracedLadder:
 
     def value(self, j, dtype=torch.float32):
         return rung_value(self.base, self.ihi, self.num_rungs, j, dtype)
+
+    def values(self, cap: int, dtype=torch.float32):
+        """Materialized rungs for a ``cap``-instance stack, descending.
+
+        Entries past ``num_rungs`` belong to dead instances (``valid``);
+        they continue the geometric sequence but never reach a decision.
+        """
+        i = torch.arange(cap, dtype=torch.int32, device=self.base.device)
+        v = torch.pow(self.base, (self.ihi - i).to(torch.float32))
+        return v.to(dtype)
+
+    def valid(self, cap: int) -> torch.Tensor:
+        """(cap,) bool — which stacked rung instances are live for this
+        (K, eps)."""
+        i = torch.arange(cap, dtype=torch.int32, device=self.base.device)
+        return i < self.num_rungs

@@ -1,22 +1,29 @@
-// Gain rows shared by both CUDA kernels of the port (rbf_gain.cu and
-// pod_step.cu), as kernelmath.traced_gain_rows is shared by the two
-// Pallas kernels it replaces:
+// Gain rows shared by the CUDA kernels of the port (rbf_gain.cu:
+// gain_traced and gain_static; pod_step.cu), as kernelmath.traced_gain_rows is
+// shared by the Pallas kernels it replaces:
 //
 //   Km   = a * k(X, feats[:n])                 (rows x n)
 //   c    = Km @ Linv[:c_rows, :n]^T            (rows x c_rows)
 //   gain = 1/2 log(max((1 + a) - |c_row|^2, GAIN_EPS))
 //
-// k is rbf, exp(-inv2l2 * max(|x|^2 + |f|^2 - 2 x.f, 0)), or linear_norm,
-// (x.f / (max(|x|, eps) max(|f|, eps)) + 1) / 2, both read from the one
-// Gram product, with the kind and inv2l2 as runtime scalars.
+// k is rbf, exp(-inv2l2 * max(|x|^2 + |f|^2 - 2 x.f, 0)), or linear_norm.
+// The kernel kind is either a runtime scalar (KIND < 0, the traced form of
+// gain_traced and pod_step: linear_norm divides the Gram product by the
+// norms, (x.f / (max(|x|, eps) max(|f|, eps)) + 1) / 2) or a compile-time
+// constant (KIND = 0 rbf, KIND = 1 linear_norm, the static form of
+// gain_static: linear_norm divides the ROWS by their norms while they are
+// staged, before the product, (x/max(|x|, eps)) . (f/max(|f|, eps)), as
+// the Pallas gain_pallas does).
 //
 // Arithmetic is FP32 FMA on the CUDA cores (no TF32): the accept decision
 // compares a gain with a threshold, and TF32's 10-bit mantissa would move
 // decisions.  Both contractions go through one simple tiled product
 // (gemm_nt): DK-deep slices of A and B staged in shared memory with a
 // padded stride, each of the NT threads holding M = BT*KT/NT outputs in
-// registers.  Making it fast (wgmma is TF32-or-lower only, so FP32 stays
-// on the CUDA cores; cp.async/TMA staging) is later work.
+// registers.  A and B are read through generic pointers: the summary is
+// read from device memory and L2, the kernel block Km from shared memory.
+// Making it fast (wgmma is TF32-or-lower only, so FP32 stays on the CUDA
+// cores; cp.async/TMA staging) is later work.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -86,25 +93,42 @@ struct Tile {
   static_assert(M >= 1 && BT * KT % NT == 0, "tile does not divide the block");
 };
 
+// The divisor of a linear_norm row with squared norm n2.
+__device__ __forceinline__ float row_norm(float n2) {
+  return fmaxf(sqrtf(n2), NORM_EPS);
+}
+
 // acc[m] += sum_e A[b][e] * B[k][e] for output (b, k) = (p / KT, p % KT),
 // p = threadIdx.x + NT * m.  A has a_rows rows (stride lda), B has b_rows
 // rows (stride ldb), both kdim deep; missing rows and depth read as zero.
-// A and B may point to global or shared memory.
-template <int BT>
+// A and B may point to global or shared memory.  With NORM, row r of A is
+// divided by row_norm(an2[r]) and row k of B by row_norm(bn2[k]) as they
+// are staged.
+template <int BT, bool NORM = false>
 __device__ __forceinline__ void gemm_nt(const float* A, int lda, int a_rows,
                                         const float* B, int ldb, int b_rows,
                                         int kdim, float* As, float* Bs,
-                                        float (&acc)[Tile<BT>::M]) {
+                                        float (&acc)[Tile<BT>::M],
+                                        const float* an2 = nullptr,
+                                        const float* bn2 = nullptr) {
   for (int e0 = 0; e0 < kdim; e0 += DK) {
     for (int p = threadIdx.x; p < BT * DK; p += NT) {
       const int r = p / DK, e = p % DK;
-      As[r * LDT + e] = (r < a_rows && e0 + e < kdim)
-                            ? A[(size_t)r * lda + e0 + e] : 0.0f;
+      float v = 0.0f;
+      if (r < a_rows && e0 + e < kdim) {
+        v = A[(size_t)r * lda + e0 + e];
+        if (NORM) v = v / row_norm(an2[r]);
+      }
+      As[r * LDT + e] = v;
     }
     for (int p = threadIdx.x; p < KT * DK; p += NT) {
       const int r = p / DK, e = p % DK;
-      Bs[r * LDT + e] = (r < b_rows && e0 + e < kdim)
-                            ? B[(size_t)r * ldb + e0 + e] : 0.0f;
+      float v = 0.0f;
+      if (r < b_rows && e0 + e < kdim) {
+        v = B[(size_t)r * ldb + e0 + e];
+        if (NORM) v = v / row_norm(bn2[r]);
+      }
+      Bs[r * LDT + e] = v;
     }
     __syncthreads();
 #pragma unroll
@@ -128,9 +152,11 @@ __host__ __device__ constexpr int gain_tile_floats(int bt, int K) {
 
 // Gains of candidate rows [0, rows) of X (stride ldx, width d) against
 // the first n summary rows (feats stride ldf, squared norms fn2) and
-// rows [0, c_rows) of Linv (stride ldl).  Writes gains[0, rows) and ends
-// on a barrier.  Must be reached by every thread of the block.
-template <int BT>
+// rows [0, c_rows) of Linv (stride ldl).  KIND < 0 reads the kernel kind
+// from ``kind``; KIND 0 / 1 fixes it (static form, see the top of this
+// file).  Writes gains[0, rows) and ends on a barrier.  Must be reached by
+// every thread of the block.
+template <int BT, int KIND = -1>
 __device__ void gain_tile(const float* X, int ldx, int rows, int d,
                           const float* feats, int ldf, const float* fn2,
                           const float* linv, int ldl, int c_rows, int n,
@@ -153,14 +179,19 @@ __device__ void gain_tile(const float* X, int ldx, int rows, int d,
     float acc[M];
 #pragma unroll
     for (int m = 0; m < M; ++m) acc[m] = 0.0f;
-    gemm_nt<BT>(X, ldx, rows, feats + (size_t)k0 * ldf, ldf,
-                min(KT, n - k0), d, As, Bs, acc);
+    gemm_nt<BT, KIND == 1>(X, ldx, rows, feats + (size_t)k0 * ldf, ldf,
+                           min(KT, n - k0), d, As, Bs, acc, xn2, fn2 + k0);
 #pragma unroll
     for (int m = 0; m < M; ++m) {
       const int p = threadIdx.x + NT * m;
       const int b = p / KT, k = k0 + p % KT;
-      if (k < n)
-        Km[b * n + k] = a * kernel_value(acc[m], xn2[b], fn2[k], inv2l2, kind);
+      if (k < n) {
+        float v;
+        if (KIND == 1) v = 0.5f * (acc[m] + 1.0f);
+        else v = kernel_value(acc[m], xn2[b], fn2[k], inv2l2,
+                              KIND < 0 ? kind : KIND);
+        Km[b * n + k] = a * v;
+      }
     }
   }
   __syncthreads();

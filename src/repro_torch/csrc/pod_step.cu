@@ -13,15 +13,21 @@
 //   the Cholesky row append at n (feats[n], L[n], Linv[n]),
 //   the counter update (n, j, t, n_fused, fval).
 //
-// Layout: grid (S,), NT = 256 threads.  The session's feats (K x d) and
-// Linv (K x K) live in dynamic shared memory for the whole chunk (about
-// 140 KB at K = 100, d = 256; the wrapper refuses shapes past the 227 KB
-// a block may have).  The chunk stays in device memory and L2 and is read
-// in BT = 64-row tiles: the largest K that fits (121 at d = 256) is far
-// below the K at which the gain kernel takes fewer rows per tile.  L is
-// write-only inside the loop, so its new row goes straight to device
-// memory.  Rows written by an append are read by the next pass, hence
-// the barriers between the append and the next pass.
+// Layout: grid (S,), NT = 256 threads, one block per session.  The
+// session's feats (K x d) and Linv (K x K) stay in device memory and L2
+// and are read in KT-row tiles by the shared product (gemm_nt takes
+// global pointers); an append writes its rows straight to device memory.
+// Only the row norms, the gain tile and the append vectors are on chip, so
+// any K up to 1024 at d <= 512 fits (kernels/pod_step/kernel.py, layout).
+// At K = 100 this runs as fast as a copy of feats and Linv held in shared
+// memory for the whole chunk: the session's state stays in L2.
+//
+// The chunk stays in device memory and L2 and is read in BT-row tiles; BT
+// falls with K so that the BT x n kernel block Km fits (64 rows at
+// K <= 384, 32 to 768, 16 to 1536, 8 to 3072), as the gain kernels choose
+// it.  L is write-only inside the loop.  Rows written by an append are
+// read by other threads of the block in the next pass, so the append ends
+// on a __threadfence_block() and a barrier.
 //
 // The pass walks the candidate tiles in order and stops at the first
 // tile that holds an accept: decisions only depend on rows up to the
@@ -59,8 +65,7 @@ __device__ __forceinline__ float rung(float base, int ihi, int nr, int jp) {
   return powf(base, (float)(ihi - jc));
 }
 
-constexpr int BT = 64;  // candidate rows per gain tile
-
+template <int BT>
 __global__ void __launch_bounds__(NT)
 pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
                 float* __restrict__ L_g, float* __restrict__ linv_g,
@@ -82,21 +87,14 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
   float fval = Frow[F_FVAL];
   const float base = Frow[F_BASE], inv2l2 = Frow[F_INV2L2];
 
-  float* feats = smem;             // K x d
-  float* linv = feats + K * d;     // K x K
-  float* fn2 = linv + K * K;       // K
-  float* gains = fn2 + K;          // BT
-  float* scratch = gains + BT;     // gain_tile_floats(BT, K)
   const float* chunk = chunks + (size_t)s * C * d;
-  float* Fg = feats_g + (size_t)s * K * d;
-  float* Lg = L_g + (size_t)s * K * K;
-  float* Ig = linv_g + (size_t)s * K * K;
-
-  for (int p = threadIdx.x; p < K * d; p += NT) feats[p] = Fg[p];
-  for (int p = threadIdx.x; p < K * K; p += NT) linv[p] = Ig[p];
-  __syncthreads();
-  const int n0 = min(max(n, 0), K);
-  n = n0;
+  float* feats = feats_g + (size_t)s * K * d;
+  float* L = L_g + (size_t)s * K * K;
+  float* linv = linv_g + (size_t)s * K * K;
+  float* fn2 = smem;            // K
+  float* gains = fn2 + K;       // BT
+  float* scratch = gains + BT;  // gain_tile_floats(BT, K)
+  n = min(max(n, 0), K);
   row_norms2(feats, d, n, d, fn2);
   __syncthreads();
 
@@ -138,25 +136,26 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
     float* xn2 = c + K;       // |x|^2
     row_norms2(x, d, 1, d, xn2);
     __syncthreads();
-    {
-      const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-      for (int jj = warp; jj < n; jj += NT / 32) {
-        float g = 0.0f;
-        for (int e = lane; e < d; e += 32) g = fmaf(x[e], feats[jj * d + e], g);
-        g = warp_sum(g);
-        if (lane == 0) u[jj] = a * kernel_value(g, xn2[0], fn2[jj], inv2l2, kind);
-      }
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int jj = warp; jj < n; jj += NT / 32) {
+      float g = 0.0f;
+      for (int e = lane; e < d; e += 32) g = fmaf(x[e], feats[jj * d + e], g);
+      g = warp_sum(g);
+      if (lane == 0) u[jj] = a * kernel_value(g, xn2[0], fn2[jj], inv2l2, kind);
+    }
+    __syncthreads();
+    // c = Linv[:n, :n] @ u, one warp per row (rows read along their length)
+    for (int i = warp; i < n; i += NT / 32) {
+      float acc = 0.0f;
+      for (int jj = lane; jj < n; jj += 32)
+        acc = fmaf(linv[i * K + jj], u[jj], acc);
+      acc = warp_sum(acc);
+      if (lane == 0) c[i] = acc;
     }
     __syncthreads();
     float part = 0.0f;
-    for (int i = threadIdx.x; i < K; i += NT) {
-      float acc = 0.0f;
-      if (i < n)
-        for (int jj = 0; jj < n; ++jj) acc = fmaf(linv[i * K + jj], u[jj], acc);
-      c[i] = acc;
-      part = fmaf(acc, acc, part);
-    }
-    const float cn2 = block_sum(part, s_red);  // barrier: c is complete
+    for (int i = threadIdx.x; i < n; i += NT) part = fmaf(c[i], c[i], part);
+    const float cn2 = block_sum(part, s_red);
     const float dd2 = fmaxf((1.0f + a) - cn2, GAIN_EPS);
     const float dd = sqrtf(dd2);
     const float gain = 0.5f * logf(dd2);
@@ -167,10 +166,11 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
       if (jj < n)
         for (int i = 0; i < n; ++i) acc = fmaf(c[i], linv[i * K + jj], acc);
       linv[n * K + jj] = jj < n ? -acc / dd : (jj == n ? 1.0f / dd : 0.0f);
-      Lg[(size_t)n * K + jj] = jj < n ? c[jj] : (jj == n ? dd : 0.0f);
+      L[(size_t)n * K + jj] = jj < n ? c[jj] : (jj == n ? dd : 0.0f);
     }
     for (int e = threadIdx.x; e < d; e += NT) feats[n * d + e] = x[e];
     if (threadIdx.x == 0) fn2[n] = xn2[0];
+    __threadfence_block();  // global rows read by the next pass
     __syncthreads();
 
     j = min(j + (t + (first - cursor)) / T, nr - 1);
@@ -189,9 +189,21 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
     O[4] = n_queries + nv;
     fval_out[s] = fval;
   }
-  // only rows [n0, n) changed
-  for (int p = n0 * d + threadIdx.x; p < n * d; p += NT) Fg[p] = feats[p];
-  for (int p = n0 * K + threadIdx.x; p < n * K; p += NT) Ig[p] = linv[p];
+}
+
+template <int BT>
+int launch(const float* chunks, float* feats, float* L, float* linv,
+           const int* ints, const float* flts, int* ints_out, float* fval_out,
+           int S, int C, int K, int d, float a, cudaStream_t stream) {
+  // the wrapper's smem_bytes: row norms, gains, gain-tile scratch
+  const size_t smem = sizeof(float) * (K + BT + gain_tile_floats(BT, K));
+  cudaError_t e = cudaFuncSetAttribute(
+      pod_step_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  pod_step_kernel<BT><<<S, NT, smem, stream>>>(
+      chunks, feats, L, linv, ints, flts, ints_out, fval_out, C, K, d, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -199,16 +211,18 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
 extern "C" int pod_step_launch(const float* chunks, float* feats, float* L,
                                float* linv, const int* ints, const float* flts,
                                int* ints_out, float* fval_out, int S, int C,
-                               int K, int d, float a, void* stream) {
+                               int K, int d, float a, int bt, void* stream) {
   if (S <= 0) return 0;
-  const size_t smem = sizeof(float) *
-      (size_t)(K * d + K * K + K + BT + gain_tile_floats(BT, K));
-  cudaError_t e = cudaFuncSetAttribute(
-      pod_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  pod_step_kernel<<<S, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      chunks, feats, L, linv, ints, flts, ints_out, fval_out, C, K, d, a);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define POD_ARGS chunks, feats, L, linv, ints, flts, ints_out, fval_out, S, C, K, d, a, st
+  switch (bt) {
+    case 64: return launch<64>(POD_ARGS);
+    case 32: return launch<32>(POD_ARGS);
+    case 16: return launch<16>(POD_ARGS);
+    case 8: return launch<8>(POD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef POD_ARGS
 }
 
 extern "C" const char* error_string(int e) {

@@ -8,10 +8,13 @@ rounded to f32 by ``core.spec.HyperParams.build``) and the kind id.  The
 CUDA kernels read the same two scalars per session, so tenants with
 different kernels share one launch.
 
-``traced_gain_rows`` is the plain version of both CUDA kernels' gain
-pass (``csrc/gain_rows.cuh``).  Its op order is the JAX package's: one
-Gram matmul, ``exp(-inv2l2 * d2)`` for rbf, and the ``linear_norm``
-normalisation applied to the Gram entries after the matmul.
+``traced_gain_rows`` is the plain version of the traced gain pass of the
+CUDA kernels (``csrc/gain_rows.cuh``).  Its op order is the JAX
+package's: one Gram matmul, ``exp(-inv2l2 * d2)`` for rbf, and the
+``linear_norm`` normalisation applied to the Gram entries after the
+matmul.  Both functions broadcast over leading instance axes of the
+summary (``y`` / ``feats`` (I, K, d), ``linv`` (I, K, K)), the plain form
+of the stacked ``gain_traced`` launch.
 """
 from __future__ import annotations
 
@@ -49,9 +52,9 @@ def pairwise_traced(x: torch.Tensor, y: torch.Tensor,
     Both kinds read the one Gram matmul and the selection is branch-free,
     as in the JAX package.
     """
-    g = x @ y.T  # (N, M)
+    g = x @ y.mT  # (N, M)
     xn2 = torch.sum(x * x, dim=-1, keepdim=True)  # (N, 1)
-    yn2 = torch.sum(y * y, dim=-1, keepdim=True).T  # (1, M)
+    yn2 = torch.sum(y * y, dim=-1, keepdim=True).mT  # (1, M)
     d2 = torch.clamp_min(xn2 + yn2 - 2.0 * g, 0.0)
     rbf = torch.exp(-kern.inv2l2.to(x.dtype) * d2)
     nx = torch.clamp_min(torch.sqrt(xn2), NORM_EPS)
@@ -69,9 +72,10 @@ def traced_gain_rows(x: torch.Tensor, feats: torch.Tensor,
         C    = Km @ Linv^T                     (B, K)
         gain = 1/2 log((1+a) - |C_row|^2)      (B, 1)
 
-    ``mask`` broadcasts over rows ((K,) or (1, K)).
+    ``mask`` broadcasts over rows ((K,) or (1, K); (I, 1, K) for stacked
+    summaries, which give (I, B, 1)).
     """
     km = a * pairwise_traced(x, feats, kern) * mask  # (B, K)
-    c = km @ linv.T  # (B, K)
+    c = km @ linv.mT  # (B, K)
     cn2 = torch.sum(c * c, dim=-1, keepdim=True)  # (B, 1)
     return 0.5 * torch.log(torch.clamp_min((1.0 + a) - cn2, GAIN_EPS))

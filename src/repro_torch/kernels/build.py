@@ -1,11 +1,13 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
 """Build the CUDA sources with ``nvcc`` and bind them with ``ctypes``.
 
-Each ``CudaKernel`` names one ``.cu`` file under ``repro_torch/csrc``.
-The shared library is built at first use into ``build/repro_torch/`` at
-the root of the checkout (listed in ``.gitignore``), keyed by a hash of
-the sources, so an edited source rebuilds and an unchanged one loads.
-``build_all`` starts one ``nvcc`` per source at once.
+Each ``CudaKernel`` names the entry points it calls in one ``.cu`` file
+under ``repro_torch/csrc``; two kernels may share a file, and then share
+its build.  The shared library is built at first use into
+``build/repro_torch/`` at the root of the checkout (listed in
+``.gitignore``), keyed by a hash of the sources, so an edited source
+rebuilds and an unchanged one loads.  ``build_all`` starts one ``nvcc``
+per source at once.
 
 The C entry points take plain pointers and return ``cudaGetLastError()``
 after the launch; the wrappers raise on a non-zero code.  Nothing here
@@ -44,7 +46,8 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One CUDA source file, its shared library and its launch count.
+    """Entry points in one CUDA source file, its shared library and the
+    kernel's launch count.
 
     ``launches`` is a plain integer that the wrapper adds one to where it
     launches the kernel, and nowhere else.
@@ -68,7 +71,7 @@ class CudaKernel:
         return h.hexdigest()[:16]
 
     def so_path(self) -> Path:
-        return BUILD_DIR / f"lib{self.name}-{self._digest()}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{self._digest()}.so"
 
     def _bind(self, path: Path) -> None:
         lib = ctypes.CDLL(str(path))
@@ -86,34 +89,40 @@ class CudaKernel:
 
 
 def build_all(kernels: List[CudaKernel]) -> None:
-    """Build every kernel not yet loaded, one ``nvcc`` each, in parallel."""
+    """Build every source not yet loaded, one ``nvcc`` each, in parallel,
+    and bind each kernel to its source's library."""
     with _lock:
-        todo = [k for k in kernels if k.lib is None]
+        todo: Dict[Path, List[CudaKernel]] = {}
+        for k in kernels:
+            if k.lib is None:
+                todo.setdefault(k.so_path(), []).append(k)
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = []
-        for k in todo:
-            out = k.so_path()
+        for out, ks in todo.items():
             if out.exists():
-                k._bind(out)
+                for k in ks:
+                    k._bind(out)
                 continue
             tmp = out.with_suffix(f".tmp{os.getpid()}")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC),
-                   "-o", str(tmp), str(k.source)]
+                   "-o", str(tmp), str(ks[0].source)]
             t0 = time.perf_counter()
-            procs.append((k, out, tmp, t0, subprocess.Popen(
+            procs.append((ks, out, tmp, t0, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         failures = []
-        for k, out, tmp, t0, p in procs:
+        for ks, out, tmp, t0, p in procs:
             log, _ = p.communicate()
-            k.build_seconds = time.perf_counter() - t0
-            k.ptxas_log = log
+            for k in ks:
+                k.build_seconds = time.perf_counter() - t0
+                k.ptxas_log = log
             if p.returncode != 0:
-                failures.append(f"{k.source.name} (nvcc exit "
+                failures.append(f"{ks[0].source.name} (nvcc exit "
                                 f"{p.returncode}):\n{log}")
                 continue
             os.replace(tmp, out)
-            k._bind(out)
+            for k in ks:
+                k._bind(out)
         if failures:
             raise RuntimeError("CUDA build failed: " + "\n".join(failures))
 

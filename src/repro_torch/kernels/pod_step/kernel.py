@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import CudaKernel, check
-from repro_torch.kernels.rbf_gain.kernel import SMEM_LIMIT, tile_floats
+from repro_torch.kernels.rbf_gain.kernel import block_rows, tile_floats
 
 # scalar-table layout, one row per session (the enums of csrc/pod_step.cu)
 INT_COLS = ("n", "j", "t", "n_fused", "n_queries", "nv", "k_cap", "T",
@@ -24,20 +24,29 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL = CudaKernel("pod_step", "pod_step.cu", {
     # chunks, feats, L, linv, ints, flts, ints_out, fval_out,
-    # S, C, K, d, a, stream
+    # S, C, K, d, a, bt, stream
     "pod_step_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                        _P),
+                        _I, _P),
 })
 
-# the kernel's own static shared memory (s_first, s_red) and alignment
-_STATIC_SMEM = 64
-BT = 64  # candidate rows per gain tile (csrc/pod_step.cu)
+
+def smem_bytes(K: int) -> int:
+    """Dynamic shared memory of one session's block: the row norms, the
+    gains and the gain-tile scratch (which also holds the append
+    vectors).  feats and Linv stay in device memory, so the width d does
+    not enter."""
+    bt = block_rows(K)
+    return 4 * (K + bt + tile_floats(bt, K))
 
 
-def smem_bytes(K: int, d: int) -> int:
-    """Dynamic shared memory of one session's block: feats, Linv, row
-    norms, gains and the gain-tile scratch."""
-    return 4 * (K * d + K * K + K + BT + tile_floats(BT, K))
+def layout(K: int):
+    """-> (BT, dynamic shared-memory bytes) of the pod step at K_max = K.
+
+    BT, the candidate rows of one gain tile, falls with K so that the
+    BT x K kernel block fits (``block_rows``, which raises past K = 3072
+    and names the bytes).
+    """
+    return block_rows(K), smem_bytes(K)
 
 
 def _check(name, t, dtype, shape, device):
@@ -62,8 +71,6 @@ def pod_step_cuda(chunks: torch.Tensor, feats: torch.Tensor, L: torch.Tensor,
     tables.  ``feats``, ``L`` and ``Linv`` are updated IN PLACE (the
     port's stand-in for JAX's buffer donation).  Returns
     (ints_out (S, 5) int32: n, j, t, n_fused, n_queries; fval (S,) f32).
-    Raises on a shape whose per-session working set does not fit one
-    block's shared memory.
     """
     if not chunks.is_cuda:
         raise ValueError("pod_step_cuda launches on CUDA tensors only")
@@ -76,13 +83,7 @@ def pod_step_cuda(chunks: torch.Tensor, feats: torch.Tensor, L: torch.Tensor,
     _check("Linv", Linv, torch.float32, (S, K, K), dev)
     _check("ints", ints, torch.int32, (S, len(INT_COLS)), dev)
     _check("flts", flts, torch.float32, (S, len(FLT_COLS)), dev)
-    smem = smem_bytes(K, d)
-    if smem + _STATIC_SMEM > SMEM_LIMIT:
-        raise ValueError(
-            f"pod_step: K={K}, d={d} needs {smem} bytes of shared memory "
-            f"per session (feats {4 * K * d} + Linv {4 * K * K} + scratch), "
-            f"over the {SMEM_LIMIT} a block may have; streaming feats/Linv "
-            "tiles from L2 is not implemented yet (ROADMAP.md)")
+    bt, _ = layout(K)
     lib = KERNEL.get()
     ints_out = torch.empty((S, INT_OUT), dtype=torch.int32, device=dev)
     fval = torch.empty((S,), dtype=torch.float32, device=dev)
@@ -92,7 +93,7 @@ def pod_step_cuda(chunks: torch.Tensor, feats: torch.Tensor, L: torch.Tensor,
             chunks.data_ptr(), feats.data_ptr(), L.data_ptr(),
             Linv.data_ptr(), ints.data_ptr(), flts.data_ptr(),
             ints_out.data_ptr(), fval.data_ptr(), S, C, K, d, float(a),
-            stream)
+            bt, stream)
     check(KERNEL, err, "pod_step")
     KERNEL.launches += 1
     return ints_out, fval

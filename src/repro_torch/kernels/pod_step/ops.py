@@ -11,8 +11,9 @@ pod by one ingest chunk and updates ``state`` IN PLACE.  Backends:
 
 Unlike the JAX wrapper there is no lane/sublane padding and no ``C < 2``
 detour: the CUDA kernel masks its own edges and launches at C = 1 too.
-Only ThreeSieves has a fused kernel (``fusable``), and it is the only
-algorithm the port has.
+Only ThreeSieves has a fused kernel (``fusable``); a pod of the other
+sieves (the JAX pod's vmapped ``run_batched`` path) is the next slice of
+the port (ROADMAP.md), and ``pod_step`` raises for it.
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ def pod_step(algo, state: TSState, chunks: torch.Tensor,
     if not fusable(algo):
         raise NotImplementedError(
             f"{type(algo).__name__} has no pod-step kernel (only "
-            "ThreeSieves is ported)")
+            "ThreeSieves has one)")
     use_kernel = backend == "cuda" or (backend == "auto" and chunks.is_cuda)
     if not use_kernel:
         return _write_back(state, pod_step_ref(algo, state, chunks, counts))

@@ -1,9 +1,16 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""ctypes binding of ``csrc/rbf_gain.cu`` (the ``gain_traced`` kernel).
+"""ctypes bindings of the two gain kernels of ``csrc/rbf_gain.cu`` (one
+source, one build, two entry points with a launch count each).
 
-Twin of the TPU kernel ``repro/kernels/rbf_gain/kernel.py:
-gain_pallas_traced``.  ``gain_traced`` launches on PyTorch's current
-stream and counts its launches in ``KERNEL.launches``.
+* ``gain_traced``, twin of the TPU kernel
+  ``repro/kernels/rbf_gain/kernel.py:gain_pallas_traced``: the kernel
+  hyperparameters are device scalars; an optional leading instance axis
+  prices I stacked summaries in one launch.  Launches count in
+  ``KERNEL.launches``.
+* ``gain_static``, twin of ``gain_pallas``: the kernel kind is a
+  template parameter, ``inv2l2`` and ``a`` are passed by value.  Launches count in ``KERNEL_STATIC.launches``.
+
+Both launch on PyTorch's current stream.
 """
 from __future__ import annotations
 
@@ -16,10 +23,16 @@ from repro_torch.kernels.build import CudaKernel, check
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL = CudaKernel("gain_traced", "rbf_gain.cu", {
-    # x, feats, linv, n, inv2l2, kind, out, B, K, d, a, bt, stream
-    "gain_traced_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+    # x, feats, linv, n, inv2l2, kind, out, B, K, d, I, a, bt, stream
+    "gain_traced_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                           _I, _P),
+})
+KERNEL_STATIC = CudaKernel("gain_static", "rbf_gain.cu", {
+    # x, feats, linv, n, out, B, K, d, a, inv2l2, kind, bt, stream
+    "gain_static_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
                            _P),
 })
+KIND_IDS = {"rbf": 0, "linear_norm": 1}  # kernelmath.KERNEL_KIND_IDS
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 KM_BUDGET = 98304  # bytes of the BT x K kernel block Km in shared memory
@@ -32,9 +45,14 @@ def block_rows(K: int) -> int:
     for bt in (64, 32, 16, 8):
         if bt * K * 4 <= KM_BUDGET:
             return bt
-    raise ValueError(f"gain_traced: K={K} needs a {8 * K * 4}-byte kernel "
-                     f"block even at 8 rows, over the {KM_BUDGET}-byte "
-                     "budget")
+    raise ValueError(f"K={K} needs a {8 * K * 4}-byte kernel block even at "
+                     f"8 rows, over the {KM_BUDGET}-byte budget")
+
+
+def static_block_rows(B: int, K: int) -> int:
+    """``block_rows(K)``, or 8 rows for a batch of at most 8 (ISI's
+    one-item queries)."""
+    return 8 if B <= 8 else block_rows(K)
 
 
 def tile_floats(bt: int, K: int) -> int:
@@ -42,8 +60,9 @@ def tile_floats(bt: int, K: int) -> int:
     return bt * LDT + KT * LDT + 2 * bt + bt * K
 
 
-def smem_bytes(K: int) -> int:
-    bt = block_rows(K)
+def smem_bytes(K: int, bt: int | None = None) -> int:
+    """Dynamic shared memory of one gain block (both gain kernels)."""
+    bt = block_rows(K) if bt is None else bt
     return 4 * (K + bt + tile_floats(bt, K))
 
 
@@ -66,17 +85,76 @@ def _check_scalar(name, t, dtype, device):
                          f"{t.device}")
 
 
+def _check_smem(what, K, bt):
+    smem = smem_bytes(K, bt)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{what}: K={K} needs {smem} bytes of shared "
+                         f"memory, over the {SMEM_LIMIT} a block may have")
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def gain_traced(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
                 n: torch.Tensor, inv2l2: torch.Tensor, kind_id: torch.Tensor,
                 *, a: float) -> torch.Tensor:
-    """Launch ``gain_traced`` on CUDA tensors -> gains (B,) f32.
+    """Launch ``gain_traced`` on CUDA tensors -> gains (B,), or (I, B)
+    for stacked summaries, f32.
 
-    x (B, d), feats (K, d), linv (K, K) f32 contiguous; n, kind_id int32
-    and inv2l2 f32 one-element tensors, read by the kernel on the device
-    (no host sync).  Raises on anything else.
+    x (B, d); feats (K, d) and linv (K, K) with n of one element, or
+    feats (I, K, d) and linv (I, K, K) with n of I elements, all priced
+    against the same x with the same kernel.  f32 contiguous; n and
+    kind_id int32 and inv2l2 f32 device tensors, read by the kernel on the
+    device (no host sync).  Raises on anything else.
     """
     if not x.is_cuda:
         raise ValueError("gain_traced launches on CUDA tensors only")
+    dev = x.device
+    B, d = x.shape
+    stacked = feats.dim() == 3
+    I = feats.shape[0] if stacked else 1
+    K = feats.shape[-2]
+    lead = (I,) if stacked else ()
+    _check_f32("x", x, (B, d), dev)
+    _check_f32("feats", feats, (*lead, K, d), dev)
+    _check_f32("linv", linv, (*lead, K, K), dev)
+    if (n.device != dev or n.dtype != torch.int32 or n.numel() != I
+            or not n.is_contiguous()):
+        raise ValueError(f"n must be {I} contiguous int32 element(s) on "
+                         f"{dev}, got {n.dtype} {tuple(n.shape)} on "
+                         f"{n.device}")
+    _check_scalar("inv2l2", inv2l2, torch.float32, dev)
+    _check_scalar("kind_id", kind_id, torch.int32, dev)
+    bt = block_rows(K)
+    _check_smem("gain_traced", K, bt)
+    lib = KERNEL.get()
+    out = torch.empty((*lead, B), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gain_traced_launch(
+            x.data_ptr(), feats.data_ptr(), linv.data_ptr(), n.data_ptr(),
+            inv2l2.data_ptr(), kind_id.data_ptr(), out.data_ptr(),
+            B, K, d, I, float(a), bt, _stream(dev))
+    check(KERNEL, err, "gain_traced")
+    KERNEL.launches += 1
+    return out
+
+
+def gain_static(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
+                n: torch.Tensor, *, a: float, inv2l2: float,
+                kind: str = "rbf") -> torch.Tensor:
+    """Launch ``gain_static`` on CUDA tensors -> gains (B,) f32.
+
+    x (B, d), feats (K, d), linv (K, K) f32 contiguous; n a one-element
+    int32 device tensor (read on the device, no host sync); ``kind``,
+    ``inv2l2`` and ``a`` are compile-time / by-value constants.  Raises
+    on anything else.
+    """
+    if not x.is_cuda:
+        raise ValueError("gain_static launches on CUDA tensors only")
+    if kind not in KIND_IDS:
+        raise ValueError(f"unknown kernel kind {kind!r}; choose from "
+                         f"{sorted(KIND_IDS)}")
     dev = x.device
     B, d = x.shape
     K = feats.shape[0]
@@ -84,20 +162,20 @@ def gain_traced(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
     _check_f32("feats", feats, (K, d), dev)
     _check_f32("linv", linv, (K, K), dev)
     _check_scalar("n", n, torch.int32, dev)
-    _check_scalar("inv2l2", inv2l2, torch.float32, dev)
-    _check_scalar("kind_id", kind_id, torch.int32, dev)
-    smem = smem_bytes(K)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"gain_traced: K={K} needs {smem} bytes of shared "
-                         f"memory, over the {SMEM_LIMIT} a block may have")
-    lib = KERNEL.get()
+    bt = static_block_rows(B, K)
+    _check_smem("gain_static", K, bt)
+    lib = KERNEL_STATIC.get()
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gain_traced_launch(
+        err = lib.gain_static_launch(
             x.data_ptr(), feats.data_ptr(), linv.data_ptr(), n.data_ptr(),
-            inv2l2.data_ptr(), kind_id.data_ptr(), out.data_ptr(),
-            B, K, d, float(a), block_rows(K), stream)
-    check(KERNEL, err, "gain_traced")
-    KERNEL.launches += 1
+            out.data_ptr(), B, K, d, float(a), float(inv2l2),
+            KIND_IDS[kind], bt, _stream(dev))
+    check(KERNEL_STATIC, err, "gain_static")
+    KERNEL_STATIC.launches += 1
     return out
+
+
+def rbf_gain(x, feats, linv, n, *, a: float, inv2l2: float) -> torch.Tensor:
+    """``gain_static`` with the rbf kernel (twin of ``rbf_gain_pallas``)."""
+    return gain_static(x, feats, linv, n, a=a, inv2l2=inv2l2, kind="rbf")

@@ -1,10 +1,9 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Public gain-pass wrapper (port of ``repro/kernels/rbf_gain/ops.py:
-fused_gains_traced``).
+"""Public gain-pass wrappers (port of ``repro/kernels/rbf_gain/ops.py``).
 
-A CUDA tensor goes to the ``gain_traced`` kernel; a CPU tensor to its
-plain version.  There is no fallback from one to the other.  No padding:
-the CUDA kernel masks its own ragged edges.
+A CUDA tensor goes to the kernel (``gain_traced`` / ``gain_static``); a
+CPU tensor to its plain version.  There is no fallback from one to the
+other.  No padding: the CUDA kernels mask their own ragged edges.
 """
 from __future__ import annotations
 
@@ -12,18 +11,37 @@ import torch
 
 from repro_torch.kernelmath import KernelParams
 
-from .kernel import gain_traced
-from .ref import gain_traced_ref
+from .kernel import gain_static, gain_traced
+from .ref import gain_ref, gain_traced_ref
 
 
 def fused_gains_traced(x: torch.Tensor, feats: torch.Tensor,
                        linv: torch.Tensor, n: torch.Tensor,
                        kern: KernelParams, *, a: float) -> torch.Tensor:
-    """Marginal gains of x (B, d) against a summary -> (B,) f32."""
+    """Marginal gains of x (B, d) against a summary -> (B,) f32, or
+    against stacked summaries (feats (I, K, d), n (I,)) -> (I, B)."""
     if not x.is_cuda:
         return gain_traced_ref(x, feats, linv, n, kern, a=a)
     return gain_traced(
         x.to(torch.float32).contiguous(), feats.contiguous(),
-        linv.contiguous(), n.to(torch.int32).reshape(1),
+        linv.contiguous(), n.to(torch.int32).reshape(-1).contiguous(),
         kern.inv2l2.to(torch.float32).reshape(1),
         kern.kind_id.to(torch.int32).reshape(1), a=a)
+
+
+def fused_gains(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
+                n: torch.Tensor, *, a: float, inv2l2: float,
+                kind: str = "rbf") -> torch.Tensor:
+    """Marginal gains of x (B, d) against a summary with a static kernel
+    (``kind``, ``inv2l2``) -> (B,) f32."""
+    if not x.is_cuda:
+        K = feats.shape[0]
+        mask = (torch.arange(K, device=feats.device) < n).to(torch.float32)
+        return gain_ref(x.to(torch.float32), feats.to(torch.float32),
+                        linv.to(torch.float32), mask[None, :], a=a,
+                        inv2l2=inv2l2, kind=kind)[:, 0]
+    return gain_static(
+        x.to(torch.float32).contiguous(), feats.contiguous(),
+        linv.contiguous(), n.to(torch.int32).reshape(1), a=a,
+        inv2l2=inv2l2, kind=kind)
+

@@ -3,7 +3,8 @@
 
 The JAX package registers its state dataclasses as pytrees; the port
 keeps plain frozen dataclasses and walks them here.  Leaves are tensors;
-``None`` fields pass through untouched.
+``None`` fields and ``torch.Generator`` fields (the random baseline's
+draws) pass through untouched and are no leaves.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
             f.name: tree_map(fn, getattr(tree, f.name),
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)})
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, torch.Generator):
+        return tree
     return fn(tree, *rest)
 
 
@@ -35,6 +36,6 @@ def leaves_with_keys(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
         key = f"{prefix}{f.name}"
         if dataclasses.is_dataclass(v):
             out.update(leaves_with_keys(v, key + "/"))
-        elif v is not None:
+        elif isinstance(v, torch.Tensor):
             out[key] = v
     return out

@@ -67,3 +67,73 @@ def test_pod_step_kernel_matches_plain(cuda):
         assert torch.equal(ker.ld.feats, ref.ld.feats)
         torch.testing.assert_close(ker.ld.Linv, ref.ld.Linv, rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "linear_norm"])
+@pytest.mark.parametrize("B,n", [(1, 0), (1, 70), (5000, 0), (5000, 33),
+                                 (5000, 70)])
+def test_gain_static_matches_plain(cuda, kind, B, n):
+    from repro_torch.kernels.rbf_gain import gain_ref, gain_static
+
+    g = torch.Generator(device=cuda).manual_seed(B + n)
+    K, d = 70, 33
+    X = 0.2 * torch.randn(B, d, generator=g, device=cuda)
+    feats = 0.2 * torch.randn(K, d, generator=g, device=cuda)
+    linv = torch.tril(0.1 * torch.randn(K, K, generator=g, device=cuda))
+    linv += torch.eye(K, device=cuda)
+    nt = torch.tensor([n], dtype=torch.int32, device=cuda)
+    got = gain_static(X, feats, linv, nt, a=1.0, inv2l2=3.0, kind=kind)
+    mask = (torch.arange(K, device=cuda) < n).float()[None, :]
+    want = gain_ref(X, feats, linv, mask, a=1.0, inv2l2=3.0, kind=kind)[:, 0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_gain_traced_instance_axis_matches_plain(cuda):
+    from repro_torch.kernelmath import KernelParams
+    from repro_torch.kernels.rbf_gain import gain_traced, gain_traced_ref
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    I, K, d, B = 9, 40, 33, 300
+    X = 0.2 * torch.randn(B, d, generator=g, device=cuda)
+    feats = 0.2 * torch.randn(I, K, d, generator=g, device=cuda)
+    linv = torch.tril(0.1 * torch.randn(I, K, K, generator=g, device=cuda))
+    linv += torch.eye(K, device=cuda)
+    n = torch.randint(0, K + 1, (I,), generator=g, device=cuda).int()
+    kern = KernelParams(torch.tensor(3.0, device=cuda),
+                        torch.tensor(0, dtype=torch.int32, device=cuda))
+    got = gain_traced(X, feats, linv, n, kern.inv2l2.reshape(1),
+                      kern.kind_id.reshape(1), a=1.0)
+    want = gain_traced_ref(X, feats, linv, n, kern, a=1.0)
+    assert got.shape == (I, B)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_streamed_pod_step_matches_plain(cuda):
+    """K_max = 600 (BT = 32): feats and Linv of a session far past what
+    shared memory could hold; the result is the plain loop's."""
+    from repro_torch.core.api import make
+    from repro_torch.core.spec import SessionSpec
+    from repro_torch.kernels.pod_step import layout, pod_step
+    from repro_torch.tree import tree_map
+
+    K, d = 600, 24
+    assert layout(K)[0] == 32
+    spec = SessionSpec(K=K, d=d, T=6, eps=0.1, lengthscale=1.0)
+    algo = make(spec, device=cuda)
+    ref_algo = make(spec.replace(backend="torch"), device=cuda)
+    rows = [algo.init(algo.hyper(K=k, kernel_kind=kind))
+            for k, kind in ((600, "rbf"), (40, "linear_norm"), (200, "rbf"))]
+    ker = tree_map(lambda *xs: torch.stack(xs), *rows)
+    ref = tree_map(lambda t: t.clone(), ker)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for C, counts in ((300, [300, 120, 0]), (300, [300, 300, 300])):
+        chunks = 0.3 * torch.randn(3, C, d, generator=g, device=cuda)
+        counts = torch.tensor(counts, dtype=torch.int32, device=cuda)
+        pod_step(algo, ker, chunks, counts, backend="cuda")
+        pod_step(ref_algo, ref, chunks, counts, backend="torch")
+        for a, b in ((ker.ld.n, ref.ld.n), (ker.j, ref.j), (ker.t, ref.t),
+                     (ker.n_fused, ref.n_fused)):
+            assert torch.equal(a, b)
+        assert torch.equal(ker.ld.feats, ref.ld.feats)
+        torch.testing.assert_close(ker.ld.Linv, ref.ld.Linv, rtol=1e-5,
+                                   atol=1e-5)

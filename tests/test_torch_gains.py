@@ -1,7 +1,9 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Port of the gain path: kernel rows, the gain oracle and the LogDet
-Cholesky state, held against the JAX package on the same numpy inputs
-(the JAX gain also through its Pallas kernel in interpret mode)."""
+"""Port of the gain path: kernel rows, both gain kernels' plain versions
+(traced and static, stacked summaries included), the gain oracle and the
+LogDet Cholesky state (appends, stacked appends, refactor), held against
+the JAX package on the same numpy inputs (the JAX gains also through
+their Pallas kernels in interpret mode)."""
 import math
 
 import jax.numpy as jnp
@@ -14,15 +16,18 @@ from repro import kernelmath as jkm  # noqa: E402
 from repro.core import oracle as jorc  # noqa: E402
 from repro.core.functions import KernelConfig as JKC  # noqa: E402
 from repro.core.functions import LogDet as JLogDet  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch import kernelmath as tkm  # noqa: E402
 from repro_torch.core import oracle as torc  # noqa: E402
 from repro_torch.core.functions import KernelConfig as TKC  # noqa: E402
 from repro_torch.core.functions import LogDet as TLogDet  # noqa: E402
+from repro_torch.core.functions import LogDetState as TLogDetState  # noqa
 from repro_torch.core.functions import naive_logdet  # noqa: E402
 from repro_torch.kernels.rbf_gain import (fused_gains_traced,  # noqa: E402
                                           gain_traced_ref)
 
-from _torch_port import ATOL, RTOL, assert_states_match, stream  # noqa: E402
+from _torch_port import (ATOL, RTOL, assert_states_match,  # noqa: E402
+                         jax_leaves, stream)
 
 K, D, B = 8, 6, 16
 KINDS = {"rbf": 0, "linear_norm": 1}
@@ -160,3 +165,152 @@ def test_gain_kernel_block_geometry():
     z = torch.zeros(2, 2)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         gain_traced(z, z, z, z, z, z, a=1.0)
+
+
+# ------------------------------------------------ static kernel (gain_pallas)
+@pytest.mark.parametrize("n", [0, 3, K])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_gain_ref_matches_jax_ref_and_interpret(kind, n):
+    """The plain ``gain_static`` against the JAX ``gain_ref`` and against
+    ``gain_pallas`` in interpret mode; the CPU wrapper is the plain
+    version."""
+    from repro.kernels.rbf_gain import fused_gains as jfused
+    from repro.kernels.rbf_gain.ref import gain_ref as jgain_ref
+    from repro_torch.kernels.rbf_gain import fused_gains, gain_ref
+
+    _, st = summary(kind, n, ls=0.9)
+    X = stream(7, B, D)
+    inv2l2 = 1.0 / (2.0 * 0.9 ** 2)
+    mask = (np.arange(K) < n).astype(np.float32)[None, :]
+    want = np.asarray(jgain_ref(jnp.asarray(X), st.feats, st.Linv,
+                                jnp.asarray(mask), a=1.0, inv2l2=inv2l2,
+                                kind=kind))[:, 0]
+    interp = np.asarray(jfused(jnp.asarray(X), st.feats, st.Linv, st.n,
+                               a=1.0, inv2l2=inv2l2, kind=kind,
+                               interpret=True))
+    feats, linv = (torch.from_numpy(np.array(st.feats)),
+                   torch.from_numpy(np.array(st.Linv)))
+    got = gain_ref(torch.from_numpy(X), feats, linv, torch.from_numpy(mask),
+                   a=1.0, inv2l2=inv2l2, kind=kind)[:, 0]
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), interp, rtol=RTOL, atol=ATOL)
+    wrapped = fused_gains(torch.from_numpy(X), feats, linv,
+                          torch.tensor(n, dtype=torch.int32), a=1.0,
+                          inv2l2=inv2l2, kind=kind)
+    assert torch.equal(wrapped, got)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_kernel_block_matches_jax(kind):
+    from repro.kernels.rbf_gain.ref import kernel_block as jkb
+    from repro_torch.kernels.rbf_gain import kernel_block
+
+    x, y = stream(8, B, D), stream(9, K, D)
+    want = np.asarray(jkb(jnp.asarray(x), jnp.asarray(y), inv2l2=0.7,
+                          kind=kind))
+    got = kernel_block(torch.from_numpy(x), torch.from_numpy(y), inv2l2=0.7,
+                       kind=kind)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_gain_static_block_rows_and_cpu_refusal():
+    from repro_torch.kernels.rbf_gain import (gain_static, rbf_gain,
+                                              static_block_rows)
+
+    assert [static_block_rows(b, 100) for b in (1, 8, 9, 65536)] == [
+        8, 8, 64, 64]
+    assert static_block_rows(65536, 1024) == 16
+    z = torch.zeros(2, 2)
+    n = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        gain_static(z, z, z, n, a=1.0, inv2l2=1.0)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        rbf_gain(z, z, z, n, a=1.0, inv2l2=1.0)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_stacked_traced_gains_match_jax_vmap(kind):
+    """Stacked summaries (the instance axis of ``gain_traced``) against
+    ``jax.vmap`` of the JAX oracle, and against the port's own unstacked
+    call per instance."""
+    import jax
+
+    jk, tk = kern_pair(kind)
+    states = [summary(kind, n, seed=s)[1] for s, n in ((0, 0), (1, 3),
+                                                       (2, K))]
+    X = stream(10, B, D)
+    jf = JLogDet(K=K, d=D, kernel=JKC(kind, 1.3), backend="jnp")
+    stk = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *states)
+    want = np.asarray(jax.vmap(lambda ld: jf.gains(ld, jnp.asarray(X), jk))(
+        stk))
+    feats, linv, n = (torch.from_numpy(np.array(a))
+                      for a in (stk.feats, stk.Linv, stk.n))
+    xt = torch.from_numpy(X)
+    got = fused_gains_traced(xt, feats, linv, n, tk, a=1.0)
+    assert got.shape == (3, B)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    for i in range(3):
+        one = gain_traced_ref(xt, feats[i], linv[i], n[i], tk, a=1.0)
+        np.testing.assert_allclose(got[i].numpy(), one.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+    # the oracle's stacked single-item query
+    to = torc.GainOracle(kernel=TKC(kind, 1.3))
+    g1 = to.gain1(feats, linv, n, xt[4], kern=tk)
+    np.testing.assert_allclose(g1.numpy(), got[:, 4].numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+# --------------------------------------------------- refactor / evaluate
+@pytest.mark.parametrize("n", [0, 5, K])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_refactor_matches_jax_and_float64_slogdet(kind, n):
+    X = stream(11, K, D)
+    jf = JLogDet(K=K, d=D, kernel=JKC(kind, 0.9), backend="jnp")
+    tf = TLogDet(K=K, d=D, kernel=TKC(kind, 0.9), device="cpu")
+    js = jf.refactor(jnp.asarray(X), jnp.int32(n))
+    ts = tf.refactor(torch.from_numpy(X), torch.tensor(n, dtype=torch.int32))
+    assert_states_match(js, ts, msg="refactor")
+    ref = naive_logdet(torch.from_numpy(X[:n]).double(), TKC(kind, 0.9), 1.0)
+    assert math.isclose(float(tf.evaluate(torch.from_numpy(X),
+                                          torch.tensor(n))),
+                        float(ref), rel_tol=1e-5, abs_tol=1e-5)
+
+
+def test_refactor_batches_over_leading_axes():
+    """One batched factorization equals the per-buffer ones (Preemption's
+    K swaps, QuickStream's c groups)."""
+    tf = TLogDet(K=K, d=D, kernel=TKC("rbf", 0.9), device="cpu")
+    X = torch.from_numpy(stream(12, 3 * K, D)).reshape(3, K, D)
+    ns = torch.tensor([0, 4, K], dtype=torch.int32)
+    batched = tf.refactor(X, ns)
+    for i in range(3):
+        one = tf.refactor(X[i], ns[i])
+        for name in ("feats", "L", "Linv", "fval"):
+            torch.testing.assert_close(getattr(batched, name)[i],
+                                       getattr(one, name), rtol=RTOL,
+                                       atol=ATOL)
+        assert int(batched.n[i]) == int(one.n)
+
+
+@pytest.mark.parametrize("traced", [True, False])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_stacked_append_matches_jax_vmap(kind, traced):
+    import jax
+
+    jk, tk = kern_pair(kind)
+    states = [summary(kind, n, seed=s)[1] for s, n in ((0, 0), (1, 3),
+                                                       (2, K - 1), (3, 5))]
+    jf = JLogDet(K=K, d=D, kernel=JKC(kind, 1.3), backend="jnp")
+    tf = TLogDet(K=K, d=D, kernel=TKC(kind, 1.3), device="cpu")
+    stk = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *states)
+    takes = np.array([True, True, True, False])
+    x = stream(13, 1, D)[0]
+    want = jax.vmap(lambda ld, t: jf.maybe_append(
+        ld, jnp.asarray(x), t, jk if traced else None))(stk,
+                                                        jnp.asarray(takes))
+    tst = convert.state_from_numpy(TLogDetState, jax_leaves(stk),
+                                   device="cpu")
+    got = tf.maybe_append_stacked(tst, torch.from_numpy(x),
+                                  torch.from_numpy(takes),
+                                  tk if traced else None)
+    assert_states_match(want, got, msg="stacked append")

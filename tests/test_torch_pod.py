@@ -15,6 +15,7 @@ from repro.serve.summarize import SummarizerPod as JPod  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.spec import SessionSpec as TSpec  # noqa: E402
 from repro_torch.kernels.pod_step import pod_step, pod_step_ref  # noqa
+from repro_torch.serve.summarize import PodState  # noqa: E402
 from repro_torch.serve.summarize import SummarizerPod as TPod  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 
@@ -167,8 +168,8 @@ def test_convert_round_trip_then_continue():
         sids, X = batch(seed)
         js, _ = ingest(js, jnp.asarray(sids), jnp.asarray(X))
     flat = jax_leaves(js)
-    ts = convert.pod_state_from_numpy(flat, device="cpu")
-    back = convert.pod_state_to_numpy(ts)
+    ts = convert.state_from_numpy(PodState, flat, device="cpu")
+    back = convert.state_to_numpy(ts)
     assert set(back) == set(flat)
     for k in flat:
         assert back[k].dtype == flat[k].dtype
@@ -178,11 +179,12 @@ def test_convert_round_trip_then_continue():
     ts, _ = tp.ingest(ts, torch.from_numpy(sids), torch.from_numpy(X))
     assert_states_match(js, ts, "after the carried-over ingest")
     with pytest.raises(KeyError, match="unknown leaves"):
-        convert.pod_state_from_numpy({**flat, "bogus": flat["sid"]},
-                                     device="cpu")
+        convert.state_from_numpy(PodState, {**flat, "bogus": flat["sid"]},
+                                 device="cpu")
     with pytest.raises(KeyError, match="missing leaf"):
-        convert.pod_state_from_numpy(
-            {k: v for k, v in flat.items() if k != "sid"}, device="cpu")
+        convert.state_from_numpy(
+            PodState, {k: v for k, v in flat.items() if k != "sid"},
+            device="cpu")
 
 
 def test_readout_views_follow_the_in_place_step():
@@ -221,15 +223,24 @@ def test_pod_step_tables_follow_the_kernel_layout():
 
 
 def test_pod_step_shared_memory_budget():
-    """K = 100, d = 256 fits one block; the largest K at d = 256 is 121,
-    past which the wrapper refuses (ROADMAP.md section 3)."""
-    from repro_torch.kernels.pod_step import smem_bytes
-    from repro_torch.kernels.pod_step.kernel import _STATIC_SMEM, pod_step_cuda
+    """The pod step's shared memory: feats and Linv stay in device memory,
+    so only the row norms, the gains and the gain-tile scratch are on
+    chip, at any width d; BT falls as the BT x K kernel block grows,
+    so every K up to 1024 fits (the main path's K = 100 among them), and
+    only past K = 3072 does the wrapper refuse, naming the bytes."""
+    from repro_torch.kernels.pod_step import layout, smem_bytes
+    from repro_torch.kernels.pod_step.kernel import pod_step_cuda
     from repro_torch.kernels.rbf_gain.kernel import SMEM_LIMIT
 
-    assert smem_bytes(100, 256) == 186064
-    assert smem_bytes(121, 256) + _STATIC_SMEM <= SMEM_LIMIT
-    assert smem_bytes(122, 256) + _STATIC_SMEM > SMEM_LIMIT
+    want = {100: (64, 43664), 121: (64, 49124), 122: (64, 49384),
+            384: (64, 117504), 385: (32, 63876), 1024: (16, 80384)}
+    for k, row in want.items():
+        assert layout(k) == row, k
+        assert smem_bytes(k) == row[1]
+        assert row[1] < SMEM_LIMIT
+    assert layout(3072) == (8, 120192)
+    with pytest.raises(ValueError, match="98336-byte kernel block"):
+        layout(3073)
     z = torch.zeros(1, 1, 1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         pod_step_cuda(z, z, z, z, z.int(), z, a=1.0)

@@ -128,15 +128,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 
 def test_make_registry_threesieves_only():
-    from repro_torch.core.api import algo_name, make
+    """Every name of the JAX registry, and every alias, builds in the
+    port; unknown names and a missing d are refused."""
+    from repro_torch.core.api import ALGORITHMS, _ALIASES, algo_name, make
 
-    algo = make("threesieves", 4, 3, device="cpu")
-    assert algo_name(algo) == "threesieves"
-    for name in ("salsa", "sievestreamingpp", "isi", "greedy"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(TSpec(algo=name, K=4, d=3), device="cpu")
+    assert len(ALGORITHMS) == 9
+    for name in ALGORITHMS + tuple(_ALIASES):
+        algo = make(TSpec(algo=name, K=4, d=3), device="cpu")
+        assert algo_name(algo) == _ALIASES.get(name, name)
+        assert algo.f.K == 4 and algo.f.device.type == "cpu"
     with pytest.raises(ValueError, match="unknown algorithm"):
         make(TSpec(algo="nope", K=4, d=3), device="cpu")
     with pytest.raises(ValueError, match="SessionSpec.d"):
         make(TSpec(K=4), device="cpu")
+    algo = make("threesieves", 4, 3, device="cpu")
     assert np.isclose(algo.f.singleton_value, M)
