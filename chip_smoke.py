@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure ends the run with a non-zero
 exit and no result line:
 
-  1. build           the three CUDA kernels from the two sources in
+  1. build           the four CUDA kernels from the three sources in
                      ``src/repro_torch/csrc`` (one nvcc each, started
                      together), ptxas lines;
   2. gain            ``gain_traced`` against its plain version at B=1024,
@@ -44,16 +44,44 @@ exit and no result line:
                      ``run_batched`` over 64 chunks, Random, ISI,
                      Preemption and QuickStream over the first 4,096
                      items; each under ``auto`` (the kernels) and under
-                     ``torch``, reported as f / f_greedy.
+                     ``torch``, reported as f / f_greedy;
+ 10. flash           ``flash_attention`` (the kernel route of
+                     ``kernels.flash_attention``) against ``attention_ref``:
+                     the Whisper-small encoder shape (B=8, 12 heads,
+                     S=1500 padded to 1536, dh=64, bf16, full) with near
+                     uniform and with near one-hot attention, causal GQA
+                     at qwen2-1.5b's attention shape (12 q / 2 kv heads,
+                     dh=128, S=2048, bf16) and a ragged float32 case
+                     (S=100); within 2e-4 (f32) / 2e-2 (bf16), and within
+                     1e-4 (f32) / 1e-2 (bf16) of the largest output; the
+                     kernel told to keep the padded keys must fail that
+                     check; timed beside the plain version and
+                     ``scaled_dot_product_attention``;
+ 11. whisper         the slice's main path: Whisper-small at full width
+                     (seeded parameters) serving 8 requests of 1500 frames
+                     and 16 prompt tokens through ``ServeDriver.generate``
+                     (32 new tokens, greedy), the encoder's attention on
+                     the kernel (12 launches per generate), held against
+                     the same run on the plain attention route: in float32
+                     the tokens equal and, on three input draws, the
+                     encoder output and prefill logits within 1e-4, which
+                     the padded-keys fault planted in the encoder must
+                     fail; in bfloat16 the logits within 5e-2 (a bound on
+                     rounding, which cannot see that fault).  Five
+                     generates per route, prefill and decode timed by CUDA
+                     events inside each (median and range); the idle share
+                     from one profiled generate.
 
-"Held against" (every kernel): integers equal (n, j, t, n_fused,
+"Held against" (the summarization kernels): integers equal (n, j, t, n_fused,
 n_queries, accepted items); floats within rtol = atol = 1e-5 (f32 with a
 different summation order at K <= 100).  A run whose accept decisions
 first differ at an item whose reference margin
 |gain - thr| / max(1, |thr|) is at most 1e-4 is a near-tie: printed, not
 failed (for Greedy: a first differing round whose two largest reference
-gains are within 1e-4 relative).  Then the phases' seconds, the kernels'
-summary line, the card's name and power limit, and the result line.
+gains are within 1e-4 relative; for Whisper's tokens: a first differing
+token whose two largest plain-route logits are within 1e-3 relative).
+Then the phases' seconds, the kernels' summary line, the card's name and
+power limit, and the result line.
 """
 from __future__ import annotations
 
@@ -70,6 +98,7 @@ ROOT = Path(__file__).resolve().parent
 RTOL = ATOL = 1e-5
 TIE = 1e-4
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM, CUDA cores (NVIDIA data sheet)
+PEAK_BF16 = 989e12  # FLOP/s, H100 SXM, dense bf16 tensor cores (same)
 PEAK_BW = 3.35e12  # bytes/s, H100 SXM HBM3
 K_MAX, D, CHUNK, SESSIONS = 100, 256, 1024, 256
 GREEDY_B = 65536  # a Greedy round over the paper phase's ground set
@@ -86,6 +115,30 @@ LARGE_PODS = [  # K_max, sessions, tier budgets, rounds (name, item spread)
                                ("after_saturation", 1.0)]),
     (1024, 4, (256, 1024), [("ragged", 1.0)]),
 ]
+# phase flash: (name, B, Hq, Hkv, S, dh, causal, dtype, std of q and k).
+# The scores' std is the draw's std squared: at 0.5 attention over 1500
+# keys is near uniform, at 2 near one-hot.
+FLASH_CASES = [
+    ("whisper_encoder", 8, 12, 12, 1500, 64, False, "bfloat16", 0.5),
+    ("whisper_encoder_peaked", 8, 12, 12, 1500, 64, False, "bfloat16", 2.0),
+    ("qwen2_causal_gqa", 1, 12, 2, 2048, 128, True, "bfloat16", 0.5),
+    ("ragged_f32", 2, 4, 2, 100, 64, True, "float32", 0.5),
+]
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tests/test_kernels.py
+# and against the output's own size, max|got - want| / max|want| (one bf16
+# ulp is at most 2^-7 = 7.8e-3 of a value)
+FLASH_SCALED_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# the case whose check must fail a planted fault: the kernel told to keep
+# the 36 padded keys (near-uniform rows give them about 2 % of the weight)
+FLASH_CONTROL = "whisper_encoder"
+# phase whisper: slots, prompt tokens, new tokens; timed generates per
+# route and dtype; input draws the prefill logits are held on; the logit
+# tolerances of the kernel route against the plain one, and the near-tie
+# bound of a first differing token (top-2 plain-route logit gap, relative)
+WHISPER_B, WHISPER_PROMPT, WHISPER_NEW = 8, 16, 32
+WHISPER_REPS, WHISPER_DRAWS = 5, 3
+WHISPER_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TOKEN_TIE = 1e-3
 DEV = "cuda"
 
 
@@ -148,8 +201,8 @@ def host_ms(torch, fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BW
+def bound(flops, nbytes, peak=PEAK_FP32):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -312,11 +365,12 @@ def clone_state(state):
 # ------------------------------------------------------------------ phases
 def phase_build(torch):
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
     from repro_torch.kernels.pod_step import KERNEL as POD
     from repro_torch.kernels.rbf_gain import KERNEL as GAIN
     from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
 
-    kernels = (GAIN, STATIC, POD)
+    kernels = (GAIN, STATIC, POD, FLASH)
     t0 = time.perf_counter()
     build.build_all(list(kernels))
     sources = {k.source.name: k for k in kernels}  # gain kernels share one
@@ -1036,6 +1090,368 @@ def phase_paper(torch, gen):
             "max_abs_err": max_err}
 
 
+def flash_work(B, Hq, Hkv, Sq, Sk, dh, causal, esize):
+    """The least work of one attention call -> (FLOP, bytes): 4 dh FLOP
+    per live (query, key) pair and head (the q.k and p.v products); one
+    read of q, k, v and one write of o."""
+    pairs = (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+             else Sq * Sk)
+    flops = 4 * B * Hq * dh * pairs
+    nbytes = esize * (2 * B * Hq * Sq * dh + 2 * B * Hkv * Sk * dh)
+    return flops, nbytes
+
+
+def _padded(q, k, v):
+    """q, k, v padded along the sequence to the block the wrapper picks
+    (``kernels.flash_attention.ops``) -> (qp, kp, vp, pad)."""
+    import torch.nn.functional as F
+
+    S = k.shape[2]
+    pad = (-S) % min(128, max(S, 8))
+    return (*(F.pad(t, (0, 0, 0, pad)).contiguous() for t in (q, k, v)),
+            pad)
+
+
+def phase_flash(torch, gen):
+    """The flash-attention kernel against ``attention_ref`` in the cases
+    of FLASH_CASES, timed beside the plain version and SDPA; at the
+    control case, a planted fault (padded keys kept) must fail the
+    check."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_cuda)
+
+    cases, max_err = [], 0.0
+    for name, B, Hq, Hkv, S, dh, causal, dtype, std in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q = (std * torch.randn(B, Hq, S, dh, generator=gen,
+                               device=DEV)).to(dt)
+        k = (std * torch.randn(B, Hkv, S, dh, generator=gen,
+                               device=DEV)).to(dt)
+        v = torch.randn(B, Hkv, S, dh, generator=gen, device=DEV).to(dt)
+        got = flash_attention(q, k, v, causal=causal, backend="cuda")
+        want = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        size = want.float().abs().max().item()
+        tol, scaled_tol = FLASH_TOL[dtype], FLASH_SCALED_TOL[dtype]
+        if got.dtype != dt or not torch.allclose(got.float(), want.float(),
+                                                 rtol=tol, atol=tol):
+            fail(f"flash {name}: {got.dtype}, max err {e} (tol {tol})")
+        if e / size > scaled_tol:
+            fail(f"flash {name}: max err {e} is {e / size} of the largest "
+                 f"output {size} (tol {scaled_tol})")
+        max_err = max(max_err, e)
+        # the kernel alone on the padded inputs the wrapper hands it
+        qp, kp, vp, pad = _padded(q, k, v)
+        control = None
+        if name == FLASH_CONTROL:
+            bad = flash_attention_cuda(qp, kp, vp, causal=causal,
+                                       kv_len=S + pad)[:, :, :S]
+            control = (bad.float() - want.float()).abs().max().item() / size
+            if control <= scaled_tol:
+                fail(f"flash {name}: the check passes a kernel that keeps "
+                     f"the {pad} padded keys ({control} of the largest "
+                     f"output, tol {scaled_tol})")
+
+        def kernel():
+            return flash_attention_cuda(qp, kp, vp, causal=causal, kv_len=S)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+        lib = library()
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        flops, nbytes = flash_work(B, Hq, Hkv, S, S, dh, causal,
+                                   q.element_size())
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16
+                           else PEAK_FP32)
+        ms = device_ms(torch, kernel, "flash_attention_kernel")
+        cases.append({
+            "case": name, "shape": [B, Hq, Hkv, S, dh], "causal": causal,
+            "dtype": dtype, "qk_std": std, "padded_to": S + pad,
+            "max_abs_err": e, "tol": tol, "max_abs_want": size,
+            "scaled_err": e / size, "scaled_tol": scaled_tol,
+            "control_kv_len_ignored_scaled_err": control,
+            "ms": ms, "call_ms": timed_ms(torch, lambda: (
+                flash_attention(q, k, v, causal=causal, backend="cuda"))),
+            "plain_ms": timed_ms(torch, lambda: attention_ref(
+                q, k, v, causal=causal)),
+            "library_ms": timed_ms(torch, library),
+            "library_max_abs_err": lib_err,
+            "library_scaled_err": lib_err / size, "bound_ms": b_ms,
+            "bound_by": b_by, "flops": flops, "bytes": nbytes,
+            "tflops": flops / ms / 1e9})
+    emit("flash", cases=cases, max_abs_err=max_err,
+         library="torch.nn.functional.scaled_dot_product_attention")
+    return {"max_abs_err": max_err, **cases[0]}
+
+
+def _gap_recorder(torch, step, gaps, at):
+    """Wrap a prefill or decode step (its logits are output ``at``) so it
+    records, per row, the relative gap between its two largest logits."""
+
+    def wrapped(*args, **kw):
+        out = step(*args, **kw)
+        logits = out[at]
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        gaps.append(((top[:, 0] - top[:, 1])
+                     / top[:, 0].abs().clamp(min=1.0)).tolist())
+        return out
+
+    return wrapped
+
+
+def _first_diff(tokens, ref, P, gaps, what):
+    """Hold the kernel route's tokens against the plain route's: a row
+    whose tokens first differ at a step whose plain-route top-2 gap is at
+    most TOKEN_TIE is a near-tie, any other difference fails."""
+    ties = []
+    for r in range(tokens.shape[0]):
+        diff = (tokens[r] != ref[r]).nonzero()
+        if not len(diff):
+            continue
+        c = int(diff[0, 0])
+        g = gaps[c - P][r]
+        if g > TOKEN_TIE:
+            fail(f"{what}: row {r} differs first at token {c} with plain "
+                 f"top-2 gap {g} (> {TOKEN_TIE})")
+        ties.append({"row": r, "token": c, "gap": g})
+    return ties
+
+
+def _spread(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
+
+
+def _staged(torch, driver, stages):
+    """Wrap ``driver``'s prefill and decode steps so that every generate
+    appends [before prefill, after prefill, after its last decode step]
+    CUDA events to ``stages``."""
+    prefill, decode = driver._prefill, driver._decode
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def staged_prefill(*args, **kw):
+        start = event()
+        out = prefill(*args, **kw)
+        stages.append([start, event(), None])
+        return out
+
+    def staged_decode(*args, **kw):
+        out = decode(*args, **kw)
+        stages[-1][2] = event()
+        return out
+
+    driver._prefill, driver._decode = staged_prefill, staged_decode
+
+
+def _generates(torch, driver, kernels, run, n_new, reps):
+    """``reps`` generates, each with every count set to 0 just before ->
+    (stage times {metric: spread}, launches of each generate).  Prefill
+    and decode are timed by CUDA events inside the same generate, the
+    generate by the host clock."""
+    stages, secs, launches = [], [], []
+    _staged(torch, driver, stages)
+    for _ in range(reps):
+        out, sec, ln = _counted(torch, kernels, run)
+        secs.append(sec)
+        launches.append(ln)
+    B = out.shape[0]
+    return {
+        "generate_ms": _spread([t * 1e3 for t in secs]),
+        "tokens_per_s": _spread([B * n_new / t for t in secs]),
+        "prefill_ms": _spread([a.elapsed_time(b) for a, b, _ in stages]),
+        "decode_ms_per_token": _spread([b.elapsed_time(c) / (n_new - 1)
+                                        for _, b, c in stages]),
+    }, launches
+
+
+def _ignoring_kv_len(q, k, v, *, causal=True):
+    """A planted fault in the encoder's attention route: the kernel keeps
+    the padded keys (``kv_len`` = the padded length)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    qp, kp, vp, pad = _padded(q, k, v)
+    return flash_attention_cuda(qp, kp, vp, causal=causal,
+                                kv_len=k.shape[2] + pad)[:, :, :q.shape[2]]
+
+
+def _profile(torch, fn):
+    """Device time by kernel over one call of ``fn``, and the device's idle
+    share of the same profiled window (host clock)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0:
+            by.append((t / 1e3, ev.count, ev.key[:90]))
+    by.sort(reverse=True)
+    busy = sum(t for t, _, _ in by)
+    return wall, busy, by
+
+
+def phase_whisper(torch, gen, seed):
+    """Whisper-small at full width serving 8 requests through
+    ``ServeDriver.generate`` with the CUDA flash-attention kernel in its
+    encoder, held against the same run on the plain attention route, in
+    float32 and in bfloat16 (the config's dtype)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.kernels.rbf_gain import KERNEL as GAIN
+    from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
+    from repro_torch.models import Model, attention, init_cache
+    from repro_torch.serve import ServeDriver, make_prefill_step
+    from repro_torch.tree import leaves_with_keys
+
+    kernels = (GAIN, STATIC, POD, FLASH)
+    B, P, N = WHISPER_B, WHISPER_PROMPT, WHISPER_NEW
+    base = get_config("whisper-small", use_pallas_attention=True)
+    n_frames = base.encoder.n_frames
+    draws = [(torch.randn(B, n_frames, base.d_model, generator=gen,
+                          device=DEV),
+              torch.randint(0, base.vocab, (B, P), generator=gen,
+                            device=DEV, dtype=torch.int32))
+             for _ in range(WHISPER_DRAWS)]
+    frames, prompts = draws[0]  # the served requests
+    params = Model(base, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(seed))
+    n_params = sum(t.numel() for t in leaves_with_keys(params).values())
+    runs, launches = {}, None
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = Model(cfg, device=DEV)
+        plain = Model(dataclasses.replace(cfg, use_pallas_attention=False),
+                      device=DEV)
+        max_seq = P + N + 8
+        fe = {"frames": frames}
+        tol = WHISPER_TOL[dtype]
+
+        # tokens: the kernel route against the plain route
+        driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
+        out = driver.generate(params, prompts, N, frontend=fe)  # warms
+        gaps = []
+        ref_driver = ServeDriver(model=plain, max_seq=max_seq, batch=B)
+        ref_driver._prefill = _gap_recorder(torch, ref_driver._prefill, gaps,
+                                            0)
+        ref_driver._decode = _gap_recorder(torch, ref_driver._decode, gaps, 1)
+        ref_out = ref_driver.generate(params, prompts, N, frontend=fe)
+        if out.shape != (B, P + N) or not torch.equal(out[:, :P], prompts):
+            fail(f"whisper {dtype}: output {tuple(out.shape)} does not "
+                 "extend the prompts")
+        if int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+            fail(f"whisper {dtype}: a token outside the vocabulary")
+        equal = int((out == ref_out).all(1).sum())
+        ties = (_first_diff(out, ref_out, P, gaps, "whisper float32")
+                if dtype == "float32" else None)  # bf16 holds logits only
+
+        # the main path: timed generates, launches counted in each
+        torch.cuda.reset_peak_memory_stats()
+        timing, lns = _generates(torch, driver, kernels, lambda: (
+            driver.generate(params, prompts, N, frontend=fe)), N,
+            WHISPER_REPS)
+        peak = torch.cuda.max_memory_allocated()
+        for ln in lns:
+            if ln["flash_attention"] != cfg.encoder.n_layers or any(
+                    v for k, v in ln.items() if k != "flash_attention"):
+                fail(f"whisper {dtype}: launches {ln}, expected "
+                     f"{cfg.encoder.n_layers} flash_attention per generate")
+        if dtype == base.dtype:
+            launches = lns[0]["flash_attention"]
+        ref_timed = ServeDriver(model=plain, max_seq=max_seq, batch=B)
+        plain_timing, plain_lns = _generates(
+            torch, ref_timed, kernels, lambda: ref_timed.generate(
+                params, prompts, N, frontend=fe), N, WHISPER_REPS)
+        if any(v for ln in plain_lns for v in ln.values()):
+            fail(f"whisper {dtype}: the plain route launched {plain_lns}")
+
+        # encoder output and prefill logits, kernel route against plain,
+        # on every input draw and under the planted fault
+        def prefill(m, fr, pr):
+            caches = init_cache(cfg, B, max_seq, device=DEV)
+            with torch.inference_mode():
+                return make_prefill_step(m)(params, {"tokens": pr,
+                                                     "frames": fr}, caches)
+
+        def errs(fr, pr):
+            with torch.inference_mode():
+                enc = model._encode(params, fr)
+                enc_ref = plain._encode(params, fr)
+            logits, logits_ref = prefill(model, fr, pr)[0], prefill(
+                plain, fr, pr)[0]
+            if not (torch.isfinite(enc).all()
+                    and torch.isfinite(logits).all()):
+                fail(f"whisper {dtype}: non-finite encoder output or logits")
+            return ((enc.float() - enc_ref.float()).abs().max().item(),
+                    (logits.float() - logits_ref.float()).abs().max().item())
+
+        enc_errs, logit_errs = zip(*(errs(fr, pr) for fr, pr in draws))
+        if max(logit_errs) > tol:
+            fail(f"whisper {dtype}: prefill logits off by {logit_errs} "
+                 f"(tol {tol})")
+        if dtype == "float32" and max(enc_errs) > tol:
+            fail(f"whisper float32: encoder output off by {enc_errs}")
+        route = attention.flash_attention
+        attention.flash_attention = _ignoring_kv_len
+        try:
+            control = errs(frames, prompts)
+        finally:
+            attention.flash_attention = route
+        if dtype == "float32" and max(control) <= tol:
+            fail(f"whisper float32: the check passes the padded-keys fault "
+                 f"(errors {control}, tol {tol})")
+        with torch.inference_mode():
+            enc_ms = timed_ms(torch, lambda: model._encode(params, frames),
+                              reps=WHISPER_REPS, warmup=1)
+            plain_enc_ms = timed_ms(torch, lambda: plain._encode(
+                params, frames), reps=WHISPER_REPS, warmup=1)
+        runs[dtype] = {
+            "launches": lns[0], "generates": len(lns),
+            "tokens_equal_rows": equal, "near_ties": ties,
+            "min_plain_gap": min(min(g) for g in gaps),
+            "encoder_max_abs_err": enc_errs, "logits_max_abs_err": logit_errs,
+            "tol": tol, "control_kv_len_ignored": {
+                "encoder_max_abs_err": control[0],
+                "logits_max_abs_err": control[1]},
+            "encoder_ms": enc_ms, "plain_encoder_ms": plain_enc_ms,
+            **timing, "plain": plain_timing, "peak_mem_gib": peak / 2 ** 30}
+
+        if dtype == base.dtype:  # where the serving run's device time goes
+            wall, busy, by = _profile(torch, lambda: driver.generate(
+                params, prompts, N, frontend=fe))
+            flash = sum(t for t, _, k in by if "flash_attention_kernel" in k)
+            pre_ms = timing["prefill_ms"]["median"]
+            runs[dtype]["profile"] = {
+                "wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": 1 - busy / wall, "flash_ms": flash,
+                "flash_share_of_encoder": flash / enc_ms,
+                "flash_share_of_prefill": flash / pre_ms,
+                "top": [{"ms": t, "count": c, "kernel": k}
+                        for t, c, k in by[:12]]}
+    emit("whisper", arch="whisper-small", params=n_params, batch=B,
+         prompt=P, new_tokens=N, frames=n_frames, draws=WHISPER_DRAWS,
+         runs=runs)
+    return {"launches": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1083,6 +1499,8 @@ def main(argv=None):
     stacked = timed("gain_stacked", phase_gain_stacked, torch, gen)
     large = timed("pod_step_large", phase_pod_step_large, torch, gen)
     paper = timed("paper", phase_paper, torch, gen)
+    flash = timed("flash", phase_flash, torch, gen)
+    whisper = timed("whisper", phase_whisper, torch, gen, args.seed)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -1112,9 +1530,18 @@ def main(argv=None):
          "ms": pod["ms"], "plain_ms": pod["plain_ms"],
          "bound_ms": pod["bound_ms"], "bound_by": pod["bound_by"],
          "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+         "launches": whisper["launches"],
+         "max_abs_err": flash["max_abs_err"],
+         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": flash["library_ms"]},
     ]
     for k in kernels:
-        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms") + (
+                ("library_ms",) if k["library_ms"] is not None else ()):
             if not math.isfinite(k[key]):
                 fail(f"{k['name']}: {key} is not finite")
     print(json.dumps({"kernels": kernels}), flush=True)

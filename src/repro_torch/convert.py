@@ -11,6 +11,9 @@ package therefore loads into the port leaf for leaf, and back.
 ``RandomState`` carries its counters (feats, n, seen) only: the JAX PRNG
 key has no ``torch.Generator`` counterpart, so its ``key`` leaf is not
 read and the port's generator starts fresh from ``seed``.
+
+A model's parameter tree (the nested dict of the JAX package's
+``Model.init``) carries across key for key (``model_params_from_jax``).
 """
 from __future__ import annotations
 
@@ -66,3 +69,11 @@ def state_to_numpy(state) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy()
             for k, v in leaves_with_keys(state).items()}
 
+
+def model_params_from_jax(tree, device):
+    """The port's parameter tree from the JAX package's (a nested dict of
+    numpy arrays, e.g. ``Model.init`` passed through ``np.asarray``):
+    the same keys, shapes and dtypes, as tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: model_params_from_jax(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)

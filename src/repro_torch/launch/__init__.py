@@ -1,0 +1,2 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""Port of ``repro.launch``: command-line launchers."""

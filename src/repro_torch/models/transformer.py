@@ -1,0 +1,266 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""Port of ``repro.models.transformer``: decoder-only LMs with attention
+layers and dense FFNs, and enc-dec (Whisper), one ``Model`` per
+``ModelConfig``.
+
+Layers are grouped into superblocks of ``cfg.block_size`` consecutive
+layers whose parameters are stacked along a leading ``blocks`` axis, as
+in the JAX package; a Python loop over that axis takes the place of
+``lax.scan``.  Mamba layers, MoE FFNs and MLA raise ``NotImplementedError``
+(``config.unported``).
+
+Entry points:
+  * ``train_logits``  the training forward
+  * ``prefill``       populate the caches for a prompt
+  * ``decode_step``   one token against every cache
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+
+from . import attention as attn
+from .config import ModelConfig, unported
+from .layers import (ParamDef, apply_mlp, apply_norm, embed_lookup,
+                     embed_spec, init_tree, mlp_spec, norm_spec, stack_spec,
+                     tree_map)
+
+
+# ------------------------------------------------------------------ specs
+def _layer_spec(cfg: ModelConfig, i: int, *, decoder_cross: bool) -> Dict:
+    s: Dict[str, Any] = {"ln1": norm_spec(cfg.d_model, cfg.norm),
+                         "attn": attn.gqa_spec(cfg)}
+    if decoder_cross:
+        s["cross_ln"] = norm_spec(cfg.d_model, cfg.norm)
+        s["cross"] = attn.cross_spec(cfg)
+    if cfg.ffn_kind(i) != "-":
+        s["ln2"] = norm_spec(cfg.d_model, cfg.norm)
+        s["ffn"] = mlp_spec(cfg.d_model, cfg.d_ff, cfg.ffn)
+    return s
+
+
+def _enc_layer_spec(cfg: ModelConfig) -> Dict:
+    return {
+        "ln1": norm_spec(cfg.d_model, cfg.norm),
+        "attn": attn.gqa_spec(cfg),
+        "ln2": norm_spec(cfg.d_model, cfg.norm),
+        "ffn": mlp_spec(cfg.d_model, cfg.d_ff, cfg.ffn),
+    }
+
+
+def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    unported(cfg)
+    d = cfg.d_model
+    spec: Dict[str, Any] = {
+        "embed": embed_spec(cfg.vocab, d),
+        "final_norm": norm_spec(d, cfg.norm),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ParamDef((d, cfg.vocab), ("fsdp", "vocab"),
+                                   "normal:0.02")
+    if cfg.n_prefix:
+        spec["prefix_proj"] = ParamDef((d, d), ("fsdp", None))
+    cross = cfg.encoder is not None
+    block = {f"l{j}": _layer_spec(cfg, j, decoder_cross=cross)
+             for j in range(cfg.block_size)}
+    spec["blocks"] = stack_spec(block, cfg.n_blocks)
+    if cross:
+        spec["encoder"] = {
+            "blocks": stack_spec(_enc_layer_spec(cfg), cfg.encoder.n_layers),
+            "final_norm": norm_spec(d, cfg.norm),
+        }
+    return spec
+
+
+# ----------------------------------------------------------------- caches
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
+               device) -> Dict[str, Any]:
+    """{'blocks': {l<j>: {'k', 'v'} stacked (n_blocks, ...)}}, zeros."""
+    unported(cfg)
+    dtype = dtype or cfg.activation_dtype
+    return {"blocks": {
+        f"l{j}": tree_map(
+            lambda t: t.expand(cfg.n_blocks, *t.shape).clone(),
+            attn.gqa_init_cache(cfg, batch, max_seq, dtype, device))
+        for j in range(cfg.block_size)}}
+
+
+def _index(tree, i: int):
+    """Block ``i`` of a tree stacked along a leading axis (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+# ------------------------------------------------------ layer application
+def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, i: int, *, mode: str,
+                 cache=None, pos: Optional[int] = None, enc_out=None):
+    """One sublayer in mode 'train' | 'prefill' | 'decode' -> (x, cache);
+    the cache is updated in place."""
+    h = apply_norm(p["ln1"], x, cfg.norm)
+    if mode == "train":
+        h = attn.gqa_train(p["attn"], h, cfg)
+    elif mode == "prefill":
+        h, cache = attn.gqa_prefill(p["attn"], h, cache, cfg)
+    else:
+        h, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg)
+    x = x + h
+    if "cross" in p and enc_out is not None:
+        # the reference recomputes the encoder's K/V in every layer and
+        # every decode step; caching them is later work (ROADMAP.md)
+        h = apply_norm(p["cross_ln"], x, cfg.norm)
+        enc_kv = attn.cross_encode(p["cross"], enc_out, cfg)
+        x = x + attn.cross_attend(p["cross"], h, enc_kv, cfg)
+    if cfg.ffn_kind(i) != "-":
+        h = apply_norm(p["ln2"], x, cfg.norm)
+        x = x + apply_mlp(p["ffn"], h, cfg.ffn)
+    return x, cache
+
+
+def _apply_block(bp, x, cfg: ModelConfig, *, mode, caches=None, pos=None,
+                 enc_out=None):
+    """One superblock (``block_size`` sublayers)."""
+    for j in range(cfg.block_size):
+        c = caches[f"l{j}"] if caches is not None else None
+        x, _ = _apply_layer(bp[f"l{j}"], x, cfg, j, mode=mode, cache=c,
+                            pos=pos, enc_out=enc_out)
+    return x
+
+
+class _ParamTree(nn.Module):
+    """A nested dict of tensors registered as buffers under its keys, so
+    ``state_dict`` names them ``blocks.l0.attn.wq``."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _ParamTree(v))
+            else:
+                self.register_buffer(k, v)
+
+
+# ------------------------------------------------------------------ model
+class Model(nn.Module):
+    """One model per config.  Like the JAX ``Model``, every method takes
+    the parameter tree (``init`` / ``load``) as its first argument, so the
+    tests can hand it a tree carried across from the JAX package.
+
+    ``device=None`` means ``cuda`` and raises without a card unless the
+    caller passes ``device="cpu"``.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        unported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params: Optional[_ParamTree] = None
+
+    def spec(self):
+        return model_spec(self.cfg)
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Seeded parameters (``gen`` on this model's device), registered
+        on the module and returned as the nested dict."""
+        return self.load(init_tree(self.spec(), gen, self.device))
+
+    def load(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Register a parameter tree on the module and return it."""
+        self.params = _ParamTree(params)
+        return params
+
+    # -------------------------------------------------------------- encoder
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper encoder over precomputed frame embeddings (stub
+        frontend), sinusoidal positions, non-causal attention."""
+        cfg = self.cfg
+        dt = cfg.activation_dtype
+        S = frames.shape[1]
+        dev = frames.device
+        pos = torch.arange(S, device=dev, dtype=torch.float32)
+        half = cfg.d_model // 2
+        freqs = torch.exp(-torch.arange(half, device=dev,
+                                        dtype=torch.float32) / half
+                          * math.log(10_000.0))
+        ang = pos[:, None] * freqs[None, :]
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+        x = frames.to(dt) + pe.to(dt)
+        enc_cfg = dataclasses.replace(cfg, rope="none")
+        blocks = params["encoder"]["blocks"]
+        for i in range(cfg.encoder.n_layers):
+            bp = _index(blocks, i)
+            h = apply_norm(bp["ln1"], x, cfg.norm)
+            x = x + attn.gqa_train(bp["attn"], h, enc_cfg, causal=False)
+            h = apply_norm(bp["ln2"], x, cfg.norm)
+            x = x + apply_mlp(bp["ffn"], h, cfg.ffn)
+        return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
+
+    # ---------------------------------------------------------------- embed
+    def _embed_inputs(self, params, tokens: torch.Tensor,
+                      prefix: Optional[torch.Tensor]) -> torch.Tensor:
+        cfg = self.cfg
+        dt = cfg.activation_dtype
+        x = embed_lookup(params["embed"], tokens, dt)
+        if cfg.n_prefix:
+            if prefix is None:
+                raise ValueError("a stub-frontend model needs prefix embeds")
+            x = torch.cat([prefix.to(dt) @ params["prefix_proj"].to(dt), x],
+                          1)
+        return x
+
+    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = apply_norm(params["final_norm"], x, cfg.norm)
+        if cfg.tie_embeddings:
+            w = params["embed"].to(cfg.activation_dtype).T
+        else:
+            w = params["lm_head"].to(cfg.activation_dtype)
+        return x @ w
+
+    def _blocks(self, params, x, *, mode, caches=None, pos=None,
+                enc_out=None):
+        for i in range(self.cfg.n_blocks):
+            bc = _index(caches["blocks"], i) if caches is not None else None
+            x = _apply_block(_index(params["blocks"], i), x, self.cfg,
+                             mode=mode, caches=bc, pos=pos, enc_out=enc_out)
+        return x
+
+    # ---------------------------------------------------------------- train
+    def train_logits(self, params, batch: Dict[str, torch.Tensor]):
+        """batch: tokens (B,S) [+ prefix (B,P,D) | frames (B,F,D)] ->
+        (logits (B, S, V), aux loss 0: no MoE layer runs in the port)."""
+        cfg = self.cfg
+        enc_out = (self._encode(params, batch["frames"])
+                   if cfg.encoder is not None else None)
+        x = self._embed_inputs(params, batch["tokens"], batch.get("prefix"))
+        x = self._blocks(params, x, mode="train", enc_out=enc_out)
+        logits = self._head(params, x)
+        if cfg.n_prefix:
+            logits = logits[:, cfg.n_prefix:]
+        return logits, torch.zeros((), device=x.device)
+
+    # ---------------------------------------------------------------- serve
+    def prefill(self, params, batch: Dict[str, torch.Tensor], caches):
+        """Populate the caches (in place) for the prompt -> (last logits
+        (B, V), caches, encoder output or None)."""
+        cfg = self.cfg
+        enc_out = (self._encode(params, batch["frames"])
+                   if cfg.encoder is not None else None)
+        x = self._embed_inputs(params, batch["tokens"], batch.get("prefix"))
+        x = self._blocks(params, x, mode="prefill", caches=caches,
+                         enc_out=enc_out)
+        return self._head(params, x[:, -1:])[:, 0], caches, enc_out
+
+    def decode_step(self, params, token: torch.Tensor, caches, pos,
+                    enc_out=None):
+        """token (B, 1) int, pos the token's position (an int) ->
+        (logits (B, V), caches updated in place)."""
+        x = embed_lookup(params["embed"], token, self.cfg.activation_dtype)
+        x = self._blocks(params, x, mode="decode", caches=caches,
+                         pos=int(pos), enc_out=enc_out)
+        return self._head(params, x)[:, 0], caches

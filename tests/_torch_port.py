@@ -69,3 +69,36 @@ def assert_clear_margins(margins, bound=TIE):
 def stream(seed, n, d, scale=0.5):
     return (scale * np.random.default_rng(seed).standard_normal(
         (n, d))).astype(np.float32)
+
+
+def port_config(jcfg, **overrides):
+    """The port's ``ModelConfig`` with the field values of a JAX package
+    config (nested dataclasses rebuilt as the port's), then overrides."""
+    import dataclasses
+
+    from repro_torch.models import config as tc
+
+    kw = {}
+    for f in dataclasses.fields(jcfg):
+        v = getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = getattr(tc, type(v).__name__)(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return dataclasses.replace(tc.ModelConfig(**kw), **overrides)
+
+
+def model_pair(jcfg, *, seed=0, **port_overrides):
+    """(JAX Model, JAX params, port Model on the CPU, port params): the
+    JAX package's seeded init carried across key for key."""
+    import jax
+
+    from repro.models import Model as JModel
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.models import Model as TModel
+
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.PRNGKey(seed))
+    tm = TModel(port_config(jcfg, **port_overrides), device="cpu")
+    tp = tm.load(model_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu"))
+    return jm, jp, tm, tp

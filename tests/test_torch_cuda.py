@@ -137,3 +137,101 @@ def test_streamed_pod_step_matches_plain(cuda):
         assert torch.equal(ker.ld.feats, ref.ld.feats)
         torch.testing.assert_close(ker.ld.Linv, ref.ld.Linv, rtol=1e-5,
                                    atol=1e-5)
+
+
+# ---------------------------------------------------------- flash attention
+ATTN_SHAPES = [  # B, Hq, Hkv, Sq, Sk, dh: the JAX kernel tests' shapes
+    (1, 2, 2, 128, 128, 64),
+    (2, 4, 2, 256, 256, 64),  # GQA 2:1
+    (1, 8, 1, 128, 384, 128),  # MQA, rectangular
+    (2, 2, 2, 100, 100, 64),  # ragged (padding path)
+    (1, 4, 4, 64, 64, 32),  # small blocks
+]
+ATTN_CASES = [(*s, c) for s in ATTN_SHAPES for c in (True, False)
+              if not (c and s[3] != s[4])]  # causal needs Sq == Sk
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,dh,causal", ATTN_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, B, Hq, Hkv, Sq, Sk, dh,
+                                              causal, dtype):
+    from repro_torch.kernels.flash_attention import (KERNEL, attention_ref,
+                                                     flash_attention)
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(Sq + dh)
+    q = (0.5 * torch.randn(B, Hq, Sq, dh, generator=g, device=cuda)).to(dt)
+    k = (0.5 * torch.randn(B, Hkv, Sk, dh, generator=g, device=cuda)).to(dt)
+    v = torch.randn(B, Hkv, Sk, dh, generator=g, device=cuda).to(dt)
+    before = KERNEL.launches
+    got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    assert got.dtype == dt and got.shape == want.shape
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_kv_len_and_refusals(cuda):
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 4, 70, 64, generator=g, device=cuda)
+    k = torch.randn(2, 2, 90, 64, generator=g, device=cuda)
+    v = torch.randn(2, 2, 90, 64, generator=g, device=cuda)
+    for causal in (False, True):
+        got = flash_attention_cuda(q, k, v, causal=causal, kv_len=77)
+        want = attention_ref(q, k, v, causal=causal, kv_len=77)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention_cuda(q[..., :48].contiguous(),
+                             k[..., :48].contiguous(),
+                             v[..., :48].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_attention_cuda(q, k, v, kv_len=91)
+
+
+def test_whisper_encoder_kernel_route_matches_plain(cuda):
+    """The encoder at a reduced depth and Whisper-small's head width (64)
+    through the kernel, against the plain chunked route, float32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(
+        get_config("whisper-small", dtype="float32",
+                   use_pallas_attention=True), n_layers=2,
+        encoder=dataclasses.replace(get_config("whisper-small").encoder,
+                                    n_layers=2))
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    frames = torch.randn(2, 1500, cfg.d_model, generator=g, device=cuda)
+    before = KERNEL.launches
+    got = model._encode(params, frames)
+    assert KERNEL.launches == before + 2
+    plain = Model(dataclasses.replace(cfg, use_pallas_attention=False),
+                  device=cuda)
+    want = plain._encode(params, frames)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_flash_backend_cuda_refuses_cpu_tensors():
+    """Needs no card: the kernel route on a CPU tensor raises, it never
+    falls back to the plain version."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cuda)
+
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match="backend"):
+        flash_attention(q, q, q, backend="pallas")

@@ -1,0 +1,117 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""Port of the flash-attention kernel's Python side: ``attention_ref`` and
+``ops.flash_attention`` (its plain route on the CPU, with the padding
+the CUDA kernel gets) against the JAX package's ``attention_ref`` and
+its Pallas kernel in interpret mode, on the same numpy inputs."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+from repro.kernels.flash_attention import attention_ref as j_ref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+
+ATTN_SHAPES = [  # B, Hq, Hkv, Sq, Sk, dh: tests/test_kernels.py's shapes
+    (1, 2, 2, 128, 128, 64),
+    (2, 4, 2, 256, 256, 64),  # GQA 2:1
+    (1, 8, 1, 128, 384, 128),  # MQA, rectangular
+    (2, 2, 2, 100, 100, 64),  # ragged (padding path)
+    (1, 4, 4, 64, 64, 32),  # small blocks
+]
+ATTN_CASES = [(*s, c) for s in ATTN_SHAPES for c in (True, False)
+              if not (c and s[3] != s[4])]  # causal needs Sq == Sk
+TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+
+
+def _qkv(B, Hq, Hkv, Sq, Sk, dh, seed):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, Hq, Sq, dh).astype(np.float32) * 0.5
+    k = rng.randn(B, Hkv, Sk, dh).astype(np.float32) * 0.5
+    v = rng.randn(B, Hkv, Sk, dh).astype(np.float32)
+    return q, k, v
+
+
+def _t(*xs, dtype=torch.float32):
+    return [torch.from_numpy(x).to(dtype) for x in xs]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,dh,causal", ATTN_CASES)
+def test_flash_plain_route_matches_jax(B, Hq, Hkv, Sq, Sk, dh, causal):
+    """The port's padded plain route against JAX's ``attention_ref`` and
+    the Pallas kernel in interpret mode (blocks of 64, as the JAX tests
+    run it), float32."""
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Sk, dh, Sq + dh)
+    got = flash_attention(*_t(q, k, v), causal=causal, block_q=64,
+                          block_k=64).numpy()
+    want = np.asarray(j_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    kern = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal=causal, interpret=True,
+                              block_q=64, block_k=64))
+    np.testing.assert_allclose(got, kern, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_dtypes_match_jax(dtype, causal):
+    """bf16 and f32 inputs keep their dtype; within the JAX tests' bf16
+    and f32 tolerances of JAX's ``attention_ref`` on the same values."""
+    q, k, v = _qkv(1, 2, 2, 128, 128, 64, 3)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    tq, tk, tv = _t(q, k, v, dtype=getattr(torch, dtype))
+    got = flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == getattr(torch, dtype)
+    want = np.asarray(j_ref(jq, jk, jv, causal=causal), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_flash_causality():
+    """Perturbing future tokens must not change past outputs."""
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 128, 64).astype(np.float32))
+               for _ in range(3))
+    o1 = flash_attention(q, k, v, causal=True)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, 100:] = 123.0
+    v2[:, :, 100:] = -7.0
+    o2 = flash_attention(q, k2, v2, causal=True)
+    np.testing.assert_allclose(o1[:, :, :100].numpy(),
+                               o2[:, :, :100].numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_len,scale", [(77, None), (90, 0.3), (1, None)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_kv_len_and_scale_match_jax(kv_len, scale, causal):
+    q, k, v = _qkv(2, 4, 2, 90, 90, 32, kv_len)
+    got = attention_ref(*_t(q, k, v), causal=causal, scale=scale,
+                        kv_len=kv_len).numpy()
+    want = np.asarray(j_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal, scale=scale, kv_len=kv_len))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [1500, 100, 7])
+def test_flash_padding_is_invisible(S):
+    """Padding to the block multiple (1500 -> 1536, the Whisper encoder;
+    7 -> 8) and masking with kv_len = S gives the unpadded answer."""
+    q, k, v = _t(*_qkv(1, 2, 2, S, S, 32, S))
+    got = flash_attention(q, k, v, causal=False)
+    assert got.shape == q.shape
+    torch.testing.assert_close(got, attention_ref(q, k, v, causal=False),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_flash_torch_backend_is_the_cpu_route():
+    """``auto`` on a CPU tensor is the plain version, as ``torch`` is
+    (``backend="cuda"`` refusing CPU tensors: tests/test_torch_cuda.py)."""
+    q, k, v = _t(*_qkv(1, 4, 2, 40, 40, 32, 9))
+    for causal in (True, False):
+        torch.testing.assert_close(
+            flash_attention(q, k, v, causal=causal, backend="torch"),
+            flash_attention(q, k, v, causal=causal), rtol=0, atol=0)

@@ -76,7 +76,8 @@ def test_hyperparams_build_validation_messages(kw):
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch.serve.summarize, repro_torch.convert, "
-            "repro_torch.core.api; "
+            "repro_torch.core.api, repro_torch.launch.serve, "
+            "repro_torch.kernels.flash_attention; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.')) or m == 'repro']; "
             "print(bad); sys.exit(1 if bad else 0)")
