@@ -6,7 +6,7 @@
 Phases, one JSON line each; any failure ends the run with a non-zero
 exit and no result line:
 
-  1. build           the four CUDA kernels from the three sources in
+  1. build           the five CUDA kernels from the four sources in
                      ``src/repro_torch/csrc`` (one nvcc each, started
                      together), ptxas lines;
   2. gain            ``gain_traced`` against its plain version at B=1024,
@@ -70,7 +70,32 @@ exit and no result line:
                      rounding, which cannot see that fault).  Five
                      generates per route, prefill and decode timed by CUDA
                      events inside each (median and range); the idle share
-                     from one profiled generate.
+                     from one profiled generate;
+ 12. ssd             ``ssd_chunk_cuda`` against ``ssd_chunk_ref``: the
+                     Mamba2-370m prefill's tiles (b=8, L=2048, 32 heads,
+                     p=64, n=128, q=256) in bf16 with Adt = -softplus(N)
+                     and in float32 with slow decay (-0.01 softplus(N)),
+                     and the reduced config's (q=p=n=16, float32); Y and
+                     the states elementwise within 1e-5 (f32) / 2e-2
+                     (bf16) and within 1e-5 / 1e-2 of the largest
+                     output; the plain version with
+                     the diagonal dropped (strict tril) must fail that
+                     check in every case; timed beside the plain version
+                     (no PyTorch call computes this function);
+ 13. mamba           the slice's main path: Mamba2-370m at full width
+                     (seeded parameters) serving 8 requests of 2000 prompt
+                     tokens (padded inside each layer to 8 chunks of 256)
+                     through ``ServeDriver.generate`` (32 new tokens,
+                     greedy), each layer's prefill on the SSD kernel (48
+                     launches per generate, none in decode), held against
+                     the plain route (``ssd_chunks`` with backend
+                     ``torch``): in float32 the tokens equal and, on three
+                     input draws, the prefill logits within 1e-4, which
+                     the kernel route fed Adt shifted by one step must
+                     fail; in bfloat16 the logits within 5e-2 (a bound on
+                     rounding).  Five generates per route, timed as in
+                     ``whisper``; the idle share from one profiled
+                     generate.
 
 "Held against" (the summarization kernels): integers equal (n, j, t, n_fused,
 n_queries, accepted items); floats within rtol = atol = 1e-5 (f32 with a
@@ -139,6 +164,23 @@ WHISPER_B, WHISPER_PROMPT, WHISPER_NEW = 8, 16, 32
 WHISPER_REPS, WHISPER_DRAWS = 5, 3
 WHISPER_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TOKEN_TIE = 1e-3
+# phase ssd: (name, b, L, h, p, n, q, dtype, decay); Adt = -decay *
+# softplus(N(0, 1)) as in tests/test_ssd_kernel.py:15
+SSD_CASES = [
+    ("mamba2_prefill", 8, 2048, 32, 64, 128, 256, "bfloat16", 1.0),
+    ("mamba2_prefill_slow_f32", 8, 2048, 32, 64, 128, 256, "float32", 0.01),
+    ("reduced_f32", 2, 64, 8, 16, 16, 16, "float32", 1.0),
+]
+# elementwise rtol = atol, tests/test_ssd_kernel.py:35; and max|got -
+# want| / max|want| (one bf16 ulp is at most 2^-7 = 7.8e-3 of a value)
+SSD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SSD_SCALED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# phase mamba: slots, prompt tokens, new tokens; timed generates per route
+# and dtype; input draws; logit tolerances of the kernel route against the
+# plain one
+MAMBA_B, MAMBA_PROMPT, MAMBA_NEW = 8, 2000, 32
+MAMBA_REPS, MAMBA_DRAWS = 5, 3
+MAMBA_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 DEV = "cuda"
 
 
@@ -369,8 +411,9 @@ def phase_build(torch):
     from repro_torch.kernels.pod_step import KERNEL as POD
     from repro_torch.kernels.rbf_gain import KERNEL as GAIN
     from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
 
-    kernels = (GAIN, STATIC, POD, FLASH)
+    kernels = (GAIN, STATIC, POD, FLASH, SSD)
     t0 = time.perf_counter()
     build.build_all(list(kernels))
     sources = {k.source.name: k for k in kernels}  # gain kernels share one
@@ -1318,11 +1361,12 @@ def phase_whisper(torch, gen, seed):
     from repro_torch.kernels.pod_step import KERNEL as POD
     from repro_torch.kernels.rbf_gain import KERNEL as GAIN
     from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
     from repro_torch.models import Model, attention, init_cache
     from repro_torch.serve import ServeDriver, make_prefill_step
     from repro_torch.tree import leaves_with_keys
 
-    kernels = (GAIN, STATIC, POD, FLASH)
+    kernels = (GAIN, STATIC, POD, FLASH, SSD)
     B, P, N = WHISPER_B, WHISPER_PROMPT, WHISPER_NEW
     base = get_config("whisper-small", use_pallas_attention=True)
     n_frames = base.encoder.n_frames
@@ -1451,6 +1495,265 @@ def phase_whisper(torch, gen, seed):
          runs=runs)
     return {"launches": launches}
 
+def ssd_work(b, h, c, q, p, n, esize):
+    """The least work of one SSD intra-chunk call -> (FLOP, bytes): per
+    (batch, head, chunk) tile 2 n + 2 p FLOP per live (query, key) pair,
+    q (q + 1) / 2 pairs (the C.B score and the S.X product), and 2 n p per
+    key for the end-state; one read of X, Adt, B, C and one write of Y (in
+    the input type) and the float32 states."""
+    tiles = b * h * c
+    flops = tiles * (q * (q + 1) // 2 * (2 * n + 2 * p) + 2 * q * n * p)
+    nbytes = tiles * (esize * q * (2 * p + 2 * n + 1) + 4 * n * p)
+    return flops, nbytes
+
+
+def ssd_errors(torch, got, want, tol):
+    """-> (max abs error, error over the largest output, whether every
+    element is within rtol = atol = tol)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    return err, err / w.abs().max().item(), torch.allclose(g, w, rtol=tol,
+                                                           atol=tol)
+
+
+def _without_diagonal(X, B, C, Y):
+    """The planted fault of phase ssd: the plain output with the diagonal
+    of L (exp(0) = 1) dropped, so each step misses its own input: Y minus
+    (C_i . B_i) X_i."""
+    return (Y.float() - (C.float() * B.float()).sum(-1, keepdim=True)
+            * X.float()).to(Y.dtype)
+
+
+def phase_ssd(torch, gen):
+    """The SSD intra-chunk kernel against ``ssd_chunk_ref`` in the cases of
+    SSD_CASES, timed beside the plain version; in every case the plain
+    version without the diagonal must fail the check."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_cuda, ssd_chunk_ref,
+                                               ssd_chunks)
+
+    cases, max_err = [], 0.0
+    for name, b, L, h, p, n, q, dtype, decay in SSD_CASES:
+        dt = getattr(torch, dtype)
+        c = L // q
+        X = torch.randn(b, h, c, q, p, generator=gen, device=DEV).to(dt)
+        Adt = (-decay * F.softplus(torch.randn(b, h, c, q, generator=gen,
+                                               device=DEV))).to(dt)
+        B = torch.randn(b, h, c, q, n, generator=gen, device=DEV).to(dt)
+        C = torch.randn(b, h, c, q, n, generator=gen, device=DEV).to(dt)
+        Y, st = ssd_chunk_cuda(X, Adt, B, C)
+        Yr, sr = ssd_chunk_ref(X, Adt, B, C)
+        torch.cuda.synchronize()
+        tol, scaled_tol = SSD_TOL[dtype], SSD_SCALED_TOL[dtype]
+        if Y.dtype != dt or st.dtype != torch.float32 or not (
+                torch.isfinite(Y.float()).all() and torch.isfinite(st).all()):
+            fail(f"ssd {name}: Y {Y.dtype}, states {st.dtype}, or not finite")
+        y_err, y_scaled, y_ok = ssd_errors(torch, Y, Yr, tol)
+        s_err, s_scaled, s_ok = ssd_errors(torch, st, sr, tol)
+        if not (y_ok and s_ok) or max(y_scaled, s_scaled) > scaled_tol:
+            fail(f"ssd {name}: Y off by {y_err} ({y_scaled} of the largest), "
+                 f"states by {s_err} ({s_scaled}); tol {tol} / "
+                 f"{scaled_tol}")
+        bad = _without_diagonal(X, B, C, Yr)
+        c_err, c_scaled, c_ok = ssd_errors(torch, bad, Yr, tol)
+        if c_ok and c_scaled <= scaled_tol:
+            fail(f"ssd {name}: the check passes the plain version without "
+                 f"the diagonal ({c_err}, {c_scaled} of the largest)")
+        del bad
+        max_err = max(max_err, y_err, s_err)
+        flops, nbytes = ssd_work(b, h, c, q, p, n, X.element_size())
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16
+                           else PEAK_FP32)
+        b32_ms, b32_by = bound(flops, nbytes, PEAK_FP32)
+        ms = device_ms(torch, lambda: ssd_chunk_cuda(X, Adt, B, C),
+                       "ssd_chunk_kernel")
+        # the wrapper in the model's layout (the transposes and copies the
+        # prefill pays around each launch)
+        Xm = X.permute(0, 2, 3, 1, 4).reshape(b, L, h, p)
+        Am = Adt.permute(0, 2, 3, 1).reshape(b, L, h)
+        Bm = B.permute(0, 2, 3, 1, 4).reshape(b, L, h, n)
+        Cm = C.permute(0, 2, 3, 1, 4).reshape(b, L, h, n)
+        cases.append({
+            "case": name, "shape": [b, L, h, p, n, q], "dtype": dtype,
+            "decay": decay, "acum_min": Adt.float().sum(-1).min().item(),
+            "y_max_abs_err": y_err, "y_scaled_err": y_scaled,
+            "state_max_abs_err": s_err, "state_scaled_err": s_scaled,
+            "tol": tol, "scaled_tol": scaled_tol,
+            "max_abs_want": Yr.float().abs().max().item(),
+            "control_strict_tril_max_abs_err": c_err,
+            "control_strict_tril_scaled_err": c_scaled,
+            "ms": ms, "call_ms": timed_ms(torch, lambda: ssd_chunks(
+                Xm, Am, Bm, Cm, chunk=q, backend="cuda")),
+            "plain_ms": timed_ms(torch, lambda: ssd_chunk_ref(X, Adt, B, C)),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": b32_ms,
+            "bound_fp32_by": b32_by, "flops": flops, "bytes": nbytes,
+            "tflops": flops / ms / 1e9})
+        del X, Adt, B, C, Y, st, Yr, sr, Xm, Am, Bm, Cm
+    emit("ssd", cases=cases, max_abs_err=max_err, library=None)
+    return {"max_abs_err": max_err, **cases[0]}
+
+
+class _SsdRoute:
+    """Swap ``models.mamba.ssd_chunks``, the prefill's SSD route, for
+    ``fn`` for a block, then restore it."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from repro_torch.models import mamba
+
+        self.saved, mamba.ssd_chunks = mamba.ssd_chunks, self.fn
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba
+
+        mamba.ssd_chunks = self.saved
+
+
+def _plain_ssd(X, Adt, B, C, *, chunk):
+    """The plain route: ``ssd_chunks`` on its plain version."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+
+    return ssd_chunks(X, Adt, B, C, chunk=chunk, backend="torch")
+
+
+def _shifted_adt(X, Adt, B, C, *, chunk):
+    """A planted fault in the prefill's SSD route: the kernel fed Adt
+    shifted by one step (each step decays by its predecessor's dt A)."""
+    import torch
+
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+
+    shifted = torch.cat([Adt[:, :1], Adt[:, :-1]], 1)
+    return ssd_chunks(X, shifted, B, C, chunk=chunk, backend="cuda")
+
+
+def phase_mamba(torch, gen, seed):
+    """Mamba2-370m at full width serving 8 requests through
+    ``ServeDriver.generate`` with each layer's prefill on the CUDA SSD
+    kernel, held against the same run on the plain route, in float32 and
+    in bfloat16 (the config's dtype)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.kernels.rbf_gain import KERNEL as GAIN
+    from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.models import Model, init_cache
+    from repro_torch.serve import ServeDriver, make_prefill_step
+    from repro_torch.tree import leaves_with_keys
+
+    kernels = (GAIN, STATIC, POD, FLASH, SSD)
+    B, P, N = MAMBA_B, MAMBA_PROMPT, MAMBA_NEW
+    base = get_config("mamba2-370m")
+    draws = [torch.randint(0, base.vocab, (B, P), generator=gen, device=DEV,
+                           dtype=torch.int32) for _ in range(MAMBA_DRAWS)]
+    prompts = draws[0]  # the served requests
+    params = Model(base, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(seed))
+    n_params = sum(t.numel() for t in leaves_with_keys(params).values())
+    runs, launches = {}, None
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = Model(cfg, device=DEV)
+        max_seq = P + N + 8
+        tol = MAMBA_TOL[dtype]
+
+        # tokens: the kernel route against the plain route
+        driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
+        out = driver.generate(params, prompts, N)  # warms
+        gaps = []
+        ref_driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
+        ref_driver._prefill = _gap_recorder(torch, ref_driver._prefill, gaps,
+                                            0)
+        ref_driver._decode = _gap_recorder(torch, ref_driver._decode, gaps, 1)
+        with _SsdRoute(_plain_ssd):
+            ref_out = ref_driver.generate(params, prompts, N)
+        if out.shape != (B, P + N) or not torch.equal(out[:, :P], prompts):
+            fail(f"mamba {dtype}: output {tuple(out.shape)} does not extend "
+                 "the prompts")
+        if int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+            fail(f"mamba {dtype}: a token outside the vocabulary")
+        equal = int((out == ref_out).all(1).sum())
+        ties = (_first_diff(out, ref_out, P, gaps, "mamba float32")
+                if dtype == "float32" else None)  # bf16 holds logits only
+
+        # the main path: timed generates, launches counted in each
+        torch.cuda.reset_peak_memory_stats()
+        timing, lns = _generates(torch, driver, kernels, lambda: (
+            driver.generate(params, prompts, N)), N, MAMBA_REPS)
+        peak = torch.cuda.max_memory_allocated()
+        for ln in lns:
+            if ln["ssd_chunk"] != cfg.n_layers or any(
+                    v for k, v in ln.items() if k != "ssd_chunk"):
+                fail(f"mamba {dtype}: launches {ln}, expected "
+                     f"{cfg.n_layers} ssd_chunk per generate")
+        if dtype == base.dtype:
+            launches = lns[0]["ssd_chunk"]
+        ref_timed = ServeDriver(model=model, max_seq=max_seq, batch=B)
+
+        def plain_generate():
+            with _SsdRoute(_plain_ssd):
+                return ref_timed.generate(params, prompts, N)
+
+        plain_timing, plain_lns = _generates(torch, ref_timed, kernels,
+                                             plain_generate, N, MAMBA_REPS)
+        if any(v for ln in plain_lns for v in ln.values()):
+            fail(f"mamba {dtype}: the plain route launched {plain_lns}")
+
+        # prefill logits, kernel route against plain, on every input draw
+        # and under the planted fault
+        def prefill(pr):
+            caches = init_cache(cfg, B, max_seq, device=DEV)
+            with torch.inference_mode():
+                return make_prefill_step(model)(params, {"tokens": pr},
+                                                caches)[0]
+
+        def err(pr):
+            logits = prefill(pr)
+            with _SsdRoute(_plain_ssd):
+                ref = prefill(pr)
+            if not torch.isfinite(logits).all():
+                fail(f"mamba {dtype}: non-finite prefill logits")
+            return (logits.float() - ref.float()).abs().max().item()
+
+        logit_errs = [err(pr) for pr in draws]
+        if max(logit_errs) > tol:
+            fail(f"mamba {dtype}: prefill logits off by {logit_errs} "
+                 f"(tol {tol})")
+        with _SsdRoute(_shifted_adt):
+            control = err(prompts)
+        if dtype == "float32" and control <= tol:
+            fail(f"mamba float32: the check passes the shifted-Adt fault "
+                 f"(error {control}, tol {tol})")
+        runs[dtype] = {
+            "launches": lns[0], "generates": len(lns),
+            "tokens_equal_rows": equal, "near_ties": ties,
+            "min_plain_gap": min(min(g) for g in gaps),
+            "logits_max_abs_err": logit_errs, "tol": tol,
+            "control_shifted_adt_logits_max_abs_err": control,
+            **timing, "plain": plain_timing, "peak_mem_gib": peak / 2 ** 30}
+
+        if dtype == base.dtype:  # where the serving run's device time goes
+            wall, busy, by = _profile(torch, lambda: driver.generate(
+                params, prompts, N))
+            ssd = sum(t for t, _, k in by if "ssd_chunk_kernel" in k)
+            runs[dtype]["profile"] = {
+                "wall_ms": wall, "device_busy_ms": busy,
+                "idle_share": 1 - busy / wall, "ssd_ms": ssd,
+                "ssd_share_of_prefill": ssd / timing["prefill_ms"]["median"],
+                "top": [{"ms": t, "count": c, "kernel": k}
+                        for t, c, k in by[:12]]}
+    emit("mamba", arch="mamba2-370m", params=n_params,
+         params_analytic=base.param_count(), batch=B, prompt=P,
+         padded_to=-(-P // base.ssm.chunk) * base.ssm.chunk, new_tokens=N,
+         draws=MAMBA_DRAWS, runs=runs)
+    return {"launches": launches}
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1501,6 +1804,8 @@ def main(argv=None):
     paper = timed("paper", phase_paper, torch, gen)
     flash = timed("flash", phase_flash, torch, gen)
     whisper = timed("whisper", phase_whisper, torch, gen, args.seed)
+    ssd = timed("ssd", phase_ssd, torch, gen)
+    mamba = timed("mamba", phase_mamba, torch, gen, args.seed)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -1538,6 +1843,14 @@ def main(argv=None):
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
+         "launches": mamba["launches"],
+         "max_abs_err": ssd["max_abs_err"],
+         "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
+         "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+         "library_ms": None},
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms") + (

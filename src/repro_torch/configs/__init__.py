@@ -12,10 +12,11 @@ import dataclasses
 import importlib
 
 from repro_torch.models import ModelConfig
-from repro_torch.models.config import ROADMAP_MAMBA, ROADMAP_MOE_MLA
+from repro_torch.models.config import ROADMAP_MOE_MLA
 
 ARCHS = {
     "whisper-small": "whisper_small",
+    "mamba2-370m": "mamba2_370m",
 }
 UNPORTED = {  # the JAX package's other architectures
     "grok-1-314b": ROADMAP_MOE_MLA,
@@ -24,8 +25,7 @@ UNPORTED = {  # the JAX package's other architectures
     "chatglm3-6b": ROADMAP_MOE_MLA,
     "phi3-mini-3.8b": ROADMAP_MOE_MLA,
     "mistral-nemo-12b": ROADMAP_MOE_MLA,
-    "jamba-1.5-large-398b": ROADMAP_MAMBA,
-    "mamba2-370m": ROADMAP_MAMBA,
+    "jamba-1.5-large-398b": ROADMAP_MOE_MLA,
     "phi-3-vision-4.2b": ROADMAP_MOE_MLA,
 }
 

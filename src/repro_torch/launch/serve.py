@@ -5,12 +5,15 @@ generation for ``--arch <id> [--reduced]``.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \
         --batch 4 --prompt-len 16 --new-tokens 16 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --batch 8 --prompt-len 2000 --new-tokens 32
 
 ``--device`` defaults to ``cuda`` (and fails without a card); parameters
 come from the port's seeded init (``--seed``).  Full-sequence attention
 (Whisper's encoder) takes the flash-attention route
-(``use_pallas_attention=True``): the CUDA kernel on the card, its plain
-version on the CPU.
+(``use_pallas_attention=True``) and Mamba's prefill the SSD route
+(``models.mamba``): the CUDA kernels on the card, their plain versions
+on the CPU.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Port of ``repro.models``: the transformer stack (attention layers,
+"""Port of ``repro.models``: the model stack (attention and Mamba2 layers,
 dense FFNs, the Whisper encoder-decoder)."""
 from .config import (EncoderConfig, MLAConfig, MoEConfig, ModelConfig,
                      SSMConfig)

@@ -3,9 +3,10 @@
 
 The fields and their defaults are the JAX package's, so a configuration
 means the same in both packages.  The port runs attention layers (``A``)
-with dense FFNs (``D``) and the Whisper encoder; Mamba layers, MoE FFNs
-and MLA raise ``NotImplementedError`` (``unported``) naming the
-``ROADMAP.md`` item that ports them.
+and Mamba2 layers (``M``) with dense FFNs (``D``) or none (``-``), and
+the Whisper encoder; MoE FFNs, MLA and leading dense layers raise
+``NotImplementedError`` (``unported``) naming the ``ROADMAP.md`` item
+that ports them.
 """
 from __future__ import annotations
 
@@ -14,8 +15,6 @@ from typing import Optional
 
 import torch
 
-ROADMAP_MAMBA = ("ROADMAP.md section 1, 'Mamba2-370m prefill' "
-                 "(models/mamba.py with the ssd_chunk kernel)")
 ROADMAP_MOE_MLA = ("ROADMAP.md section 1, 'the remaining configs and "
                    "MoE/MLA'")
 
@@ -209,11 +208,7 @@ class ModelConfig:
 def unported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for the parts of ``cfg`` the port does
     not run yet, naming the ``ROADMAP.md`` item that ports each."""
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     ffns = {cfg.ffn_kind(i) for i in range(cfg.n_layers)}
-    if "M" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba layers are not ported yet; {ROADMAP_MAMBA}")
     if cfg.mla is not None or "E" in ffns or cfg.first_k_dense:
         raise NotImplementedError(
             f"{cfg.name}: MLA, MoE FFNs and leading dense layers are not "

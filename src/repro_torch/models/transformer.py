@@ -1,13 +1,13 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
 """Port of ``repro.models.transformer``: decoder-only LMs with attention
-layers and dense FFNs, and enc-dec (Whisper), one ``Model`` per
-``ModelConfig``.
+or Mamba2 (SSD) layers and dense FFNs, and enc-dec (Whisper), one
+``Model`` per ``ModelConfig``.
 
 Layers are grouped into superblocks of ``cfg.block_size`` consecutive
 layers whose parameters are stacked along a leading ``blocks`` axis, as
 in the JAX package; a Python loop over that axis takes the place of
-``lax.scan``.  Mamba layers, MoE FFNs and MLA raise ``NotImplementedError``
-(``config.unported``).
+``lax.scan``.  MoE FFNs, MLA and leading dense layers raise
+``NotImplementedError`` (``config.unported``).
 
 Entry points:
   * ``train_logits``  the training forward
@@ -26,6 +26,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import mamba as mb
 from .config import ModelConfig, unported
 from .layers import (ParamDef, apply_mlp, apply_norm, embed_lookup,
                      embed_spec, init_tree, mlp_spec, norm_spec, stack_spec,
@@ -34,9 +35,13 @@ from .layers import (ParamDef, apply_mlp, apply_norm, embed_lookup,
 
 # ------------------------------------------------------------------ specs
 def _layer_spec(cfg: ModelConfig, i: int, *, decoder_cross: bool) -> Dict:
-    s: Dict[str, Any] = {"ln1": norm_spec(cfg.d_model, cfg.norm),
-                         "attn": attn.gqa_spec(cfg)}
-    if decoder_cross:
+    kind = cfg.layer_kind(i)
+    s: Dict[str, Any] = {"ln1": norm_spec(cfg.d_model, cfg.norm)}
+    if kind == "M":
+        s["mamba"] = mb.mamba_spec(cfg)
+    else:
+        s["attn"] = attn.gqa_spec(cfg)
+    if decoder_cross and kind == "A":
         s["cross_ln"] = norm_spec(cfg.d_model, cfg.norm)
         s["cross"] = attn.cross_spec(cfg)
     if cfg.ffn_kind(i) != "-":
@@ -79,15 +84,23 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 # ----------------------------------------------------------------- caches
+def _layer_cache(cfg: ModelConfig, i: int, batch: int, max_seq: int, dtype,
+                 device):
+    if cfg.layer_kind(i) == "M":
+        return mb.mamba_init_cache(cfg, batch, dtype, device)
+    return attn.gqa_init_cache(cfg, batch, max_seq, dtype, device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
                device) -> Dict[str, Any]:
-    """{'blocks': {l<j>: {'k', 'v'} stacked (n_blocks, ...)}}, zeros."""
+    """{'blocks': {l<j>: layer cache stacked (n_blocks, ...)}}, zeros: an
+    attention layer's {'k', 'v'}, a Mamba layer's {'conv', 'ssm'}."""
     unported(cfg)
     dtype = dtype or cfg.activation_dtype
     return {"blocks": {
         f"l{j}": tree_map(
             lambda t: t.expand(cfg.n_blocks, *t.shape).clone(),
-            attn.gqa_init_cache(cfg, batch, max_seq, dtype, device))
+            _layer_cache(cfg, j, batch, max_seq, dtype, device))
         for j in range(cfg.block_size)}}
 
 
@@ -102,7 +115,14 @@ def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, i: int, *, mode: str,
     """One sublayer in mode 'train' | 'prefill' | 'decode' -> (x, cache);
     the cache is updated in place."""
     h = apply_norm(p["ln1"], x, cfg.norm)
-    if mode == "train":
+    if cfg.layer_kind(i) == "M":
+        if mode == "train":
+            h = mb.mamba_train(p["mamba"], h, cfg)
+        elif mode == "prefill":
+            h, cache = mb.mamba_prefill(p["mamba"], h, cache, cfg)
+        else:
+            h, cache = mb.mamba_decode(p["mamba"], h, cache, cfg)
+    elif mode == "train":
         h = attn.gqa_train(p["attn"], h, cfg)
     elif mode == "prefill":
         h, cache = attn.gqa_prefill(p["attn"], h, cache, cfg)

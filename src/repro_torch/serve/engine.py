@@ -2,8 +2,8 @@
 """Batched serving (port of ``repro/serve/engine.py``): prefill and
 decode step factories and a request driver.
 
-The KV cache is contiguous and fixed-shape (B, max_seq, ...), updated in
-place.  The steps run eagerly: the JAX package's ``jax.jit`` has no
+The caches are fixed-shape and updated in place: an attention layer's KV
+cache (B, max_seq, ...), a Mamba layer's conv window and SSM state.  The steps run eagerly: the JAX package's ``jax.jit`` has no
 counterpart here.
 """
 from __future__ import annotations

@@ -235,3 +235,128 @@ def test_flash_backend_cuda_refuses_cpu_tensors():
         flash_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match="backend"):
         flash_attention(q, q, q, backend="pallas")
+
+
+# ------------------------------------------------------------------ SSD
+SSD_SHAPES = [  # b, h, c, q, p, n
+    (1, 1, 1, 16, 16, 16),  # the reduced config's tile (16/16/16)
+    (2, 3, 4, 16, 16, 16),
+    (1, 2, 4, 32, 32, 16),
+    (2, 1, 2, 48, 64, 128),  # mamba2-370m head_dim / d_state, q = 48
+    (1, 2, 2, 256, 64, 128),  # the mamba2-370m tile
+    (1, 1, 2, 256, 128, 32),
+]
+
+
+def _ssd_inputs(cuda, b, h, c, q, p, n, dtype, decay=1.0, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    X = torch.randn(b, h, c, q, p, generator=g, device=cuda)
+    Adt = -decay * torch.nn.functional.softplus(
+        torch.randn(b, h, c, q, generator=g, device=cuda))
+    B = torch.randn(b, h, c, q, n, generator=g, device=cuda)
+    C = torch.randn(b, h, c, q, n, generator=g, device=cuda)
+    dt = getattr(torch, dtype)
+    return [t.to(dt) for t in (X, Adt, B, C)]
+
+
+@pytest.mark.parametrize("decay", [1.0, 0.01])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,c,q,p,n", SSD_SHAPES)
+def test_ssd_chunk_kernel_matches_plain(cuda, b, h, c, q, p, n, dtype,
+                                        decay):
+    from repro_torch.kernels.ssd_chunk import KERNEL, ssd_chunk_cuda
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+
+    X, Adt, B, C = _ssd_inputs(cuda, b, h, c, q, p, n, dtype, decay, q + n)
+    before = KERNEL.launches
+    Y, st = ssd_chunk_cuda(X, Adt, B, C)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    Yr, sr = ssd_chunk_ref(X, Adt, B, C)
+    assert Y.dtype == X.dtype and st.dtype == torch.float32
+    assert Y.shape == Yr.shape and st.shape == sr.shape
+    assert torch.isfinite(Y.float()).all() and torch.isfinite(st).all()
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5  # tests/test_ssd_kernel.py
+    torch.testing.assert_close(Y.float(), Yr.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(st, sr, rtol=tol, atol=tol)
+
+
+def test_ssd_chunks_kernel_route_matches_plain(cuda):
+    """The model-layout wrapper: kernel route against plain route."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, L, h, p, n = 2, 512, 4, 64, 128
+    X = torch.randn(b, L, h, p, generator=g, device=cuda)
+    Adt = -torch.nn.functional.softplus(torch.randn(b, L, h, generator=g,
+                                                    device=cuda))
+    B = torch.randn(b, L, h, n, generator=g, device=cuda)
+    C = torch.randn(b, L, h, n, generator=g, device=cuda)
+    Y, st = ssd_chunks(X, Adt, B, C, chunk=256, backend="cuda")
+    Yr, sr = ssd_chunks(X, Adt, B, C, chunk=256, backend="torch")
+    assert st.shape == (b, 2, h, p, n)
+    torch.testing.assert_close(Y, Yr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(st, sr, rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_chunk_kernel_refusals(cuda):
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
+
+    X, Adt, B, C = _ssd_inputs(cuda, 1, 1, 1, 32, 16, 16, "float32")
+    with pytest.raises(TypeError, match="dtype"):
+        ssd_chunk_cuda(X.half(), Adt.half(), B.half(), C.half())
+    with pytest.raises(ValueError, match="Adt"):
+        ssd_chunk_cuda(X, Adt.bfloat16(), B, C)
+    with pytest.raises(ValueError, match="width"):
+        ssd_chunk_cuda(torch.cat([X, X[..., :8]], -1).contiguous(), Adt, B,
+                       C)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_chunk_cuda(X[..., :24, :].contiguous(),
+                       Adt[..., :24].contiguous(), B[..., :24, :]
+                       .contiguous(), C[..., :24, :].contiguous())
+    big = _ssd_inputs(cuda, 1, 1, 1, 272, 16, 16, "float32")
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_chunk_cuda(*big)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk_cuda(X.transpose(-1, -2).contiguous().transpose(-1, -2),
+                       Adt, B, C)
+
+
+def test_mamba2_layer_kernel_route_matches_plain(cuda):
+    """One Mamba2-370m layer at full width through ``mamba_prefill`` on the
+    kernel route, against the same layer on the plain route, float32; one
+    kernel launch per layer."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import KERNEL
+    from repro_torch.models import Model, init_cache
+    from repro_torch.models import mamba
+
+    cfg = dataclasses.replace(get_config("mamba2-370m", dtype="float32"),
+                              n_layers=1)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 500), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    route = mamba.ssd_chunks
+    out = {}
+    for backend in ("auto", "torch"):
+        mamba.ssd_chunks = functools.partial(route, backend=backend)
+        try:
+            caches = init_cache(cfg, 2, 512, device=cuda)
+            before = KERNEL.launches
+            with torch.inference_mode():
+                logits, caches, _ = model.prefill(params, {"tokens": tokens},
+                                                  caches)
+            launched = KERNEL.launches - before
+        finally:
+            mamba.ssd_chunks = route
+        out[backend] = (logits, caches["blocks"]["l0"]["ssm"], launched)
+    assert out["auto"][2] == 1 and out["torch"][2] == 0
+    torch.testing.assert_close(out["auto"][0], out["torch"][0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(out["auto"][1], out["torch"][1], rtol=1e-4,
+                               atol=1e-4)
