@@ -11,7 +11,8 @@ exit and no result line:
                      together), ptxas lines;
   2. gain            ``gain_traced`` against its plain version at B=1024,
                      K=100, d=256, n in {0, 37, 100}, both kernel kinds,
-                     two inv2l2;
+                     two inv2l2 (device time per call: the gain kernel and
+                     its first pass over the summaries' norms);
   3. pod_step        the kernel against ``pod_step_ref`` (16 sessions,
                      K=100, d=256, C=1024, three tiers): ragged counts, a
                      C=1 chunk, a saturating chunk, a round after it;
@@ -30,7 +31,8 @@ exit and no result line:
                      ``gain`` at B=65,536 (a Greedy round) and B=1 (an ISI
                      query);
   7. gain_stacked    ``gain_traced`` over I=147 stacked summaries (Salsa
-                     at K=100, eps=0.1: 3 rules x 49 rungs), B=1024;
+                     at K=100, eps=0.1: 3 rules x 49 rungs), B=1024, and
+                     over I=49 of them (SieveStreaming's stack), timed;
   8. pod_step_large  the pod step past what shared memory could hold:
                      8 sessions at K_max=512 (tiers 128/256/512: ragged
                      fill, saturating, after saturation), then one ragged
@@ -56,7 +58,11 @@ exit and no result line:
                      1e-4 (f32) / 1e-2 (bf16) of the largest output; the
                      kernel told to keep the padded keys must fail that
                      check; timed beside the plain version and
-                     ``scaled_dot_product_attention``;
+                     ``scaled_dot_product_attention``; the route each
+                     dtype ran (bf16: the tensor-core kernel, f32: the
+                     CUDA-core one, from the profiler's kernel names), and
+                     before it a ``flash_sass`` line counting HGMMA / HMMA
+                     in the built library (none fails the run);
  11. whisper         the slice's main path: Whisper-small at full width
                      (seeded parameters) serving 8 requests of 1500 frames
                      and 16 prompt tokens through ``ServeDriver.generate``
@@ -70,7 +76,8 @@ exit and no result line:
                      rounding, which cannot see that fault).  Five
                      generates per route, prefill and decode timed by CUDA
                      events inside each (median and range); the idle share
-                     from one profiled generate;
+                     from one profiled generate, in which all 12 bf16
+                     encoder launches must be the tensor-core kernel;
  12. ssd             ``ssd_chunk_cuda`` against ``ssd_chunk_ref``: the
                      Mamba2-370m prefill's tiles (b=8, L=2048, 32 heads,
                      p=64, n=128, q=256) in bf16 with Adt = -softplus(N)
@@ -128,6 +135,7 @@ PEAK_BW = 3.35e12  # bytes/s, H100 SXM HBM3
 K_MAX, D, CHUNK, SESSIONS = 100, 256, 1024, 256
 GREEDY_B = 65536  # a Greedy round over the paper phase's ground set
 SALSA_I = 147  # Salsa's stack at K=100, eps=0.1: 3 rules x 49 rungs
+SIEVE_I = 49  # SieveStreaming(++)'s stack: 49 rungs
 PAPER_CHUNKS, PAPER_EPS, BASELINE_ITEMS = 64, 0.1, 4096
 # the paper phase's stream: 8 tight clusters per chunk (in-cluster rbf
 # ~exp(-0.09) at the stream lengthscale), drawn afresh for every chunk, so
@@ -208,12 +216,19 @@ def timed_ms(torch, fn, *, reps=20, warmup=3, setup=None):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernel, *, reps=20, setup=None):
-    """Mean device time (ms) of the CUDA kernel whose name contains
-    ``kernel``, over ``reps`` calls, from ``torch.profiler``; fails when
-    the profiler saw no device time for it."""
+def device_ms(torch, fn, kernels, *, reps=20, setup=None, seen=None):
+    """Device time (ms) per call of ``fn``: the time of every CUDA kernel
+    whose name contains one of ``kernels`` (a name or a tuple: all the
+    kernels one call launches, the call's own kernel first), summed and
+    divided by the number of calls, from ``torch.profiler`` over ``reps``
+    calls.  The profiler may miss the first launches of its window (15 of
+    20 seen on the H100), so the calls are counted by the events of the
+    call's own kernel, one per call, not taken as ``reps``.  Fails when
+    the profiler saw no device time for it.  ``seen`` collects {name:
+    count}."""
     from torch.profiler import ProfilerActivity, profile
 
+    kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
     argsets = [setup() if setup else () for _ in range(reps)]
     fn(*argsets[0])  # warm
     argsets[0] = setup() if setup else ()
@@ -222,17 +237,20 @@ def device_ms(torch, fn, kernel, *, reps=20, setup=None):
         for args in argsets:
             fn(*args)
         torch.cuda.synchronize()
-    total, count = 0.0, 0
+    total, calls = 0.0, 0
     for ev in prof.key_averages():
-        if kernel in ev.key:
+        if any(k in ev.key for k in kernels):
             t = getattr(ev, "self_device_time_total", None)
             if t is None:
                 t = getattr(ev, "self_cuda_time_total", 0.0)
             total += t
-            count += ev.count
-    if not count or total <= 0:
-        fail(f"the profiler saw no device time for {kernel}")
-    return total / count / 1e3
+            if kernels[0] in ev.key:
+                calls += ev.count
+            if seen is not None and t > 0:
+                seen[ev.key[:90]] = seen.get(ev.key[:90], 0) + ev.count
+    if not calls or total <= 0:
+        fail(f"the profiler saw no device time for {kernels[0]}")
+    return total / calls / 1e3
 
 
 def host_ms(torch, fn):
@@ -247,6 +265,12 @@ def bound(flops, nbytes, peak=PEAK_FP32):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+# the kernels one gain call launches: the summaries' norms, then the pass
+GAIN_TRACED_KERNELS = ("gain_traced_kernel", "gain_norms_kernel")
+GAIN_STATIC_KERNELS = ("gain_static_kernel", "gain_norms_kernel")
+FLASH_KERNELS = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
 
 
 def gain_work(B, ns):
@@ -417,13 +441,32 @@ def phase_build(torch):
     t0 = time.perf_counter()
     build.build_all(list(kernels))
     sources = {k.source.name: k for k in kernels}  # gain kernels share one
-    ptxas = [ln.strip() for k in sources.values()
-             for ln in k.ptxas_log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = [f"{entry}: {' '.join(ln.strip() for ln in info)}"
+             for k in sources.values()
+             for entry, info in _ptxas_entries(k.ptxas_log)]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_source_seconds={name: k.build_seconds
                              for name, k in sources.items()},
          ptxas=ptxas, nvcc=build.nvcc_path())
+
+
+def _ptxas_entries(log):
+    """(kernel<template arguments>, [spill line, registers line]) per
+    entry function of a ``-Xptxas -v`` log."""
+    import re
+
+    out = []
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            m = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E|f)+)E)?", ln)
+            name = m.group(1) if m else ln.split()[-1]
+            if m and m.group(3):
+                args = re.findall(r"Li(\d+)E|(f)", m.group(3))
+                name += "<" + ",".join(a or "float" for a, _ in args) + ">"
+            out.append((name, []))
+        elif out and ("registers" in ln or "spill" in ln):
+            out[-1][1].append(ln.replace("ptxas info    :", "").strip())
+    return out
 
 
 def _summary_state(torch, f, kern, X, n):
@@ -470,7 +513,7 @@ def phase_gain(torch, gen):
                 if kind == 0 and inv2l2 == D / 2.0 and n == K_MAX:
                     call = timed_ms(torch, lambda: gain_traced(*args, a=f.a))
                     dev = device_ms(torch, lambda: gain_traced(*args, a=f.a),
-                                    "gain_traced_kernel")
+                                    GAIN_TRACED_KERNELS)
                     plain = timed_ms(torch, lambda: gain_traced_ref(
                         X, st.feats, st.Linv, nt[0], kern, a=f.a))
                     b_ms, b_by = bound(*gain_work(B, [n]))
@@ -527,7 +570,8 @@ def phase_gain_static(torch, gen):
                     if kind == "rbf" and inv2l2 == D / 2.0 and n == K_MAX:
                         b_ms, b_by = bound(*gain_work(B, [n]))
                         timing[B] = {
-                            "ms": device_ms(torch, kern, "gain_static_kernel"),
+                            "ms": device_ms(torch, kern,
+                                            GAIN_STATIC_KERNELS),
                             "call_ms": timed_ms(torch, kern),
                             "plain_ms": timed_ms(torch, plain),
                             "bound_ms": b_ms, "bound_by": b_by,
@@ -577,11 +621,33 @@ def phase_gain_stacked(torch, gen):
         cases.append({"kind": kind, "max_abs_err": e})
         if kind == 0:
             b_ms, b_by = bound(*gain_work(B, ns))
-            timing = {"ms": device_ms(torch, kernel, "gain_traced_kernel"),
+            timing = {"ms": device_ms(torch, kernel, GAIN_TRACED_KERNELS),
                       "call_ms": timed_ms(torch, kernel),
                       "plain_ms": timed_ms(torch, plain),
                       "bound_ms": b_ms, "bound_by": b_by,
                       "shape": [SALSA_I, B, K_MAX, D]}
+            # SieveStreaming's stack (I = 49, one rule): every third
+            # instance, so its n spread like Salsa's
+            sub = [t[::3].contiguous() for t in (st.feats, st.Linv, st.n)]
+            got = gain_traced(X, *sub, kern.inv2l2.reshape(1),
+                              kern.kind_id.reshape(1), a=f.a)
+            want = gain_traced_ref(X, *sub, kern, a=f.a)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            if got.shape != (SIEVE_I, B) or not torch.allclose(
+                    got, want, rtol=RTOL, atol=ATOL):
+                fail(f"gain_traced (I={SIEVE_I}): shape {tuple(got.shape)},"
+                     f" max err {e}")
+            max_err = max(max_err, e)
+            sb_ms, sb_by = bound(*gain_work(B, ns[::3]))
+            timing["sieve"] = {
+                "ms": device_ms(torch, lambda: gain_traced(
+                    X, *sub, kern.inv2l2.reshape(1), kern.kind_id.reshape(1),
+                    a=f.a), GAIN_TRACED_KERNELS),
+                "plain_ms": timed_ms(torch, lambda: gain_traced_ref(
+                    X, *sub, kern, a=f.a)),
+                "bound_ms": sb_ms, "bound_by": sb_by, "max_abs_err": e,
+                "shape": [SIEVE_I, B, K_MAX, D]}
     emit("gain_stacked", instances=SALSA_I, cases=cases, max_abs_err=max_err,
          **timing)
     return {"max_abs_err": max_err, **timing}
@@ -1162,10 +1228,17 @@ def phase_flash(torch, gen):
     check."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (attention_ref,
+    from repro_torch.kernels.flash_attention import (KERNEL, ROUTES,
+                                                     attention_ref,
                                                      flash_attention,
                                                      flash_attention_cuda)
 
+    # the built library's SASS: the bf16 kernel's products on the tensor
+    # cores show as HGMMA (wgmma) or HMMA (mma.sync)
+    sass = sass_counts(KERNEL, ("HGMMA", "HMMA", "UTMALDG"))
+    emit("flash_sass", library=KERNEL.so_path().name, **sass)
+    if not (sass["HGMMA"] or sass["HMMA"]):
+        fail(f"flash: no tensor-core instruction in the SASS ({sass})")
     cases, max_err = [], 0.0
     for name, B, Hq, Hkv, S, dh, causal, dtype, std in FLASH_CASES:
         dt = getattr(torch, dtype)
@@ -1212,9 +1285,17 @@ def phase_flash(torch, gen):
                                    q.element_size())
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16
                            else PEAK_FP32)
-        ms = device_ms(torch, kernel, "flash_attention_kernel")
+        seen = {}
+        ms = device_ms(torch, kernel, FLASH_KERNELS[::-1] if dtype ==
+                       "bfloat16" else FLASH_KERNELS, seen=seen)
+        ran = ("tensor-core" if any("wgmma" in k for k in seen)
+               else "cuda-core")
+        if len(seen) != 1 or not ROUTES[dt].startswith(ran):
+            fail(f"flash {name}: {dtype} ran {sorted(seen)}, expected the "
+                 f"{ROUTES[dt]} kernel alone")
         cases.append({
-            "case": name, "shape": [B, Hq, Hkv, S, dh], "causal": causal,
+            "case": name, "route": ran, "kernels_seen": seen,
+            "shape": [B, Hq, Hkv, S, dh], "causal": causal,
             "dtype": dtype, "qk_std": std, "padded_to": S + pad,
             "max_abs_err": e, "tol": tol, "max_abs_want": size,
             "scaled_err": e / size, "scaled_tol": scaled_tol,
@@ -1229,8 +1310,21 @@ def phase_flash(torch, gen):
             "bound_by": b_by, "flops": flops, "bytes": nbytes,
             "tflops": flops / ms / 1e9})
     emit("flash", cases=cases, max_abs_err=max_err,
+         routes={str(k).replace("torch.", ""): v for k, v in ROUTES.items()},
          library="torch.nn.functional.scaled_dot_product_attention")
     return {"max_abs_err": max_err, **cases[0]}
+
+
+def sass_counts(kernel, opcodes):
+    """How often each opcode appears in the SASS of a kernel's built
+    library (``cuobjdump --dump-sass``, beside ``nvcc``)."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-sass", str(kernel.so_path())],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    return {op: out.count(op) for op in opcodes}
 
 
 def _gap_recorder(torch, step, gaps, at):
@@ -1481,11 +1575,18 @@ def phase_whisper(torch, gen, seed):
         if dtype == base.dtype:  # where the serving run's device time goes
             wall, busy, by = _profile(torch, lambda: driver.generate(
                 params, prompts, N, frontend=fe))
-            flash = sum(t for t, _, k in by if "flash_attention_kernel" in k)
+            flash = sum(t for t, _, k in by
+                        if any(f in k for f in FLASH_KERNELS))
+            tc = sum(c for _, c, k in by if "flash_attention_wgmma_kernel" in k)
+            if dtype == "bfloat16" and tc != cfg.encoder.n_layers:
+                fail(f"whisper bf16: {tc} flash launches on the tensor "
+                     f"cores in one generate, expected "
+                     f"{cfg.encoder.n_layers}")
             pre_ms = timing["prefill_ms"]["median"]
             runs[dtype]["profile"] = {
                 "wall_ms": wall, "device_busy_ms": busy,
                 "idle_share": 1 - busy / wall, "flash_ms": flash,
+                "flash_tensor_core_launches": tc,
                 "flash_share_of_encoder": flash / enc_ms,
                 "flash_share_of_prefill": flash / pre_ms,
                 "top": [{"ms": t, "count": c, "kernel": k}

@@ -16,33 +16,84 @@
 // ``p.astype(v.dtype)`` does in the Pallas body; the row sum takes the
 // unrounded p, as there.
 //
-// Grid: (ceil(Sq / BQ), Hq, B), one block of 16 x 16 threads per
-// (batch, query head, BQ = 64 query rows).  The block keeps its Q tile in
-// shared memory and walks the kv tiles of BK = 64 keys, staging K and V in
-// shared memory as float.  Query head h reads kv head h / (Hq / Hkv), with
-// no repeat.  When causal, the kv tiles strictly above the diagonal of the
-// block (first key past its last query) are not visited.  Thread (ty, tx)
-// owns query rows ty + 16 i (i < 4): its running max, sum and the output
-// columns tx + 16 c (c < dh / 16) live in registers; it computes the
-// scores of those rows against keys tx + 16 j (j < 4), and a row's max and
-// sum are reduced over the 16 lanes of its half-warp with shuffles.  Rows
-// and keys past Sq / Sk are loaded as zeros; keys past kv_len are masked,
-// rows past Sq are not written, so any Sq, Sk works (the wrapper pads to
-// the block multiples of the TPU kernel all the same).
+// Two kernels, chosen by the input's type (never one for the other):
+//
+// * bfloat16 -> flash_attention_wgmma_kernel, on the tensor cores (namespace
+//   tc below);
+// * float32 -> flash_attention_kernel, FP32 FMAs on the CUDA cores.  wgmma
+//   has no FP32 input, and TF32 (10-bit mantissa) would break the float32
+//   gates of 2e-4 / 1e-4.
 //
 // Bound on this card (chip_smoke.py, flash_work): 4 B Hq dh FLOP per live
 // (query, key) pair and one read of q, k, v and one write of o.  At the
 // Whisper-small encoder shape (B = 8, Hq = 12, S = 1500, dh = 64, bf16)
 // that is 55 GFLOP against 74 MB: 0.056 ms at the bf16 tensor-core peak,
-// operations-bound.  This kernel runs its products on the CUDA cores in
-// FP32 FMAs fed from shared memory (eight loads per sixteen FMAs), so it
-// sits at best near the 67 TFLOP/s FP32 peak and in practice well below
-// it; wmma/wgmma tiles and TMA staging are later work.
+// operations-bound.
+//
+// The tensor-core kernel (FA3's design in its simple form).  Grid
+// (ceil(Sq / 128), Hq, B), heaviest query tile first when causal; a block
+// of three warpgroups owns 128 query rows of one (batch, query head).
+// Warpgroup 0 is the producer: after giving up registers (setmaxnreg) one
+// thread loads the Q tile once and then K and V tiles of 128 keys by TMA
+// into a ring of two stages, each with a "full" mbarrier (TMA bytes
+// arrive) and an "empty" one (all 256 consumer threads are done with it).
+// Warpgroups 1 and 2 are consumers of 64 query rows each: S = Q K^T is
+// wgmma m64n128k16 (bf16 in, f32 out, both operands in shared memory,
+// K-major); the online softmax runs on the accumulator fragments in
+// registers, a row's max and sum reduced over the four lanes that hold it;
+// P is rounded to bf16 in registers and is wgmma's register A operand for
+// O += P V (m64n{dh}k16, V from shared memory, MN-major, so transposed).
+// Query head h reads kv head h / (Hq / Hkv).  When causal, kv tiles wholly
+// above the block's diagonal are not visited.
+//
+// Where it can go wrong, and what the code does about it:
+// * TMA descriptors come from the driver (cuTensorMapEncodeTiled), reached
+//   through cudaGetDriverEntryPoint so the ctypes library builds with the
+//   runtime alone (kernels/build.py: NVCC_FLAGS, no -lcuda).  They are
+//   encoded in the C launch function on every call, since the pointers
+//   change, and passed as const __grid_constant__ CUtensorMap.
+// * Each map views a tensor as (B*H, S, dh): global strides of dh * 2 and
+//   S * dh * 2 bytes are multiples of 16 for dh in {32, 64, 128}, and a
+//   box never crosses from one head into the next: rows past S read as
+//   zeros.  The wrapper still pads S to the TPU kernel's blocks, but at
+//   S < 128 (or S = 100) the box is longer than the tensor; keys at or
+//   past Sk get -inf (they do not exist), keys at or past kv_len -1e30.
+// * The swizzle of the TMA box (128 B; 64 B at dh = 32) must match the
+//   layout field of the wgmma descriptors, with tiles 1024-byte aligned;
+//   a mismatch gives plausible garbage, not a fault, which
+//   tests/test_torch_cuda.py holds against attention_ref at small shapes.
+//   K-major operands step 32 bytes along a 128-byte (64-byte) row per k16
+//   step; V (MN-major) steps 16 rows, with LBO the stride between column
+//   blocks and SBO that between groups of 8 rows.
+// * wgmma.fence precedes each batch of products (the accumulators were
+//   written by ordinary instructions), and commit_group / wait_group 0
+//   come before the softmax reads S and before a stage is released.
+// * The 12-warp block gets 64,512 registers through setmaxnreg: 40 a
+//   producer thread, 232 a consumer thread; the roles never reconverge.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
+#include <cstdint>
+
 namespace {
 
+// ======================================================================
+// float32: the CUDA-core kernel
+// ======================================================================
+// Grid: (ceil(Sq / BQ), Hq, B), one block of 16 x 16 threads per
+// (batch, query head, BQ = 64 query rows).  The block keeps its Q tile in
+// shared memory and walks the kv tiles of BK = 64 keys, staging K and V in
+// shared memory as float.  When causal, the kv tiles strictly above the
+// diagonal of the block are not visited.  Thread (ty, tx) owns query rows
+// ty + 16 i (i < 4): its running max, sum and the output columns
+// tx + 16 c (c < dh / 16) live in registers; it computes the scores of
+// those rows against keys tx + 16 j (j < 4), and a row's max and sum are
+// reduced over the 16 lanes of its half-warp with shuffles.  Rows and keys
+// past Sq / Sk are loaded as zeros; keys past kv_len are masked, rows past
+// Sq are not written, so any Sq, Sk works.  It sits at best near the
+// 67 TFLOP/s FP32 peak, eight shared-memory loads per sixteen FMAs.
 constexpr int BQ = 64;           // query rows per block
 constexpr int BK = 64;           // keys per kv tile
 constexpr int TX = 16, TY = 16;  // threads: tx over keys / columns, ty rows
@@ -52,18 +103,11 @@ constexpr int RK = BK / TX;      // keys per thread
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // Shared memory (floats): Q (BQ x DH+1), K (BK x DH+1), V (BK x DH) and
 // P (BQ x BK+1).  The padded rows keep the column walks of the score loop
@@ -238,8 +282,494 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  q (B, Hq, Sq, dh), k / v (B, Hkv, Sk, dh),
-// o like q, all contiguous; Hq a multiple of Hkv.
+// ======================================================================
+// bfloat16: the tensor-core kernel (wgmma, TMA, mbarriers)
+// ======================================================================
+namespace tc {
+
+constexpr int BQ = 128;      // query rows per block: two consumer warpgroups
+constexpr int WG_ROWS = 64;  // query rows of one consumer warpgroup
+constexpr int BK = 128;      // keys per kv tile
+constexpr int STAGES = 2;    // K / V ring
+constexpr int THREADS = 384;  // producer warpgroup + two consumers
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 64,512 of 65,536
+constexpr float MASKED = -1e30f;  // kv_len / causal masks, as the reference
+
+// Shared-memory geometry for head width DH.  A tile of R rows is stored
+// as DH / CB column blocks of R rows x SW bytes, each as TMA writes it
+// with an SW-byte swizzle (128 B at dh 64 / 128, 64 B at dh 32).
+template <int DH>
+struct Geo {
+  static constexpr int SW = DH >= 64 ? 128 : 64;  // bytes of a row's block
+  static constexpr int CB = SW / 2;               // bf16 columns per block
+  static constexpr int NCB = DH / CB;             // column blocks
+  static constexpr int KPB = CB / 16;             // k16 steps per block
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma swizzle
+  static constexpr int Q_BYTES = BQ * DH * 2;
+  static constexpr int KV_BYTES = BK * DH * 2;
+  static constexpr int TILES = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM = TILES + 8 * (1 + 2 * STAGES) + 1024;  // + align
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor: start address, leading / stride byte offsets,
+// swizzle (1 = 128 B, 2 = 64 B).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo, uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Spin until the barrier's phase with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box of a (B*H, S, dh) tensor -> shared memory, counted on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 128, f32) = (scale_d ? D : 0) + A . B^T, A (64 x 16) and B
+// (128 x 16) bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 32) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 64) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 128) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 32) wgmma_rs_n32(o, a, db);
+  else if constexpr (DH == 64) wgmma_rs_n64(o, a, db);
+  else wgmma_rs_n128(o, a, db);
+}
+
+// 2^x on the special-function unit (ex2.approx, about 2 ulp), without
+// exp2f's extra scaling for tiny results: ftz flushes p below 2^-126,
+// which adds nothing to a row whose largest term is 1.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                             const __grid_constant__ CUtensorMap tmk,
+                             const __grid_constant__ CUtensorMap tmv,
+                             __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
+                             int Sq, int Sk, int kv_len, int causal,
+                             float scale_log2) {
+  using G = Geo<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of
+  // 128 B, and TMA and wgmma must agree on where a repeat starts
+  const uint32_t sq_ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sk_ = sq_ + G::Q_BYTES;
+  const uint32_t sv_ = sk_ + STAGES * G::KV_BYTES;
+  const uint32_t bar_q = sq_ + G::TILES;
+  const uint32_t bar_full = bar_q + 8;                // STAGES barriers
+  const uint32_t bar_empty = bar_full + 8 * STAGES;   // STAGES barriers
+
+  const int nq = gridDim.x;
+  const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qt * BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bhq = b * Hq + h;
+  const int bhk = b * Hkv + h / (Hq / Hkv);
+  int nk = (Sk + BK - 1) / BK;
+  // causal: only the tiles whose first key is at or before the block's
+  // last query
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 2 * 128);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the K / V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, G::Q_BYTES);
+      for (int c = 0; c < G::NCB; ++c)
+        tma_load(sq_ + c * BQ * G::SW, &tmq, c * G::CB, q0, bhq, bar_q);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % STAGES;
+        if (j >= STAGES) mbar_wait(bar_empty + 8 * s, ((j / STAGES) - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * G::KV_BYTES);
+        for (int c = 0; c < G::NCB; ++c) {
+          const uint32_t off = s * G::KV_BYTES + c * BK * G::SW;
+          tma_load(sk_ + off, &tmk, c * G::CB, j * BK, bhk, full);
+          tma_load(sv_ + off, &tmv, c * G::CB, j * BK, bhk, full);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns query rows [64 cw, 64 cw + 64)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int quad = lane % 4;
+    // rows of this thread: r0 (h = 0) and r0 + 8 (h = 1)
+    const int r0 = q0 + cw * WG_ROWS + warp * 16 + lane / 4;
+
+    float oacc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    const uint32_t q_base = sq_ + cw * WG_ROWS * G::SW;
+
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < nk; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
+      const uint32_t k_base = sk_ + s * G::KV_BYTES;
+      const uint32_t v_base = sv_ + s * G::KV_BYTES;
+
+      // S = Q K^T: 64 x 128 in f32, in registers
+      float sacc[BK / 2];
+      fence_regs(sacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t colb = kk / G::KPB, kin = (kk % G::KPB) * 32;
+        wgmma_ss_n128(
+            sacc,
+            desc(q_base + colb * BQ * G::SW + kin, 16, 8 * G::SW, G::LAYOUT),
+            desc(k_base + colb * BK * G::SW + kin, 16, 8 * G::SW, G::LAYOUT),
+            kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      fence_regs(sacc);
+
+      // masks, running max, p = exp(s - m) (base 2, scale folded in).
+      // Only the tile that holds kv_len (or Sk) and, when causal, the
+      // tiles that cross this warpgroup's diagonal need the masks; the
+      // others take the scale inside the exponent's FFMA.
+      const int k0 = j * BK;
+      const bool masked = k0 + BK > kv_len ||
+                          (causal && k0 + BK - 1 > q0 + cw * WG_ROWS);
+      const float mul = masked ? 1.f : scale_log2;
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qi = r0 + 8 * hh;
+        float mx = -INFINITY;
+        if (masked) {
+#pragma unroll
+          for (int g = 0; g < BK / 8; ++g)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kj = k0 + 8 * g + 2 * quad + e;
+              const bool keep = kj < kv_len && (!causal || qi >= kj);
+              float& x = sacc[4 * g + 2 * hh + e];
+              // keys past Sk (the tile's tail, zero-filled by TMA) do not
+              // exist: -inf; masked keys that exist: MASKED, as the
+              // reference, so a row with every key masked averages them
+              x = keep ? x * scale_log2 : (kj < Sk ? MASKED : -INFINITY);
+              mx = fmaxf(mx, x);
+            }
+        } else {
+#pragma unroll
+          for (int g = 0; g < BK / 8; ++g)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              mx = fmaxf(mx, sacc[4 * g + 2 * hh + e]);
+          mx *= scale_log2;  // scale > 0: the max of the scaled scores
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        alpha[hh] = ex2(m[hh] - m_new);
+        float rs = 0.f;
+#pragma unroll
+        for (int g = 0; g < BK / 8; ++g)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sacc[4 * g + 2 * hh + e];
+            x = ex2(fmaf(x, mul, -m_new));
+            rs += x;  // the row sum takes the unrounded p
+          }
+        l[hh] = alpha[hh] * l[hh] + rs;  // this lane's share of the row
+        m[hh] = m_new;
+      }
+#pragma unroll
+      for (int g = 0; g < DH / 8; ++g)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) oacc[4 * g + 2 * hh + e] *= alpha[hh];
+
+      // P in bf16 (p.astype(v.dtype)), as wgmma's A fragments: k16 step
+      // kk holds key columns 16 kk .. 16 kk + 15 of rows r0 and r0 + 8
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+
+      // O += P V: V (keys x dh) is MN-major for this product
+      fence_regs(oacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_pv<DH>(oacc, pa[kk],
+                     desc(v_base + kk * 16 * G::SW, BK * G::SW, 8 * G::SW,
+                          G::LAYOUT));
+      wg_commit();
+      wg_wait0();
+      fence_regs(oacc);
+      mbar_arrive(bar_empty + 8 * s);  // this stage's K / V are consumed
+    }
+
+    // out = acc / max(l, 1e-30) in bf16; the row sum over its 4 lanes
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float lt = l[hh];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float den = fmaxf(lt, 1e-30f);
+      const int qi = r0 + 8 * hh;
+      if (qi >= Sq) continue;
+      __nv_bfloat16* orow = o + ((size_t)bhq * Sq + qi) * DH;
+#pragma unroll
+      for (int g = 0; g < DH / 8; ++g) {
+        __nv_bfloat162 v = __floats2bfloat162_rn(
+            oacc[4 * g + 2 * hh] / den, oacc[4 * g + 2 * hh + 1] / den);
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g + 2 * quad) = v;
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so the
+// library links against the runtime alone (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (BH, S, dh) bf16 tensor as a TMA map with boxes of `rows` rows x one
+// column block.  Global strides (dh * 2 and S * dh * 2 bytes) are
+// multiples of 16 for dh in {32, 64, 128}; rows past S read as zeros.
+template <int DH>
+bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int rows) {
+  using G = Geo<DH>;
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)S * DH * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)G::CB, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int Sq, int Sk, int kv_len, int causal,
+           float scale, cudaStream_t stream) {
+  using G = Geo<DH>;
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return (int)cudaErrorMisalignedAddress;
+  if (Sk <= 0) return (int)cudaErrorInvalidValue;  // TMA needs a row
+  // the maps are encoded per call: the pointers change from call to call
+  CUtensorMap mq, mk, mv;
+  if (!encode<DH>(&mq, q, B * Hq, Sq, BQ) ||
+      !encode<DH>(&mk, k, B * Hkv, Sk, BK) ||
+      !encode<DH>(&mv, v, B * Hkv, Sk, BK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<DH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  flash_attention_wgmma_kernel<DH><<<grid, THREADS, G::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, kv_len,
+      causal, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
+// kernel; q, k, v, o 16-byte aligned).  q (B, Hq, Sq, dh), k / v (B, Hkv,
+// Sk, dh), o like q, all contiguous; Hq a multiple of Hkv.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int dh,
@@ -251,8 +781,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   switch (dtype) {
     case 0: return launch_dh<float>(dh, q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                     kv_len, causal, scale, s);
-    case 1: return launch_dh<__nv_bfloat16>(dh, q, k, v, o, B, Hq, Hkv, Sq,
-                                            Sk, kv_len, causal, scale, s);
+    case 1:
+      switch (dh) {
+        case 32: return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
+                                       kv_len, causal, scale, s);
+        case 64: return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
+                                       kv_len, causal, scale, s);
+        case 128: return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
+                                         kv_len, causal, scale, s);
+        default: return (int)cudaErrorInvalidValue;
+      }
     default: return (int)cudaErrorInvalidValue;
   }
 }

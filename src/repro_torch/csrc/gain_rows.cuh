@@ -17,13 +17,21 @@
 //
 // Arithmetic is FP32 FMA on the CUDA cores (no TF32): the accept decision
 // compares a gain with a threshold, and TF32's 10-bit mantissa would move
-// decisions.  Both contractions go through one simple tiled product
-// (gemm_nt): DK-deep slices of A and B staged in shared memory with a
-// padded stride, each of the NT threads holding M = BT*KT/NT outputs in
-// registers.  A and B are read through generic pointers: the summary is
-// read from device memory and L2, the kernel block Km from shared memory.
-// Making it fast (wgmma is TF32-or-lower only, so FP32 stays on the CUDA
-// cores; cp.async/TMA staging) is later work.
+// decisions (wgmma takes TF32 at best, so FP32 stays on the CUDA cores).
+// Two products live here:
+//
+// * gemm_nt, the simple one that gain_tile (the pod step) runs: DK-deep
+//   slices of A and B staged synchronously in shared memory with a padded
+//   stride, each of the NT threads holding M = BT*KT/NT outputs, two
+//   shared-memory loads per FMA.
+// * rb_gemm, the register-blocked one that the gain kernels (rbf_gain.cu)
+//   run: RB_DK-deep slices staged by cp.async into two buffers, so the
+//   next slice loads while this one is multiplied; each of RB_NT threads
+//   owns a TM x 4 tile of outputs and forms it from float4 fragments,
+//   (TM + 4) 16-byte loads per 4 TM x 4 FMAs.  The pod step may adopt it.
+//
+// Both keep every output an in-order FMA chain over the depth (no split
+// of the depth, no atomics), the order cuBLAS's FP32 SIMT GEMM uses too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,12 +67,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Squared norms of rows [0, rows) of X (row stride ld, width d): one warp
-// per row.  The same routine prices candidates and summary rows, so an
-// appended row keeps the norm its candidate had.
+// per row of a block of THREADS threads.  The same routine prices
+// candidates and summary rows, so an appended row keeps the norm its
+// candidate had.
+template <int THREADS = NT>
 __device__ __forceinline__ void row_norms2(const float* X, int ld, int rows,
                                            int d, float* out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += NT / 32) {
+  for (int r = warp; r < rows; r += THREADS / 32) {
     float s = 0.0f;
     for (int e = lane; e < d; e += 32) {
       float v = X[(size_t)r * ld + e];
@@ -217,6 +227,165 @@ __device__ void gain_tile(const float* X, int ldx, int rows, int d,
   __syncthreads();
   for (int b = threadIdx.x; b < rows; b += NT) gains[b] = gain_of(red[b], a);
   __syncthreads();
+}
+
+
+// ------------------------------------------------ register-blocked product
+constexpr int RB_NT = 128;               // threads of a register-blocked block
+constexpr int RB_KT = 64;                // output columns of one tile
+constexpr int RB_TX = 16;                // column lanes: columns tx + 16 j
+constexpr int RB_TN = RB_KT / RB_TX;     // 4 columns per thread
+constexpr int RB_TY = RB_NT / RB_TX;     // 8 row lanes: rows ty + 8 i
+constexpr int RB_DK = 32;                // depth of one staged slice
+// Row stride of a staged slice: rows start on 16 bytes (cp.async), and
+// the float4 reads of 8 consecutive rows (one quarter-warp) fall in 8
+// distinct 16-byte bank groups (36 / 4 = 9 is odd).
+constexpr int RB_LD = RB_DK + 4;
+
+// Floats of the two staging buffers of rb_gemm for BT candidate rows.
+__host__ __device__ constexpr int rb_stage_floats(int bt) {
+  return 2 * (bt + RB_KT) * RB_LD;
+}
+
+// Copy 4 * count floats (count 0 zero-fills) global -> shared, async.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [0, R) x depth [e0, e0 + RB_DK) of M (row stride ld; rows
+// past ``rows`` and depth past ``kdim`` are zero-filled) into S (R x
+// RB_LD).  ``vec``: ld and the base are 16-byte aligned, so each thread
+// moves 16 bytes at a time; otherwise 4.
+template <int R>
+__device__ __forceinline__ void rb_stage(const float* M, int ld, int rows,
+                                         int kdim, int e0, bool vec,
+                                         float* S) {
+  if (vec) {
+    for (int p = threadIdx.x; p < R * (RB_DK / 4); p += RB_NT) {
+      const int r = p / (RB_DK / 4), e = 4 * (p % (RB_DK / 4));
+      const int left = r < rows ? kdim - (e0 + e) : 0;
+      const int bytes = 4 * max(0, min(4, left));
+      cp_async16(S + r * RB_LD + e,
+                 bytes ? M + (size_t)r * ld + e0 + e : M, bytes);
+    }
+  } else {
+    for (int p = threadIdx.x; p < R * RB_DK; p += RB_NT) {
+      const int r = p / RB_DK, e = p % RB_DK;
+      const bool in = r < rows && e0 + e < kdim;
+      cp_async4(S + r * RB_LD + e, in ? M + (size_t)r * ld + e0 + e : M,
+                in ? 4 : 0);
+    }
+  }
+}
+
+// Divide the staged rows [0, rows) of S (R x RB_LD) by row_norm(n2[r]), in
+// place (the static linear_norm form divides the rows as they are
+// staged; gemm_nt does the same on its way in).
+template <int R>
+__device__ __forceinline__ void rb_normalize(float* S, int rows,
+                                             const float* n2) {
+  for (int p = threadIdx.x; p < R * RB_DK; p += RB_NT) {
+    const int r = p / RB_DK, e = p % RB_DK;
+    if (r < rows) S[r * RB_LD + e] = S[r * RB_LD + e] / row_norm(n2[r]);
+  }
+}
+
+// acc[i][j] += A[ty + 8 i] . B[tx + 16 j] over one RB_DK-deep slice:
+// rows of A from As (stride lda), rows of B from Bs (stride RB_LD), both
+// 16-byte aligned.
+template <int TM>
+__device__ __forceinline__ void rb_slice(const float* As, int lda,
+                                         const float* Bs,
+                                         float (&acc)[TM][RB_TN]) {
+  const int tx = threadIdx.x % RB_TX, ty = threadIdx.x / RB_TX;
+#pragma unroll
+  for (int e = 0; e < RB_DK; e += 4) {
+    float4 a[TM], b[RB_TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      a[i] = *reinterpret_cast<const float4*>(As + (ty + RB_TY * i) * lda + e);
+#pragma unroll
+    for (int j = 0; j < RB_TN; ++j)
+      b[j] = *reinterpret_cast<const float4*>(Bs + (tx + RB_TX * j) * RB_LD +
+                                              e);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < RB_TN; ++j) {
+        float s = acc[i][j];
+        s = fmaf(a[i].x, b[j].x, s);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        s = fmaf(a[i].w, b[j].w, s);
+        acc[i][j] = s;
+      }
+  }
+}
+
+// acc[i][j] += sum_e A[r][e] * B[c][e] for r = ty + 8 i (BT rows, TM =
+// BT / 8 per thread) and c = tx + 16 j (RB_KT columns), e < kdim.  B has
+// b_rows rows (stride ldb) in device memory; A is in device memory (a_rows
+// rows, stride lda, staged like B) or, with A_SMEM, already in shared
+// memory (stride lda, 16-byte aligned, zero past kdim up to the next
+// multiple of RB_DK).  Slices move by cp.async into two buffers in
+// ``stage`` (rb_stage_floats(BT) floats).  With NORM the staged rows of A
+// and B are divided by row_norm(an2[r]) and row_norm(bn2[c]).  Must be
+// reached by every thread; ends on a barrier.
+template <int BT, bool A_SMEM, bool NORM = false>
+__device__ __forceinline__ void rb_gemm(
+    const float* A, int lda, int a_rows, bool a_vec, const float* B, int ldb,
+    int b_rows, bool b_vec, int kdim, float* stage,
+    float (&acc)[BT / RB_TY][RB_TN], const float* an2 = nullptr,
+    const float* bn2 = nullptr) {
+  static_assert(BT % RB_TY == 0, "BT must be a multiple of 8");
+  constexpr int BUF = (BT + RB_KT) * RB_LD;
+  const int slices = (kdim + RB_DK - 1) / RB_DK;
+  auto issue = [&](int s) {
+    float* buf = stage + (s & 1) * BUF;
+    if (!A_SMEM) rb_stage<BT>(A, lda, a_rows, kdim, s * RB_DK, a_vec, buf);
+    rb_stage<RB_KT>(B, ldb, b_rows, kdim, s * RB_DK, b_vec,
+                    buf + BT * RB_LD);
+    cp_async_commit();
+  };
+  if (slices > 0) issue(0);
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices) {
+      issue(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float* buf = stage + (s & 1) * BUF;
+    if (NORM) {
+      if (!A_SMEM) rb_normalize<BT>(buf, a_rows, an2);
+      rb_normalize<RB_KT>(buf + BT * RB_LD, b_rows, bn2);
+      __syncthreads();
+    }
+    if (A_SMEM)
+      rb_slice<BT / RB_TY>(A + s * RB_DK, lda, buf + BT * RB_LD, acc);
+    else
+      rb_slice<BT / RB_TY>(buf, RB_LD, buf + BT * RB_LD, acc);
+    __syncthreads();  // the next issue overwrites this buffer
+  }
 }
 
 }  // namespace repro

@@ -3,7 +3,9 @@
 
 Twin of the TPU kernel ``repro/kernels/flash_attention/kernel.py:
 flash_attention_pallas``.  ``flash_attention_cuda`` launches on PyTorch's
-current stream and counts its launches in ``KERNEL.launches``.
+current stream and counts its launches in ``KERNEL.launches``.  The input's
+dtype picks the kernel (``ROUTES``): bfloat16 runs on the tensor cores
+(wgmma, TMA), float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -22,7 +24,39 @@ KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
                                _I, _F, _I, _P),
 })
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype takes (csrc/flash_attention.cu); neither stands in
+# for the other
+ROUTES = {torch.float32: "cuda-core (flash_attention_kernel, FP32 FMA)",
+          torch.bfloat16: "tensor-core (flash_attention_wgmma_kernel, "
+                          "wgmma + TMA)"}
 HEAD_DIMS = (32, 64, 128)  # the template instances of the source
+SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
+# csrc/flash_attention.cu: the tensor-core kernel's query rows, keys per
+# tile, ring stages and threads (namespace tc), the CUDA-core kernel's
+TC_BQ, TC_BK, TC_STAGES, TC_THREADS = 128, 128, 2, 384
+CC_BQ, CC_BK, CC_THREADS = 64, 64, 256
+
+
+def launch_geometry(dtype: torch.dtype, B: int, Hq: int, Sq: int,
+                    dh: int):
+    """-> (route, grid, threads per block, dynamic shared-memory bytes) of
+    one launch; raises for a dtype or head width the source has no kernel
+    for."""
+    if dtype not in DTYPE_IDS:
+        raise TypeError(f"dtype {dtype} not supported; choose from "
+                        f"{list(DTYPE_IDS)}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head width {dh} not supported; choose from "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        # Q, the K / V ring, the mbarriers, and slack for 1024-byte alignment
+        smem = (2 * TC_BQ * dh + 2 * TC_STAGES * 2 * TC_BK * dh
+                + 8 * (1 + 2 * TC_STAGES) + 1024)
+        return "tensor-core", (-(-Sq // TC_BQ), Hq, B), TC_THREADS, smem
+    # Q, K, V and P as float, the padded strides of the source
+    smem = 4 * (CC_BQ * (dh + 1) + CC_BK * (dh + 1) + CC_BK * dh
+                + CC_BQ * (CC_BK + 1))
+    return "cuda-core", (-(-Sq // CC_BQ), Hq, B), CC_THREADS, smem
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,12 +80,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != (B, Hkv, Sk, dh):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(B, Hkv, Sk, dh)}")
-    if q.dtype not in DTYPE_IDS:
-        raise TypeError(f"dtype {q.dtype} not supported; choose from "
-                        f"{list(DTYPE_IDS)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head width {dh} not supported; choose from "
-                         f"{HEAD_DIMS}")
+    launch_geometry(q.dtype, B, Hq, Sq, dh)  # refuses dtype, head width
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -59,6 +88,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = Sk if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= Sk:
         raise ValueError(f"kv_len {kv_len} outside [0, {Sk}]")
+    if q.dtype == torch.bfloat16:
+        # TMA reads from 16-byte aligned addresses; a view that starts
+        # elsewhere is copied (fresh allocations are aligned)
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     lib = KERNEL.get()
     out = torch.empty_like(q)
     with torch.cuda.device(dev):

@@ -2,6 +2,10 @@
 """ctypes bindings of the two gain kernels of ``csrc/rbf_gain.cu`` (one
 source, one build, two entry points with a launch count each).
 
+Each call launches two kernels: a first pass that computes the
+summaries' squared row norms once (``gain_norms_kernel``), then the gain
+kernel itself; the launch count adds one per call.
+
 * ``gain_traced``, twin of the TPU kernel
   ``repro/kernels/rbf_gain/kernel.py:gain_pallas_traced``: the kernel
   hyperparameters are device scalars; an optional leading instance axis
@@ -23,25 +27,29 @@ from repro_torch.kernels.build import CudaKernel, check
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL = CudaKernel("gain_traced", "rbf_gain.cu", {
-    # x, feats, linv, n, inv2l2, kind, out, B, K, d, I, a, bt, stream
-    "gain_traced_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                           _I, _P),
+    # x, feats, linv, n, inv2l2, kind, fn2, out, B, K, d, I, a, bt, stream
+    "gain_traced_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _F, _I, _P),
 })
 KERNEL_STATIC = CudaKernel("gain_static", "rbf_gain.cu", {
-    # x, feats, linv, n, out, B, K, d, a, inv2l2, kind, bt, stream
-    "gain_static_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
-                           _P),
+    # x, feats, linv, n, fn2, out, B, K, d, a, inv2l2, kind, bt, stream
+    "gain_static_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I,
+                           _I, _P),
 })
 KIND_IDS = {"rbf": 0, "linear_norm": 1}  # kernelmath.KERNEL_KIND_IDS
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
-KM_BUDGET = 98304  # bytes of the BT x K kernel block Km in shared memory
-KT, LDT = 64, 33  # must match csrc/gain_rows.cuh
+SMS = 132  # streaming multiprocessors of the H100 SXM
+KM_BUDGET = 98304  # bytes of the pod step's BT x K kernel block Km
+KT, LDT = 64, 33  # gemm_nt's tile (csrc/gain_rows.cuh), the pod step's
+RB_KT, RB_LD = 64, 36  # rb_gemm's tile and slice stride (gain_rows.cuh)
+GAIN_TILES = (64, 32, 16, 8)  # candidate rows per gain block, rbf_gain.cu
 
 
 def block_rows(K: int) -> int:
-    """Candidate rows per block: the largest of 64/32/16/8 whose BT x K
-    f32 kernel block fits ``KM_BUDGET``."""
+    """The pod step's candidate rows per gain tile: the largest of
+    64/32/16/8 whose BT x K f32 kernel block fits ``KM_BUDGET``.  Past
+    K = 3072 it raises, and so do the gain kernels."""
     for bt in (64, 32, 16, 8):
         if bt * K * 4 <= KM_BUDGET:
             return bt
@@ -49,21 +57,51 @@ def block_rows(K: int) -> int:
                      f"8 rows, over the {KM_BUDGET}-byte budget")
 
 
-def static_block_rows(B: int, K: int) -> int:
-    """``block_rows(K)``, or 8 rows for a batch of at most 8 (ISI's
-    one-item queries)."""
-    return 8 if B <= 8 else block_rows(K)
-
-
 def tile_floats(bt: int, K: int) -> int:
-    """``gain_tile_floats`` of csrc/gain_rows.cuh."""
+    """``gain_tile_floats`` of csrc/gain_rows.cuh (the pod step's tile)."""
     return bt * LDT + KT * LDT + 2 * bt + bt * K
 
 
 def smem_bytes(K: int, bt: int | None = None) -> int:
-    """Dynamic shared memory of one gain block (both gain kernels)."""
-    bt = block_rows(K) if bt is None else bt
-    return 4 * (K + bt + tile_floats(bt, K))
+    """Dynamic shared memory of one block of the gain kernels
+    (``gain_block_floats`` of csrc/rbf_gain.cu): Km (bt x the padded K),
+    two staging buffers, the candidates' norms and row sums.  ``bt``
+    defaults to the largest tile that fits."""
+    if bt is None:
+        bt = _fitting_tiles(K)[0]
+    km_stride = -(-K // RB_KT) * RB_KT + 16
+    return 4 * (bt * km_stride + 2 * (bt + RB_KT) * RB_LD + 2 * bt)
+
+
+def _fitting_tiles(K: int) -> list:
+    block_rows(K)  # the refusal past K = 3072
+    return [bt for bt in GAIN_TILES if smem_bytes(K, bt) <= SMEM_LIMIT]
+
+
+def gain_block_rows(B: int, I: int, K: int) -> int:
+    """Candidate rows per block of the gain kernels for B candidates
+    against I summaries of K rows: the largest tile whose grid
+    (ceil(B / bt) x I blocks) still puts two blocks on every SM, or, when
+    B x I is too small for that, the smallest that fits (more blocks on
+    more SMs)."""
+    fits = _fitting_tiles(K)
+    for bt in fits:
+        if -(-B // bt) * I >= 2 * SMS:
+            return bt
+    return fits[-1]
+
+
+def gain_grid(B: int, I: int, K: int):
+    """-> (bt, (blocks along B, blocks along I), shared-memory bytes) of
+    one gain launch."""
+    bt = gain_block_rows(B, I, K)
+    return bt, (-(-B // bt), I), smem_bytes(K, bt)
+
+
+def static_block_rows(B: int, K: int) -> int:
+    """``gain_block_rows`` of an unstacked call (``gain_static``): 8 rows
+    for ISI's one-item queries, 64 for a Greedy round at K = 100."""
+    return gain_block_rows(B, 1, K)
 
 
 def _check_f32(name, t, shape, device):
@@ -126,15 +164,16 @@ def gain_traced(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
                          f"{n.device}")
     _check_scalar("inv2l2", inv2l2, torch.float32, dev)
     _check_scalar("kind_id", kind_id, torch.int32, dev)
-    bt = block_rows(K)
+    bt = gain_block_rows(B, I, K)
     _check_smem("gain_traced", K, bt)
     lib = KERNEL.get()
     out = torch.empty((*lead, B), dtype=torch.float32, device=dev)
+    fn2 = torch.empty((I, K), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.gain_traced_launch(
             x.data_ptr(), feats.data_ptr(), linv.data_ptr(), n.data_ptr(),
-            inv2l2.data_ptr(), kind_id.data_ptr(), out.data_ptr(),
-            B, K, d, I, float(a), bt, _stream(dev))
+            inv2l2.data_ptr(), kind_id.data_ptr(), fn2.data_ptr(),
+            out.data_ptr(), B, K, d, I, float(a), bt, _stream(dev))
     check(KERNEL, err, "gain_traced")
     KERNEL.launches += 1
     return out
@@ -166,10 +205,11 @@ def gain_static(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
     _check_smem("gain_static", K, bt)
     lib = KERNEL_STATIC.get()
     out = torch.empty((B,), dtype=torch.float32, device=dev)
+    fn2 = torch.empty((1, K), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.gain_static_launch(
             x.data_ptr(), feats.data_ptr(), linv.data_ptr(), n.data_ptr(),
-            out.data_ptr(), B, K, d, float(a), float(inv2l2),
+            fn2.data_ptr(), out.data_ptr(), B, K, d, float(a), float(inv2l2),
             KIND_IDS[kind], bt, _stream(dev))
     check(KERNEL_STATIC, err, "gain_static")
     KERNEL_STATIC.launches += 1

@@ -360,3 +360,155 @@ def test_mamba2_layer_kernel_route_matches_plain(cuda):
                                atol=1e-4)
     torch.testing.assert_close(out["auto"][1], out["torch"][1], rtol=1e-4,
                                atol=1e-4)
+
+
+# ------------------------------------- the redesigned kernels (tensor cores)
+def _attn_inputs(cuda, B, Hq, Hkv, Sq, Sk, dh, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = (0.5 * torch.randn(B, Hq, Sq, dh, generator=g, device=cuda)).to(dtype)
+    k = (0.5 * torch.randn(B, Hkv, Sk, dh, generator=g, device=cuda)).to(dtype)
+    v = torch.randn(B, Hkv, Sk, dh, generator=g, device=cuda).to(dtype)
+    return q, k, v
+
+
+def _assert_bf16_close(got, want):
+    """The bf16 gates of chip_smoke.py: 2e-2 elementwise and 1e-2 of the
+    largest output."""
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_tensor_core_kernel_matches_plain(cuda, dh, causal):
+    """bf16 takes the wgmma kernel: every head width, causal and full,
+    GQA 12 / 2, two kv tiles and a ragged tail (S = 300)."""
+    from repro_torch.kernels.flash_attention import (KERNEL, attention_ref,
+                                                     flash_attention_cuda,
+                                                     launch_geometry)
+
+    assert launch_geometry(torch.bfloat16, 1, 12, 300, dh)[0] == "tensor-core"
+    q, k, v = _attn_inputs(cuda, 1, 12, 2, 300, 300, dh, torch.bfloat16,
+                           dh + causal)
+    before = KERNEL.launches
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    _assert_bf16_close(got, attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [64, 100, 1500])
+def test_flash_tensor_core_through_wrapper(cuda, S, causal):
+    """Sq = Sk in {64, 100, 1500} through ``flash_attention``, which pads
+    to the TPU kernel's blocks and masks the padding with kv_len."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+
+    q, k, v = _attn_inputs(cuda, 2, 4, 2, S, S, 64, torch.bfloat16, S)
+    got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    _assert_bf16_close(got, attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 77, 200])
+def test_flash_tensor_core_kv_len(cuda, kv_len):
+    """kv_len < Sk straight into the kernel, down to every key masked
+    (kv_len = 0: the reference averages V over all Sk keys)."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+
+    q, k, v = _attn_inputs(cuda, 2, 4, 2, 130, 256, 64, torch.bfloat16,
+                           kv_len)
+    got = flash_attention_cuda(q, k, v, causal=False, kv_len=kv_len)
+    _assert_bf16_close(got, attention_ref(q, k, v, causal=False,
+                                          kv_len=kv_len))
+
+
+def test_flash_tensor_core_unaligned_view(cuda):
+    """A contiguous bf16 view that does not start on 16 bytes is copied
+    for TMA, not refused."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+
+    q, k, v = _attn_inputs(cuda, 1, 2, 2, 128, 128, 32, torch.bfloat16, 5)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    qv = flat[1:].view_as(q)
+    qv.copy_(q)
+    assert qv.is_contiguous() and qv.data_ptr() % 16
+    got = flash_attention_cuda(qv, k, v, causal=True)
+    _assert_bf16_close(got, attention_ref(q, k, v, causal=True))
+
+
+GAIN_NS = (0, 1, 63, 64, 65)  # and K
+
+
+def _logdet_linv(feats, n, kern, a):
+    """The LogDet state's Linv for summaries holding the first n rows of
+    feats (I, K, d): the inverse Cholesky factor of I + a k(F_n, F_n),
+    zero outside its n x n block."""
+    from repro_torch.kernelmath import pairwise_traced
+
+    K = feats.shape[-2]
+    eye = torch.eye(K, device=feats.device)
+    L = torch.linalg.cholesky(eye + a * pairwise_traced(feats, feats, kern))
+    linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    live = torch.arange(K, device=feats.device) < n[:, None]  # (I, K)
+    return (linv * (live[:, :, None] & live[:, None, :])).contiguous()
+
+
+@pytest.mark.parametrize("K", [100, 1024])
+@pytest.mark.parametrize("B", [1, 7, 1024, 1025])
+@pytest.mark.parametrize("I", [1, 49, 147])
+def test_gain_traced_tiles_match_plain(cuda, I, B, K):
+    """Every tile the geometry picks (8 to 64 rows), ragged B, stacked
+    summaries whose n cycle through 0, 1, 63, 64, 65 and K (at I = 1
+    each n in its own call), both kernel kinds, against LogDet's own
+    factors (``test_gain_traced_matches_plain`` takes any Linv)."""
+    from repro_torch.kernelmath import KernelParams
+    from repro_torch.kernels.rbf_gain import gain_traced, gain_traced_ref
+
+    d = 64
+    g = torch.Generator(device=cuda).manual_seed(I + B + K)
+    X = 0.2 * torch.randn(B, d, generator=g, device=cuda)
+    feats = 0.2 * torch.randn(I, K, d, generator=g, device=cuda)
+    ns = [*GAIN_NS, K]
+    calls = ([torch.tensor([n], dtype=torch.int32, device=cuda) for n in ns]
+             if I == 1 else
+             [torch.tensor([ns[i % len(ns)] for i in range(I)],
+                           dtype=torch.int32, device=cuda)])
+    for kind in (0, 1):
+        kern = KernelParams(torch.tensor(3.0, device=cuda),
+                            torch.tensor(kind, dtype=torch.int32,
+                                         device=cuda))
+        for n in calls:
+            linv = _logdet_linv(feats, n, kern, 1.0)
+            got = gain_traced(X, feats, linv, n, kern.inv2l2.reshape(1),
+                              kern.kind_id.reshape(1), a=1.0)
+            want = gain_traced_ref(X, feats, linv, n, kern, a=1.0)
+            assert got.shape == (I, B)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "linear_norm"])
+@pytest.mark.parametrize("B", [1, 65536])
+def test_gain_static_paper_shapes_match_plain(cuda, kind, B):
+    """An ISI query (B = 1) and a Greedy round (B = 65,536) at the
+    comparison's K = 100, d = 256, n in {0, 37, 100}."""
+    from repro_torch.kernels.rbf_gain import gain_ref, gain_static
+
+    K, d = 100, 256
+    g = torch.Generator(device=cuda).manual_seed(B)
+    X = torch.randn(B, d, generator=g, device=cuda) / d ** 0.5
+    feats = torch.randn(K, d, generator=g, device=cuda) / d ** 0.5
+    linv = torch.tril(0.1 * torch.randn(K, K, generator=g, device=cuda))
+    linv += torch.eye(K, device=cuda)
+    for n in (0, 37, K):
+        nt = torch.tensor([n], dtype=torch.int32, device=cuda)
+        got = gain_static(X, feats, linv, nt, a=1.0, inv2l2=0.5, kind=kind)
+        mask = (torch.arange(K, device=cuda) < n).float()[None, :]
+        want = gain_ref(X, feats, linv, mask, a=1.0, inv2l2=0.5,
+                        kind=kind)[:, 0]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

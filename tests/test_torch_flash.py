@@ -115,3 +115,44 @@ def test_flash_torch_backend_is_the_cpu_route():
         torch.testing.assert_close(
             flash_attention(q, k, v, causal=causal, backend="torch"),
             flash_attention(q, k, v, causal=causal), rtol=0, atol=0)
+
+
+# ----------------------------------------------- launch geometry (no card)
+@pytest.mark.parametrize("dtype,route,grid", [
+    (torch.bfloat16, "tensor-core", (12, 12, 8)),
+    (torch.float32, "cuda-core", (24, 12, 8)),
+])
+def test_flash_launch_geometry_routes_by_dtype(dtype, route, grid):
+    """The Whisper encoder's padded shape (B = 8, 12 heads, S = 1536):
+    bf16 takes the wgmma kernel in query tiles of 128, float32 the
+    CUDA-core kernel in tiles of 64; each route names itself in
+    ``ROUTES``."""
+    from repro_torch.kernels.flash_attention import ROUTES, launch_geometry
+
+    got_route, got_grid, threads, _ = launch_geometry(dtype, 8, 12, 1536, 64)
+    assert (got_route, got_grid) == (route, grid)
+    assert threads == (384 if route == "tensor-core" else 256)
+    assert ROUTES[dtype].startswith(route)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_smem_fits_each_head_width(dtype, dh):
+    """Q, the two-stage K / V ring and the barriers (bf16), or the float
+    tiles (float32), fit the 227 KB of one block at every head width."""
+    from repro_torch.kernels.flash_attention import launch_geometry
+    from repro_torch.kernels.flash_attention.kernel import SMEM_LIMIT
+
+    smem = launch_geometry(dtype, 1, 12, 2048, dh)[3]
+    assert smem <= SMEM_LIMIT
+    if dtype == torch.bfloat16:  # 2 (Q) + 4 (K, V x 2 stages) bf16 tiles
+        assert smem == 2 * 128 * dh + 2 * 2 * 2 * 128 * dh + 40 + 1024
+
+
+def test_flash_launch_geometry_refusals_are_unchanged():
+    from repro_torch.kernels.flash_attention import launch_geometry
+
+    with pytest.raises(TypeError, match="dtype"):
+        launch_geometry(torch.float16, 1, 2, 64, 64)
+    with pytest.raises(ValueError, match="head width"):
+        launch_geometry(torch.bfloat16, 1, 2, 64, 48)

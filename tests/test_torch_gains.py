@@ -167,6 +167,63 @@ def test_gain_kernel_block_geometry():
         gain_traced(z, z, z, z, z, z, a=1.0)
 
 
+# (B, I, K) -> the tile and grid of one gain launch: two blocks per SM
+# (264 on the H100) where B x I allows it, else the smallest tile
+GAIN_GRIDS = [
+    (1024, 1, 100, 8, (128, 1)),  # ThreeSieves: 128 blocks, not 16
+    (1025, 1, 100, 8, (129, 1)),
+    (7, 1, 100, 8, (1, 1)),
+    (1, 1, 100, 8, (1, 1)),  # an ISI query
+    (65536, 1, 100, 64, (1024, 1)),  # a Greedy round
+    (1024, 49, 100, 64, (16, 49)),  # SieveStreaming's stack
+    (1024, 147, 100, 64, (16, 147)),  # Salsa's stack
+    (65536, 1, 1024, 32, (2048, 1)),  # 64 rows of Km at K = 1024 do not fit
+    (1024, 1, 3072, 8, (128, 1)),
+]
+
+
+@pytest.mark.parametrize("B,I,K,bt,grid", GAIN_GRIDS)
+def test_gain_grid_fills_the_card(B, I, K, bt, grid):
+    from repro_torch.kernels.rbf_gain import gain_block_rows, gain_grid
+    from repro_torch.kernels.rbf_gain.kernel import SMEM_LIMIT
+
+    got_bt, got_grid, smem = gain_grid(B, I, K)
+    assert (got_bt, got_grid) == (bt, grid)
+    assert gain_block_rows(B, I, K) == bt
+    assert smem <= SMEM_LIMIT
+
+
+def test_gain_grid_threesieves_launches_64_blocks_or_more():
+    from repro_torch.kernels.rbf_gain import gain_grid
+
+    _, (bx, by), _ = gain_grid(1024, 1, 100)
+    assert bx * by >= 64
+
+
+@pytest.mark.parametrize("K", [1, 100, 384, 1024, 2048, 3072])
+def test_gain_smem_fits_up_to_k_3072(K):
+    """Every tile the geometry may pick at K fits the 227 KB of one block;
+    at K = 3072 only the 8- and 16-row tiles do."""
+    from repro_torch.kernels.rbf_gain import gain_block_rows, smem_bytes
+    from repro_torch.kernels.rbf_gain.kernel import GAIN_TILES, SMEM_LIMIT
+
+    fits = [bt for bt in GAIN_TILES if smem_bytes(K, bt) <= SMEM_LIMIT]
+    assert fits and fits[-1] == 8
+    for B, I in ((1, 1), (1024, 1), (65536, 1), (1024, 147)):
+        assert smem_bytes(K, gain_block_rows(B, I, K)) <= SMEM_LIMIT
+    if K == 3072:
+        assert fits == [16, 8]
+
+
+def test_gain_grid_refusal_past_k_3072_is_unchanged():
+    from repro_torch.kernels.rbf_gain import gain_block_rows, gain_grid
+
+    for fn in (lambda: gain_block_rows(1, 1, 3073),
+               lambda: gain_grid(1024, 147, 4096)):
+        with pytest.raises(ValueError, match="budget"):
+            fn()
+
+
 # ------------------------------------------------ static kernel (gain_pallas)
 @pytest.mark.parametrize("n", [0, 3, K])
 @pytest.mark.parametrize("kind", sorted(KINDS))
@@ -218,8 +275,8 @@ def test_gain_static_block_rows_and_cpu_refusal():
                                               static_block_rows)
 
     assert [static_block_rows(b, 100) for b in (1, 8, 9, 65536)] == [
-        8, 8, 64, 64]
-    assert static_block_rows(65536, 1024) == 16
+        8, 8, 8, 64]
+    assert static_block_rows(65536, 1024) == 32
     z = torch.zeros(2, 2)
     n = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
