@@ -78,23 +78,31 @@ exit and no result line:
                      events inside each (median and range); the idle share
                      from one profiled generate, in which all 12 bf16
                      encoder launches must be the tensor-core kernel;
- 12. ssd             ``ssd_chunk_cuda`` against ``ssd_chunk_ref``: the
-                     Mamba2-370m prefill's tiles (b=8, L=2048, 32 heads,
-                     p=64, n=128, q=256) in bf16 with Adt = -softplus(N)
-                     and in float32 with slow decay (-0.01 softplus(N)),
-                     and the reduced config's (q=p=n=16, float32); Y and
-                     the states elementwise within 1e-5 (f32) / 2e-2
-                     (bf16) and within 1e-5 / 1e-2 of the largest
-                     output; the plain version with
-                     the diagonal dropped (strict tril) must fail that
-                     check in every case; timed beside the plain version
-                     (no PyTorch call computes this function);
+ 12. ssd             ``ssd_chunk_cuda`` against its plain version on the
+                     model's layout: the Mamba2-370m prefill (b=8, L=2048,
+                     32 heads, p=64, n=128, q=256) in bf16 with Adt =
+                     -softplus(N) and B / C in one group (the kernels
+                     line's case), the same with B / C per head (g = 32),
+                     in float32 with slow decay (-0.01 softplus(N)), and
+                     the reduced config's (q=p=n=16, float32); Y and the
+                     states elementwise within 1e-5 (f32) / 2e-2 (bf16)
+                     and within 1e-5 / 1e-2 of the largest output; the
+                     plain version with the diagonal dropped (strict tril)
+                     must fail that check in every case, and in bf16 the
+                     kernel fed Adt shifted by one step (the margin: the
+                     fault's error over the gate); the route each dtype
+                     took (bf16: the tensor-core kernel, f32: the CUDA-core
+                     one); timed beside the plain version against the
+                     grouped and the per-head bound (no PyTorch call
+                     computes this function);
  13. mamba           the slice's main path: Mamba2-370m at full width
                      (seeded parameters) serving 8 requests of 2000 prompt
                      tokens (padded inside each layer to 8 chunks of 256)
                      through ``ServeDriver.generate`` (32 new tokens,
                      greedy), each layer's prefill on the SSD kernel (48
-                     launches per generate, none in decode), held against
+                     launches per generate, none in decode; bf16 all on
+                     the tensor-core kernel, B / C handed per group and
+                     read in place), held against
                      the plain route (``ssd_chunks`` with backend
                      ``torch``): in float32 the tokens equal and, on three
                      input draws, the prefill logits within 1e-4, which
@@ -102,7 +110,28 @@ exit and no result line:
                      fail; in bfloat16 the logits within 5e-2 (a bound on
                      rounding).  Five generates per route, timed as in
                      ``whisper``; the idle share from one profiled
-                     generate.
+                     generate;
+ 14. pod_bf16        the pod step on bf16 summaries (K=100, d=256, 16
+                     sessions, the rounds of ``pod_step``) against
+                     ``pod_step_ref``: integers equal, fval within 0.05,
+                     the carry still bf16; the kernel fed each count one
+                     short must fail; the ragged round timed beside the
+                     float32 one; then a ``SummarizerPod`` of 32 bf16
+                     tenants, two ingests, each replayed through
+                     ``pod_step_ref``;
+ 15. gain_bf16       a bf16 summary's gains (B=1024, K=100, d=256, n=100)
+                     through the oracle's kernel route (the float32 gain
+                     kernels after an exact upcast) against its plain
+                     route within one bf16 ulp, ``gain_traced`` and
+                     ``gain_static``; the summary priced without its
+                     second half must fail; timed beside the float32 call; and
+                     ThreeSieves, SieveStreaming and ISI on a bf16 LogDet
+                     on both routes (n equal, fval within 0.05);
+ 16. flash_dh96      head width 96: phi3-mini-3.8b's attention (32 / 32
+                     heads, S=2048, causal, bf16) timed beside SDPA, and a
+                     ragged float32 case, under the gates of ``flash``;
+                     the kernel of each (causal) case told to see every
+                     key must fail.
 
 "Held against" (the summarization kernels): integers equal (n, j, t, n_fused,
 n_queries, accepted items); floats within rtol = atol = 1e-5 (f32 with a
@@ -129,6 +158,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 RTOL = ATOL = 1e-5
 TIE = 1e-4
+# bf16 summaries: fval of the pod step within tests/test_pod_step_kernel.py's
+# bf16 pin; a near-tie within one bf16 ulp (2^-7 = 7.8e-3 relative) of
+# its threshold; gains of the kernel route within one bf16 ulp of the plain
+# route's (both round float32 gains once)
+POD_BF16_TOL, TIE_BF16, GAIN_BF16_TOL = 0.05, 1e-2, 2 ** -7
 PEAK_FP32 = 67e12  # FLOP/s, H100 SXM, CUDA cores (NVIDIA data sheet)
 PEAK_BF16 = 989e12  # FLOP/s, H100 SXM, dense bf16 tensor cores (same)
 PEAK_BW = 3.35e12  # bytes/s, H100 SXM HBM3
@@ -164,6 +198,13 @@ FLASH_SCALED_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # the case whose check must fail a planted fault: the kernel told to keep
 # the 36 padded keys (near-uniform rows give them about 2 % of the weight)
 FLASH_CONTROL = "whisper_encoder"
+# phase flash_dh96: head width 96, phi3-mini-3.8b's attention
+# (src/repro/configs/phi3_mini_3_8b.py: 32 heads of 96, no GQA), and a
+# ragged float32 case
+FLASH_DH96_CASES = [
+    ("phi3_mini_causal", 1, 32, 32, 2048, 96, True, "bfloat16", 0.5),
+    ("dh96_ragged_f32", 2, 4, 4, 300, 96, True, "float32", 0.5),
+]
 # phase whisper: slots, prompt tokens, new tokens; timed generates per
 # route and dtype; input draws the prefill logits are held on; the logit
 # tolerances of the kernel route against the plain one, and the near-tie
@@ -172,12 +213,18 @@ WHISPER_B, WHISPER_PROMPT, WHISPER_NEW = 8, 16, 32
 WHISPER_REPS, WHISPER_DRAWS = 5, 3
 WHISPER_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TOKEN_TIE = 1e-3
-# phase ssd: (name, b, L, h, p, n, q, dtype, decay); Adt = -decay *
-# softplus(N(0, 1)) as in tests/test_ssd_kernel.py:15
+# phase ssd: (name, b, L, h, g, p, n, q, dtype, decay), in the model's
+# layout with B / C per group (g = h: per head, the JAX signature); Adt =
+# -decay * softplus(N(0, 1)) as in tests/test_ssd_kernel.py:15.  The first
+# case is the Mamba2-370m prefill (one group), its numbers the kernels
+# line's.
 SSD_CASES = [
-    ("mamba2_prefill", 8, 2048, 32, 64, 128, 256, "bfloat16", 1.0),
-    ("mamba2_prefill_slow_f32", 8, 2048, 32, 64, 128, 256, "float32", 0.01),
-    ("reduced_f32", 2, 64, 8, 16, 16, 16, "float32", 1.0),
+    ("mamba2_prefill", 8, 2048, 32, 1, 64, 128, 256, "bfloat16", 1.0),
+    ("mamba2_prefill_per_head", 8, 2048, 32, 32, 64, 128, 256, "bfloat16",
+     1.0),
+    ("mamba2_prefill_slow_f32", 8, 2048, 32, 1, 64, 128, 256, "float32",
+     0.01),
+    ("reduced_f32", 2, 64, 8, 1, 16, 16, 16, "float32", 1.0),
 ]
 # elementwise rtol = atol, tests/test_ssd_kernel.py:35; and max|got -
 # want| / max|want| (one bf16 ulp is at most 2^-7 = 7.8e-3 of a value)
@@ -216,41 +263,47 @@ def timed_ms(torch, fn, *, reps=20, warmup=3, setup=None):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, kernels, *, reps=20, setup=None, seen=None):
+def device_ms(torch, fn, kernels, *, reps=20, setup=None, seen=None,
+              windows=3):
     """Device time (ms) per call of ``fn``: the time of every CUDA kernel
     whose name contains one of ``kernels`` (a name or a tuple: all the
     kernels one call launches, the call's own kernel first), summed and
     divided by the number of calls, from ``torch.profiler`` over ``reps``
-    calls.  The profiler may miss the first launches of its window (15 of
-    20 seen on the H100), so the calls are counted by the events of the
-    call's own kernel, one per call, not taken as ``reps``.  Fails when
-    the profiler saw no device time for it.  ``seen`` collects {name:
-    count}."""
+    calls.  The profiler may miss launches of its window (15 of 20 seen
+    on the H100, and in one run every one of them), so the calls are
+    counted by the events of the call's own kernel, one per call, not
+    taken as ``reps``, and a window that saw none is profiled again, up
+    to ``windows`` times.  Fails when no window saw device time for it.
+    ``seen`` collects {name: count}."""
     from torch.profiler import ProfilerActivity, profile
 
     kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
-    argsets = [setup() if setup else () for _ in range(reps)]
-    fn(*argsets[0])  # warm
-    argsets[0] = setup() if setup else ()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for args in argsets:
-            fn(*args)
+    for _ in range(windows):
+        argsets = [setup() if setup else () for _ in range(reps)]
+        fn(*argsets[0])  # warm
+        argsets[0] = setup() if setup else ()
         torch.cuda.synchronize()
-    total, calls = 0.0, 0
-    for ev in prof.key_averages():
-        if any(k in ev.key for k in kernels):
-            t = getattr(ev, "self_device_time_total", None)
-            if t is None:
-                t = getattr(ev, "self_cuda_time_total", 0.0)
-            total += t
-            if kernels[0] in ev.key:
-                calls += ev.count
-            if seen is not None and t > 0:
-                seen[ev.key[:90]] = seen.get(ev.key[:90], 0) + ev.count
-    if not calls or total <= 0:
-        fail(f"the profiler saw no device time for {kernels[0]}")
-    return total / calls / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for args in argsets:
+                fn(*args)
+            torch.cuda.synchronize()
+        total, calls, names = 0.0, 0, {}
+        for ev in prof.key_averages():
+            if any(k in ev.key for k in kernels):
+                t = getattr(ev, "self_device_time_total", None)
+                if t is None:
+                    t = getattr(ev, "self_cuda_time_total", 0.0)
+                total += t
+                if kernels[0] in ev.key:
+                    calls += ev.count
+                if t > 0:
+                    names[ev.key[:90]] = names.get(ev.key[:90], 0) + ev.count
+        if calls and total > 0:
+            if seen is not None:
+                seen.update(names)
+            return total / calls / 1e3
+    fail(f"the profiler saw no device time for {kernels[0]} in {windows} "
+         "windows")
 
 
 def host_ms(torch, fn):
@@ -271,6 +324,7 @@ def bound(flops, nbytes, peak=PEAK_FP32):
 GAIN_TRACED_KERNELS = ("gain_traced_kernel", "gain_norms_kernel")
 GAIN_STATIC_KERNELS = ("gain_static_kernel", "gain_norms_kernel")
 FLASH_KERNELS = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
+SSD_KERNELS = ("ssd_chunk_kernel", "ssd_chunk_mma_kernel")
 
 
 def gain_work(B, ns):
@@ -368,9 +422,13 @@ def pod_work(torch, before, after, chunks, margins):
     return flops, nbytes
 
 
-def compare_sessions(torch, ker, ref, chunks, n_before, margins, what):
+def compare_sessions(torch, ker, ref, chunks, n_before, margins, what, *,
+                     tie=TIE, tol=RTOL, factors=True):
     """Hold a kernel-stepped stacked TSState against the reference under
-    the near-tie rule -> (max abs float error, [near-tie sessions])."""
+    the near-tie rule (a first differing accept within ``tie``, relative,
+    of its threshold) -> (max abs float error, [near-tie sessions]).
+    fval must agree within rtol = atol = ``tol``, and so must L and Linv
+    where ``factors`` (else their error is only measured)."""
     ties, err = [], 0.0
     S = chunks.shape[0]
     for s in range(S):
@@ -392,20 +450,21 @@ def compare_sessions(torch, ker, ref, chunks, n_before, margins, what):
                      "accepted items")
             first = min(diff)
             m = margins[s].get(first)
-            if m is None or m > TIE:
+            if m is None or m > tie:
                 fail(f"{what}: session {s} accepts differ first at item "
-                     f"{first} with reference margin {m} (> {TIE}); "
+                     f"{first} with reference margin {m} (> {tie}); "
                      f"kernel {ints_k}, reference {ints_r}")
             ties.append({"session": s, "item": first, "margin": m})
             continue
         for name in ("L", "Linv"):
-            a, b = getattr(ker.ld, name)[s], getattr(ref.ld, name)[s]
-            if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+            a = getattr(ker.ld, name)[s].float()
+            b = getattr(ref.ld, name)[s].float()
+            if factors and not torch.allclose(a, b, rtol=tol, atol=tol):
                 fail(f"{what}: session {s} {name} off by "
                      f"{(a - b).abs().max().item()}")
             err = max(err, (a - b).abs().max().item())
-        fk, fr = ker.ld.fval[s], ref.ld.fval[s]
-        if not torch.allclose(fk, fr, rtol=RTOL, atol=ATOL):
+        fk, fr = ker.ld.fval[s].float(), ref.ld.fval[s].float()
+        if not torch.allclose(fk, fr, rtol=tol, atol=tol):
             fail(f"{what}: session {s} fval {fk.item()} vs {fr.item()}")
         err = max(err, (fk - fr).abs().item())
     return err, ties
@@ -717,6 +776,246 @@ def phase_pod_step(torch, gen):
              "k_cap")
     emit("pod_step", sessions=S, rounds=rounds, max_abs_err=max_err)
     return max_err
+
+
+def _int_table(state):
+    """(S, 5) int32: n, j, t, n_fused, n_queries of a stacked TSState."""
+    import torch
+
+    return torch.stack([state.ld.n, state.j, state.t, state.n_fused,
+                        state.ld.n_queries], -1)
+
+
+def phase_pod_bf16(torch, gen):
+    """The pod step on bf16 summaries (the carry bf16 in device memory,
+    float32 arithmetic) against ``pod_step_ref`` over the rounds of
+    ``pod_step``: integers equal, fval within POD_BF16_TOL, L and Linv
+    measured; a first differing accept within TIE_BF16 of its threshold
+    is a near-tie.  The kernel fed each session's count one short (a
+    ragged-edge fault) must fail the integer check.  The ragged round is
+    timed beside the same round on float32 state."""
+    from repro_torch.core.functions import (KernelConfig, LogDet,
+                                            rbf_lengthscale_stream)
+    from repro_torch.core.threesieves import ThreeSieves
+    from repro_torch.kernels.pod_step import pod_step, pod_step_ref
+
+    def bf16_algo(backend):
+        f = LogDet(K=K_MAX, d=D, kernel=KernelConfig(
+            "rbf", rbf_lengthscale_stream(D)), dtype=torch.bfloat16,
+            backend=backend, device=DEV)
+        return ThreeSieves(f=f, T=1000, eps=0.01)
+
+    algo, algo_ref = bf16_algo(None), bf16_algo("torch")
+    algo32 = _pod_algos(torch)[0]
+    S = 16
+    ker = _stacked_tiers(torch, algo, S)
+    ref = clone_state(ker)
+    rounds, max_err, fault = [], 0.0, None
+    plan = [("ragged", CHUNK, 1.0), ("c1", 1, 1.0),
+            ("saturate", CHUNK, SPREAD_FAR), ("after_saturation", CHUNK, 1.0)]
+    for name, C, spread in plan:
+        chunks = mixture(torch, gen, S * C, spread=spread).reshape(S, C, D)
+        if name == "saturate":
+            counts = torch.full((S,), C, dtype=torch.int32, device=DEV)
+        else:
+            counts = torch.randint(0, C + 1, (S,), generator=gen,
+                                   device=DEV).to(torch.int32)
+            counts[0], counts[1] = 0, C
+        n_before = ker.ld.n.clone()
+        before = clone_state(ker)
+        timing = {"ms": timed_ms(torch, lambda st: pod_step(
+            algo, st, chunks, counts, backend="cuda"), reps=5, warmup=1,
+            setup=lambda: (clone_state(before),))}
+        if name == "ragged":  # the same round on float32 state
+            st32 = _stacked_tiers(torch, algo32, S)
+            timing["f32_ms"] = timed_ms(torch, lambda st: pod_step(
+                algo32, st, chunks, counts, backend="cuda"), reps=5,
+                warmup=1, setup=lambda: (clone_state(st32),))
+        pod_step(algo, ker, chunks, counts, backend="cuda")
+        margins = [dict() for _ in range(S)]
+        plain_ms, ref = host_ms(torch, lambda: pod_step_ref(
+            algo_ref, ref, chunks, counts, margins=margins))
+        for field in ("feats", "L", "Linv", "fval"):
+            if getattr(ker.ld, field).dtype != torch.bfloat16:
+                fail(f"pod_bf16 {name}: {field} left bf16")
+        err, ties = compare_sessions(torch, ker, ref, chunks, n_before,
+                                     margins, f"pod_bf16 {name}",
+                                     tie=TIE_BF16, tol=POD_BF16_TOL,
+                                     factors=False)
+        if name == "after_saturation":
+            bad = clone_state(before)
+            pod_step(algo, bad, chunks, torch.clamp_min(counts - 1, 0),
+                     backend="cuda")
+            fault = int((_int_table(bad) != _int_table(ref)).any(-1).sum())
+            if not fault:
+                fail("pod_bf16: the check passes the kernel fed counts "
+                     "one short")
+        resync(ker, ref, [t["session"] for t in ties])
+        max_err = max(max_err, err)
+        rounds.append({"round": name, "C": C, **timing,
+                       "plain_ms": plain_ms, "max_abs_err": err,
+                       "near_ties": ties, "n": ker.ld.n.tolist()})
+    pod = _bf16_pod(torch, gen, algo, algo_ref)
+    emit("pod_bf16", sessions=S, rounds=rounds, max_abs_err=max_err,
+         fval_tol=POD_BF16_TOL, tie=TIE_BF16,
+         control_counts_short_sessions_failing=fault, summarizer_pod=pod)
+    return max_err
+
+
+def _bf16_pod(torch, gen, algo, algo_ref, ingests=2):
+    """A ``SummarizerPod`` of bf16 ThreeSieves tenants (32 sessions in the
+    three tiers) through ``route`` and ``ingest_routed`` on the card, each
+    ingest replayed through ``pod_step_ref`` under pod_bf16's rules."""
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.kernels.pod_step import pod_step_ref
+    from repro_torch.serve.summarize import SummarizerPod
+
+    S = 32
+    pod = SummarizerPod(algo=algo, sessions=S, chunk=CHUNK, device=DEV)
+    state = pod.init()
+    for i in range(S):
+        state, _, ok = pod.admit(state, 1000 + i, spec=spec_of(i))
+        if not bool(ok):
+            fail(f"pod_bf16: admit of tenant {i} refused")
+    sids = torch.arange(1000, 1000 + S, dtype=torch.int32, device=DEV)
+    POD.launches, err, ties = 0, 0.0, []
+    for b in range(ingests):
+        perm = torch.randperm(S * CHUNK, generator=gen, device=DEV)
+        routed = pod.route(state, sids.repeat_interleave(CHUNK)[perm],
+                           mixture(torch, gen, S * CHUNK))
+        before = clone_state(state.algo)
+        state, _ = pod.ingest_routed(state, *routed)
+        chunks, counts = routed[0], routed[1]
+        margins = [dict() for _ in range(S)]
+        ref = pod_step_ref(algo_ref, before, chunks, counts, margins=margins)
+        e, t = compare_sessions(torch, state.algo, ref, chunks,
+                                before.ld.n, margins, f"pod_bf16 pod {b}",
+                                tie=TIE_BF16, tol=POD_BF16_TOL,
+                                factors=False)
+        err, ties = max(err, e), ties + t
+    out = pod.readout(state)
+    if POD.launches != ingests or out.feats.dtype != torch.bfloat16:
+        fail(f"pod_bf16 pod: {POD.launches} pod-step launches over "
+             f"{ingests} ingests, summaries {out.feats.dtype}")
+    return {"sessions": S, "ingests": ingests, "launches": POD.launches,
+            "n": out.n.tolist(), "max_abs_err": err, "near_ties": ties}
+
+
+def phase_gain_bf16(torch, gen):
+    """A bf16 summary (K = 100, d = 256, n = 100) through the gain
+    oracle's kernel route (x, feats and Linv upcast to float32 for the
+    float32 kernels, the gains cast back to bf16) against its plain
+    route, traced (``gain_traced``) and static (``gain_static``) kernels,
+    B = 1024: within one bf16 ulp (GAIN_BF16_TOL).  The summary priced
+    without its second half must fail the check.  Timed beside the same call
+    on the float32 summary."""
+    import dataclasses
+
+    from repro_torch.core.functions import (KernelConfig, LogDet,
+                                            rbf_lengthscale_stream)
+    from repro_torch.kernelmath import KernelParams
+    from repro_torch.tree import tree_map
+
+    # the static kernel prices the summary with the lengthscale it was
+    # built with (inv2l2 = D / 2)
+    f = LogDet(K=K_MAX, d=D, kernel=KernelConfig(
+        "rbf", rbf_lengthscale_stream(D)), dtype=torch.bfloat16, device=DEV)
+    plain = dataclasses.replace(f, backend="torch")
+    f32 = dataclasses.replace(f, dtype=torch.float32)
+    B = 1024
+    # candidates and summary rows from one mixture, so that the summary
+    # moves the gains (each call of ``mixture`` draws its own centres)
+    items = mixture(torch, gen, B + K_MAX)
+    X, pool = items[:B], items[B:]
+    kern = KernelParams(
+        inv2l2=torch.tensor(D / 2.0, dtype=torch.float32, device=DEV),
+        kind_id=torch.tensor(0, dtype=torch.int32, device=DEV))
+    st = _summary_state(torch, plain, kern, pool, K_MAX)
+    st32 = tree_map(lambda t: t.float() if t.is_floating_point() else t, st)
+    # the planted fault: the live-row count halved (a summary that lost
+    # its last 50 rows; one row moves gains by less than a bf16 ulp here)
+    short = dataclasses.replace(st, n=st.n // 2)
+    cases, max_err = [], 0.0
+    for form, kp, kernels in (("traced", kern, GAIN_TRACED_KERNELS),
+                              ("static", None, GAIN_STATIC_KERNELS)):
+        got = f.gains(st, X, kp)
+        want = plain.gains(st, X, kp)
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or not torch.allclose(
+                got.float(), want.float(), rtol=GAIN_BF16_TOL,
+                atol=GAIN_BF16_TOL):
+            fail(f"gain_bf16 {form}: {got.dtype}, max err "
+                 f"{(got.float() - want.float()).abs().max().item()}")
+        e = (got.float() - want.float()).abs().max().item()
+        bad = f.gains(short, X, kp).float()
+        if torch.allclose(bad, want.float(), rtol=GAIN_BF16_TOL,
+                          atol=GAIN_BF16_TOL):
+            fail(f"gain_bf16 {form}: the check passes the summary "
+                 "without its second half")
+        bad = (bad - want.float()).abs().max().item()
+        max_err = max(max_err, e)
+        cases.append({
+            "form": form, "max_abs_err": e, "tol": GAIN_BF16_TOL,
+            "control_half_summary_max_abs_err": bad,
+            "ms": device_ms(torch, lambda: f.gains(st, X, kp), kernels),
+            "f32_ms": device_ms(torch, lambda: f32.gains(st32, X, kp),
+                                kernels),
+            "call_ms": timed_ms(torch, lambda: f.gains(st, X, kp)),
+            "f32_call_ms": timed_ms(torch, lambda: f32.gains(st32, X, kp)),
+            "plain_ms": timed_ms(torch, lambda: plain.gains(st, X, kp))})
+    algos = _bf16_algorithms(torch, gen)
+    emit("gain_bf16", shape=[B, K_MAX, D, K_MAX], cases=cases,
+         max_abs_err=max_err, algorithms=algos)
+    return {"max_abs_err": max_err}
+
+
+def _bf16_algorithms(torch, gen):
+    """ThreeSieves, SieveStreaming (both ``run_batched``) and ISI
+    (``run``, with its refactoring replacements) on a bf16 LogDet (K =
+    20, d = 256) over 1,024 items of the paper phase's clustered stream,
+    the oracle's kernel route against its plain route: n equal, fval
+    within POD_BF16_TOL; for the sieves a first differing accept within
+    TIE_BF16 of its threshold is a near-tie."""
+    from repro_torch.core.baselines import IndependentSetImprovement
+    from repro_torch.core.functions import (KernelConfig, LogDet,
+                                            rbf_lengthscale_stream)
+    from repro_torch.core.sieves import SieveStreaming
+    from repro_torch.core.threesieves import ThreeSieves
+
+    X = mixture(torch, gen, 1024, clusters=PAPER_CLUSTERS,
+                spread=PAPER_SPREAD)
+    out = {}
+    for name in ("threesieves", "sievestreaming", "isi"):
+        runs = {}
+        for backend in (None, "torch"):
+            f = LogDet(K=20, d=D, kernel=KernelConfig(
+                "rbf", rbf_lengthscale_stream(D)), dtype=torch.bfloat16,
+                backend=backend, device=DEV)
+            margins = {}
+            if name == "threesieves":
+                algo = ThreeSieves(f=f, T=50, eps=0.1)
+                st = algo.run_batched(algo.init(), X, margins=margins)
+            elif name == "sievestreaming":
+                algo = SieveStreaming(f=f, eps=0.1)
+                st = algo.run_batched(algo.init(), X, margins=margins)
+            else:
+                algo = IndependentSetImprovement(f=f)
+                st = algo.run(algo.init(), X)
+            _, n, fval = algo.summary(st)
+            runs[backend] = (int(n), fval.float().item(), margins,
+                             fval.dtype)
+        (nk, fk, _, dk), (nr, fr, mr, _) = runs[None], runs["torch"]
+        tie = min(mr.values()) if mr else None
+        if dk != torch.bfloat16:
+            fail(f"gain_bf16 {name}: fval {dk}, not bf16")
+        if nk != nr and not (tie is not None and tie <= TIE_BF16):
+            fail(f"gain_bf16 {name}: n {nk} on the kernel route, {nr} on "
+                 "the plain route")
+        if nk == nr and abs(fk - fr) > POD_BF16_TOL * (1 + abs(fr)):
+            fail(f"gain_bf16 {name}: fval {fk} vs {fr}")
+        out[name] = {"n": nk, "fval": fk, "plain_n": nr, "plain_fval": fr,
+                     "min_plain_margin": tie}
+    return out
 
 
 def once_ms(torch, fn):
@@ -1221,17 +1520,91 @@ def _padded(q, k, v):
             pad)
 
 
+def _flash_case(torch, gen, case, control):
+    """One flash case (a FLASH_CASES tuple) against ``attention_ref`` ->
+    its JSON record.  ``control`` names the planted fault its check must
+    fail: "padded_keys" (the kernel told to keep the padded keys) or
+    "non_causal" (the kernel of a causal case told to see every key)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (ROUTES, attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_cuda)
+
+    name, B, Hq, Hkv, S, dh, causal, dtype, std = case
+    dt = getattr(torch, dtype)
+    q = (std * torch.randn(B, Hq, S, dh, generator=gen, device=DEV)).to(dt)
+    k = (std * torch.randn(B, Hkv, S, dh, generator=gen, device=DEV)).to(dt)
+    v = torch.randn(B, Hkv, S, dh, generator=gen, device=DEV).to(dt)
+    got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    e = (got.float() - want.float()).abs().max().item()
+    size = want.float().abs().max().item()
+    tol, scaled_tol = FLASH_TOL[dtype], FLASH_SCALED_TOL[dtype]
+    if got.dtype != dt or not torch.allclose(got.float(), want.float(),
+                                             rtol=tol, atol=tol):
+        fail(f"flash {name}: {got.dtype}, max err {e} (tol {tol})")
+    if e / size > scaled_tol:
+        fail(f"flash {name}: max err {e} is {e / size} of the largest "
+             f"output {size} (tol {scaled_tol})")
+    # the kernel alone on the padded inputs the wrapper hands it
+    qp, kp, vp, pad = _padded(q, k, v)
+    fault = None
+    if control is not None:
+        bad = flash_attention_cuda(
+            qp, kp, vp, causal=causal and control != "non_causal",
+            kv_len=S + pad if control == "padded_keys" else S)[:, :, :S]
+        fault = (bad.float() - want.float()).abs().max().item() / size
+        if fault <= scaled_tol:
+            fail(f"flash {name}: the check passes the {control} fault "
+                 f"({fault} of the largest output, tol {scaled_tol})")
+
+    def kernel():
+        return flash_attention_cuda(qp, kp, vp, causal=causal, kv_len=S)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+
+    lib = library()
+    lib_err = (lib.float() - want.float()).abs().max().item()
+    flops, nbytes = flash_work(B, Hq, Hkv, S, S, dh, causal,
+                               q.element_size())
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16
+                       else PEAK_FP32)
+    seen = {}
+    ms = device_ms(torch, kernel, FLASH_KERNELS[::-1] if dtype ==
+                   "bfloat16" else FLASH_KERNELS, seen=seen)
+    ran = ("tensor-core" if any("wgmma" in k for k in seen)
+           else "cuda-core")
+    if len(seen) != 1 or not ROUTES[dt].startswith(ran):
+        fail(f"flash {name}: {dtype} ran {sorted(seen)}, expected the "
+             f"{ROUTES[dt]} kernel alone")
+    return {
+        "case": name, "route": ran, "kernels_seen": seen,
+        "shape": [B, Hq, Hkv, S, dh], "causal": causal,
+        "dtype": dtype, "qk_std": std, "padded_to": S + pad,
+        "max_abs_err": e, "tol": tol, "max_abs_want": size,
+        "scaled_err": e / size, "scaled_tol": scaled_tol,
+        "control": control, "control_scaled_err": fault,
+        "ms": ms, "call_ms": timed_ms(torch, lambda: (
+            flash_attention(q, k, v, causal=causal, backend="cuda"))),
+        "plain_ms": timed_ms(torch, lambda: attention_ref(
+            q, k, v, causal=causal)),
+        "library_ms": timed_ms(torch, library),
+        "library_max_abs_err": lib_err,
+        "library_scaled_err": lib_err / size, "bound_ms": b_ms,
+        "bound_by": b_by, "flops": flops, "bytes": nbytes,
+        "tflops": flops / ms / 1e9}
+
+
 def phase_flash(torch, gen):
     """The flash-attention kernel against ``attention_ref`` in the cases
     of FLASH_CASES, timed beside the plain version and SDPA; at the
     control case, a planted fault (padded keys kept) must fail the
     check."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import (KERNEL, ROUTES,
-                                                     attention_ref,
-                                                     flash_attention,
-                                                     flash_attention_cuda)
+    from repro_torch.kernels.flash_attention import KERNEL, ROUTES
 
     # the built library's SASS: the bf16 kernel's products on the tensor
     # cores show as HGMMA (wgmma) or HMMA (mma.sync)
@@ -1239,80 +1612,28 @@ def phase_flash(torch, gen):
     emit("flash_sass", library=KERNEL.so_path().name, **sass)
     if not (sass["HGMMA"] or sass["HMMA"]):
         fail(f"flash: no tensor-core instruction in the SASS ({sass})")
-    cases, max_err = [], 0.0
-    for name, B, Hq, Hkv, S, dh, causal, dtype, std in FLASH_CASES:
-        dt = getattr(torch, dtype)
-        q = (std * torch.randn(B, Hq, S, dh, generator=gen,
-                               device=DEV)).to(dt)
-        k = (std * torch.randn(B, Hkv, S, dh, generator=gen,
-                               device=DEV)).to(dt)
-        v = torch.randn(B, Hkv, S, dh, generator=gen, device=DEV).to(dt)
-        got = flash_attention(q, k, v, causal=causal, backend="cuda")
-        want = attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        e = (got.float() - want.float()).abs().max().item()
-        size = want.float().abs().max().item()
-        tol, scaled_tol = FLASH_TOL[dtype], FLASH_SCALED_TOL[dtype]
-        if got.dtype != dt or not torch.allclose(got.float(), want.float(),
-                                                 rtol=tol, atol=tol):
-            fail(f"flash {name}: {got.dtype}, max err {e} (tol {tol})")
-        if e / size > scaled_tol:
-            fail(f"flash {name}: max err {e} is {e / size} of the largest "
-                 f"output {size} (tol {scaled_tol})")
-        max_err = max(max_err, e)
-        # the kernel alone on the padded inputs the wrapper hands it
-        qp, kp, vp, pad = _padded(q, k, v)
-        control = None
-        if name == FLASH_CONTROL:
-            bad = flash_attention_cuda(qp, kp, vp, causal=causal,
-                                       kv_len=S + pad)[:, :, :S]
-            control = (bad.float() - want.float()).abs().max().item() / size
-            if control <= scaled_tol:
-                fail(f"flash {name}: the check passes a kernel that keeps "
-                     f"the {pad} padded keys ({control} of the largest "
-                     f"output, tol {scaled_tol})")
-
-        def kernel():
-            return flash_attention_cuda(qp, kp, vp, causal=causal, kv_len=S)
-
-        def library():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                  enable_gqa=True)
-
-        lib = library()
-        lib_err = (lib.float() - want.float()).abs().max().item()
-        flops, nbytes = flash_work(B, Hq, Hkv, S, S, dh, causal,
-                                   q.element_size())
-        b_ms, b_by = bound(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16
-                           else PEAK_FP32)
-        seen = {}
-        ms = device_ms(torch, kernel, FLASH_KERNELS[::-1] if dtype ==
-                       "bfloat16" else FLASH_KERNELS, seen=seen)
-        ran = ("tensor-core" if any("wgmma" in k for k in seen)
-               else "cuda-core")
-        if len(seen) != 1 or not ROUTES[dt].startswith(ran):
-            fail(f"flash {name}: {dtype} ran {sorted(seen)}, expected the "
-                 f"{ROUTES[dt]} kernel alone")
-        cases.append({
-            "case": name, "route": ran, "kernels_seen": seen,
-            "shape": [B, Hq, Hkv, S, dh], "causal": causal,
-            "dtype": dtype, "qk_std": std, "padded_to": S + pad,
-            "max_abs_err": e, "tol": tol, "max_abs_want": size,
-            "scaled_err": e / size, "scaled_tol": scaled_tol,
-            "control_kv_len_ignored_scaled_err": control,
-            "ms": ms, "call_ms": timed_ms(torch, lambda: (
-                flash_attention(q, k, v, causal=causal, backend="cuda"))),
-            "plain_ms": timed_ms(torch, lambda: attention_ref(
-                q, k, v, causal=causal)),
-            "library_ms": timed_ms(torch, library),
-            "library_max_abs_err": lib_err,
-            "library_scaled_err": lib_err / size, "bound_ms": b_ms,
-            "bound_by": b_by, "flops": flops, "bytes": nbytes,
-            "tflops": flops / ms / 1e9})
+    cases = [_flash_case(torch, gen, case, "padded_keys"
+                         if case[0] == FLASH_CONTROL else None)
+             for case in FLASH_CASES]
+    max_err = max(c["max_abs_err"] for c in cases)
     emit("flash", cases=cases, max_abs_err=max_err,
          routes={str(k).replace("torch.", ""): v for k, v in ROUTES.items()},
          library="torch.nn.functional.scaled_dot_product_attention")
     return {"max_abs_err": max_err, **cases[0]}
+
+
+def phase_flash_dh96(torch, gen):
+    """Head width 96 on both routes: phi3-mini-3.8b's attention (32 / 32
+    heads, S = 2048, causal, bf16: the tensor-core kernel in 64-byte
+    swizzled column blocks) timed against SDPA, and a ragged float32 case;
+    the kernel of a causal case told to see every key must fail the
+    check (under the causal mask the padded keys are never seen)."""
+    cases = [_flash_case(torch, gen, case, "non_causal" if case[6]
+                         else "padded_keys") for case in FLASH_DH96_CASES]
+    emit("flash_dh96", cases=cases,
+         max_abs_err=max(c["max_abs_err"] for c in cases),
+         library="torch.nn.functional.scaled_dot_product_attention")
+    return {"max_abs_err": max(c["max_abs_err"] for c in cases)}
 
 
 def sass_counts(kernel, opcodes):
@@ -1596,15 +1917,17 @@ def phase_whisper(torch, gen, seed):
          runs=runs)
     return {"launches": launches}
 
-def ssd_work(b, h, c, q, p, n, esize):
-    """The least work of one SSD intra-chunk call -> (FLOP, bytes): per
-    (batch, head, chunk) tile 2 n + 2 p FLOP per live (query, key) pair,
-    q (q + 1) / 2 pairs (the C.B score and the S.X product), and 2 n p per
-    key for the end-state; one read of X, Adt, B, C and one write of Y (in
-    the input type) and the float32 states."""
-    tiles = b * h * c
-    flops = tiles * (q * (q + 1) // 2 * (2 * n + 2 * p) + 2 * q * n * p)
-    nbytes = tiles * (esize * q * (2 * p + 2 * n + 1) + 4 * n * p)
+def ssd_work(b, h, g, c, q, p, n, esize):
+    """The least work of one SSD intra-chunk call with B / C per group ->
+    (FLOP, bytes): per (batch, chunk) and live (query, key) pair, q (q +
+    1) / 2 pairs per chunk, 2 n FLOP per group for G = C B^T and 2 p per
+    head for S X; 2 n p per key and head for the end-state; one read of
+    X, Adt, B, C and one write of Y (in the input type) and the float32
+    states."""
+    pairs = b * c * (q * (q + 1) // 2)
+    flops = pairs * (2 * n * g + 2 * p * h) + b * c * h * 2 * q * n * p
+    nbytes = b * c * (esize * q * (2 * h * p + h + 2 * g * n)
+                      + 4 * h * n * p)
     return flops, nbytes
 
 
@@ -1618,33 +1941,45 @@ def ssd_errors(torch, got, want, tol):
 
 
 def _without_diagonal(X, B, C, Y):
-    """The planted fault of phase ssd: the plain output with the diagonal
+    """A planted fault of phase ssd: the plain output with the diagonal
     of L (exp(0) = 1) dropped, so each step misses its own input: Y minus
-    (C_i . B_i) X_i."""
-    return (Y.float() - (C.float() * B.float()).sum(-1, keepdim=True)
+    (C_i . B_i) X_i (model layout, B / C per group)."""
+    h, g = X.shape[2], B.shape[2]
+    cb = (C.float() * B.float()).sum(-1, keepdim=True)
+    return (Y.float() - cb.repeat_interleave(h // g, dim=2)
             * X.float()).to(Y.dtype)
 
 
-def phase_ssd(torch, gen):
-    """The SSD intra-chunk kernel against ``ssd_chunk_ref`` in the cases of
-    SSD_CASES, timed beside the plain version; in every case the plain
-    version without the diagonal must fail the check."""
+def _ssd_inputs(torch, gen, b, L, h, g, p, n, dtype, decay):
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_chunk import (ssd_chunk_cuda, ssd_chunk_ref,
+    dt = getattr(torch, dtype)
+    X = torch.randn(b, L, h, p, generator=gen, device=DEV).to(dt)
+    Adt = (-decay * F.softplus(torch.randn(b, L, h, generator=gen,
+                                           device=DEV))).to(dt)
+    B = torch.randn(b, L, g, n, generator=gen, device=DEV).to(dt)
+    C = torch.randn(b, L, g, n, generator=gen, device=DEV).to(dt)
+    return X, Adt, B, C
+
+
+def phase_ssd(torch, gen):
+    """The SSD intra-chunk kernel against its plain version in the cases
+    of SSD_CASES, timed beside it; the route each dtype took (bf16: the
+    tensor-core kernel, float32: the CUDA-core one, from the profiler's
+    kernel names); in every case the plain version without the diagonal,
+    and in bf16 the kernel fed Adt shifted by one step, must fail the
+    check (the margin: the fault's error over the gate)."""
+    from repro_torch.kernels.ssd_chunk import (ROUTES, ssd_chunk_cuda,
                                                ssd_chunks)
 
     cases, max_err = [], 0.0
-    for name, b, L, h, p, n, q, dtype, decay in SSD_CASES:
+    for name, b, L, h, g, p, n, q, dtype, decay in SSD_CASES:
         dt = getattr(torch, dtype)
         c = L // q
-        X = torch.randn(b, h, c, q, p, generator=gen, device=DEV).to(dt)
-        Adt = (-decay * F.softplus(torch.randn(b, h, c, q, generator=gen,
-                                               device=DEV))).to(dt)
-        B = torch.randn(b, h, c, q, n, generator=gen, device=DEV).to(dt)
-        C = torch.randn(b, h, c, q, n, generator=gen, device=DEV).to(dt)
-        Y, st = ssd_chunk_cuda(X, Adt, B, C)
-        Yr, sr = ssd_chunk_ref(X, Adt, B, C)
+        X, Adt, B, C = _ssd_inputs(torch, gen, b, L, h, g, p, n, dtype,
+                                   decay)
+        Y, st = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
+        Yr, sr = ssd_chunks(X, Adt, B, C, chunk=q, backend="torch")
         torch.cuda.synchronize()
         tol, scaled_tol = SSD_TOL[dtype], SSD_SCALED_TOL[dtype]
         if Y.dtype != dt or st.dtype != torch.float32 or not (
@@ -1656,42 +1991,59 @@ def phase_ssd(torch, gen):
             fail(f"ssd {name}: Y off by {y_err} ({y_scaled} of the largest), "
                  f"states by {s_err} ({s_scaled}); tol {tol} / "
                  f"{scaled_tol}")
+        controls = {}
         bad = _without_diagonal(X, B, C, Yr)
-        c_err, c_scaled, c_ok = ssd_errors(torch, bad, Yr, tol)
-        if c_ok and c_scaled <= scaled_tol:
-            fail(f"ssd {name}: the check passes the plain version without "
-                 f"the diagonal ({c_err}, {c_scaled} of the largest)")
+        controls["strict_tril"] = ssd_errors(torch, bad, Yr, tol)
         del bad
+        if dt == torch.bfloat16:
+            shifted = torch.cat([Adt[:, :1], Adt[:, :-1]], 1)
+            controls["shifted_adt"] = ssd_errors(
+                torch, ssd_chunk_cuda(X, shifted, B, C, chunk=q)[0], Yr, tol)
+            del shifted
+        for fault, (c_err, c_scaled, c_ok) in controls.items():
+            if c_ok and c_scaled <= scaled_tol:
+                fail(f"ssd {name}: the check passes the {fault} fault "
+                     f"({c_err}, {c_scaled} of the largest)")
         max_err = max(max_err, y_err, s_err)
-        flops, nbytes = ssd_work(b, h, c, q, p, n, X.element_size())
-        b_ms, b_by = bound(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16
-                           else PEAK_FP32)
-        b32_ms, b32_by = bound(flops, nbytes, PEAK_FP32)
-        ms = device_ms(torch, lambda: ssd_chunk_cuda(X, Adt, B, C),
-                       "ssd_chunk_kernel")
-        # the wrapper in the model's layout (the transposes and copies the
-        # prefill pays around each launch)
-        Xm = X.permute(0, 2, 3, 1, 4).reshape(b, L, h, p)
-        Am = Adt.permute(0, 2, 3, 1).reshape(b, L, h)
-        Bm = B.permute(0, 2, 3, 1, 4).reshape(b, L, h, n)
-        Cm = C.permute(0, 2, 3, 1, 4).reshape(b, L, h, n)
+        flops, nbytes = ssd_work(b, h, g, c, q, p, n, X.element_size())
+        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+        b_ms, b_by = bound(flops, nbytes, peak)
+        per_head_ms, per_head_by = bound(*ssd_work(b, h, h, c, q, p, n,
+                                                   X.element_size()), peak)
+        seen = {}
+        ms = device_ms(torch, lambda: ssd_chunk_cuda(X, Adt, B, C, chunk=q),
+                       SSD_KERNELS[::-1] if dtype == "bfloat16"
+                       else SSD_KERNELS, seen=seen)
+        ran = ("tensor-core" if any("mma" in k for k in seen)
+               else "cuda-core")
+        if len(seen) != 1 or not ROUTES[dt].startswith(ran):
+            fail(f"ssd {name}: {dtype} ran {sorted(seen)}, expected the "
+                 f"{ROUTES[dt]} kernel alone")
         cases.append({
-            "case": name, "shape": [b, L, h, p, n, q], "dtype": dtype,
-            "decay": decay, "acum_min": Adt.float().sum(-1).min().item(),
+            "case": name, "shape": [b, L, h, g, p, n, q], "dtype": dtype,
+            "route": ran, "decay": decay,
+            "acum_min": Adt.float().reshape(b, c, q, h).sum(2).min().item(),
             "y_max_abs_err": y_err, "y_scaled_err": y_scaled,
+            "y_share_differing": (Y != Yr).float().mean().item(),
             "state_max_abs_err": s_err, "state_scaled_err": s_scaled,
             "tol": tol, "scaled_tol": scaled_tol,
             "max_abs_want": Yr.float().abs().max().item(),
-            "control_strict_tril_max_abs_err": c_err,
-            "control_strict_tril_scaled_err": c_scaled,
+            **{f"control_{k}_max_abs_err": v[0] for k, v in controls.items()},
+            **{f"control_{k}_scaled_err": v[1] for k, v in controls.items()},
+            **{f"control_{k}_margin": v[1] / scaled_tol
+               for k, v in controls.items()},
             "ms": ms, "call_ms": timed_ms(torch, lambda: ssd_chunks(
-                Xm, Am, Bm, Cm, chunk=q, backend="cuda")),
-            "plain_ms": timed_ms(torch, lambda: ssd_chunk_ref(X, Adt, B, C)),
-            "bound_ms": b_ms, "bound_by": b_by, "bound_fp32_ms": b32_ms,
-            "bound_fp32_by": b32_by, "flops": flops, "bytes": nbytes,
-            "tflops": flops / ms / 1e9})
-        del X, Adt, B, C, Y, st, Yr, sr, Xm, Am, Bm, Cm
-    emit("ssd", cases=cases, max_abs_err=max_err, library=None)
+                X, Adt, B, C, chunk=q, backend="cuda")),
+            "plain_ms": timed_ms(torch, lambda: ssd_chunks(
+                X, Adt, B, C, chunk=q, backend="torch")),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_per_head_ms": per_head_ms,
+            "bound_per_head_by": per_head_by, "flops": flops,
+            "bytes": nbytes, "tflops": flops / ms / 1e9,
+            "tb_per_s": nbytes / ms / 1e9})
+        del X, Adt, B, C, Y, st, Yr, sr
+    emit("ssd", cases=cases, max_abs_err=max_err, library=None,
+         routes={str(k).replace("torch.", ""): v for k, v in ROUTES.items()})
     return {"max_abs_err": max_err, **cases[0]}
 
 
@@ -1731,6 +2083,22 @@ def _shifted_adt(X, Adt, B, C, *, chunk):
     return ssd_chunks(X, shifted, B, C, chunk=chunk, backend="cuda")
 
 
+def _recording_ssd(calls):
+    """The kernel route, recording for each call the heads, the B / C
+    groups it was handed, and whether X, B and C were read in place (rows
+    on 16 bytes, no copy before the launch)."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+    from repro_torch.kernels.ssd_chunk.kernel import reads_in_place
+
+    def route(X, Adt, B, C, *, chunk):
+        calls.append({"heads": X.shape[2], "groups": B.shape[2],
+                      "in_place": all(reads_in_place(t)
+                                      for t in (X, B, C))})
+        return ssd_chunks(X, Adt, B, C, chunk=chunk, backend="cuda")
+
+    return route
+
+
 def phase_mamba(torch, gen, seed):
     """Mamba2-370m at full width serving 8 requests through
     ``ServeDriver.generate`` with each layer's prefill on the CUDA SSD
@@ -1744,6 +2112,7 @@ def phase_mamba(torch, gen, seed):
     from repro_torch.kernels.rbf_gain import KERNEL as GAIN
     from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
     from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES
     from repro_torch.models import Model, init_cache
     from repro_torch.serve import ServeDriver, make_prefill_step
     from repro_torch.tree import leaves_with_keys
@@ -1764,9 +2133,20 @@ def phase_mamba(torch, gen, seed):
         max_seq = P + N + 8
         tol = MAMBA_TOL[dtype]
 
-        # tokens: the kernel route against the plain route
+        # tokens: the kernel route against the plain route; the warm-up
+        # generate records what each SSD launch was handed
         driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
-        out = driver.generate(params, prompts, N)  # warms
+        ssd_calls = []
+        with _SsdRoute(_recording_ssd(ssd_calls)):
+            out = driver.generate(params, prompts, N)  # warms
+        groups = cfg.ssm.n_groups
+        if len(ssd_calls) != cfg.n_layers or any(
+                c["groups"] != groups or (dtype == "bfloat16"
+                                          and not c["in_place"])
+                for c in ssd_calls):
+            fail(f"mamba {dtype}: the SSD route was handed {ssd_calls[:2]} "
+                 f"({len(ssd_calls)} calls); expected {cfg.n_layers} calls "
+                 f"with B / C per group ({groups}), read in place in bf16")
         gaps = []
         ref_driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
         ref_driver._prefill = _gap_recorder(torch, ref_driver._prefill, gaps,
@@ -1785,6 +2165,7 @@ def phase_mamba(torch, gen, seed):
 
         # the main path: timed generates, launches counted in each
         torch.cuda.reset_peak_memory_stats()
+        routed = dict(ROUTE_LAUNCHES)
         timing, lns = _generates(torch, driver, kernels, lambda: (
             driver.generate(params, prompts, N)), N, MAMBA_REPS)
         peak = torch.cuda.max_memory_allocated()
@@ -1793,6 +2174,13 @@ def phase_mamba(torch, gen, seed):
                     v for k, v in ln.items() if k != "ssd_chunk"):
                 fail(f"mamba {dtype}: launches {ln}, expected "
                      f"{cfg.n_layers} ssd_chunk per generate")
+        # the route of those launches, per generate
+        routes = {r: (ROUTE_LAUNCHES[r] - routed[r]) / len(lns)
+                  for r in ROUTE_LAUNCHES}
+        want = "tensor-core" if dtype == "bfloat16" else "cuda-core"
+        if routes[want] != cfg.n_layers:
+            fail(f"mamba {dtype}: SSD routes per generate {routes}, "
+                 f"expected {cfg.n_layers} on the {want} kernel")
         if dtype == base.dtype:
             launches = lns[0]["ssd_chunk"]
         ref_timed = ServeDriver(model=model, max_seq=max_seq, batch=B)
@@ -1833,6 +2221,11 @@ def phase_mamba(torch, gen, seed):
                  f"(error {control}, tol {tol})")
         runs[dtype] = {
             "launches": lns[0], "generates": len(lns),
+            "ssd_routes_per_generate": routes,
+            "ssd_inputs": {"calls": len(ssd_calls), "groups": groups,
+                           "heads": ssd_calls[0]["heads"],
+                           "in_place": sum(c["in_place"]
+                                           for c in ssd_calls)},
             "tokens_equal_rows": equal, "near_ties": ties,
             "min_plain_gap": min(min(g) for g in gaps),
             "logits_max_abs_err": logit_errs, "tol": tol,
@@ -1842,11 +2235,16 @@ def phase_mamba(torch, gen, seed):
         if dtype == base.dtype:  # where the serving run's device time goes
             wall, busy, by = _profile(torch, lambda: driver.generate(
                 params, prompts, N))
-            ssd = sum(t for t, _, k in by if "ssd_chunk_kernel" in k)
+            ssd = sum(t for t, _, k in by
+                      if any(n in k for n in SSD_KERNELS))
+            # layout copies and B / C repeats: ATen's copy and index kernels
+            copies = sum(t for t, _, k in by
+                         if "copy" in k or "index" in k.lower())
             runs[dtype]["profile"] = {
                 "wall_ms": wall, "device_busy_ms": busy,
                 "idle_share": 1 - busy / wall, "ssd_ms": ssd,
                 "ssd_share_of_prefill": ssd / timing["prefill_ms"]["median"],
+                "copy_and_index_kernels_ms": copies,
                 "top": [{"ms": t, "count": c, "kernel": k}
                         for t, c, k in by[:12]]}
     emit("mamba", arch="mamba2-370m", params=n_params,
@@ -1907,6 +2305,10 @@ def main(argv=None):
     whisper = timed("whisper", phase_whisper, torch, gen, args.seed)
     ssd = timed("ssd", phase_ssd, torch, gen)
     mamba = timed("mamba", phase_mamba, torch, gen, args.seed)
+    # the checks of this slice's repairs, after the main paths
+    timed("pod_bf16", phase_pod_bf16, torch, gen)
+    timed("gain_bf16", phase_gain_bf16, torch, gen)
+    flash96 = timed("flash_dh96", phase_flash_dh96, torch, gen)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -1940,7 +2342,7 @@ def main(argv=None):
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
          "launches": whisper["launches"],
-         "max_abs_err": flash["max_abs_err"],
+         "max_abs_err": max(flash["max_abs_err"], flash96["max_abs_err"]),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},

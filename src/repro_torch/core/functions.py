@@ -230,15 +230,20 @@ class LogDet:
         eye = torch.eye(K, dtype=self.dtype, device=feats.device)
         Kmat = self.kernel.pairwise(feats, feats)
         M = torch.where(m2, eye + self.a * Kmat, eye)
-        L = torch.linalg.cholesky(M).contiguous()
-        Linv = torch.linalg.solve_triangular(L, eye.expand_as(L),
-                                             upper=False).contiguous()
+        # LAPACK and cuSOLVER have no bf16 / fp16 Cholesky: such a state
+        # is factored in float32 and stored in its own dtype
+        work = (self.dtype if self.dtype in (torch.float32, torch.float64)
+                else torch.float32)
+        L = torch.linalg.cholesky(M.to(work)).contiguous()
+        Linv = torch.linalg.solve_triangular(
+            L, torch.eye(K, dtype=work, device=feats.device).expand_as(L),
+            upper=False).contiguous()
         logd = torch.log(torch.diagonal(L, dim1=-2, dim2=-1))
         fval = torch.sum(torch.where(live, logd, 0.0), dim=-1)
         return LogDetState(
             feats=torch.where(live[..., None], feats, 0.0).to(self.dtype),
-            L=L,
-            Linv=Linv,
+            L=L.to(self.dtype),
+            Linv=Linv.to(self.dtype),
             n=n,
             fval=fval.to(self.dtype),
             n_queries=torch.zeros(n.shape, dtype=torch.int32,

@@ -53,18 +53,23 @@
 //   encoded in the C launch function on every call, since the pointers
 //   change, and passed as const __grid_constant__ CUtensorMap.
 // * Each map views a tensor as (B*H, S, dh): global strides of dh * 2 and
-//   S * dh * 2 bytes are multiples of 16 for dh in {32, 64, 128}, and a
+//   S * dh * 2 bytes are multiples of 16 for dh in {32, 64, 96, 128}, and a
 //   box never crosses from one head into the next: rows past S read as
 //   zeros.  The wrapper still pads S to the TPU kernel's blocks, but at
 //   S < 128 (or S = 100) the box is longer than the tensor; keys at or
 //   past Sk get -inf (they do not exist), keys at or past kv_len -1e30.
-// * The swizzle of the TMA box (128 B; 64 B at dh = 32) must match the
-//   layout field of the wgmma descriptors, with tiles 1024-byte aligned;
+// * The swizzle of the TMA box (128 B; 64 B at dh = 32 and 96) must match
+//   the layout field of the wgmma descriptors, with tiles 1024-byte aligned;
 //   a mismatch gives plausible garbage, not a fault, which
 //   tests/test_torch_cuda.py holds against attention_ref at small shapes.
 //   K-major operands step 32 bytes along a 128-byte (64-byte) row per k16
 //   step; V (MN-major) steps 16 rows, with LBO the stride between column
 //   blocks and SBO that between groups of 8 rows.
+// * dh = 96 is 192 bytes a row, more than one 128-byte swizzle atom and not
+//   a whole number of them, so it takes dh = 32's layout three times: three
+//   32-column blocks with the 64-byte swizzle (three TMA boxes per tile),
+//   S = Q K^T in six k16 steps (two per block), O += P V as m64n96k16 with
+//   V's three blocks LBO apart.
 // * wgmma.fence precedes each batch of products (the accumulators were
 //   written by ordinary instructions), and commit_group / wait_group 0
 //   come before the softmax reads S and before a stage is released.
@@ -274,6 +279,7 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
   switch (dh) {
     case 32: return launch<T, 32>(FLASH_ARGS);
     case 64: return launch<T, 64>(FLASH_ARGS);
+    case 96: return launch<T, 96>(FLASH_ARGS);
     case 128: return launch<T, 128>(FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -297,10 +303,10 @@ constexpr float MASKED = -1e30f;  // kv_len / causal masks, as the reference
 
 // Shared-memory geometry for head width DH.  A tile of R rows is stored
 // as DH / CB column blocks of R rows x SW bytes, each as TMA writes it
-// with an SW-byte swizzle (128 B at dh 64 / 128, 64 B at dh 32).
+// with an SW-byte swizzle (128 B at dh 64 / 128, 64 B at dh 32 / 96).
 template <int DH>
 struct Geo {
-  static constexpr int SW = DH >= 64 ? 128 : 64;  // bytes of a row's block
+  static constexpr int SW = DH % 64 == 0 ? 128 : 64;  // bytes of a block row
   static constexpr int CB = SW / 2;               // bf16 columns per block
   static constexpr int NCB = DH / CB;             // column blocks
   static constexpr int KPB = CB / 16;             // k16 steps per block
@@ -441,6 +447,28 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 96, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 96) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, f32) += A . B, A (64 x 16) bf16 in registers (four
 // bf16x2 per thread), B (16 x 128) bf16 in shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -472,6 +500,7 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   if constexpr (DH == 32) wgmma_rs_n32(o, a, db);
   else if constexpr (DH == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (DH == 96) wgmma_rs_n96(o, a, db);
   else wgmma_rs_n128(o, a, db);
 }
 
@@ -720,7 +749,7 @@ EncodeTiled encoder() {
 
 // A (BH, S, dh) bf16 tensor as a TMA map with boxes of `rows` rows x one
 // column block.  Global strides (dh * 2 and S * dh * 2 bytes) are
-// multiples of 16 for dh in {32, 64, 128}; rows past S read as zeros.
+// multiples of 16 for dh in {32, 64, 96, 128}; rows past S read as zeros.
 template <int DH>
 bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int rows) {
   using G = Geo<DH>;
@@ -786,6 +815,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
         case 32: return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                        kv_len, causal, scale, s);
         case 64: return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
+                                       kv_len, causal, scale, s);
+        case 96: return tc::launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                        kv_len, causal, scale, s);
         case 128: return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                          kv_len, causal, scale, s);

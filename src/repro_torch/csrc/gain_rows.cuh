@@ -34,9 +34,31 @@
 // of the depth, no atomics), the order cuBLAS's FP32 SIMT GEMM uses too.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro {
+
+// Storage types of the summary state: float32, or bfloat16 widened on load
+// and rounded (to nearest even, as astype does) on store.  Arithmetic is
+// float32 either way.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T and widened back: the value T stores.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
 
 constexpr int NT = 256;       // threads per block, both kernels
 constexpr int KT = 64;        // output columns of one product tile
@@ -70,14 +92,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 // per row of a block of THREADS threads.  The same routine prices
 // candidates and summary rows, so an appended row keeps the norm its
 // candidate had.
-template <int THREADS = NT>
-__device__ __forceinline__ void row_norms2(const float* X, int ld, int rows,
+template <int THREADS = NT, typename T>
+__device__ __forceinline__ void row_norms2(const T* X, int ld, int rows,
                                            int d, float* out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += THREADS / 32) {
     float s = 0.0f;
     for (int e = lane; e < d; e += 32) {
-      float v = X[(size_t)r * ld + e];
+      float v = to_f(X[(size_t)r * ld + e]);
       s = fmaf(v, v, s);
     }
     s = warp_sum(s);
@@ -111,12 +133,12 @@ __device__ __forceinline__ float row_norm(float n2) {
 // acc[m] += sum_e A[b][e] * B[k][e] for output (b, k) = (p / KT, p % KT),
 // p = threadIdx.x + NT * m.  A has a_rows rows (stride lda), B has b_rows
 // rows (stride ldb), both kdim deep; missing rows and depth read as zero.
-// A and B may point to global or shared memory.  With NORM, row r of A is
-// divided by row_norm(an2[r]) and row k of B by row_norm(bn2[k]) as they
-// are staged.
-template <int BT, bool NORM = false>
-__device__ __forceinline__ void gemm_nt(const float* A, int lda, int a_rows,
-                                        const float* B, int ldb, int b_rows,
+// A and B may point to global or shared memory, in float or bfloat16
+// (widened as they are staged).  With NORM, row r of A is divided by
+// row_norm(an2[r]) and row k of B by row_norm(bn2[k]) as they are staged.
+template <int BT, bool NORM = false, typename TA, typename TB>
+__device__ __forceinline__ void gemm_nt(const TA* A, int lda, int a_rows,
+                                        const TB* B, int ldb, int b_rows,
                                         int kdim, float* As, float* Bs,
                                         float (&acc)[Tile<BT>::M],
                                         const float* an2 = nullptr,
@@ -126,7 +148,7 @@ __device__ __forceinline__ void gemm_nt(const float* A, int lda, int a_rows,
       const int r = p / DK, e = p % DK;
       float v = 0.0f;
       if (r < a_rows && e0 + e < kdim) {
-        v = A[(size_t)r * lda + e0 + e];
+        v = to_f(A[(size_t)r * lda + e0 + e]);
         if (NORM) v = v / row_norm(an2[r]);
       }
       As[r * LDT + e] = v;
@@ -135,7 +157,7 @@ __device__ __forceinline__ void gemm_nt(const float* A, int lda, int a_rows,
       const int r = p / DK, e = p % DK;
       float v = 0.0f;
       if (r < b_rows && e0 + e < kdim) {
-        v = B[(size_t)r * ldb + e0 + e];
+        v = to_f(B[(size_t)r * ldb + e0 + e]);
         if (NORM) v = v / row_norm(bn2[r]);
       }
       Bs[r * LDT + e] = v;
@@ -164,12 +186,13 @@ __host__ __device__ constexpr int gain_tile_floats(int bt, int K) {
 // the first n summary rows (feats stride ldf, squared norms fn2) and
 // rows [0, c_rows) of Linv (stride ldl).  KIND < 0 reads the kernel kind
 // from ``kind``; KIND 0 / 1 fixes it (static form, see the top of this
-// file).  Writes gains[0, rows) and ends on a barrier.  Must be reached by
-// every thread of the block.
-template <int BT, int KIND = -1>
-__device__ void gain_tile(const float* X, int ldx, int rows, int d,
-                          const float* feats, int ldf, const float* fn2,
-                          const float* linv, int ldl, int c_rows, int n,
+// file).  X, feats and Linv are float or bfloat16 (T).  Writes gains[0,
+// rows) and ends on a barrier.  Must be reached by every thread of the
+// block.
+template <int BT, int KIND = -1, typename T>
+__device__ void gain_tile(const T* X, int ldx, int rows, int d,
+                          const T* feats, int ldf, const float* fn2,
+                          const T* linv, int ldl, int c_rows, int n,
                           float a, float inv2l2, int kind, float* scratch,
                           float* gains) {
   constexpr int M = Tile<BT>::M;

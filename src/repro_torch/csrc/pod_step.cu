@@ -48,6 +48,16 @@
 // n = K - 1, about 63 MFLOP per session (16 GFLOP for 256 sessions).
 // State tensors are updated in place (the port's stand-in for JAX's
 // buffer donation).
+//
+// Storage type E of the chunk, feats, L and Linv: float32, or bfloat16
+// for a bf16 objective, whose carry then stays bf16 in device memory.
+// Values are widened on load and the arithmetic is float32; the rounding
+// points are the TPU kernel's: the chunk arrives rounded to the objective
+// dtype (the wrapper casts it, as the Pallas body does before any use),
+// fval travels in float32 but is rounded to E at every iteration and
+// after each accept (fval + gain, both in E), and the appended rows of
+// feats, L and Linv are stored in E.  For E = float every rounding is the
+// identity, so the float32 kernel is unchanged.
 #include "gain_rows.cuh"
 
 namespace {
@@ -65,10 +75,10 @@ __device__ __forceinline__ float rung(float base, int ihi, int nr, int jp) {
   return powf(base, (float)(ihi - jc));
 }
 
-template <int BT>
+template <int BT, typename E>
 __global__ void __launch_bounds__(NT)
-pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
-                float* __restrict__ L_g, float* __restrict__ linv_g,
+pod_step_kernel(const E* __restrict__ chunks, E* __restrict__ feats_g,
+                E* __restrict__ L_g, E* __restrict__ linv_g,
                 const int* __restrict__ ints, const float* __restrict__ flts,
                 int* __restrict__ ints_out, float* __restrict__ fval_out,
                 int C, int K, int d, float a) {
@@ -87,10 +97,10 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
   float fval = Frow[F_FVAL];
   const float base = Frow[F_BASE], inv2l2 = Frow[F_INV2L2];
 
-  const float* chunk = chunks + (size_t)s * C * d;
-  float* feats = feats_g + (size_t)s * K * d;
-  float* L = L_g + (size_t)s * K * K;
-  float* linv = linv_g + (size_t)s * K * K;
+  const E* chunk = chunks + (size_t)s * C * d;
+  E* feats = feats_g + (size_t)s * K * d;
+  E* L = L_g + (size_t)s * K * K;
+  E* linv = linv_g + (size_t)s * K * K;
   float* fn2 = smem;            // K
   float* gains = fn2 + K;       // BT
   float* scratch = gains + BT;  // gain_tile_floats(BT, K)
@@ -101,6 +111,7 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
   int cursor = 0;
   while (cursor < nv) {
     ++n_fused;
+    fval = round_to<E>(fval);  // the Pallas body's fval32.astype(dtype)
     int first = C;
     if (n < k_cap) {
       if (threadIdx.x == 0) s_first = C;
@@ -130,7 +141,7 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
     }
 
     // ---- Cholesky row append of x = chunk[first] at row n -------------
-    const float* x = chunk + (size_t)first * d;
+    const E* x = chunk + (size_t)first * d;
     float* u = scratch;       // a * k(x, feats[jj]), jj < n
     float* c = u + K;         // Linv @ u
     float* xn2 = c + K;       // |x|^2
@@ -139,7 +150,8 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     for (int jj = warp; jj < n; jj += NT / 32) {
       float g = 0.0f;
-      for (int e = lane; e < d; e += 32) g = fmaf(x[e], feats[jj * d + e], g);
+      for (int e = lane; e < d; e += 32)
+        g = fmaf(to_f(x[e]), to_f(feats[jj * d + e]), g);
       g = warp_sum(g);
       if (lane == 0) u[jj] = a * kernel_value(g, xn2[0], fn2[jj], inv2l2, kind);
     }
@@ -148,7 +160,7 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
     for (int i = warp; i < n; i += NT / 32) {
       float acc = 0.0f;
       for (int jj = lane; jj < n; jj += 32)
-        acc = fmaf(linv[i * K + jj], u[jj], acc);
+        acc = fmaf(to_f(linv[i * K + jj]), u[jj], acc);
       acc = warp_sum(acc);
       if (lane == 0) c[i] = acc;
     }
@@ -164,9 +176,12 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
     for (int jj = threadIdx.x; jj < K; jj += NT) {
       float acc = 0.0f;
       if (jj < n)
-        for (int i = 0; i < n; ++i) acc = fmaf(c[i], linv[i * K + jj], acc);
-      linv[n * K + jj] = jj < n ? -acc / dd : (jj == n ? 1.0f / dd : 0.0f);
-      L[(size_t)n * K + jj] = jj < n ? c[jj] : (jj == n ? dd : 0.0f);
+        for (int i = 0; i < n; ++i)
+          acc = fmaf(c[i], to_f(linv[i * K + jj]), acc);
+      linv[n * K + jj] =
+          from_f<E>(jj < n ? -acc / dd : (jj == n ? 1.0f / dd : 0.0f));
+      L[(size_t)n * K + jj] =
+          from_f<E>(jj < n ? c[jj] : (jj == n ? dd : 0.0f));
     }
     for (int e = threadIdx.x; e < d; e += NT) feats[n * d + e] = x[e];
     if (threadIdx.x == 0) fn2[n] = xn2[0];
@@ -176,7 +191,7 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
     j = min(j + (t + (first - cursor)) / T, nr - 1);
     t = 0;
     ++n;
-    fval = fval + gain;
+    fval = round_to<E>(fval + round_to<E>(gain));
     cursor = first + 1;
   }
 
@@ -191,38 +206,58 @@ pod_step_kernel(const float* __restrict__ chunks, float* __restrict__ feats_g,
   }
 }
 
-template <int BT>
-int launch(const float* chunks, float* feats, float* L, float* linv,
+template <int BT, typename T>
+int launch(const void* chunks, void* feats, void* L, void* linv,
            const int* ints, const float* flts, int* ints_out, float* fval_out,
            int S, int C, int K, int d, float a, cudaStream_t stream) {
   // the wrapper's smem_bytes: row norms, gains, gain-tile scratch
   const size_t smem = sizeof(float) * (K + BT + gain_tile_floats(BT, K));
   cudaError_t e = cudaFuncSetAttribute(
-      pod_step_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pod_step_kernel<BT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pod_step_kernel<BT><<<S, NT, smem, stream>>>(
-      chunks, feats, L, linv, ints, flts, ints_out, fval_out, C, K, d, a);
+  pod_step_kernel<BT, T><<<S, NT, smem, stream>>>(
+      static_cast<const T*>(chunks), static_cast<T*>(feats),
+      static_cast<T*>(L), static_cast<T*>(linv), ints, flts, ints_out,
+      fval_out, C, K, d, a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bt(int bt, const void* chunks, void* feats, void* L, void* linv,
+              const int* ints, const float* flts, int* ints_out,
+              float* fval_out, int S, int C, int K, int d, float a,
+              cudaStream_t st) {
+#define POD_ARGS chunks, feats, L, linv, ints, flts, ints_out, fval_out, S, C, K, d, a, st
+  switch (bt) {
+    case 64: return launch<64, T>(POD_ARGS);
+    case 32: return launch<32, T>(POD_ARGS);
+    case 16: return launch<16, T>(POD_ARGS);
+    case 8: return launch<8, T>(POD_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef POD_ARGS
 }
 
 }  // namespace
 
-extern "C" int pod_step_launch(const float* chunks, float* feats, float* L,
-                               float* linv, const int* ints, const float* flts,
+// dtype: 0 float32, 1 bfloat16, the storage type of chunks, feats, L and
+// linv; the scalar tables and fval_out are float32 / int32 either way.
+extern "C" int pod_step_launch(const void* chunks, void* feats, void* L,
+                               void* linv, const int* ints, const float* flts,
                                int* ints_out, float* fval_out, int S, int C,
-                               int K, int d, float a, int bt, void* stream) {
+                               int K, int d, float a, int bt, int dtype,
+                               void* stream) {
   if (S <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define POD_ARGS chunks, feats, L, linv, ints, flts, ints_out, fval_out, S, C, K, d, a, st
-  switch (bt) {
-    case 64: return launch<64>(POD_ARGS);
-    case 32: return launch<32>(POD_ARGS);
-    case 16: return launch<16>(POD_ARGS);
-    case 8: return launch<8>(POD_ARGS);
+  switch (dtype) {
+    case 0: return launch_bt<float>(bt, chunks, feats, L, linv, ints, flts,
+                                    ints_out, fval_out, S, C, K, d, a, st);
+    case 1: return launch_bt<__nv_bfloat16>(bt, chunks, feats, L, linv, ints,
+                                            flts, ints_out, fval_out, S, C,
+                                            K, d, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef POD_ARGS
 }
 
 extern "C" const char* error_string(int e) {

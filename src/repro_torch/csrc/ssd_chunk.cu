@@ -2,7 +2,7 @@
 //
 // Replaces src/repro/kernels/ssd_chunk/kernel.py: ssd_chunk_pallas (body
 // _ssd_chunk_kernel).  Plain version:
-// repro_torch.kernels.ssd_chunk.ref.ssd_chunk_ref.  Per (batch * head,
+// repro_torch.kernels.ssd_chunk.ref.ssd_chunk_ref.  Per (batch, head,
 // chunk) tile of q steps it computes what the Pallas body computes, not
 // block for block:
 //
@@ -11,16 +11,78 @@
 //   Y     = ((C B^T) * L) X                      in X's type
 //   state = (B * exp(acum_{q-1} - acum))^T X     (n, p) float32
 //
-// All arithmetic in float32 from inputs in float32 or bfloat16.  Above
-// the diagonal acum_i - acum_j reaches +180 within one 256-step chunk
-// under fast decay, and exp of it is inf: the select keeps it out of S
-// (a mask times inf would be NaN).  acum is summed in float64 by a warp
+// Above the diagonal acum_i - acum_j reaches +180 within one 256-step
+// chunk under fast decay, and exp of it is inf: the select keeps it out of
+// S (a mask times inf would be NaN).  acum is summed in float64 by a warp
 // scan and rounded once to float32: sums of up to 256 float32 terms are
 // then exact whatever the order, so the kernel and the plain version
 // (``chunk_cumsum``) see the same acum, bit for bit; at |acum| ~ 200 one
 // float32 ulp (1.5e-5) would otherwise carry into every near-diagonal
 // decay.
 //
+// Two kernels, chosen by the input's type (never one for the other), as
+// flash_attention.cu chooses:
+//
+// * bfloat16 -> ssd_chunk_mma_kernel, on the tensor cores (namespace mma
+//   below), reading the model's layout in place;
+// * float32 -> ssd_chunk_kernel, FP32 FMAs on the CUDA cores, in the tile
+//   layout (b h, c, q, x) the wrapper copies to.  The tensor cores take no
+//   FP32 input, and TF32 (10-bit mantissa) would break the 1e-5 gates.
+//
+// Bound on this card (chip_smoke.py, ssd_work): one read of X, Adt, B and
+// C and one write of Y and the float32 states; 2 n FLOP per live (query,
+// key) pair for G = C B^T once per group, 2 p per pair and head for S X,
+// 2 n p per key and head for the state.  At the Mamba2-370m prefill (b =
+// 8, L = 2048, 32 heads of p = 64 in one group, n = 128, q = 256, bf16)
+// that is 211 MB and 17.7 GFLOP: 0.063 ms, set by the bytes.  With B and C
+// repeated over the heads (the per-head call the JAX signature makes) it
+// is 471 MB: 0.14 ms.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+constexpr int QMAX = 256;  // longest chunk
+
+// acum[0, q) of one chunk by one warp (lane = its lane): each lane sums 8
+// consecutive terms adt[t * stride] in float64, a shuffle scan adds the
+// lanes before it.  The caller synchronises.
+template <typename T>
+__device__ void chunk_cumsum(const T* __restrict__ adt, long long stride,
+                             int q, float* acum, int lane) {
+  constexpr int PER = QMAX / 32;
+  double part[PER], run = 0.0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int t = lane * PER + i;
+    run += t < q ? (double)to_f(adt[t * stride]) : 0.0;
+    part[i] = run;
+  }
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int t = lane * PER + i;
+    if (t < q) acum[t] = (float)(excl + part[i]);
+  }
+}
+
+// ======================================================================
+// float32: the CUDA-core kernel
+// ======================================================================
 // Grid (1 + ceil(q / QT), c, b * h); blocks of 16 x 16 threads.  Every
 // block first scans its chunk's acum into shared memory.
 //   * blockIdx.x >= 1: query tile (QT = 64 rows, the heaviest first).  The
@@ -32,26 +94,11 @@
 //     registers.
 //   * blockIdx.x == 0: the chunk's end-state, in passes of 64 state rows;
 //     thread (ty, tx) owns rows ty + 16 a, columns tx + 16 c.
-// So one launch per call gives Y and the states: one launch per Mamba
-// layer of a prefill (48 for Mamba2-370m).  Rows and keys past q are
-// loaded as zeros and never written, so any q up to 256 works (the
-// wrapper takes multiples of 16).
-//
-// Bound on this card (chip_smoke.py, ssd_work): 2 n + 2 p FLOP per live
-// (query, key) pair, q(q+1)/2 pairs, plus 2 n p per key for the state;
-// one read of X, Adt, B, C and one write of Y and the states.  At the
-// Mamba2-370m prefill (b = 8, L = 2048, 32 heads, p = 64, n = 128,
-// q = 256, bf16) that is 34.5 GFLOP against 470 MB: 0.14 ms, set by the
-// bytes.  This kernel runs its products as FP32 FMAs on the CUDA cores
-// from shared memory (eight loads per sixteen FMAs), so it sits near the
-// 67 TFLOP/s FP32 peak (0.51 ms) at best; the B / C rows are repeated
-// over the 32 heads (n_groups = 1) and read once per head.  Tensor-core
-// tiles, TMA staging and sharing B / C across heads are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-namespace {
-
+// B and C come per group, (b g, c, q, n); head hd reads group hd / (h / g).
+// Rows and keys past q are loaded as zeros and never written, so any q up
+// to 256 works (the wrapper takes multiples of 16).  It sits near the
+// 67 TFLOP/s FP32 peak at best (eight shared-memory loads per sixteen
+// FMAs).
 constexpr int QT = 64;           // query rows per block
 constexpr int KT = 64;           // keys per B / X tile
 constexpr int NS = 64;           // state rows per pass of the state block
@@ -60,22 +107,7 @@ constexpr int NT = TX * TY;
 constexpr int RQ = QT / TY;      // query rows per thread
 constexpr int RK = KT / TX;      // keys per thread
 constexpr int RS = NS / TY;      // state rows per thread
-constexpr int QMAX = 256;        // longest chunk
 constexpr int LDS = KT + 1;      // row stride of the score tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
 
 // Shared memory (floats): acum (QMAX), a B tile (KT x max(n, NS) + 1),
 // an X tile (KT x P), the C rows (QT x n + 1) and the score tile
@@ -86,59 +118,29 @@ __host__ __device__ inline int smem_floats(int n, int P) {
   return QMAX + KT * ldb(n) + KT * P + QT * (n + 1) + QT * LDS;
 }
 
-// acum[0, q) of one chunk by warp 0: each lane sums 8 consecutive terms in
-// float64, a shuffle scan adds the lanes before it.  The caller
-// synchronises.
-template <typename T>
-__device__ void chunk_cumsum(const T* __restrict__ adt, int q, float* acum,
-                             int tid) {
-  if (tid >= 32) return;
-  constexpr int PER = QMAX / 32;
-  double part[PER], run = 0.0;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int t = tid * PER + i;
-    run += t < q ? (double)to_f(adt[t]) : 0.0;
-    part[i] = run;
-  }
-  double incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double y = __shfl_up_sync(0xffffffffu, incl, off);
-    if (tid >= off) incl += y;
-  }
-  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (tid == 0) excl = 0.0;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int t = tid * PER + i;
-    if (t < q) acum[t] = (float)(excl + part[i]);
-  }
-}
-
 // rows [r0, r0 + KT) of a (q, w) tile into dst (row stride ld), as float,
 // zeros past q
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ src, int r0,
+__device__ __forceinline__ void stage(const float* __restrict__ src, int r0,
                                       int q, int w, float* dst, int ld,
                                       int tid) {
   for (int e = tid; e < KT * w; e += NT) {
     const int r = e / w, c = e % w;
-    dst[r * ld + c] = r0 + r < q ? to_f(src[(size_t)(r0 + r) * w + c]) : 0.f;
+    dst[r * ld + c] = r0 + r < q ? src[(size_t)(r0 + r) * w + c] : 0.f;
   }
 }
 
-template <typename T, int P>
-__device__ void query_tile(const T* __restrict__ x, const T* __restrict__ bm,
-                           const T* __restrict__ cm, T* __restrict__ y,
-                           const float* acum, float* Bs, float* Xs,
-                           float* Cs, float* Ss, int q, int n, int q0,
-                           int tx, int ty, int tid) {
+template <int P>
+__device__ void query_tile(const float* __restrict__ x,
+                           const float* __restrict__ bm,
+                           const float* __restrict__ cm,
+                           float* __restrict__ y, const float* acum,
+                           float* Bs, float* Xs, float* Cs, float* Ss, int q,
+                           int n, int q0, int tx, int ty, int tid) {
   constexpr int CP = P / TX;  // output columns per thread
   const int LDB = ldb(n), LDC = n + 1;
   for (int e = tid; e < QT * n; e += NT) {
     const int r = e / n, c = e % n;
-    Cs[r * LDC + c] = q0 + r < q ? to_f(cm[(size_t)(q0 + r) * n + c]) : 0.f;
+    Cs[r * LDC + c] = q0 + r < q ? cm[(size_t)(q0 + r) * n + c] : 0.f;
   }
   float acc[RQ][CP];
 #pragma unroll
@@ -201,13 +203,13 @@ __device__ void query_tile(const T* __restrict__ x, const T* __restrict__ bm,
     const int row = q0 + ty + TY * i;
     if (row >= q) continue;
 #pragma unroll
-    for (int c = 0; c < CP; ++c)
-      y[(size_t)row * P + tx + TX * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < CP; ++c) y[(size_t)row * P + tx + TX * c] = acc[i][c];
   }
 }
 
-template <typename T, int P>
-__device__ void end_state(const T* __restrict__ x, const T* __restrict__ bm,
+template <int P>
+__device__ void end_state(const float* __restrict__ x,
+                          const float* __restrict__ bm,
                           float* __restrict__ st, const float* acum,
                           float* Bs, float* Xs, int q, int n, int tx, int ty,
                           int tid) {
@@ -227,7 +229,7 @@ __device__ void end_state(const T* __restrict__ x, const T* __restrict__ bm,
       for (int e = tid; e < KT * NS; e += NT) {
         const int r = e / NS, c = e % NS, t = k0 + r;
         Bs[r * LDD + c] = t < q && n0 + c < n
-            ? to_f(bm[(size_t)t * n + n0 + c]) * expf(last - acum[t])
+            ? bm[(size_t)t * n + n0 + c] * expf(last - acum[t])
             : 0.f;
       }
       stage(x, k0, q, P, Xs, P, tid);
@@ -256,11 +258,12 @@ __device__ void end_state(const T* __restrict__ x, const T* __restrict__ bm,
   }
 }
 
-template <typename T, int P>
+template <int P>
 __global__ void __launch_bounds__(NT)
-ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ adt,
-                 const T* __restrict__ bm, const T* __restrict__ cm,
-                 T* __restrict__ y, float* __restrict__ st, int q, int n) {
+ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ adt,
+                 const float* __restrict__ bm, const float* __restrict__ cm,
+                 float* __restrict__ y, float* __restrict__ st, int q, int n,
+                 int h, int g) {
   extern __shared__ float smem[];
   float* acum = smem;
   float* Bs = acum + QMAX;
@@ -270,74 +273,519 @@ ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ adt,
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TX + tx;
-  // the (batch * head, chunk) tile; inputs are (b h, c, q, x) contiguous
+  // the (batch * head, chunk) tile; X, Adt, Y and the states are (b h, c,
+  // q, x) contiguous, B and C (b g, c, q, n): head hd reads group
+  // hd / (h / g)
   const size_t tile = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const int bi = blockIdx.z / h, hd = blockIdx.z % h;
+  const size_t gtile =
+      ((size_t)bi * g + hd / (h / g)) * gridDim.y + blockIdx.y;
   x += tile * q * P;
   adt += tile * q;
-  bm += tile * q * n;
-  cm += tile * q * n;
+  bm += gtile * q * n;
+  cm += gtile * q * n;
 
-  chunk_cumsum(adt, q, acum, tid);
+  if (tid < 32) chunk_cumsum(adt, 1, q, acum, tid);
   __syncthreads();
   if (blockIdx.x == 0) {
-    end_state<T, P>(x, bm, st + tile * n * P, acum, Bs, Xs, q, n, tx, ty,
-                    tid);
+    end_state<P>(x, bm, st + tile * n * P, acum, Bs, Xs, q, n, tx, ty, tid);
   } else {
     const int q0 = (gridDim.x - 1 - blockIdx.x) * QT;
-    query_tile<T, P>(x, bm, cm, y + tile * q * P, acum, Bs, Xs, Cs, Ss, q,
-                     n, q0, tx, ty, tid);
+    query_tile<P>(x, bm, cm, y + tile * q * P, acum, Bs, Xs, Cs, Ss, q, n,
+                  q0, tx, ty, tid);
   }
 }
 
-template <typename T, int P>
+template <int P>
 int launch(const void* x, const void* adt, const void* bm, const void* cm,
-           void* y, void* st, int BH, int c, int q, int n,
+           void* y, void* st, int BH, int c, int q, int n, int h, int g,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)smem_floats(n, P);
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_chunk_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_chunk_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(1 + (q + QT - 1) / QT, c, BH), block(TX, TY);
-  ssd_chunk_kernel<T, P><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(adt),
-      static_cast<const T*>(bm), static_cast<const T*>(cm),
-      static_cast<T*>(y), static_cast<float*>(st), q, n);
+  ssd_chunk_kernel<P><<<grid, block, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(adt),
+      static_cast<const float*>(bm), static_cast<const float*>(cm),
+      static_cast<float*>(y), static_cast<float*>(st), q, n, h, g);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_p(int p, const void* x, const void* adt, const void* bm,
-             const void* cm, void* y, void* st, int BH, int c, int q, int n,
-             cudaStream_t s) {
-#define SSD_ARGS x, adt, bm, cm, y, st, BH, c, q, n, s
+}  // namespace
+
+// ======================================================================
+// bfloat16: the tensor-core kernel (mma.sync m16n8k16, bf16 in, f32 sums)
+// ======================================================================
+// It reads X (b, L, h, p), Adt (b, L, h) and B / C (b, L, g, n) in the
+// model's layout by their strides (no tiles copied), B and C once per
+// group of h / g heads, and writes Y (b, L, h, p) and the states (b, c, h,
+// p, n) that models.mamba.ssd consumes.
+//
+// Grid (ceil(q / 64) + ceil(n / 64), h / HB, b * c); blocks of four warps.
+// A block serves HB heads of one group in one (batch, chunk); every block
+// first scans acum of its HB heads into shared memory (warp w: heads w,
+// w + 4, ...).
+//   * blockIdx.x < ceil(q / 64): a query tile of 64 rows (heaviest first),
+//     16 rows per warp.  First G = C B^T for its rows against every key at
+//     or below its diagonal, once for all HB heads (C and B in shared
+//     memory by cp.async; ldmatrix fragments; G's accumulators parked in
+//     shared memory in the fragment order, each thread reading back only
+//     what it wrote).  Then for each head: S = select(i >= j, G exp(acum_i
+//     - acum_j), 0) on G's fragments, which are, two n8 tiles at a time,
+//     already the A fragments of S X (FlashAttention-2's reuse); X's
+//     tiles of 64 keys stream through a three-stage cp.async ring and
+//     reach the B operand by ldmatrix.trans; Y in registers, written in
+//     bf16.
+//     A warp skips the 16-key steps wholly above its rows.
+//   * the other blocks: 64 state rows of the end-state each, for each head
+//     A = (B exp(acum_{q-1} - acum))^T by ldmatrix.trans from B in shared
+//     memory, scaled per key in registers, times X from the same ring.
+// S and B exp(.) are float32; the tensor cores take bf16.  One bf16
+// rounding of S misses the plain version by more than a quarter of the
+// bf16 gate (Y's error reached about 3e-3 of the largest output on the
+// gates' inputs, and the elementwise 2e-2 failed).  So each value is split
+// into bf16 terms, t0 = bf16(v), t1 = bf16(v - t0), t2 = bf16(v - t0 -
+// t1), and multiplied once per term, the small terms first.  Two terms
+// (16 bits) pass the kernel's own gates, but their 1e-5-relative error in
+// S changes one bf16 rounding of Y in 740, and 48 Mamba2 layers carry that
+// to the bf16 logits: 0.062-0.066 against the 5e-2 gate on the H100.
+// Three terms of S (24 bits, v to within its float32 rounding) leave one
+// in 8,000, the plain version's own summation noise, and the logits
+// 0.047-0.048.  B exp(.) takes two terms: the states' 3e-6 relative error
+// moved no logit (S = 3 with B = 2 or 3 read the same).
+//
+// HB, the heads one block walks, is 8 where the group has 8 (it is the
+// largest of 8, 4, 2, 1 that divides h / g): G costs one head's worth of
+// products per block, so 8 heads recompute it 4 times at Mamba2-370m (32
+// heads, one group), a few per cent of the work, and give 1,536 blocks of
+// uneven size (the query tile at the diagonal's far end has 4 key tiles,
+// the first one) to balance over 132 SMs two at a time; all 32 heads
+// would give 384 long blocks, under three waves, and a ragged tail.
+// Shared memory at that shape: acum 8 KB, G 64 KB, staging 34 KB (the C
+// rows and a B tile, then the X ring of three 9 KB stages).
+//
+// What bounds it now: not the bytes (211 MB would take 0.063 ms) nor the
+// tensor cores, but the instructions around each 16-key step (the G
+// reload, eight exponentials, the three-way splits) and the MMAs' chains,
+// two blocks of four warps per SM.  Eight warps per block, the two of a
+// row group each multiplying half the columns and both forming S, ran
+// slower on the H100 (0.53 ms, against 0.44-0.47 ms for four warps in the
+// runs before it): the duplicated exponentials and splits cost more than
+// the second warp hid.  PERF.md has the times.
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WARPS = 4, THREADS = 32 * WARPS;
+constexpr int QT = 64;     // query rows of a query block, 16 per warp
+constexpr int KT = 64;     // keys of one X (and B) tile
+constexpr int SR = 64;     // state rows of a state block, 16 per warp
+constexpr int HB_MAX = 8;  // heads per block at most
+constexpr int RING = 3;    // stages of the X ring
+// bf16 terms of S (query blocks) and of B exp(.) (state blocks)
+constexpr int S_TERMS = 3, B_TERMS = 2;
+constexpr int PAD = 8;     // bf16 of padding per shared row: rows 16 bytes
+                           // apart mod 128, so ldmatrix is conflict-free
+
+struct Args {
+  const bf16* x;
+  const bf16* adt;
+  const bf16* bm;
+  const bf16* cm;
+  bf16* y;
+  float* st;
+  long long sxb, sxl, sxh;  // strides, in elements
+  long long sab, sal, sah;
+  long long sbb, sbl, sbg;
+  long long scb, scl, scg;
+  int c, q, n, h, g, hb, nq;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled when !in
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (u, v) -> three bf16x2 pairs t[0] + t[1] + t[2] = (u, v) to within a
+// float32 rounding: t[0] = bf16 (u, v), t[1] = bf16 of what t[0] leaves,
+// t[2] = bf16 of what both leave (each difference is exact in float32).
+// u sits in the low half: the lower column of an A fragment register.
+__device__ __forceinline__ void split3(float u, float v, uint32_t (&t)[3]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(u, v);
+  const float2 hf = __bfloat1622float2(h);
+  const float ru = u - hf.x, rv = v - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ru, rv);
+  const float2 mf = __bfloat1622float2(m);
+  t[0] = bits(h);
+  t[1] = bits(m);
+  t[2] = bits(__floats2bfloat162_rn(ru - mf.x, rv - mf.y));
+}
+__device__ __forceinline__ float2 unpack(uint32_t r) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r));
+}
+// e^x as 2^t on the special-function unit (ex2.approx, 2^-22 relative),
+// t = x log2 e carried to float32 accuracy by a compensated product and a
+// first-order correction: within a few float32 ulps of expf, at a third of
+// its instructions
+__device__ __forceinline__ float fast_exp(float x) {
+  constexpr float L2E = 1.4426950408889634f;   // log2 e, rounded
+  constexpr float L2E_LO = 1.925963033500011e-08f;  // log2 e - L2E
+  const float t = x * L2E;
+  const float e = fmaf(x, L2E, -t) + x * L2E_LO;
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(t));
+  return fmaf(y, e * 0.6931471805599453f, y);
+}
+
+// rows [r0, r0 + R) x columns [c0, c0 + w) of a row-major bf16 matrix
+// (row stride ld) -> shared rows of stride lds; rows at or past rmax are
+// zero-filled.  w is a multiple of 8; all addresses 16-byte aligned.
+__device__ __forceinline__ void load_rows(bf16* dst, int lds,
+                                          const bf16* src, long long ld,
+                                          int r0, int R, int rmax, int w) {
+  const int cpr = w / 8;
+  for (int e = threadIdx.x; e < R * cpr; e += THREADS) {
+    const int r = e / cpr, cc = 8 * (e % cpr);
+    const bool in = r0 + r < rmax;
+    cp16(dst + r * lds + cc, in ? src + (r0 + r) * ld + cc : src, in);
+  }
+}
+
+// Dynamic shared-memory bytes (kernels/ssd_chunk/kernel.py: mma_smem_bytes)
+__host__ __device__ inline int g_bytes(int q) {
+  return ((q + KT - 1) / KT) * 8 * THREADS * 16;
+}
+__host__ __device__ inline int stage_bytes(int n, int P) {
+  const int gb = (QT + KT) * (n + PAD) * 2;    // C rows, one B tile
+  const int ring = RING * KT * (P + PAD) * 2;  // the X ring
+  return gb > ring ? gb : ring;
+}
+__host__ __device__ inline int smem_bytes(int q, int n, int P) {
+  return HB_MAX * QMAX * 4 + g_bytes(q) + stage_bytes(n, P);
+}
+
+template <int P>
+__global__ void __launch_bounds__(THREADS)
+ssd_chunk_mma_kernel(const Args A) {
+  constexpr int LDX = P + PAD;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* acum = reinterpret_cast<float*>(smem);  // HB_MAX x QMAX
+  float4* Gs = reinterpret_cast<float4*>(smem + HB_MAX * QMAX * 4);
+  bf16* Bst = reinterpret_cast<bf16*>(Gs);  // the state blocks' B
+  bf16* stage = reinterpret_cast<bf16*>(smem + HB_MAX * QMAX * 4 +
+                                        g_bytes(A.q));
+
+  const int q = A.q, n = A.n, h = A.h;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row / column lane
+  const int bi = blockIdx.z / A.c, ci = blockIdx.z % A.c;
+  const int h0 = blockIdx.y * A.hb, grp = h0 / (h / A.g);
+  const long long t0 = (long long)ci * q;  // the chunk's first step
+
+  for (int hh = warp; hh < A.hb; hh += WARPS)
+    chunk_cumsum(A.adt + bi * A.sab + t0 * A.sal + (h0 + hh) * A.sah, A.sal,
+                 q, acum + hh * QMAX, lane);
+
+  const bool query = (int)blockIdx.x < A.nq;
+  // query block: rows [r0, r0 + QT), keys [0, kend); state block: state
+  // rows [s0, s0 + min(SR, n - s0)), every key
+  const int r0 = query ? (A.nq - 1 - blockIdx.x) * QT : 0;
+  const int s0 = query ? 0 : (blockIdx.x - A.nq) * SR;
+  const int sw = query ? 0 : min(SR, n - s0);
+  const int kend = query ? min(q, r0 + QT) : q;
+  const int nkt = (kend + KT - 1) / KT;
+  // this warp's first row (query) or state row, and the last key it needs
+  const int wrow = (query ? r0 : s0) + 16 * warp;
+  const bool active = query ? wrow < q : 16 * warp < sw;
+  const int wlast = query ? wrow + 15 : q - 1;
+
+  const bf16* bsrc = A.bm + bi * A.sbb + t0 * A.sbl + grp * A.sbg;
+  if (query) {
+    // ---- G = C B^T, once for the HB heads, parked in Gs
+    const int LDC = n + PAD;
+    bf16* Cs = stage;
+    bf16* Bs = stage + QT * LDC;
+    load_rows(Cs, LDC, A.cm + bi * A.scb + t0 * A.scl + grp * A.scg, A.scl,
+              r0, QT, q, n);
+    for (int kt = 0; kt < nkt; ++kt) {
+      __syncthreads();  // the previous B tile is consumed
+      load_rows(Bs, LDC, bsrc, A.sbl, kt * KT, KT, q, n);
+      cp_commit();
+      cp_wait<0>();
+      __syncthreads();
+      if (!active || kt * KT > wlast) continue;
+      float gacc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gacc[j][e] = 0.f;
+      for (int ks = 0; ks < n; ks += 16) {
+        uint32_t a[4];
+        ldsm_x4(a, Cs + (16 * warp + (lane % 8) + 8 * ((lane / 8) & 1)) *
+                            LDC + ks + 8 * (lane / 16));
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t b[4];
+          ldsm_x4(b, Bs + (16 * jp + (lane % 8) + 8 * (lane / 16)) * LDC +
+                         ks + 8 * ((lane / 8) & 1));
+          mma16816(gacc[2 * jp], a, b[0], b[1]);
+          mma16816(gacc[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        Gs[(kt * 8 + j) * THREADS + tid] =
+            make_float4(gacc[j][0], gacc[j][1], gacc[j][2], gacc[j][3]);
+    }
+  } else {
+    // ---- the state block's B rows: every key, state columns [s0, s0+sw)
+    load_rows(Bst, SR + PAD, bsrc + s0, A.sbl, 0, q, q, sw);
+    cp_commit();
+  }
+  __syncthreads();  // G parked (query); the staging area is free
+
+  // ---- the heads: X tiles of (head, key tile) through a RING-stage
+  // ring, one step per (head, key tile), two ahead of the products
+  const int steps = A.hb * nkt;
+  auto issue = [&](int s) {
+    const int hh = s / nkt, kt = s % nkt;
+    load_rows(stage + (s % RING) * KT * LDX, LDX,
+              A.x + bi * A.sxb + t0 * A.sxl + (h0 + hh) * A.sxh, A.sxl,
+              kt * KT, KT, q, P);
+    cp_commit();
+  };
+  issue(0);
+  if (steps > 1) issue(1);
+  float acc[P / 8][4];
+  for (int s = 0; s < steps; ++s) {
+    const int hh = s / nkt, kt = s % nkt;
+    if (s + 2 < steps) {  // its slot was consumed at step s - 1
+      issue(s + 2);
+      cp_wait<2>();
+    } else if (s + 1 < steps) {
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Xs = stage + (s % RING) * KT * LDX;
+    const float* ac = acum + hh * QMAX;
+    if (kt == 0) {
+#pragma unroll
+      for (int j = 0; j < P / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    }
+    if (active) {
+      const int ra = wrow + gq, rb = ra + 8;  // rows of the fragments
+      const float aa = query ? ac[ra] : 0.f, ab = query ? ac[rb] : 0.f;
+      const float last = ac[q - 1];
+      // the 16-key steps of this tile at or below the warp's last row
+      const int ksteps =
+          wlast < kt * KT ? 0 : min(KT / 16, (wlast - kt * KT) / 16 + 1);
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        if (kk >= ksteps) break;
+        const int kb = kt * KT + 16 * kk;
+        const int k0 = kb + 2 * tq, k2 = k0 + 8;  // keys k0, k0+1, k2, k2+1
+        uint32_t a3[4][3];  // A fragment as three bf16 terms
+        if (query) {
+          // S = select(i >= j, G exp(acum_i - acum_j), 0): G's n8 tiles
+          // 2 kk and 2 kk + 1 are the A fragment of keys kb .. kb + 15
+          const float4 ga = Gs[(kt * 8 + 2 * kk) * THREADS + tid];
+          const float4 gb = Gs[(kt * 8 + 2 * kk + 1) * THREADS + tid];
+          const float e0 = ac[k0], e1 = ac[k0 + 1], e2 = ac[k2],
+                      e3 = ac[k2 + 1];
+          split3(ra >= k0 ? ga.x * fast_exp(aa - e0) : 0.f,
+                 ra >= k0 + 1 ? ga.y * fast_exp(aa - e1) : 0.f, a3[0]);
+          split3(rb >= k0 ? ga.z * fast_exp(ab - e0) : 0.f,
+                 rb >= k0 + 1 ? ga.w * fast_exp(ab - e1) : 0.f, a3[1]);
+          split3(ra >= k2 ? gb.x * fast_exp(aa - e2) : 0.f,
+                 ra >= k2 + 1 ? gb.y * fast_exp(aa - e3) : 0.f, a3[2]);
+          split3(rb >= k2 ? gb.z * fast_exp(ab - e2) : 0.f,
+                 rb >= k2 + 1 ? gb.w * fast_exp(ab - e3) : 0.f, a3[3]);
+        } else {
+          // A = (B d)^T, d = exp(acum_{q-1} - acum): B^T's fragment by
+          // ldmatrix.trans (registers 0 / 1 hold keys k0, k0 + 1, 2 / 3
+          // keys k2, k2 + 1), scaled per key
+          uint32_t a[4];
+          ldsm_x4_t(a, Bst + (kb + (lane % 8) + 8 * (lane / 16)) *
+                                 (SR + PAD) + 16 * warp +
+                             8 * ((lane / 8) & 1));
+          const float d0 = fast_exp(last - ac[k0]);
+          const float d1 = fast_exp(last - ac[k0 + 1]);
+          const float d2 = fast_exp(last - ac[k2]);
+          const float d3 = fast_exp(last - ac[k2 + 1]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float2 v = unpack(a[r]);
+            if (r < 2) split3(v.x * d0, v.y * d1, a3[r]);
+            else split3(v.x * d2, v.y * d3, a3[r]);
+          }
+        }
+        // times X (keys kb .. kb + 15 of this tile), two n8 tiles of
+        // columns per ldmatrix.trans
+#pragma unroll
+        for (int pj = 0; pj < P / 16; ++pj) {
+          uint32_t b[4];
+          ldsm_x4_t(b, Xs + (16 * kk + (lane % 8) + 8 * ((lane / 8) & 1)) *
+                                LDX + 16 * pj + 8 * (lane / 16));
+#pragma unroll
+          for (int term = 2; term >= 0; --term) {  // the small terms first
+            if (term >= (query ? S_TERMS : B_TERMS)) continue;
+            const uint32_t a[4] = {a3[0][term], a3[1][term], a3[2][term],
+                                   a3[3][term]};
+            mma16816(acc[2 * pj], a, b[0], b[1]);
+            mma16816(acc[2 * pj + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      if (kt == nkt - 1) {  // this head's last key tile: write out
+        const int hd = h0 + hh;
+        if (query) {
+          bf16* yb = A.y + (((long long)bi * A.c * q + t0 + ra) * h + hd) * P;
+          const long long down = 8LL * h * P;  // row rb = ra + 8
+#pragma unroll
+          for (int j = 0; j < P / 8; ++j) {
+            const int col = 8 * j + 2 * tq;
+            *reinterpret_cast<__nv_bfloat162*>(yb + col) =
+                __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+            *reinterpret_cast<__nv_bfloat162*>(yb + down + col) =
+                __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+          }
+        } else {
+          float* sb = A.st + (((long long)bi * A.c + ci) * h + hd) * P * n;
+          const int sa = s0 + 16 * warp + gq;  // state rows sa, sa + 8
+#pragma unroll
+          for (int j = 0; j < P / 8; ++j) {
+            const int col = 8 * j + 2 * tq;
+            sb[(long long)col * n + sa] = acc[j][0];
+            sb[(long long)(col + 1) * n + sa] = acc[j][1];
+            sb[(long long)col * n + sa + 8] = acc[j][2];
+            sb[(long long)(col + 1) * n + sa + 8] = acc[j][3];
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+}
+
+template <int P>
+int launch(const Args& a, int b, cudaStream_t stream) {
+  const int smem = smem_bytes(a.q, a.n, P);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_chunk_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.nq + (a.n + SR - 1) / SR, a.h / a.hb, b * a.c);
+  ssd_chunk_mma_kernel<P><<<grid, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace mma
+
+namespace {
+
+bool width_ok(int w) { return w == 16 || w == 32 || w == 64 || w == 128; }
+
+}  // namespace
+
+// float32, the CUDA-core kernel: x (BH, c, q, p), adt (BH, c, q), bm / cm
+// (b g, c, q, n) with BH = b h, y like x, st (BH, c, n, p) float32, all
+// contiguous; q <= 256, p and n in {16, 32, 64, 128}, h % g == 0.
+extern "C" int ssd_chunk_launch(const void* x, const void* adt,
+                                const void* bm, const void* cm, void* y,
+                                void* st, int BH, int c, int q, int p, int n,
+                                int h, int g, void* stream) {
+  if (BH <= 0 || c <= 0 || q <= 0) return 0;
+  if (q > QMAX || !width_ok(n) || h <= 0 || g <= 0 || h % g || BH % h)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SSD_ARGS x, adt, bm, cm, y, st, BH, c, q, n, h, g, s
   switch (p) {
-    case 16: return launch<T, 16>(SSD_ARGS);
-    case 32: return launch<T, 32>(SSD_ARGS);
-    case 64: return launch<T, 64>(SSD_ARGS);
-    case 128: return launch<T, 128>(SSD_ARGS);
+    case 16: return launch<16>(SSD_ARGS);
+    case 32: return launch<32>(SSD_ARGS);
+    case 64: return launch<64>(SSD_ARGS);
+    case 128: return launch<128>(SSD_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SSD_ARGS
 }
 
-}  // namespace
-
-// dtype: 0 float32, 1 bfloat16.  x (BH, c, q, p), adt (BH, c, q),
-// bm / cm (BH, c, q, n), y like x, st (BH, c, n, p) float32, all
-// contiguous; q <= 256, n in {16, 32, 64, 128}.
-extern "C" int ssd_chunk_launch(const void* x, const void* adt,
-                                const void* bm, const void* cm, void* y,
-                                void* st, int BH, int c, int q, int p, int n,
-                                int dtype, void* stream) {
-  if (BH <= 0 || c <= 0 || q <= 0) return 0;
-  if (q > QMAX || (n != 16 && n != 32 && n != 64 && n != 128))
+// bfloat16, the tensor-core kernel, in the model's layout: x (b, L, h, p),
+// adt (b, L, h), bm / cm (b, L, g, n) by their strides (in elements; the
+// last axis of x, bm, cm contiguous, rows and bases 16-byte aligned); y
+// (b, L, h, p) and st (b, c, h, p, n) float32 contiguous; L = c q, q a
+// multiple of 16 up to 256, p and n in {16, 32, 64, 128}, h % g == 0, hb
+// heads per block dividing h / g, at most 8.
+extern "C" int ssd_chunk_mma_launch(
+    const void* x, const void* adt, const void* bm, const void* cm, void* y,
+    void* st, int b, int c, int q, int p, int n, int h, int g, int hb,
+    long long sxb, long long sxl, long long sxh, long long sab,
+    long long sal, long long sah, long long sbb, long long sbl,
+    long long sbg, long long scb, long long scl, long long scg,
+    void* stream) {
+  if (b <= 0 || c <= 0 || q <= 0 || h <= 0) return 0;
+  if (q > QMAX || q % 16 || !width_ok(n) || g <= 0 || h % g || hb <= 0 ||
+      hb > mma::HB_MAX || (h / g) % hb)
     return (int)cudaErrorInvalidValue;
+  mma::Args a{static_cast<const __nv_bfloat16*>(x),
+              static_cast<const __nv_bfloat16*>(adt),
+              static_cast<const __nv_bfloat16*>(bm),
+              static_cast<const __nv_bfloat16*>(cm),
+              static_cast<__nv_bfloat16*>(y), static_cast<float*>(st),
+              sxb, sxl, sxh, sab, sal, sah, sbb, sbl, sbg, scb, scl, scg,
+              c, q, n, h, g, hb, (q + mma::QT - 1) / mma::QT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_p<float>(p, x, adt, bm, cm, y, st, BH, c, q, n, s);
-    case 1: return launch_p<__nv_bfloat16>(p, x, adt, bm, cm, y, st, BH, c,
-                                           q, n, s);
+  switch (p) {
+    case 16: return mma::launch<16>(a, b, s);
+    case 32: return mma::launch<32>(a, b, s);
+    case 64: return mma::launch<64>(a, b, s);
+    case 128: return mma::launch<128>(a, b, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -24,10 +24,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL = CudaKernel("pod_step", "pod_step.cu", {
     # chunks, feats, L, linv, ints, flts, ints_out, fval_out,
-    # S, C, K, d, a, bt, stream
+    # S, C, K, d, a, bt, dtype, stream
     "pod_step_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                        _I, _P),
+                        _I, _I, _P),
 })
+# storage types of chunks / feats / L / Linv (csrc/pod_step.cu's dtype)
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def smem_bytes(K: int) -> int:
@@ -66,21 +68,27 @@ def pod_step_cuda(chunks: torch.Tensor, feats: torch.Tensor, L: torch.Tensor,
                   *, a: float):
     """Launch one pod step on CUDA tensors.
 
-    chunks (S, C, d), feats (S, K, d), L / Linv (S, K, K) f32; ints
-    (S, len(INT_COLS)) int32 and flts (S, len(FLT_COLS)) f32 scalar
-    tables.  ``feats``, ``L`` and ``Linv`` are updated IN PLACE (the
-    port's stand-in for JAX's buffer donation).  Returns
-    (ints_out (S, 5) int32: n, j, t, n_fused, n_queries; fval (S,) f32).
+    chunks (S, C, d), feats (S, K, d), L / Linv (S, K, K), all float32
+    or all bfloat16 (the objective's dtype: a bf16 carry stays bf16, with
+    float32 arithmetic); ints (S, len(INT_COLS)) int32 and flts
+    (S, len(FLT_COLS)) f32 scalar tables.  ``feats``, ``L`` and ``Linv``
+    are updated IN PLACE (the port's stand-in for JAX's buffer donation).
+    Returns (ints_out (S, 5) int32: n, j, t, n_fused, n_queries; fval
+    (S,) f32, rounded to the state's dtype).
     """
     if not chunks.is_cuda:
         raise ValueError("pod_step_cuda launches on CUDA tensors only")
     dev = chunks.device
     S, C, d = chunks.shape
     K = feats.shape[1]
-    _check("chunks", chunks, torch.float32, (S, C, d), dev)
-    _check("feats", feats, torch.float32, (S, K, d), dev)
-    _check("L", L, torch.float32, (S, K, K), dev)
-    _check("Linv", Linv, torch.float32, (S, K, K), dev)
+    dt = feats.dtype
+    if dt not in DTYPE_IDS:
+        raise TypeError(f"state dtype {dt} not supported; choose from "
+                        f"{list(DTYPE_IDS)}")
+    _check("chunks", chunks, dt, (S, C, d), dev)
+    _check("feats", feats, dt, (S, K, d), dev)
+    _check("L", L, dt, (S, K, K), dev)
+    _check("Linv", Linv, dt, (S, K, K), dev)
     _check("ints", ints, torch.int32, (S, len(INT_COLS)), dev)
     _check("flts", flts, torch.float32, (S, len(FLT_COLS)), dev)
     bt, _ = layout(K)
@@ -93,7 +101,7 @@ def pod_step_cuda(chunks: torch.Tensor, feats: torch.Tensor, L: torch.Tensor,
             chunks.data_ptr(), feats.data_ptr(), L.data_ptr(),
             Linv.data_ptr(), ints.data_ptr(), flts.data_ptr(),
             ints_out.data_ptr(), fval.data_ptr(), S, C, K, d, float(a),
-            bt, stream)
+            bt, DTYPE_IDS[dt], stream)
     check(KERNEL, err, "pod_step")
     KERNEL.launches += 1
     return ints_out, fval

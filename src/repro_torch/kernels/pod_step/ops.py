@@ -72,13 +72,12 @@ def pod_step(algo, state: TSState, chunks: torch.Tensor,
     use_kernel = backend == "cuda" or (backend == "auto" and chunks.is_cuda)
     if not use_kernel:
         return _write_back(state, pod_step_ref(algo, state, chunks, counts))
-    if algo.f.dtype != torch.float32:
-        raise TypeError("the pod-step kernel is float32 only (bf16 comes "
-                        "later, ROADMAP.md)")
     C = chunks.shape[1]
     ints, flts = _tables(state, counts, C)
     ld = state.ld
-    iout, fval = pod_step_cuda(chunks.to(torch.float32).contiguous(),
+    # the chunk rounded to the objective's dtype before any use, as the
+    # Pallas body casts it (``chunk_ref[0].astype(dtype)``)
+    iout, fval = pod_step_cuda(chunks.to(algo.f.dtype).contiguous(),
                                ld.feats, ld.L, ld.Linv, ints, flts,
                                a=algo.f.a)
     ld.n.copy_(iout[:, 0])

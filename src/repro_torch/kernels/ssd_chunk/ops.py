@@ -1,8 +1,13 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
 """Public SSD intra-chunk entry (port of
-``repro/kernels/ssd_chunk/ops.py``): layout adaptation from the model's
-(b, L, h, ...) tensors to the kernel's (b, h, c, q, ...) tiles and back,
-and the route to the CUDA kernel or its plain version.
+``repro/kernels/ssd_chunk/ops.py``): the model's (b, L, ...) tensors in,
+the intra-chunk Y and the chunk end-states out, through the CUDA kernel
+or its plain version.
+
+B and C come per group, (b, L, g, n) with h % g == 0; g = h is the
+per-head signature of the JAX package.  The kernel reads them once per
+group; the plain version repeats them over the heads of their group and
+runs on the (b, h, c, q, x) tiles.
 
 Backends:
 
@@ -27,10 +32,10 @@ BACKENDS = ("auto", "torch", "cuda")
 
 def ssd_chunks(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, *, chunk: int, backend: str = "auto"):
-    """Model-layout entry: X (b, L, h, p), Adt (b, L, h), B/C (b, L, h, n)
-    with L % chunk == 0 -> (Y_diag (b, L, h, p) in X's dtype, states
-    (b, c, h, p, n) float32), the shapes ``models.mamba.ssd`` uses for its
-    intra-chunk term and end-states."""
+    """Model-layout entry: X (b, L, h, p), Adt (b, L, h), B/C (b, L, g, n)
+    with L % chunk == 0 and h % g == 0 -> (Y_diag (b, L, h, p) in X's
+    dtype, states (b, c, h, p, n) float32), the shapes
+    ``models.mamba.ssd`` uses for its intra-chunk term and end-states."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} invalid; choose from "
                          f"{BACKENDS}")
@@ -38,21 +43,24 @@ def ssd_chunks(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
         raise ValueError("backend='cuda' needs CUDA tensors; X is on "
                          f"{X.device}")
     b, L, h, p = X.shape
+    g = B.shape[2]
     if L % chunk:
         raise ValueError(f"sequence length {L} is not a multiple of the "
                          f"chunk {chunk}")
+    if g == 0 or h % g:
+        raise ValueError(f"{h} heads do not group over {g} B/C groups")
+    if backend == "cuda" or (backend == "auto" and X.is_cuda):
+        return ssd_chunk_cuda(X, Adt, B, C, chunk=chunk)
+    if g != h:  # each head its group's B and C
+        B = torch.repeat_interleave(B, h // g, dim=2)
+        C = torch.repeat_interleave(C, h // g, dim=2)
     c = L // chunk
 
     def tiles(t):  # (b, L, h, x) -> (b, h, c, q, x)
         return t.reshape(b, c, chunk, h, -1).permute(0, 3, 1, 2, 4)
 
-    Xc, Bc, Cc = tiles(X), tiles(B), tiles(C)
-    Ac = Adt.reshape(b, c, chunk, h).permute(0, 3, 1, 2)
-    if backend == "cuda" or (backend == "auto" and X.is_cuda):
-        Y, st = ssd_chunk_cuda(Xc.contiguous(), Ac.contiguous(),
-                               Bc.contiguous(), Cc.contiguous())
-    else:
-        Y, st = ssd_chunk_ref(Xc, Ac, Bc, Cc)
+    Y, st = ssd_chunk_ref(tiles(X), Adt.reshape(b, c, chunk, h)
+                          .permute(0, 3, 1, 2), tiles(B), tiles(C))
     # back to the model layout
     return (Y.permute(0, 2, 3, 1, 4).reshape(b, L, h, p),
             st.permute(0, 2, 1, 4, 3))

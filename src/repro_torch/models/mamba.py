@@ -12,9 +12,12 @@ the JAX package's own route to its TPU kernel for the same function
 (its layer never passes the flag): the quadratic intra-chunk term and the
 chunk end-states go to ``kernels.ssd_chunk.ssd_chunks``, which runs the
 hand-written CUDA kernel (``csrc/ssd_chunk.cu``) on a CUDA tensor and its
-plain version on a CPU tensor (backend ``auto``).  The inter-chunk
-recurrence stays plain PyTorch.  Decode is plain PyTorch and launches no
-kernel.
+plain version on a CPU tensor (backend ``auto``).  B and C go to it per
+group (``n_groups``, one for Mamba2-370m), not repeated over the heads:
+the kernel reads each group once for all its heads, and the inter-chunk
+term reads C per group too.  The inter-chunk recurrence stays plain
+PyTorch.  Decode is plain PyTorch, repeats B and C per head as the JAX
+package does, and launches no kernel.
 
 The caches are updated in place (``copy_`` into the given tensors, which
 are views of the model's stacked caches) and returned.
@@ -80,7 +83,8 @@ def ssd(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     """Chunked SSD.
 
     X (b,L,h,p) inputs (already dt-scaled), Adt (b,L,h) = dt*A,
-    B,C (b,L,h,n).  L % chunk == 0.  Returns (Y (b,L,h,p), final (b,h,p,n)).
+    B,C (b,L,g,n) per group, h % g == 0 (g = h: per head, the JAX
+    signature).  L % chunk == 0.  Returns (Y (b,L,h,p), final (b,h,p,n)).
 
     ``use_pallas`` routes the quadratic intra-chunk term + end-states
     through ``kernels.ssd_chunk.ssd_chunks`` (the kernel on the card);
@@ -90,9 +94,8 @@ def ssd(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     the einsum route they keep X's dtype.
     """
     b, L, h, p = X.shape
-    n = B.shape[-1]
+    g, n = B.shape[-2], B.shape[-1]
     c = L // chunk
-    Cc = C.reshape(b, c, chunk, h, n)
     Ac = Adt.reshape(b, c, chunk, h).permute(0, 3, 1, 2)  # (b,h,c,q)
     A_cum = torch.cumsum(Ac, -1)
 
@@ -101,10 +104,14 @@ def ssd(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
         Y_diag = Yk.reshape(b, c, chunk, h, p)  # states (b,c,h,p,n)
     else:
         Xc = X.reshape(b, c, chunk, h, p)
-        Bc = B.reshape(b, c, chunk, h, n)
+        # each head its group's B and C
+        Bc = torch.repeat_interleave(B, h // g, dim=2).reshape(
+            b, c, chunk, h, n)
+        Ch = torch.repeat_interleave(C, h // g, dim=2).reshape(
+            b, c, chunk, h, n)
         # intra-chunk (quadratic, attention-like), two products
         Lmat = torch.exp(_segsum(Ac))  # (b,h,c,q,s)
-        scores = _einsum("bcqhn,bcshn->bhcqs", Cc, Bc)
+        scores = _einsum("bcqhn,bcshn->bhcqs", Ch, Bc)
         Y_diag = _einsum("bhcqs,bcshp->bcqhp", scores * Lmat, Xc)
 
         # chunk end-states
@@ -121,9 +128,12 @@ def ssd(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     new_states = _einsum("bhzc,bchpn->bzhpn", decay_chunk, states_ext)
     prev_states, final = new_states[:, :-1], new_states[:, -1]
 
-    state_decay = torch.exp(A_cum)  # (b,h,c,q)
-    Y_off = _einsum("bcqhn,bchpn,bhcq->bcqhp", Cc, prev_states, state_decay)
-    Y = (Y_diag + Y_off).reshape(b, L, h, p)
+    # C per group: head k * h // g + r reads group k
+    state_decay = torch.exp(A_cum).reshape(b, g, h // g, c, chunk)
+    Y_off = _einsum("bcqgn,bcgrpn,bgrcq->bcqgrp",
+                    C.reshape(b, c, chunk, g, n),
+                    prev_states.reshape(b, c, g, h // g, p, n), state_decay)
+    Y = (Y_diag + Y_off.reshape(b, c, chunk, h, p)).reshape(b, L, h, p)
     return Y, final
 
 
@@ -164,19 +174,22 @@ def _project(p, x: torch.Tensor, cfg: ModelConfig):
     return z, xin, bc, dt
 
 
-def _split_heads(xc, bcc, cfg: ModelConfig):
+def _split_heads(xc, bcc, cfg: ModelConfig, repeat: bool = True):
+    """-> (x per head, B, C): B and C per head (``repeat``, as the JAX
+    package does) or per group, (..., n_groups, d_state)."""
     s = cfg.ssm
     nh = s.n_heads(cfg.d_model)
     gn = s.n_groups * s.d_state
     B_, C_ = bcc[..., :gn], bcc[..., gn:]
     shp = xc.shape[:-1]
     xh = xc.reshape(*shp, nh, s.head_dim)
+    Bg = B_.reshape(*shp, s.n_groups, s.d_state)
+    Cg = C_.reshape(*shp, s.n_groups, s.d_state)
+    if not repeat:
+        return xh, Bg, Cg
     rep = nh // s.n_groups
-    Bh = torch.repeat_interleave(B_.reshape(*shp, s.n_groups, s.d_state),
-                                 rep, dim=-2)
-    Ch = torch.repeat_interleave(C_.reshape(*shp, s.n_groups, s.d_state),
-                                 rep, dim=-2)
-    return xh, Bh, Ch
+    return (xh, torch.repeat_interleave(Bg, rep, dim=-2),
+            torch.repeat_interleave(Cg, rep, dim=-2))
 
 
 def _gate_out(p, y_flat: torch.Tensor, z: torch.Tensor,
@@ -191,7 +204,8 @@ def _gate_out(p, y_flat: torch.Tensor, z: torch.Tensor,
 def _ssd_inputs(p, x: torch.Tensor, cfg: ModelConfig):
     """The projections, the causal conv and the SSD operands of a
     sequence, padded to a whole number of chunks -> (z, u, xh, Xs, Adt,
-    Bh, Ch): the part ``mamba_train`` and ``mamba_prefill`` share."""
+    Bg, Cg), B and C per group: the part ``mamba_train`` and
+    ``mamba_prefill`` share."""
     s = cfg.ssm
     S = x.shape[1]
     di = s.d_inner(cfg.d_model)
@@ -200,7 +214,7 @@ def _ssd_inputs(p, x: torch.Tensor, cfg: ModelConfig):
     conv = F.silu(_conv_causal(u, p["conv_w"].to(x.dtype),
                                p["conv_b"].to(x.dtype)).float()).to(x.dtype)
     xc, bcc = conv[..., :di], conv[..., di:]
-    xh, Bh, Ch = _split_heads(xc, bcc, cfg)
+    xh, Bg, Cg = _split_heads(xc, bcc, cfg, repeat=False)
     A = -torch.exp(p["A_log"].float())  # (nh,)
     Adt = dt * A  # (B,S,nh)
     Xs = xh * dt[..., None].to(x.dtype)
@@ -208,16 +222,16 @@ def _ssd_inputs(p, x: torch.Tensor, cfg: ModelConfig):
     if pad:
         Xs = F.pad(Xs, (0, 0, 0, 0, 0, pad))
         Adt = F.pad(Adt, (0, 0, 0, pad))
-        Bh = F.pad(Bh, (0, 0, 0, 0, 0, pad))
-        Ch = F.pad(Ch, (0, 0, 0, 0, 0, pad))
-    return z, u, xh, Xs, Adt.to(Xs.dtype), Bh, Ch
+        Bg = F.pad(Bg, (0, 0, 0, 0, 0, pad))
+        Cg = F.pad(Cg, (0, 0, 0, 0, 0, pad))
+    return z, u, xh, Xs, Adt.to(Xs.dtype), Bg, Cg
 
 
 def mamba_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D)."""
     B_, S, d = x.shape
-    z, _, xh, Xs, Adt, Bh, Ch = _ssd_inputs(p, x, cfg)
-    Y, _ = ssd(Xs, Adt, Bh, Ch, cfg.ssm.chunk, use_pallas=True)
+    z, _, xh, Xs, Adt, Bg, Cg = _ssd_inputs(p, x, cfg)
+    Y, _ = ssd(Xs, Adt, Bg, Cg, cfg.ssm.chunk, use_pallas=True)
     Y = Y[:, :S] + p["D"].to(x.dtype)[:, None] * xh
     return _gate_out(p, Y.reshape(B_, S, cfg.ssm.d_inner(d)), z, x.dtype)
 
@@ -245,8 +259,8 @@ def mamba_prefill(p, x: torch.Tensor, cache, cfg: ModelConfig):
     (the JAX package slices past the start there)."""
     B_, S, d = x.shape
     cw = cfg.ssm.conv_width
-    z, u, xh, Xs, Adt, Bh, Ch = _ssd_inputs(p, x, cfg)
-    Y, final = ssd(Xs, Adt, Bh, Ch, cfg.ssm.chunk, use_pallas=True)
+    z, u, xh, Xs, Adt, Bg, Cg = _ssd_inputs(p, x, cfg)
+    Y, final = ssd(Xs, Adt, Bg, Cg, cfg.ssm.chunk, use_pallas=True)
     Y = Y[:, :S] + p["D"].to(x.dtype)[:, None] * xh
     out = _gate_out(p, Y.reshape(B_, S, cfg.ssm.d_inner(d)), z, x.dtype)
     tail = F.pad(u, (0, 0, max(cw - 1 - S, 0), 0))[:, -(cw - 1):]

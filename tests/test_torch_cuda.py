@@ -248,15 +248,31 @@ SSD_SHAPES = [  # b, h, c, q, p, n
 ]
 
 
-def _ssd_inputs(cuda, b, h, c, q, p, n, dtype, decay=1.0, seed=0):
-    g = torch.Generator(device=cuda).manual_seed(seed)
-    X = torch.randn(b, h, c, q, p, generator=g, device=cuda)
+def _ssd_inputs(cuda, b, h, c, q, p, n, dtype, decay=1.0, seed=0, g=None):
+    """The model's layout: X (b, L, h, p), Adt (b, L, h), B/C (b, L, g, n)
+    (g = h: per head), L = c q."""
+    g = h if g is None else g
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    L = c * q
+    X = torch.randn(b, L, h, p, generator=gen, device=cuda)
     Adt = -decay * torch.nn.functional.softplus(
-        torch.randn(b, h, c, q, generator=g, device=cuda))
-    B = torch.randn(b, h, c, q, n, generator=g, device=cuda)
-    C = torch.randn(b, h, c, q, n, generator=g, device=cuda)
+        torch.randn(b, L, h, generator=gen, device=cuda))
+    B = torch.randn(b, L, g, n, generator=gen, device=cuda)
+    C = torch.randn(b, L, g, n, generator=gen, device=cuda)
     dt = getattr(torch, dtype)
     return [t.to(dt) for t in (X, Adt, B, C)]
+
+
+def _assert_ssd_close(got, want, dtype):
+    """tests/test_ssd_kernel.py's elementwise rtol = atol (2e-2 bf16, 1e-5
+    float32) and chip_smoke.py's bound on the largest output (1e-2 bf16,
+    1e-5 float32)."""
+    tol, scaled = (2e-2, 1e-2) if dtype == "bfloat16" else (1e-5, 1e-5)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= scaled * b.float().abs().max().item()
 
 
 @pytest.mark.parametrize("decay", [1.0, 0.01])
@@ -264,21 +280,23 @@ def _ssd_inputs(cuda, b, h, c, q, p, n, dtype, decay=1.0, seed=0):
 @pytest.mark.parametrize("b,h,c,q,p,n", SSD_SHAPES)
 def test_ssd_chunk_kernel_matches_plain(cuda, b, h, c, q, p, n, dtype,
                                         decay):
-    from repro_torch.kernels.ssd_chunk import KERNEL, ssd_chunk_cuda
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_ref
+    """Per-head B / C (the JAX signature): the dtype's route (bf16: the
+    tensor-core kernel, float32: the CUDA-core one) against the plain
+    version, one launch per call."""
+    from repro_torch.kernels.ssd_chunk import (KERNEL, ROUTE_LAUNCHES,
+                                               ssd_chunk_cuda, ssd_chunks)
 
     X, Adt, B, C = _ssd_inputs(cuda, b, h, c, q, p, n, dtype, decay, q + n)
-    before = KERNEL.launches
-    Y, st = ssd_chunk_cuda(X, Adt, B, C)
+    route = "tensor-core" if dtype == "bfloat16" else "cuda-core"
+    before, routed = KERNEL.launches, ROUTE_LAUNCHES[route]
+    Y, st = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
     torch.cuda.synchronize()
     assert KERNEL.launches == before + 1
-    Yr, sr = ssd_chunk_ref(X, Adt, B, C)
+    assert ROUTE_LAUNCHES[route] == routed + 1
+    Yr, sr = ssd_chunks(X, Adt, B, C, chunk=q, backend="torch")
     assert Y.dtype == X.dtype and st.dtype == torch.float32
-    assert Y.shape == Yr.shape and st.shape == sr.shape
     assert torch.isfinite(Y.float()).all() and torch.isfinite(st).all()
-    tol = 2e-2 if dtype == "bfloat16" else 1e-5  # tests/test_ssd_kernel.py
-    torch.testing.assert_close(Y.float(), Yr.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(st, sr, rtol=tol, atol=tol)
+    _assert_ssd_close((Y, st), (Yr, sr), dtype)
 
 
 def test_ssd_chunks_kernel_route_matches_plain(cuda):
@@ -299,27 +317,69 @@ def test_ssd_chunks_kernel_route_matches_plain(cuda):
     torch.testing.assert_close(st, sr, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("q", [16, 64, 256])
+@pytest.mark.parametrize("n", [16, 32, 64, 128])
+@pytest.mark.parametrize("p", [16, 32, 64, 128])
+def test_ssd_tensor_core_grouped_strided(cuda, p, n, q):
+    """The tensor-core kernel on the model's layout read in place: X, B
+    and C as views into one wide (b, L, width) row, as the prefill's conv
+    output holds them, and Adt a strided view, with B / C per group for
+    g = 1, 2 and h (= 4), against the plain version on the per-head
+    repeat; the grouped call equals the per-head call bit for bit (each
+    head's arithmetic is the same)."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda, ssd_chunks
+
+    b, c, h = 2, 2, 4
+    L = c * q
+    gen = torch.Generator(device=cuda).manual_seed(p + n + q)
+    for g in (1, 2, h):
+        width = h * p + 2 * g * n + 8  # rows on 16 bytes
+        wide = torch.randn(b, L, width, generator=gen, device=cuda).bfloat16()
+        X = wide[..., :h * p].unflatten(-1, (h, p))
+        B = wide[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        C = wide[..., h * p + g * n:h * p + 2 * g * n].unflatten(-1, (g, n))
+        Adt = (-torch.nn.functional.softplus(torch.randn(
+            b, L, 2 * h, generator=gen, device=cuda)))[..., ::2].bfloat16()
+        assert not (X.is_contiguous() or B.is_contiguous())
+        Y, st = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
+        want = ssd_chunks(X, Adt, B, C, chunk=q, backend="torch")
+        _assert_ssd_close((Y, st), want, "bfloat16")
+        per_head = ssd_chunk_cuda(
+            X, Adt, *(t.repeat_interleave(h // g, dim=2) for t in (B, C)),
+            chunk=q)
+        assert torch.equal(Y, per_head[0]) and torch.equal(st, per_head[1])
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_ssd_cuda_core_grouped_matches_plain(cuda, g):
+    """The float32 CUDA-core kernel reads B / C per group by index."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda, ssd_chunks
+
+    X, Adt, B, C = _ssd_inputs(cuda, 2, 4, 2, 64, 32, 64, "float32", g=g,
+                               seed=g)
+    got = ssd_chunk_cuda(X, Adt, B, C, chunk=64)
+    _assert_ssd_close(got, ssd_chunks(X, Adt, B, C, chunk=64,
+                                      backend="torch"), "float32")
+
+
 def test_ssd_chunk_kernel_refusals(cuda):
     from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda
 
     X, Adt, B, C = _ssd_inputs(cuda, 1, 1, 1, 32, 16, 16, "float32")
     with pytest.raises(TypeError, match="dtype"):
-        ssd_chunk_cuda(X.half(), Adt.half(), B.half(), C.half())
+        ssd_chunk_cuda(X.half(), Adt.half(), B.half(), C.half(), chunk=32)
     with pytest.raises(ValueError, match="Adt"):
-        ssd_chunk_cuda(X, Adt.bfloat16(), B, C)
+        ssd_chunk_cuda(X, Adt.bfloat16(), B, C, chunk=32)
     with pytest.raises(ValueError, match="width"):
-        ssd_chunk_cuda(torch.cat([X, X[..., :8]], -1).contiguous(), Adt, B,
-                       C)
+        ssd_chunk_cuda(torch.cat([X, X[..., :8]], -1), Adt, B, C, chunk=32)
     with pytest.raises(ValueError, match="chunk"):
-        ssd_chunk_cuda(X[..., :24, :].contiguous(),
-                       Adt[..., :24].contiguous(), B[..., :24, :]
-                       .contiguous(), C[..., :24, :].contiguous())
-    big = _ssd_inputs(cuda, 1, 1, 1, 272, 16, 16, "float32")
+        ssd_chunk_cuda(X, Adt, B, C, chunk=24)
     with pytest.raises(ValueError, match="chunk"):
-        ssd_chunk_cuda(*big)
-    with pytest.raises(ValueError, match="contiguous"):
-        ssd_chunk_cuda(X.transpose(-1, -2).contiguous().transpose(-1, -2),
-                       Adt, B, C)
+        ssd_chunk_cuda(*_ssd_inputs(cuda, 1, 1, 1, 272, 16, 16, "float32"),
+                       chunk=272)
+    with pytest.raises(ValueError, match="group"):
+        ssd_chunk_cuda(*_ssd_inputs(cuda, 1, 3, 1, 32, 16, 16, "float32",
+                                    g=2), chunk=32)
 
 
 def test_mamba2_layer_kernel_route_matches_plain(cuda):
@@ -382,7 +442,7 @@ def _assert_bf16_close(got, want):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 96, 128])
 def test_flash_tensor_core_kernel_matches_plain(cuda, dh, causal):
     """bf16 takes the wgmma kernel: every head width, causal and full,
     GQA 12 / 2, two kv tiles and a ragged tail (S = 300)."""
@@ -512,3 +572,140 @@ def test_gain_static_paper_shapes_match_plain(cuda, kind, B):
         want = gain_ref(X, feats, linv, mask, a=1.0, inv2l2=0.5,
                         kind=kind)[:, 0]
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------- bf16 summaries on the card
+def _bf16_three_sieves(cuda, backend=None, K=12, d=9):
+    from repro_torch.core.functions import KernelConfig, LogDet
+    from repro_torch.core.threesieves import ThreeSieves
+
+    f = LogDet(K=K, d=d, kernel=KernelConfig("rbf", 0.5),
+               dtype=torch.bfloat16, backend=backend, device=cuda)
+    return ThreeSieves(f=f, T=6, eps=0.1)
+
+
+def test_pod_step_kernel_bf16_matches_plain(cuda):
+    """A bf16 carry through the pod-step kernel (storage bf16, arithmetic
+    float32, the TPU kernel's rounding points) against the plain per-slot
+    loop: integers equal, fval within 0.05 (tests/test_pod_step_kernel.py's
+    bf16 pin), feats / L / Linv still bf16; decisions within a bf16 ulp of
+    their threshold would be near-ties, and the fixture has none."""
+    from repro_torch.kernels.pod_step import pod_step, pod_step_ref
+    from repro_torch.tree import tree_map
+
+    algo = _bf16_three_sieves(cuda)
+    rows = [algo.init(algo.hyper(K=k, kernel_kind=kind))
+            for k, kind in ((12, "rbf"), (5, "linear_norm"), (8, "rbf"))]
+    ker = tree_map(lambda *xs: torch.stack(xs), *rows)
+    ref = tree_map(lambda t: t.clone(), ker)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    margins = []
+    for C, counts in ((40, [40, 17, 0]), (1, [1, 1, 0]), (40, [40, 40, 3])):
+        chunks = torch.randn(3, C, 9, generator=g, device=cuda)
+        counts = torch.tensor(counts, dtype=torch.int32, device=cuda)
+        pod_step(algo, ker, chunks, counts, backend="cuda")
+        margins += [{} for _ in range(3)]
+        ref = pod_step_ref(algo, ref, chunks, counts, margins=margins[-3:])
+        for a, b in ((ker.ld.n, ref.ld.n), (ker.j, ref.j), (ker.t, ref.t),
+                     (ker.n_fused, ref.n_fused),
+                     (ker.ld.n_queries, ref.ld.n_queries)):
+            assert torch.equal(a, b)
+        for name in ("feats", "L", "Linv", "fval"):
+            assert getattr(ker.ld, name).dtype == torch.bfloat16, name
+        torch.testing.assert_close(ker.ld.fval.float(), ref.ld.fval.float(),
+                                   rtol=0.05, atol=0.05)
+        assert torch.equal(ker.ld.feats, ref.ld.feats)
+    assert min(m for d in margins for m in d.values()) > 1e-2
+    assert int(ker.ld.n.sum()) > 0
+
+
+def test_bf16_gains_kernel_matches_plain(cuda):
+    """A bf16 summary's gains through the float32 kernels (the wrapper
+    upcasts x, feats and Linv, exactly) against the plain route, both cast
+    to bf16 by the oracle: within one bf16 ulp (2^-7 relative), as the two
+    float32 results round to neighbours at most."""
+    from repro_torch.core.functions import KernelConfig, LogDet
+    from repro_torch.kernelmath import KernelParams
+    from repro_torch.kernels.rbf_gain import KERNEL, KERNEL_STATIC
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    K, d, B = 40, 24, 500
+    f = LogDet(K=K, d=d, kernel=KernelConfig("rbf", 1.5),
+               dtype=torch.bfloat16, device=cuda)
+    st = f.init()
+    for x in 0.5 * torch.randn(30, d, generator=g, device=cuda):
+        st = f.append(st, x)
+    X = 0.5 * torch.randn(B, d, generator=g, device=cuda)
+    kern = KernelParams(torch.tensor(0.2222, device=cuda),
+                        torch.tensor(0, dtype=torch.int32, device=cuda))
+    plain = LogDet(K=K, d=d, kernel=f.kernel, dtype=torch.bfloat16,
+                   backend="torch", device=cuda)
+    for kp in (kern, None):
+        counter = KERNEL if kp is not None else KERNEL_STATIC
+        before = counter.launches
+        got = f.gains(st, X, kp)
+        assert counter.launches == before + 1
+        want = plain.gains(st, X, kp)
+        assert got.dtype == want.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                   atol=2 ** -7)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_head_width_96_matches_plain(cuda, dtype, causal):
+    """phi3-mini-3.8b's head width on both routes (bf16: three 64-byte
+    swizzled column blocks, m64n96k16; float32: the CUDA-core kernel),
+    ragged S = 300 through the padding wrapper, 32 / 32 heads."""
+    from repro_torch.kernels.flash_attention import (KERNEL, attention_ref,
+                                                     flash_attention)
+
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(cuda, 1, 32, 32, 300, 300, 96, dt, 96 + causal)
+    before = KERNEL.launches
+    got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    if dt == torch.bfloat16:
+        _assert_bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_mamba2_layer_bf16_takes_the_tensor_core_route(cuda):
+    """One Mamba2-370m layer at full width in bf16: the prefill's one SSD
+    launch takes the tensor-core kernel on B / C per group, and its
+    logits stay within chip_smoke.py's bf16 gate (5e-2) of the plain
+    route."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES
+    from repro_torch.models import Model, init_cache
+    from repro_torch.models import mamba
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=1)
+    assert cfg.dtype == "bfloat16"
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 500), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    route = mamba.ssd_chunks
+    out = {}
+    for backend in ("auto", "torch"):
+        mamba.ssd_chunks = functools.partial(route, backend=backend)
+        try:
+            before = ROUTE_LAUNCHES["tensor-core"]
+            with torch.inference_mode():
+                logits, _, _ = model.prefill(
+                    params, {"tokens": tokens},
+                    init_cache(cfg, 2, 512, device=cuda))
+            out[backend] = (logits, ROUTE_LAUNCHES["tensor-core"] - before)
+        finally:
+            mamba.ssd_chunks = route
+    assert out["auto"][1] == 1 and out["torch"][1] == 0
+    err = (out["auto"][0].float() - out["torch"][0].float()).abs().max()
+    assert float(err) <= 5e-2

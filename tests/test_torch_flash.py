@@ -20,6 +20,7 @@ ATTN_SHAPES = [  # B, Hq, Hkv, Sq, Sk, dh: tests/test_kernels.py's shapes
     (1, 8, 1, 128, 384, 128),  # MQA, rectangular
     (2, 2, 2, 100, 100, 64),  # ragged (padding path)
     (1, 4, 4, 64, 64, 32),  # small blocks
+    (1, 4, 4, 128, 128, 96),  # phi3-mini-3.8b's head width
 ]
 ATTN_CASES = [(*s, c) for s in ATTN_SHAPES for c in (True, False)
               if not (c and s[3] != s[4])]  # causal needs Sq == Sk
@@ -136,7 +137,7 @@ def test_flash_launch_geometry_routes_by_dtype(dtype, route, grid):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 96, 128])
 def test_flash_smem_fits_each_head_width(dtype, dh):
     """Q, the two-stage K / V ring and the barriers (bf16), or the float
     tiles (float32), fit the 227 KB of one block at every head width."""
@@ -147,6 +148,26 @@ def test_flash_smem_fits_each_head_width(dtype, dh):
     assert smem <= SMEM_LIMIT
     if dtype == torch.bfloat16:  # 2 (Q) + 4 (K, V x 2 stages) bf16 tiles
         assert smem == 2 * 128 * dh + 2 * 2 * 2 * 128 * dh + 40 + 1024
+
+
+def test_flash_head_width_96_geometry():
+    """phi3-mini-3.8b's head width (96, 32 query and 32 kv heads, S =
+    2048): both routes take it.  bf16 holds three 32-column blocks per
+    tile with the 64-byte swizzle: Q (24 KB), the K / V ring (96 KB), the
+    barriers and the alignment slack; float32 holds Q, K, V and P as
+    padded float tiles (about 89 KB)."""
+    from repro_torch.kernels.flash_attention import launch_geometry
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+
+    assert 96 in HEAD_DIMS
+    route, grid, threads, smem = launch_geometry(torch.bfloat16, 1, 32,
+                                                 2048, 96)
+    assert (route, grid, threads) == ("tensor-core", (16, 32, 1), 384)
+    assert smem == 24576 + 98304 + 40 + 1024 == 123944
+    route, grid, threads, smem = launch_geometry(torch.float32, 1, 32,
+                                                 2048, 96)
+    assert (route, grid, threads) == ("cuda-core", (32, 32, 1), 256)
+    assert smem == 4 * (64 * 97 + 64 * 97 + 64 * 96 + 64 * 65) == 90880
 
 
 def test_flash_launch_geometry_refusals_are_unchanged():

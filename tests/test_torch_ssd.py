@@ -183,9 +183,8 @@ def test_ssd_chunks_refusals():
         ssd_chunks(X, Adt, B, C, chunk=16, backend="pallas")
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ssd_chunks(X, Adt, B, C, chunk=24)
-    tiles = [t.reshape(1, 1, 2, 16, -1) for t in (X, B, C)]
     with pytest.raises(ValueError, match="CUDA"):
-        ssd_chunk_cuda(tiles[0], Adt.reshape(1, 1, 2, 16), *tiles[1:])
+        ssd_chunk_cuda(X, Adt, B, C, chunk=16)
 
 
 # --------------------------------------------------------- the full scan
@@ -238,3 +237,119 @@ def test_ssd_dtypes_follow_jax(dtype, use_pallas):
     scale = max(1.0, float(np.abs(_np(Yj)).max()))
     np.testing.assert_allclose(Yt.float().numpy() / scale, _np(Yj) / scale,
                                rtol=tol, atol=tol)
+
+
+# ------------------------------------------------- B and C per group
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_grouped_ssd_chunks_match_jax_per_head(g, dtype):
+    """B and C per group (b, L, g, n), h = 4 heads (two or four per
+    group), through ``ssd_chunks``'s plain route, against the JAX
+    ``ssd_chunks`` given B and C repeated per head (its only signature),
+    on the jnp route and on the TPU kernel in interpret mode; and against
+    the port's own per-head call, which must give the same numbers (the
+    plain route repeats B and C itself)."""
+    b, L, h, p, n, chunk = 2, 64, 4, 16, 8, 32
+    X, Adt, B, C = _inputs(10 + g, b, L, h, p, n)
+    Bg, Cg = B[:, :, :g], C[:, :, :g]
+    Bh, Ch = (np.repeat(a, h // g, axis=2) for a in (Bg, Cg))
+    jin = _jax((X, Adt, Bh, Ch), dtype)
+    got = ssd_chunks(*_torch((X, Adt, Bg, Cg), dtype), chunk=chunk)
+    per_head = ssd_chunks(*_torch((X, Adt, Bh, Ch), dtype), chunk=chunk)
+    for a, b_ in zip(got, per_head):
+        assert torch.equal(a, b_)
+    for use_pallas in (False, True):
+        Yj, sj = jchunks(*jin, chunk=chunk, use_pallas=use_pallas,
+                         interpret=use_pallas)
+        _close(got[0], Yj, TOL[dtype])
+        _close(got[1], sj, TOL[dtype])
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_grouped_ssd_matches_jax(use_pallas):
+    """The whole chunked scan with B and C per group (g = 2, h = 4; the
+    inter-chunk term reads C per group) against JAX's ssd with B and C
+    repeated per head, float32, with an initial state."""
+    b, L, h, p, n, chunk, g = 2, 64, 4, 16, 8, 16, 2
+    X, Adt, B, C = _inputs(12, b, L, h, p, n)
+    Bg, Cg = B[:, :, :g], C[:, :, :g]
+    Bh, Ch = (np.repeat(a, h // g, axis=2) for a in (Bg, Cg))
+    init = np.random.default_rng(13).standard_normal(
+        (b, h, p, n)).astype(np.float32)
+    Yj, fj = jmamba.ssd(*_jax((X, Adt, Bh, Ch), "float32"), chunk,
+                        init_state=jnp.asarray(init), use_pallas=use_pallas,
+                        interpret=True)
+    Yt, ft = tmamba.ssd(*_torch((X, Adt, Bg, Cg), "float32"), chunk,
+                        init_state=torch.from_numpy(init),
+                        use_pallas=use_pallas)
+    _close(Yt, Yj, SSD_TOL)
+    _close(ft, fj, SSD_TOL)
+
+
+@pytest.mark.parametrize("n_groups", [1, 2])
+def test_mamba2_prefill_hands_groups_and_matches_jax(monkeypatch, n_groups):
+    """A Mamba2 layer at the reduced config (8 heads of 16, d_state 16,
+    chunk 16; one group as Mamba2-370m, and two) through the port's
+    prefill: ``ssd_chunks`` receives B and C per group, not repeated per
+    head, and the output, conv cache and SSM state equal JAX's (which
+    repeats them), float32 within the model tests' 1e-4."""
+    import dataclasses
+
+    from _torch_port import port_config
+    from repro.configs import get_config as jget
+
+    jcfg = jget("mamba2-370m", reduced=True)
+    jcfg = dataclasses.replace(jcfg, dtype="float32", ssm=dataclasses.replace(
+        jcfg.ssm, n_groups=n_groups))
+    tcfg = port_config(jcfg)
+    rng = np.random.default_rng(14)
+    p = {k: (0.3 * rng.standard_normal(d.shape)).astype(np.float32)
+         for k, d in tmamba.mamba_spec(tcfg).items()}
+    seen = []
+    route = tmamba.ssd_chunks
+
+    def recorded(X, Adt, B, C, **kw):
+        seen.append((X.shape[2], B.shape[2], C.shape[2]))
+        return route(X, Adt, B, C, **kw)
+
+    monkeypatch.setattr(tmamba, "ssd_chunks", recorded)
+    Bsz, S = 2, 24  # padded to two chunks of 16
+    x = rng.standard_normal((Bsz, S, jcfg.d_model)).astype(np.float32)
+    jout, jc = jmamba.mamba_prefill(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+        jmamba.mamba_init_cache(jcfg, Bsz, jnp.float32), jcfg)
+    tout, tc = tmamba.mamba_prefill(
+        {k: torch.from_numpy(v) for k, v in p.items()}, torch.from_numpy(x),
+        tmamba.mamba_init_cache(tcfg, Bsz, torch.float32, "cpu"), tcfg)
+    heads = tcfg.ssm.n_heads(tcfg.d_model)
+    assert seen == [(heads, n_groups, n_groups)]
+    np.testing.assert_allclose(tout.numpy(), _np(jout), rtol=SSD_TOL,
+                               atol=SSD_TOL)
+    for k in ("conv", "ssm"):
+        np.testing.assert_allclose(tc[k].numpy(), _np(jc[k]), rtol=SSD_TOL,
+                                   atol=SSD_TOL)
+
+
+# ----------------------------------------- launch geometry (no card)
+def test_ssd_mma_geometry():
+    """The tensor-core kernel's launch at the Mamba2-370m prefill (b = 8,
+    L = 2048, 32 heads in one group, p = 64, n = 128, q = 256): 4 query
+    tiles and 2 state blocks per (batch, chunk, 8 heads), 1,536 blocks of
+    128 threads, 106 KB of shared memory (acum 8 KB, G 64 KB, staging
+    34 KB: two blocks per SM); per-head B / C (g = h) walk one head per
+    block; the reduced tile (q = p = n = 16) one query and one state
+    block."""
+    from repro_torch.kernels.ssd_chunk.kernel import (SMEM_LIMIT,
+                                                      heads_per_block,
+                                                      mma_geometry)
+
+    grid, threads, smem, hb = mma_geometry(8, 2048, 32, 1, 256, 64, 128)
+    assert (grid, threads, hb) == ((6, 4, 64), 128, 8)
+    assert smem == 8192 + 65536 + 34816 and 2 * (smem + 1024) <= 233472
+    assert mma_geometry(8, 2048, 32, 32, 256, 64, 128)[0] == (6, 32, 64)
+    assert mma_geometry(2, 64, 8, 1, 16, 16, 16)[:2] == ((2, 1, 8), 128)
+    assert [heads_per_block(h, g) for h, g in
+            ((32, 1), (24, 2), (6, 1), (8, 8), (12, 4))] == [8, 4, 2, 1, 1]
+    for p in (16, 32, 64, 128):
+        for n in (16, 32, 64, 128):
+            assert mma_geometry(1, 256, 8, 1, 256, p, n)[2] <= SMEM_LIMIT
