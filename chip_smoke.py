@@ -8,14 +8,20 @@ exit and no result line:
 
   1. build           the five CUDA kernels from the four sources in
                      ``src/repro_torch/csrc`` (one nvcc each, started
-                     together), ptxas lines;
+                     together), ptxas lines, the instantiations that
+                     spill;
   2. gain            ``gain_traced`` against its plain version at B=1024,
                      K=100, d=256, n in {0, 37, 100}, both kernel kinds,
                      two inv2l2 (device time per call: the gain kernel and
                      its first pass over the summaries' norms);
   3. pod_step        the kernel against ``pod_step_ref`` (16 sessions,
                      K=100, d=256, C=1024, three tiers): ragged counts, a
-                     C=1 chunk, a saturating chunk, a round after it;
+                     C=1 chunk, a saturating chunk, a round after it; the
+                     layout tier (Linv in shared memory at K=100), and per
+                     round the longest session's passes (its growth in
+                     n_fused) and the us per serial pass; the ragged round
+                     again with Linv in device memory (timed) and with an
+                     8-row window, which must leave the same bits;
   4. pod             the main path: ``make`` + ``SummarizerPod(S=256,
                      chunk=1024)``, 256 tenants in three tiers, ingests of
                      262,144 tagged items (the first is cold; items/s
@@ -23,7 +29,8 @@ exit and no result line:
                      full summaries before the last ingest, ``readout``;
                      each summary's fval is checked against a float64
                      slogdet and the last ingest is replayed through
-                     ``pod_step_ref``;
+                     ``pod_step_ref`` (the replay's layout, passes and us
+                     per pass as in ``pod_step``);
   5. sieve           standalone ``ThreeSieves.run_batched`` through the
                      gain oracle (``auto`` -> the kernel), 64 chunks of
                      1024 items, against the same run under ``torch``;
@@ -33,10 +40,12 @@ exit and no result line:
   7. gain_stacked    ``gain_traced`` over I=147 stacked summaries (Salsa
                      at K=100, eps=0.1: 3 rules x 49 rungs), B=1024, and
                      over I=49 of them (SieveStreaming's stack), timed;
-  8. pod_step_large  the pod step past what shared memory could hold:
-                     8 sessions at K_max=512 (tiers 128/256/512: ragged
+  8. pod_step_large  the pod step past what shared memory could hold (the
+                     global layout tier, Linv in device memory): 8
+                     sessions at K_max=512 (tiers 128/256/512: ragged
                      fill, saturating, after saturation), then one ragged
-                     round of 4 sessions at K_max=1024;
+                     round of 4 sessions at K_max=1024; passes and us per
+                     pass as in ``pod_step``;
   9. paper           the paper's comparison through ``make`` at K=100,
                      d=256 on a drifting stream of tight clusters (rungs
                      reject, ISI and Preemption replace; the phase fails
@@ -116,7 +125,8 @@ exit and no result line:
                      ``pod_step_ref``: integers equal, fval within 0.05,
                      the carry still bf16; the kernel fed each count one
                      short must fail; the ragged round timed beside the
-                     float32 one; then a ``SummarizerPod`` of 32 bf16
+                     float32 one, passes and us per pass as in
+                     ``pod_step``; then a ``SummarizerPod`` of 32 bf16
                      tenants, two ingests, each replayed through
                      ``pod_step_ref``;
  15. gain_bf16       a bf16 summary's gains (B=1024, K=100, d=256, n=100)
@@ -382,10 +392,10 @@ def mixture(torch, gen, n, *, clusters=64, spread=1.0):
 # --------------------------------------------------------------- comparing
 def accepted_at(torch, rows, chunk):
     """Chunk positions of appended summary rows (an appended row is a
-    bit copy of its item)."""
+    bit copy of its item, rounded to the summary's dtype)."""
     if rows.shape[0] == 0:
         return []
-    hit = (chunk[:, None, :] == rows[None]).all(-1)
+    hit = (chunk.to(rows.dtype)[:, None, :] == rows[None]).all(-1)
     return hit.to(torch.uint8).argmax(0).tolist()
 
 
@@ -487,6 +497,26 @@ def clone_state(state):
     return tree_map(lambda t: t.clone(), state)
 
 
+def pod_layout(K):
+    """The pod step's layout at K_max = K, d = D (kernels.pod_step.layout):
+    the tier (Linv in shared or in device memory), the window rows, the
+    shared memory of a block and the blocks it lets one SM hold."""
+    from repro_torch.kernels.pod_step import layout
+
+    lay = layout(K, D)
+    return {"tier": lay.tier, "bt": lay.bt, "smem_bytes": lay.smem_bytes,
+            "blocks_per_sm": lay.blocks_per_sm}
+
+
+def serial_chain(before, after, ms):
+    """The longest session's passes in one pod step (its growth in
+    n_fused: each pass waits for the append before it) and the step's ms
+    spread over them, in us per pass."""
+    passes = int((after.n_fused - before.n_fused).max())
+    return {"serial_passes": passes,
+            "us_per_pass": 1e3 * ms / passes if passes else None}
+
+
 # ------------------------------------------------------------------ phases
 def phase_build(torch):
     from repro_torch.kernels import build
@@ -503,10 +533,14 @@ def phase_build(torch):
     ptxas = [f"{entry}: {' '.join(ln.strip() for ln in info)}"
              for k in sources.values()
              for entry, info in _ptxas_entries(k.ptxas_log)]
+    # instantiations whose ptxas line reports spill stores or loads
+    spills = [ln for ln in ptxas
+              if "spill" in ln and (" 0 bytes spill stores" not in ln
+                                    or " 0 bytes spill loads" not in ln)]
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_source_seconds={name: k.build_seconds
                              for name, k in sources.items()},
-         ptxas=ptxas, nvcc=build.nvcc_path())
+         ptxas=ptxas, spills=spills, nvcc=build.nvcc_path())
 
 
 def _ptxas_entries(log):
@@ -517,11 +551,14 @@ def _ptxas_entries(log):
     out = []
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E|f)+)E)?", ln)
+            m = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E|f|13__nv_bfloat16)+)"
+                          r"E)?", ln)
             name = m.group(1) if m else ln.split()[-1]
             if m and m.group(3):
-                args = re.findall(r"Li(\d+)E|(f)", m.group(3))
-                name += "<" + ",".join(a or "float" for a, _ in args) + ">"
+                args = re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)",
+                                  m.group(3))
+                name += "<" + ",".join(a or ("float" if f else "bf16")
+                                       for a, f, _ in args) + ">"
             out.append((name, []))
         elif out and ("registers" in ln or "spill" in ln):
             out[-1][1].append(ln.replace("ptxas info    :", "").strip())
@@ -737,6 +774,7 @@ def _stacked_tiers(torch, algo, S):
 
 def phase_pod_step(torch, gen):
     from repro_torch.kernels.pod_step import pod_step, pod_step_ref
+    from repro_torch.tree import leaves_with_keys
 
     algo, algo_ref = _pod_algos(torch)
     S = 16
@@ -760,6 +798,19 @@ def phase_pod_step(torch, gen):
                                                 backend="cuda"),
                       reps=5, warmup=1, setup=lambda: (clone_state(before),))
         pod_step(algo, ker, chunks, counts, backend="cuda")
+        layouts = {}
+        if name == "ragged":  # Linv in device memory, an 8-row window
+            layouts["global_tier_ms"] = timed_ms(torch, lambda s: pod_step(
+                algo, s, chunks, counts, backend="cuda", tier="global"),
+                reps=5, warmup=1, setup=lambda: (clone_state(before),))
+            other = clone_state(before)
+            pod_step(algo, other, chunks, counts, backend="cuda",
+                     tier="global", window=8)
+            a, b = leaves_with_keys(ker), leaves_with_keys(other)
+            if not all(torch.equal(a[k], b[k]) for k in a):
+                fail("pod_step: the global tier with an 8-row window left "
+                     "other bits than the shared tier")
+            layouts["global_tier_window_8_bit_equal"] = True
         margins = [dict() for _ in range(S)]
         plain_ms, ref = host_ms(torch, lambda: pod_step_ref(
             algo_ref, ref, chunks, counts, margins=margins))
@@ -767,14 +818,17 @@ def phase_pod_step(torch, gen):
                                      margins, f"pod_step {name}")
         resync(ker, ref, [t["session"] for t in ties])
         max_err = max(max_err, err)
-        rounds.append({"round": name, "C": C, "ms": ms, "plain_ms": plain_ms,
+        rounds.append({"round": name, "C": C, "ms": ms, **layouts,
+                       "plain_ms": plain_ms,
+                       **serial_chain(before, ker, ms),
                        "max_abs_err": err, "near_ties": ties,
                        "n": ker.ld.n.tolist()})
     rbf = ker.hp.kernel_kind == 0  # linear_norm rows never get far apart
     if not bool((ker.ld.n == ker.hp.k_cap)[rbf].all()):
         fail("pod_step: the saturating round left an rbf summary below "
              "k_cap")
-    emit("pod_step", sessions=S, rounds=rounds, max_abs_err=max_err)
+    emit("pod_step", sessions=S, layout=pod_layout(K_MAX), rounds=rounds,
+         max_abs_err=max_err)
     return max_err
 
 
@@ -853,10 +907,12 @@ def phase_pod_bf16(torch, gen):
         resync(ker, ref, [t["session"] for t in ties])
         max_err = max(max_err, err)
         rounds.append({"round": name, "C": C, **timing,
+                       **serial_chain(before, ker, timing["ms"]),
                        "plain_ms": plain_ms, "max_abs_err": err,
                        "near_ties": ties, "n": ker.ld.n.tolist()})
     pod = _bf16_pod(torch, gen, algo, algo_ref)
-    emit("pod_bf16", sessions=S, rounds=rounds, max_abs_err=max_err,
+    emit("pod_bf16", sessions=S, layout=pod_layout(K_MAX), rounds=rounds,
+         max_abs_err=max_err,
          fval_tol=POD_BF16_TOL, tie=TIE_BF16,
          control_counts_short_sessions_failing=fault, summarizer_pod=pod)
     return max_err
@@ -1036,12 +1092,12 @@ def phase_pod_step_large(torch, gen):
     from repro_torch.core.api import make
     from repro_torch.core.functions import rbf_lengthscale_stream
     from repro_torch.core.spec import SessionSpec
-    from repro_torch.kernels.pod_step import layout, pod_step, pod_step_ref
+    from repro_torch.kernels.pod_step import pod_step, pod_step_ref
     from repro_torch.tree import tree_map
 
     rounds, max_err, state_mb = [], 0.0, {}
     for k_max, S, tiers, plan in LARGE_PODS:
-        bt, smem = layout(k_max)
+        lay = pod_layout(k_max)
         spec = SessionSpec(K=k_max, T=1000, eps=0.01, d=D,
                            lengthscale=rbf_lengthscale_stream(D))
         algo = make(spec, device=DEV)
@@ -1076,9 +1132,10 @@ def phase_pod_step_large(torch, gen):
             resync(ker, ref, [t["session"] for t in ties])
             max_err = max(max_err, err)
             b_ms, b_by = bound(flops, nbytes)
-            rounds.append({"K_max": k_max, "bt": bt,
-                           "smem_bytes": smem, "sessions": S, "round": name,
-                           "ms": ms, "plain_ms": plain_ms,
+            rounds.append({"K_max": k_max, "layout": lay,
+                           "sessions": S, "round": name,
+                           "ms": ms, **serial_chain(before, ker, ms),
+                           "plain_ms": plain_ms,
                            "bound_ms": b_ms, "bound_by": b_by,
                            "max_abs_err": err, "near_ties": ties,
                            "n": ker.ld.n.tolist()})
@@ -1191,6 +1248,7 @@ def phase_pod(torch, gen, ingests):
         algo_ref, clone_state(algo_state), chunks, counts, margins=margins))
     err, ties = compare_sessions(torch, ker, ref, chunks, algo_state.ld.n,
                                  margins, "pod_step (main-path shape)")
+    chain = serial_chain(algo_state, ker, dev)
     flops, nbytes = pod_work(torch, algo_state, ker, chunks, margins)
     b_ms, b_by = bound(flops, nbytes)
     warm_s = sum(per_ingest[1:]) / 1e3  # the first ingest is cold
@@ -1205,14 +1263,14 @@ def phase_pod(torch, gen, ingests):
          summary_sizes={k: [min(v), max(v), sum(v) / len(v)]
                         for k, v in tiers.items()},
          fval_vs_slogdet_max_err=fe,
-         replay={"ms": dev, "call_ms": call,
-                 "plain_ms": plain_ms, "max_abs_err": err,
+         replay={"ms": dev, "call_ms": call, "layout": pod_layout(K_MAX),
+                 **chain, "plain_ms": plain_ms, "max_abs_err": err,
                  "near_ties": ties, "bound_ms": b_ms, "bound_by": b_by,
                  "flops": flops, "bytes": nbytes},
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     return {"launches": launches["pod_step"], "ms": dev, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-            "ties": ties}
+            "ties": ties, **chain}
 
 
 def phase_sieve(torch, gen):

@@ -57,10 +57,13 @@ def _write_back(state: TSState, new: TSState) -> TSState:
 
 
 def pod_step(algo, state: TSState, chunks: torch.Tensor,
-             counts: torch.Tensor, *, backend: str = "auto") -> TSState:
+             counts: torch.Tensor, *, backend: str = "auto",
+             tier: str | None = None, window: int | None = None) -> TSState:
     """Advance every pod session by one chunk, in place; returns ``state``.
 
     chunks (S, C, d); counts (S,) valid prefixes (clamped to [0, C]).
+    ``tier`` / ``window`` force the kernel's layout (``kernel.layout``
+    chooses it from K and d); every layout gives the same bits.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} invalid; choose from "
@@ -79,7 +82,7 @@ def pod_step(algo, state: TSState, chunks: torch.Tensor,
     # Pallas body casts it (``chunk_ref[0].astype(dtype)``)
     iout, fval = pod_step_cuda(chunks.to(algo.f.dtype).contiguous(),
                                ld.feats, ld.L, ld.Linv, ints, flts,
-                               a=algo.f.a)
+                               a=algo.f.a, tier=tier, window=window)
     ld.n.copy_(iout[:, 0])
     state.j.copy_(iout[:, 1])
     state.t.copy_(iout[:, 2])

@@ -40,26 +40,20 @@ KIND_IDS = {"rbf": 0, "linear_norm": 1}  # kernelmath.KERNEL_KIND_IDS
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 SMS = 132  # streaming multiprocessors of the H100 SXM
-KM_BUDGET = 98304  # bytes of the pod step's BT x K kernel block Km
-KT, LDT = 64, 33  # gemm_nt's tile (csrc/gain_rows.cuh), the pod step's
+KM_BUDGET = 98304  # bytes of an 8 x K kernel block at the largest K taken
 RB_KT, RB_LD = 64, 36  # rb_gemm's tile and slice stride (gain_rows.cuh)
 GAIN_TILES = (64, 32, 16, 8)  # candidate rows per gain block, rbf_gain.cu
 
 
 def block_rows(K: int) -> int:
-    """The pod step's candidate rows per gain tile: the largest of
-    64/32/16/8 whose BT x K f32 kernel block fits ``KM_BUDGET``.  Past
-    K = 3072 it raises, and so do the gain kernels."""
+    """The largest of 64/32/16/8 rows whose BT x K f32 kernel block fits
+    ``KM_BUDGET``: the gain kernels' refusal of K past 3072 (their tile
+    itself is ``gain_block_rows``)."""
     for bt in (64, 32, 16, 8):
         if bt * K * 4 <= KM_BUDGET:
             return bt
     raise ValueError(f"K={K} needs a {8 * K * 4}-byte kernel block even at "
                      f"8 rows, over the {KM_BUDGET}-byte budget")
-
-
-def tile_floats(bt: int, K: int) -> int:
-    """``gain_tile_floats`` of csrc/gain_rows.cuh (the pod step's tile)."""
-    return bt * LDT + KT * LDT + 2 * bt + bt * K
 
 
 def smem_bytes(K: int, bt: int | None = None) -> int:

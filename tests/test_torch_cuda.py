@@ -109,15 +109,16 @@ def test_gain_traced_instance_axis_matches_plain(cuda):
 
 
 def test_streamed_pod_step_matches_plain(cuda):
-    """K_max = 600 (BT = 32): feats and Linv of a session far past what
-    shared memory could hold; the result is the plain loop's."""
+    """K_max = 600: feats and Linv of a session far past what shared
+    memory could hold (the global layout tier, Linv in device memory);
+    the result is the plain loop's."""
     from repro_torch.core.api import make
     from repro_torch.core.spec import SessionSpec
     from repro_torch.kernels.pod_step import layout, pod_step
     from repro_torch.tree import tree_map
 
     K, d = 600, 24
-    assert layout(K)[0] == 32
+    assert (layout(K, d).tier, layout(K, d).bt) == ("global", 32)
     spec = SessionSpec(K=K, d=d, T=6, eps=0.1, lengthscale=1.0)
     algo = make(spec, device=cuda)
     ref_algo = make(spec.replace(backend="torch"), device=cuda)
@@ -137,6 +138,217 @@ def test_streamed_pod_step_matches_plain(cuda):
         assert torch.equal(ker.ld.feats, ref.ld.feats)
         torch.testing.assert_close(ker.ld.Linv, ref.ld.Linv, rtol=1e-5,
                                    atol=1e-5)
+
+
+# The pod step at the main path's shape and at the edges of its candidate
+# window.  Inputs are drawn on the CPU from a seed and moved to the card;
+# the plain loop (pod_step_ref) runs on the card beside the kernel.
+POD_TIERS = ((10, 500, 0.05), (50, 1000, 0.01), (100, 2500, 0.005))
+
+
+def _pod_algo(cuda, K, d, dtype=torch.float32, T=1000, eps=0.01):
+    from repro_torch.core.functions import (KernelConfig, LogDet,
+                                            rbf_lengthscale_stream)
+    from repro_torch.core.threesieves import ThreeSieves
+
+    f = LogDet(K=K, d=d, kernel=KernelConfig("rbf", rbf_lengthscale_stream(d)),
+               dtype=dtype, device=cuda)
+    return ThreeSieves(f=f, T=T, eps=eps)
+
+
+def _pod_state(algo, rows):
+    """Stacked sessions of ``algo`` from hyper() keyword dicts."""
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda *xs: torch.stack(xs),
+                    *[algo.init(algo.hyper(**r)) for r in rows])
+
+
+def _mixture(g, S, C, d, *, clusters=64, spread=1.0):
+    """chip_smoke.py's mixture at the stream lengthscale, on the CPU."""
+    centers = (2.0 / d) * torch.randn(clusters, d, generator=g)
+    z = torch.randint(0, clusters, (S * C,), generator=g)
+    X = centers[z] + (spread / d) * torch.randn(S * C, d, generator=g)
+    return X.reshape(S, C, d)
+
+
+def _hold_pod(algo, ker, ref, chunks, counts, *, tie=1e-4, fval_tol=1e-5,
+              factors=True):
+    """One kernel step of ``ker`` against one plain step of ``ref`` on
+    the same chunk: integers equal, appended rows bit-equal, fval (and,
+    with ``factors``, L and Linv) within the tolerance; the fixtures keep
+    every decided item's margin above ``tie``.  Returns the new ref and
+    the longest session's passes."""
+    from repro_torch.kernels.pod_step import pod_step, pod_step_ref
+
+    dev = ker.ld.feats.device
+    chunks, counts = chunks.to(dev), torch.tensor(counts, dtype=torch.int32,
+                                                  device=dev)
+    before = ker.n_fused.clone()
+    pod_step(algo, ker, chunks, counts, backend="cuda")
+    margins = [dict() for _ in range(chunks.shape[0])]
+    ref = pod_step_ref(algo, ref, chunks, counts, margins=margins)
+    for name in ("n", "n_queries"):
+        assert torch.equal(getattr(ker.ld, name), getattr(ref.ld, name)), name
+    for name in ("j", "t", "n_fused"):
+        assert torch.equal(getattr(ker, name), getattr(ref, name)), name
+    assert torch.equal(ker.ld.feats, ref.ld.feats)
+    for name in ("L", "Linv", "fval") if factors else ("fval",):
+        torch.testing.assert_close(getattr(ker.ld, name).float(),
+                                   getattr(ref.ld, name).float(),
+                                   rtol=fval_tol if name == "fval" else 1e-5,
+                                   atol=fval_tol if name == "fval" else 1e-5)
+    decided = [m for d in margins for m in d.values()]
+    assert not decided or min(decided) > tie
+    return ref, int((ker.n_fused - before).max())
+
+
+def test_pod_step_refill_matches_plain(cuda):
+    """A refill from empty summaries at the main path's shape (K = 100,
+    d = 256, C = 1024; the three tiers, a third of them linear_norm): the
+    shared layout tier, about 100 serial passes for a pro session, each
+    accept carrying the rest of the 32-row window to the new state."""
+    from repro_torch.kernels.pod_step import layout
+
+    K, d, C = 100, 256, 1024
+    assert layout(K, d).tier == "shared"
+    algo = _pod_algo(cuda, K, d)
+    rows = [dict(K=k, T=T, eps=eps, kernel_kind=kind)
+            for k, T, eps in POD_TIERS for kind in ("rbf", "linear_norm")]
+    ker = _pod_state(algo, rows)
+    ref = _pod_state(algo, rows)
+    chunks = _mixture(torch.Generator().manual_seed(11), len(rows), C, d)
+    _, passes = _hold_pod(algo, ker, ref, chunks, [C] * len(rows))
+    assert passes >= 100 and int(ker.ld.n.max()) == K
+
+
+@pytest.mark.parametrize("case", ["window_last_row", "ragged", "c1", "nv0"])
+def test_pod_step_window_edges_match_plain(cuda, case):
+    """Where the candidate window is cut: an acceptor on the window's last
+    row (33 far-apart items, every one accepted: row 31 closes the first
+    window, row 32 opens the next), ragged counts around the 32-row
+    window with C = 45 (not a multiple of it) over tight clusters, whose
+    rejections walk from window to window, C = 1, and counts of 0."""
+    K, d = 100, 64
+    algo = _pod_algo(cuda, K, d, T=40)
+    rows = [dict(K=100, T=40), dict(K=50, T=25, kernel_kind="linear_norm"),
+            dict(K=100, T=7), dict(K=10, T=20), dict(K=100, T=300),
+            dict(K=60, T=12)]
+    S = len(rows)
+    ker, ref = _pod_state(algo, rows), _pod_state(algo, rows)
+    g = torch.Generator().manual_seed(5)
+    warm = _mixture(g, S, 45, d, clusters=8, spread=0.3)
+    ref, _ = _hold_pod(algo, ker, ref, warm, [45, 20, 33, 45, 1, 32])
+    if case == "window_last_row":
+        chunks = 400.0 / d * torch.randn(S, 33, d, generator=g)
+        counts = [33] * S
+    elif case == "ragged":
+        chunks = _mixture(g, S, 45, d, clusters=8, spread=0.3)
+        counts = [45, 31, 32, 33, 0, 44]
+    elif case == "c1":
+        chunks = _mixture(g, S, 1, d, clusters=8, spread=0.3)
+        counts = [1, 1, 0, 1, 1, 1]
+    else:
+        chunks = _mixture(g, S, 45, d)
+        counts = [0] * S
+    before = ker.ld.n.clone()
+    _hold_pod(algo, ker, ref, chunks, counts)
+    if case == "window_last_row":  # 33 accepts where the summary had room
+        room = torch.clamp(ker.hp.k_cap - before, max=33)
+        assert torch.equal(ker.ld.n - before, room)
+        assert int(room.max()) == 33
+    if case == "nv0":
+        assert torch.equal(ker.ld.n, before)
+
+
+def test_pod_step_saturating_round_matches_plain(cuda):
+    """Summaries one row short of their cap that reject every item of the
+    chunk price all C rows once (window after window) at n = K - 1; a full
+    summary prices nothing.  The summaries hold one tight cluster
+    (factored by ``LogDet.refactor``), so f(S) stays far below the top
+    rung and the last free row's threshold above every gain."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+
+    K, d, C = 40, 64, 300
+    algo = _pod_algo(cuda, K, d, T=100000)
+    rows = [dict(K=40, T=100000), dict(K=40, T=100000), dict(K=20, T=100000),
+            dict(K=20, T=100000)]
+    S = len(rows)
+    g = torch.Generator().manual_seed(3)
+    feats = _mixture(g, S, K, d, clusters=1, spread=0.3).to(cuda)
+    n = torch.tensor([39, 39, 19, 20], dtype=torch.int32, device=cuda)
+    ker = dataclasses.replace(_pod_state(algo, rows),
+                              ld=algo.f.refactor(feats, n))
+    ref = tree_map(lambda t: t.clone(), ker)
+    chunks = _mixture(g, S, C, d)
+    ref, passes = _hold_pod(algo, ker, ref, chunks, [C] * S)
+    assert torch.equal(ker.ld.n, n) and passes == 1
+    assert torch.equal(ker.ld.n_queries, torch.full_like(n, C))
+
+
+@pytest.mark.parametrize("K,d,layouts", [
+    (100, 256, [("shared", 32), ("global", 32), ("shared", 8)]),
+    (600, 24, [("global", 32), ("global", 16), ("global", 8)])])
+def test_pod_step_layout_tiers_give_the_same_bits(cuda, K, d, layouts):
+    """The layout tier moves Linv between shared and device memory and
+    the window size moves where full pricing happens, and nothing else:
+    the same rounds under each leave bit-equal states (the window's
+    running norms are the chains a full pricing runs)."""
+    from repro_torch.kernels.pod_step import pod_step
+    from repro_torch.tree import leaves_with_keys
+
+    algo = _pod_algo(cuda, K, d, T=30)
+    rows = [dict(K=K, T=30), dict(K=60, T=9, kernel_kind="linear_norm"),
+            dict(K=K // 2, T=200)]
+    states = [_pod_state(algo, rows) for _ in layouts]
+    g = torch.Generator().manual_seed(K)
+    for C, spread in ((700, 1.0), (300, 0.3), (1, 1.0)):
+        chunks = _mixture(g, len(rows), C, d, clusters=8,
+                          spread=spread).to(cuda)
+        counts = torch.tensor([C, C // 2, C], dtype=torch.int32, device=cuda)
+        for (tier, window), st in zip(layouts, states):
+            pod_step(algo, st, chunks, counts, backend="cuda", tier=tier,
+                     window=window)
+        first = leaves_with_keys(states[0])
+        for other in states[1:]:
+            for key, t in leaves_with_keys(other).items():
+                assert torch.equal(first[key], t), key
+    assert int(states[0].ld.n.max()) > 20
+
+
+def test_pod_step_bf16_refill_matches_plain(cuda):
+    """A bf16 refill at the main path's shape (K = 100, d = 256, C = 1024):
+    the carry stays bf16, the integers and rows equal the plain loop's,
+    fval within 0.05 (tests/test_pod_step_kernel.py's bf16 pin); decided
+    items keep a margin above one bf16 ulp (1e-2)."""
+    K, d, C = 100, 256, 1024
+    algo = _pod_algo(cuda, K, d, dtype=torch.bfloat16)
+    rows = [dict(K=k, T=T, eps=eps) for k, T, eps in POD_TIERS]
+    ker, ref = _pod_state(algo, rows), _pod_state(algo, rows)
+    chunks = _mixture(torch.Generator().manual_seed(12), len(rows), C, d)
+    _, passes = _hold_pod(algo, ker, ref, chunks, [C] * len(rows), tie=1e-2,
+                          fval_tol=0.05, factors=False)
+    for name in ("feats", "L", "Linv", "fval"):
+        assert getattr(ker.ld, name).dtype == torch.bfloat16, name
+    assert passes >= 100
+
+
+def test_pod_step_shared_memory_matches_the_host(cuda):
+    """``pod_step_smem_bytes`` of the built library equals the host's
+    ``smem_bytes`` for both tiers and every window."""
+    from repro_torch.kernels.pod_step import KERNEL, smem_bytes
+    from repro_torch.kernels.pod_step.kernel import TIERS, WINDOW_ROWS
+
+    lib = KERNEL.get()
+    for K in (1, 10, 100, 101, 192, 600, 1024, 3072):
+        for d in (9, 24, 256, 512):
+            for tier in TIERS:
+                for bt in WINDOW_ROWS:
+                    assert lib.pod_step_smem_bytes(
+                        TIERS.index(tier), bt, K, d) == smem_bytes(
+                        K, d, bt, tier), (K, d, tier, bt)
 
 
 # ---------------------------------------------------------- flash attention

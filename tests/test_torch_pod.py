@@ -223,24 +223,87 @@ def test_pod_step_tables_follow_the_kernel_layout():
 
 
 def test_pod_step_shared_memory_budget():
-    """The pod step's shared memory: feats and Linv stay in device memory,
-    so only the row norms, the gains and the gain-tile scratch are on
-    chip, at any width d; BT falls as the BT x K kernel block grows,
-    so every K up to 1024 fits (the main path's K = 100 among them), and
-    only past K = 3072 does the wrapper refuse, naming the bytes."""
-    from repro_torch.kernels.pod_step import layout, smem_bytes
+    """The pod step's layout tiers: the shared tier keeps the session's
+    Linv in shared memory beside the 32-row window (X, Km), and at the
+    main path's K = 100, d = 256 two blocks fit on one SM, so a pod of 256
+    sessions is resident on 132 SMs at once; past what one block may hold
+    (K = 193 at d = 256) the global tier keeps Linv in device memory, its
+    window falling from 32 to 16 to 8 rows as Km grows; past K = 4664 at
+    d = 256 the wrapper refuses, naming the bytes."""
+    from repro_torch.kernels.pod_step import Layout, layout, smem_bytes
     from repro_torch.kernels.pod_step.kernel import pod_step_cuda
     from repro_torch.kernels.rbf_gain.kernel import SMEM_LIMIT
 
-    want = {100: (64, 43664), 121: (64, 49124), 122: (64, 49384),
-            384: (64, 117504), 385: (32, 63876), 1024: (16, 80384)}
-    for k, row in want.items():
-        assert layout(k) == row, k
-        assert smem_bytes(k) == row[1]
-        assert row[1] < SMEM_LIMIT
-    assert layout(3072) == (8, 120192)
-    with pytest.raises(ValueError, match="98336-byte kernel block"):
-        layout(3073)
+    want = {  # (K, d): (tier, window rows, bytes, blocks per SM)
+        (10, 256): ("shared", 32, 61264, 3),
+        (50, 256): ("shared", 32, 71504, 3),
+        (100, 256): ("shared", 32, 109680, 2),
+        (192, 256): ("shared", 32, 229136, 1),
+        (193, 256): ("global", 32, 87616, 2),
+        (512, 256): ("global", 32, 124176, 1),
+        (1024, 256): ("global", 32, 195856, 1),
+        (2048, 256): ("global", 16, 191120, 1),
+        (3072, 256): ("global", 8, 162128, 1),
+        (12, 9): ("shared", 32, 32688, 6),
+    }
+    for (k, d), row in want.items():
+        lay = layout(k, d)
+        assert (lay.tier, lay.bt, lay.smem_bytes, lay.blocks_per_sm) == row
+        assert smem_bytes(k, d, lay.bt, lay.tier) == lay.smem_bytes
+        assert lay.smem_bytes <= SMEM_LIMIT
+    assert layout(100, 256).blocks_per_sm >= 2
+    # the shared tier at K = 100 costs Linv (40,000 bytes) over the global
+    assert (smem_bytes(100, 256, 32, "shared")
+            - smem_bytes(100, 256, 32, "global")) == 4 * (100 * 100 - 100)
+    assert layout(100, 256, "global") == Layout("global", 32, 70080, 3)
+    assert layout(100, 256, window=8) == Layout("shared", 8, 71856, 3)
+    with pytest.raises(ValueError, match="238160 bytes of shared memory"):
+        layout(4800, 256)
+    with pytest.raises(ValueError, match="339216 bytes of shared memory"):
+        layout(2048, 256, window=32)
+    with pytest.raises(ValueError, match="invalid"):
+        layout(100, 256, "resident")
+    with pytest.raises(ValueError, match="invalid"):
+        layout(100, 256, window=64)
     z = torch.zeros(1, 1, 1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         pod_step_cuda(z, z, z, z, z.int(), z, a=1.0)
+
+
+def test_pod_step_layout_matches_the_source():
+    """The host's layout and launch geometry against the constants of
+    csrc/pod_step.cu and csrc/gain_rows.cuh: threads per block, window
+    rows, tier ids, the product's tile and stage, and the C entry points'
+    arity.  (The byte formula itself is held against the built library's
+    ``pod_step_smem_bytes`` on the card, tests/test_torch_cuda.py.)"""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.pod_step import kernel as pk
+    from repro_torch.kernels.rbf_gain.kernel import RB_KT, RB_LD
+
+    csrc = Path(pk.__file__).resolve().parents[2] / "csrc"
+    cu = (csrc / "pod_step.cu").read_text()
+    cuh = (csrc / "gain_rows.cuh").read_text()
+
+    def const(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const(cuh, "RB_NT") == pk.POD_NT
+    assert re.search(r"constexpr int POD_NT = RB_NT;", cu)
+    assert (const(cuh, "RB_KT"), const(cuh, "RB_DK")) == (RB_KT, pk.RB_DK)
+    assert re.search(r"constexpr int RB_LD = RB_DK \+ 4;", cuh)
+    assert RB_LD == pk.RB_DK + 4
+    rows = re.search(r"constexpr int WINDOW_ROWS\[\] = \{([^}]*)\}", cu)[1]
+    assert tuple(int(v) for v in rows.split(",")) == pk.WINDOW_ROWS
+    tiers = re.search(r"enum \{ TIER_SHARED = (\d), TIER_GLOBAL = (\d) \}", cu)
+    assert (pk.TIERS[int(tiers[1])], pk.TIERS[int(tiers[2])]) == (
+        "shared", "global")
+    assert re.search(r"STAGE_FLOATS = 2 \* RB_KT \* RB_LD;", cu)
+    for fn in ("pod_step_launch", "pod_step_smem_bytes"):
+        proto = re.search(rf'extern "C" int {fn}\(([^)]*)\)', cu)[1]
+        assert len(proto.split(",")) == len(pk.KERNEL.signatures[fn]), fn
+    # the launch passes the layout's window rows and tier id, in that order
+    proto = re.search(r'extern "C" int pod_step_launch\(([^)]*)\)', cu)[1]
+    names = [p.split()[-1].lstrip("*") for p in proto.split(",")]
+    assert names[13:16] == ["bt", "tier", "dtype"]
