@@ -141,7 +141,35 @@ exit and no result line:
                      heads, S=2048, causal, bf16) timed beside SDPA, and a
                      ragged float32 case, under the gates of ``flash``;
                      the kernel of each (causal) case told to see every
-                     key must fail.
+                     key must fail;
+ 17. pod_sieves      pods of 64 SieveStreaming++ tenants (tiers K = 10 /
+                     50 / 100, eps = 0.1, per-tenant lengthscales, chunk
+                     1,024: 3,136 instances a round), of 16 Salsa tenants
+                     and of 16 QuickStream tenants (chunk 256), each fed
+                     by ``SummarizerPod.serve`` + ``IngestPipeline`` from
+                     a seeded ``DriftSource``: an ingest, a drift check
+                     that re-arms every K = 10 tenant, an ingest; no drop,
+                     every summary in budget with fval within 1e-4 of a
+                     float64 slogdet; per ingest the seconds, the rounds
+                     (one grouped ``gain_traced`` launch each) and ms per
+                     round; both ingests (the first from the state the
+                     run's sync boundary saw, before the drift check)
+                     replayed for twelve slots, four of each tier,
+                     through ``pod_step_ref`` (plain gains: integers
+                     equal, floats within 1e-5, near-tie rule) and
+                     through the per-slot loop on the kernel (the same
+                     rule, bit-equality reported); the grouped gain pass
+                     of the second ingest's first round against its plain
+                     version, one group bit for bit the ungrouped call,
+                     timed beside its bound;
+ 18. ingest          the ThreeSieves pod of ``pod`` fed by
+                     ``IngestPipeline`` from 4 host batches of 262,144
+                     items (1,024 of each session; pinned copy on a side
+                     stream, routed on the card), against the same
+                     batches through ``pod.ingest``: the final state
+                     bit-equal to the direct one, no drop; per batch the
+                     host's staging ms, the copy's and the step's device
+                     ms, items/s, and each path's device idle share.
 
 "Held against" (the summarization kernels): integers equal (n, j, t, n_fused,
 n_queries, accepted items); floats within rtol = atol = 1e-5 (f32 with a
@@ -246,6 +274,25 @@ SSD_SCALED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 MAMBA_B, MAMBA_PROMPT, MAMBA_NEW = 8, 2000, 32
 MAMBA_REPS, MAMBA_DRAWS = 5, 3
 MAMBA_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# phase pod_sieves: (algorithm, tenants, chunk, pipeline batch) of the
+# pods fed by serve + IngestPipeline from a seeded DriftSource; a batch
+# brings each tenant 3/4 of its chunk on average, so none overflows.
+# Tenants rotate through the tiers' budgets and the lengthscales (the
+# DriftSource's clusters lie 90 apart with noise 11 apart: in-cluster
+# kernel values 0.37-0.78); every eighth uses linear_norm
+SIEVE_PODS = [("sievestreaming++", 64, 1024, 49152),
+              ("salsa", 16, 1024, 12288),
+              ("quickstream", 16, 256, 2048)]
+SIEVE_TIER_K = (10, 50, 100)
+SIEVE_LS = (8.0, 9.5, 11.3, 13.5, 16.0)
+# the drift check between the two ingests re-arms every small tenant: its
+# insertions are at most rungs x K (25 x 10, Salsa 3 x 25 x 10) of about
+# 700 items or more
+DRIFT_MIN_RATE = {"sievestreaming++": 0.5, "salsa": 1.2, "quickstream": 0.5}
+REPLAY_SLOTS = 12  # replayed through pod_step_ref: four of each tier
+# phase ingest: device batches of the pod phase's shape through the
+# pipeline and through pod.ingest
+INGEST_BATCHES = 4
 DEV = "cuda"
 
 
@@ -551,14 +598,16 @@ def _ptxas_entries(log):
     out = []
     for ln in log.splitlines():
         if "Function properties for" in ln:
-            m = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E|f|13__nv_bfloat16)+)"
-                          r"E)?", ln)
+            m = re.search(r"([a-z_]+_kernel)(I((?:Li\d+E|Lb[01]E|f|"
+                          r"13__nv_bfloat16)+)E)?", ln)
             name = m.group(1) if m else ln.split()[-1]
             if m and m.group(3):
-                args = re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)",
+                args = re.findall(r"Li(\d+)E|Lb([01])E|(f)|(13__nv_bfloat16)",
                                   m.group(3))
-                name += "<" + ",".join(a or ("float" if f else "bf16")
-                                       for a, f, _ in args) + ">"
+                name += "<" + ",".join(
+                    a or ({"0": "false", "1": "true"}[b] if b else
+                          "float" if f else "bf16")
+                    for a, b, f, _ in args) + ">"
             out.append((name, []))
         elif out and ("registers" in ln or "spill" in ln):
             out[-1][1].append(ln.replace("ptxas info    :", "").strip())
@@ -2312,6 +2361,375 @@ def phase_mamba(torch, gen, seed):
     return {"launches": launches}
 
 
+# ------------------------------------------------ this slice: the front end
+def _sieve_spec(name, i):
+    from repro_torch.core.spec import SessionSpec
+
+    return SessionSpec(algo=name, K=SIEVE_TIER_K[i % 3], eps=PAPER_EPS, d=D,
+                       lengthscale=SIEVE_LS[i % len(SIEVE_LS)],
+                       kernel_kind="linear_norm" if i % 8 == 7 else "rbf")
+
+
+def _intervals_idle(intervals, span):
+    """1 - (the union of the busy intervals) / span."""
+    busy, end = 0.0, 0.0
+    for a, b in sorted(intervals):
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return 1.0 - busy / span if span > 0 else None
+
+
+def _pipeline_batches(timings, items):
+    """Per device batch of a pipeline run: the host's ms drawing it from
+    the feed and staging it in pinned memory, the
+    copy's and the step's device ms, the batch's share of the device
+    timeline (step end to step end) and its items/s; and the device's
+    idle share over the run (copy and step intervals)."""
+    rows, prev = [], 0.0
+    for tm in timings:
+        h2d, step = tm["h2d"], tm["step"]
+        interval = step[1] - prev
+        rows.append({"source_ms": tm["source_ms"],
+                     "stage_ms": tm["stage_ms"], "h2d_ms": h2d[1] - h2d[0],
+                     "step_ms": step[1] - step[0], "interval_ms": interval,
+                     "items_per_s": items / (interval / 1e3)})
+        prev = step[1]
+    idle = _intervals_idle([tm["h2d"] for tm in timings]
+                           + [tm["step"] for tm in timings],
+                           timings[-1]["step"][1] if timings else 0.0)
+    return rows, idle
+
+
+def _slot_rows(state, idx):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda l: l[idx], state)
+
+
+def _replay_ingest(torch, name, algo, plain, before, after, chunks, counts,
+                   idx):
+    """One ingest of the slots ``idx`` again from ``before``, through
+    ``pod_step_ref`` (plain gains) and through the per-slot loop on the
+    kernel, each held against the pod's state ``after`` under the
+    near-tie rule -> the replay's record."""
+    from repro_torch.kernels.pod_step import pod_step_ref
+    from repro_torch.tree import leaves_with_keys
+
+    sub_before = _slot_rows(before, idx)
+    sub_chunks, sub_counts = chunks[idx], counts[idx]
+    margins = [dict() for _ in range(len(idx))]
+    plain_s = time.perf_counter()
+    ref = pod_step_ref(plain, sub_before, sub_chunks, sub_counts,
+                       margins=margins)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - plain_s
+    loop = pod_step_ref(algo, sub_before, sub_chunks, sub_counts)
+    ker = _slot_rows(after, idx)
+    errs, ties = {"plain": 0.0, "loop": 0.0}, []
+    for what, other in (("plain", ref), ("loop", loop)):
+        for j in range(len(idx)):
+            e, tie = hold_states(
+                torch, _slot_rows(ker, j), _slot_rows(other, j),
+                _slot_rows(sub_before, j), sub_chunks[j], margins[j],
+                f"pod_sieves {name} slot {int(idx[j])}"
+                + ("" if what == "plain" else
+                   " (per-slot loop on the kernel)"))
+            errs[what] = max(errs[what], e)
+            if tie:
+                ties.append({"slot": int(idx[j]), "against": what, **tie})
+    la, lb = leaves_with_keys(ker), leaves_with_keys(loop)
+    return {"slots": idx.tolist(), "max_abs_err": errs["plain"],
+            "near_ties": ties, "plain_s": plain_s,
+            "kernel_loop_bit_equal": all(torch.equal(la[k], lb[k])
+                                         for k in la),
+            "kernel_loop_max_abs_err": errs["loop"]}
+
+
+def phase_pod_sieves(torch, gen, seed):
+    """Pods of SieveStreaming++, Salsa and QuickStream tenants on the
+    card, each fed by ``serve`` + ``IngestPipeline`` from a seeded
+    ``DriftSource``: one ingest, a drift check, a second ingest; both
+    ingests replayed through ``pod_step_ref`` for slots of every tier."""
+    import numpy as np
+
+    from repro_torch.core.api import make
+    from repro_torch.core.functions import KernelConfig, naive_logdet
+    from repro_torch.core.spec import SessionSpec
+    from repro_torch.ingest import DriftSource, IngestPipeline
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.kernels.rbf_gain import KERNEL as GAIN
+    from repro_torch.kernels.rbf_gain import gain_traced, gain_traced_ref
+    from repro_torch.kernelmath import KernelParams
+    from repro_torch.serve.summarize import SummarizerPod
+    from repro_torch.tree import leaves_with_keys
+
+    result = {"launches": 0, "max_abs_err": 0.0, "pods": []}
+    for name, S, C, B in SIEVE_PODS:
+        stacked = name != "quickstream"
+        base = SessionSpec(algo=name, K=K_MAX, eps=PAPER_EPS, d=D,
+                           lengthscale=SIEVE_LS[0])
+        algo = make(base, device=DEV)
+        plain = make(base.replace(backend="torch"), device=DEV)
+        pod = SummarizerPod(algo=algo, sessions=S, chunk=C, device=DEV)
+        ids = np.arange(5000, 5000 + S, dtype=np.int32)
+        state = pod.init()
+        for i in range(S):
+            state, _, ok = pod.admit(state, int(ids[i]), spec=(
+                _sieve_spec(name, i) if stacked else None))
+            if not bool(ok):
+                fail(f"pod_sieves {name}: admit of tenant {i} refused")
+
+        def source():
+            return DriftSource(seed=seed, n_sessions=S, batch=B, d=D,
+                               n_components=8, drift_per_batch=0.5,
+                               session_ids=ids, n_batches=2)
+
+        timings = []
+        # the state after the first ingest, taken at the run's sync
+        # boundary, before serve's drift check resets a tier
+        firsts = []
+        pipe = IngestPipeline(pod, source=source(), batch=B, timings=timings,
+                              on_sync=lambda st: firsts.append(
+                                  clone_state(st.algo)))
+        before1 = clone_state(state.algo)
+        torch.cuda.synchronize()
+        GAIN.launches = POD.launches = 0  # the main path starts here
+        state, s1 = pod.serve(state, pipe, max_batches=1, drift_every=1,
+                              min_items=B // S // 2,
+                              min_rate=DRIFT_MIN_RATE[name])
+        rounds = [GAIN.launches]
+        pipe.on_sync = None
+        after1 = firsts[0]
+        before = clone_state(state.algo)
+        state, s2 = pod.serve(state, pipe, max_batches=1)
+        out = pod.readout(state)
+        torch.cuda.synchronize()
+        rounds.append(GAIN.launches - rounds[0])
+        if POD.launches:
+            fail(f"pod_sieves {name}: the ThreeSieves kernel ran")
+        if stacked and min(rounds) < 1:
+            fail(f"pod_sieves {name}: an ingest launched no gain_traced "
+                 f"({rounds})")
+        result["launches"] += GAIN.launches
+        drops = (s1["dropped_unknown"] + s1["dropped_overflow"]
+                 + s2["dropped_unknown"] + s2["dropped_overflow"]
+                 + int(out.drops["overflow"].sum())
+                 + int(out.drops["unknown"]))
+        if drops:
+            fail(f"pod_sieves {name}: {drops} items dropped")
+        n = out.n.tolist()
+        tier = [SIEVE_TIER_K[i % 3] for i in range(S)]
+        resets = state.resets.tolist()
+        if stacked and not all(resets[i] for i in range(S)
+                               if tier[i] == SIEVE_TIER_K[0]):
+            fail(f"pod_sieves {name}: the drift check left a small tenant "
+                 f"armed ({resets})")
+        fe = 0.0
+        for i in range(S):
+            k_cap = tier[i] if stacked else K_MAX
+            if not 0 < n[i] <= k_cap:
+                fail(f"pod_sieves {name}: tenant {i} holds {n[i]} items, "
+                     f"cap {k_cap}")
+            sp = _sieve_spec(name, i) if stacked else base
+            kc = KernelConfig(sp.kernel_kind, sp.lengthscale)
+            want = naive_logdet(out.feats[i, :n[i]].double(), kc, 1.0)
+            got = out.fval[i].double()
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+                fail(f"pod_sieves {name}: tenant {i} fval {got.item()} vs "
+                     f"slogdet {want.item()}")
+            fe = max(fe, (got - want).abs().item())
+        ingests = []
+        for s, r, tm in zip((s1, s2), rounds, timings):
+            step = tm["step"][1] - tm["step"][0]
+            ingests.append({"s": s["wall_s"], "items": s["items"],
+                            "items_per_s": s["items"] / s["wall_s"],
+                            "rounds": r,
+                            "ms_per_round": step / r if r else None,
+                            "source_ms": tm["source_ms"],
+                            "stage_ms": tm["stage_ms"],
+                            "h2d_ms": tm["h2d"][1] - tm["h2d"][0],
+                            "step_ms": step})
+        rec = {"algo": name, "sessions": S, "chunk": C, "batch": B,
+               "ingests": ingests, "gain_traced_launches": GAIN.launches,
+               "resets": {k: sum(resets[i] for i in range(S)
+                                 if tier[i] == k) for k in SIEVE_TIER_K}
+               if stacked else sum(resets),
+               "summary_sizes": {k: [min(n[i] for i in range(S)
+                                         if tier[i] == k),
+                                     max(n[i] for i in range(S)
+                                         if tier[i] == k)]
+                                 for k in SIEVE_TIER_K} if stacked
+               else [min(n), max(n)],
+               "accepts": int(state.accepts.sum()),
+               "fval_vs_slogdet_max_err": fe,
+               "state_mb": sum(t.numel() * t.element_size() for t in
+                               leaves_with_keys(state.algo).values()) / 1e6}
+        if stacked:
+            # both ingests again: their batches, routed as the pod did
+            # (the slot table is the same in both)
+            routed = [pod.route(state, torch.from_numpy(sids).to(DEV),
+                                torch.from_numpy(X).to(DEV))[:2]
+                      for sids, X in source()]
+            I = before.lds.n.shape[1]
+            rec["instances_per_round"] = S * I
+            per_tier = REPLAY_SLOTS // 3
+            idx = torch.tensor(
+                [i for k in range(3) for i in range(k, S, 3)[:per_tier]],
+                device=DEV)
+            rec["replay"] = [
+                _replay_ingest(torch, f"{name} ingest {n + 1}", algo, plain,
+                               b0, b1, *routed[n], idx)
+                for n, (b0, b1) in enumerate(((before1, after1),
+                                              (before, state.algo)))]
+            result["max_abs_err"] = max(
+                [result["max_abs_err"]]
+                + [r["max_abs_err"] for r in rec["replay"]])
+            chunks = routed[1][0]
+            # the grouped gain pass of the second ingest's first round:
+            # every slot's chunk against all its rungs, one launch
+            lds, hp = before.lds, before.hp
+            feats = lds.feats.flatten(0, 1)
+            linv = lds.Linv.flatten(0, 1)
+            ns = lds.n.flatten()
+            inv2l2 = hp.inv2l2.contiguous()
+            kind = hp.kernel_kind.contiguous()
+
+            def grouped():
+                return gain_traced(chunks, feats, linv, ns, inv2l2, kind,
+                                   a=1.0)
+
+            def grouped_plain():
+                return gain_traced_ref(chunks, feats, linv, ns,
+                                       KernelParams(inv2l2, kind), a=1.0)
+
+            got, want = grouped(), grouped_plain()
+            e = (got - want).abs().max().item()
+            if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                fail(f"pod_sieves {name}: grouped gain_traced off by {e}")
+            one = gain_traced(chunks[:1], feats[:I], linv[:I], ns[:I],
+                              inv2l2[:1], kind[:1], a=1.0)
+            flat = gain_traced(chunks[0], feats[:I], linv[:I], ns[:I],
+                               inv2l2[:1], kind[:1], a=1.0)
+            if not torch.equal(one, flat) or not torch.equal(one, got[:I]):
+                fail(f"pod_sieves {name}: one group is not the ungrouped "
+                     "call bit for bit")
+            b_ms, b_by = bound(*gain_work(C, ns.tolist()))
+            # ms: CUDA events around the call (both kernels, milliseconds
+            # long, so the launch gaps are noise; the profiler missed
+            # every launch of a five-call window once)
+            rec["grouped_gain"] = {
+                "shape": [S, I, C, K_MAX, D], "max_abs_err": e,
+                "g1_bit_equal": True,
+                "ms": timed_ms(torch, grouped, reps=10),
+                "plain_ms": timed_ms(torch, grouped_plain, reps=3,
+                                     warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by}
+            result["max_abs_err"] = max(result["max_abs_err"], e)
+            if name == SIEVE_PODS[0][0]:
+                result["grouped_gain"] = rec["grouped_gain"]
+        emit("pod_sieves", **rec)
+        result["pods"].append(rec)
+    return result
+
+
+def phase_ingest(torch, gen):
+    """The ThreeSieves pod of phase ``pod`` fed by ``IngestPipeline``
+    from host batches, against the same batches through ``pod.ingest``:
+    the final states bit-equal, no drops; per batch the stages' times."""
+    from repro_torch.ingest import IngestPipeline, ReplaySource
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.serve.summarize import SummarizerPod
+    from repro_torch.tree import leaves_with_keys
+
+    algo, _ = _pod_algos(torch)
+    pod = SummarizerPod(algo=algo, sessions=SESSIONS, chunk=CHUNK, device=DEV)
+    state0 = pod.init()
+    for i in range(SESSIONS):
+        state0, _, ok = pod.admit(state0, 1000 + i, spec=spec_of(i))
+        if not bool(ok):
+            fail(f"ingest: admit of tenant {i} refused")
+    N = SESSIONS * CHUNK
+    sids = torch.arange(1000, 1000 + SESSIONS, dtype=torch.int32,
+                        device=DEV).repeat_interleave(CHUNK)
+    host, dev = [], []
+    for _ in range(INGEST_BATCHES):
+        perm = torch.randperm(N, generator=gen, device=DEV)
+        tags, X = sids[perm], mixture(torch, gen, N)
+        dev.append((tags, X))
+        host.append((tags.cpu().numpy(), X.cpu().numpy()))
+    torch.cuda.synchronize()
+
+    # the direct path: each batch on the card through route + the step
+    # (after one untimed ingest, so no path pays the kernels' first load)
+    pod.ingest(clone_state(state0), *dev[0])
+    state = clone_state(state0)
+    POD.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    marks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for tags, X in dev:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        routed = pod.route(state, tags, X)
+        ev[1].record()
+        state, _ = pod.ingest_routed(state, *routed)
+        ev[2].record()
+        marks.append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = POD.launches
+    direct = state
+    spans = [(start.elapsed_time(a), start.elapsed_time(b),
+              start.elapsed_time(c)) for a, b, c in marks]
+    rows, prev = [], 0.0
+    for a, b, c in spans:
+        rows.append({"route_ms": b - a, "step_ms": c - b,
+                     "interval_ms": c - prev,
+                     "items_per_s": N / ((c - prev) / 1e3)})
+        prev = c
+    report = {"direct": {
+        "s": wall, "items_per_s": INGEST_BATCHES * N / wall,
+        "launches": launches, "batches": rows,
+        "idle_share": _intervals_idle([(a, c) for a, _, c in spans],
+                                      spans[-1][2])}}
+    if launches != INGEST_BATCHES:
+        fail(f"ingest: direct path launched pod_step {launches} times")
+    want = leaves_with_keys(direct)
+    timings = []
+    pipe = IngestPipeline(pod, source=ReplaySource.from_batches(host),
+                          batch=N, timings=timings)
+    st = clone_state(state0)
+    torch.cuda.synchronize()
+    POD.launches = 0  # this path's launches
+    st, stats = pipe.run(st)
+    n_launch = POD.launches
+    launches += n_launch
+    got = leaves_with_keys(st)
+    diff = [k for k in want if not torch.equal(want[k], got[k])]
+    if diff:
+        fail(f"ingest: the pipeline's final state differs from direct "
+             f"ingest in {diff}")
+    drops = (stats["dropped_unknown"] + stats["dropped_overflow"]
+             + int(st.drops_overflow.sum()) + int(st.drops_unknown.sum()))
+    if drops or n_launch != INGEST_BATCHES:
+        fail(f"ingest: the pipeline had {drops} drops, {n_launch} "
+             "pod_step launches")
+    rows, idle = _pipeline_batches(timings, N)
+    report["pipeline"] = {
+        "route": "the card's: the tagged batch copied from pinned memory "
+                 "on a side stream, then SummarizerPod.route",
+        "s": stats["wall_s"], "items_per_s": stats["items"]
+        / stats["wall_s"], "launches": n_launch, "batches": rows,
+        "idle_share": idle, "bit_equal_to_direct": True}
+    emit("ingest", sessions=SESSIONS, chunk=CHUNK, items_per_batch=N,
+         batches=INGEST_BATCHES, drops=0, **report)
+    return {"launches": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2367,15 +2785,20 @@ def main(argv=None):
     timed("pod_bf16", phase_pod_bf16, torch, gen)
     timed("gain_bf16", phase_gain_bf16, torch, gen)
     flash96 = timed("flash_dh96", phase_flash_dh96, torch, gen)
+    # this slice: every algorithm in the pod, the ingest front end
+    sieves = timed("pod_sieves", phase_pod_sieves, torch, gen, args.seed)
+    ingest = timed("ingest", phase_ingest, torch, gen)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
         {"name": "gain_traced", "route": "cuda",
          "source": "src/repro_torch/csrc/rbf_gain.cu",
          "replaces": "src/repro/kernels/rbf_gain/kernel.py:126",
-         "launches": sieve["launches"] + paper["gain_traced"],
+         "launches": (sieve["launches"] + paper["gain_traced"]
+                      + sieves["launches"]),
          "max_abs_err": max(gain["max_abs_err"], stacked["max_abs_err"],
-                            sieve["max_abs_err"], paper["max_abs_err"]),
+                            sieve["max_abs_err"], paper["max_abs_err"],
+                            sieves["max_abs_err"]),
          "ms": gain["ms"], "plain_ms": gain["plain_ms"],
          "bound_ms": gain["bound_ms"], "bound_by": gain["bound_by"],
          "library_ms": None},
@@ -2390,7 +2813,7 @@ def main(argv=None):
         {"name": "pod_step", "route": "cuda",
          "source": "src/repro_torch/csrc/pod_step.cu",
          "replaces": "src/repro/kernels/pod_step/kernel.py:160",
-         "launches": pod["launches"],
+         "launches": pod["launches"] + ingest["launches"],
          "max_abs_err": max(pod_err, large["max_abs_err"],
                             pod["max_abs_err"]),
          "ms": pod["ms"], "plain_ms": pod["plain_ms"],

@@ -27,15 +27,40 @@ import torch
 from repro_torch.tree import leaves_with_keys
 
 
+def _algo_states():
+    from repro_torch.core.baselines import ISIState, QSState, RandomState
+    from repro_torch.core.functions import LogDetState
+    from repro_torch.core.sieves import SieveState
+    from repro_torch.core.threesieves import TSState
+
+    return (TSState, SieveState, QSState, ISIState, RandomState, LogDetState)
+
+
+def _field_class(hint, flat, key):
+    """The dataclass a field holds: its annotation, or, for a field typed
+    ``Any`` (a pod's algorithm state), the state class whose leaves are
+    the ones under ``key``; ``None`` for a tensor leaf."""
+    if dataclasses.is_dataclass(hint):
+        return hint
+    if hint is not typing.Any:
+        return None
+    under = {k[len(key) + 1:] for k in flat if k.startswith(key + "/")}
+    for cls in _algo_states():
+        if set(_keys(cls, flat)) == under:
+            return cls
+    raise KeyError(f"no algorithm state has the leaves under {key!r}: "
+                   f"{sorted(under)}")
+
+
 def _build(cls, flat: Dict[str, np.ndarray], prefix: str, device, seed):
     hints = typing.get_type_hints(cls)
     kw = {}
     for f in dataclasses.fields(cls):
         key = prefix + f.name
-        sub = hints[f.name]
-        if dataclasses.is_dataclass(sub):
+        sub = _field_class(hints[f.name], flat, key)
+        if sub is not None:
             kw[f.name] = _build(sub, flat, key + "/", device, seed)
-        elif sub is torch.Generator:
+        elif hints[f.name] is torch.Generator:
             kw[f.name] = torch.Generator(device=device).manual_seed(seed)
         else:
             if key not in flat:
@@ -44,21 +69,22 @@ def _build(cls, flat: Dict[str, np.ndarray], prefix: str, device, seed):
     return cls(**kw)
 
 
-def _keys(cls, prefix=""):
+def _keys(cls, flat, prefix=""):
     hints = typing.get_type_hints(cls)
     for f in dataclasses.fields(cls):
-        sub = hints[f.name]
-        if dataclasses.is_dataclass(sub):
-            yield from _keys(sub, prefix + f.name + "/")
-        elif sub is not torch.Generator:
+        sub = _field_class(hints[f.name], flat, prefix + f.name)
+        if sub is not None:
+            yield from _keys(sub, flat, prefix + f.name + "/")
+        elif hints[f.name] is not torch.Generator:
             yield prefix + f.name
 
 
 def state_from_numpy(cls, flat: Dict[str, np.ndarray], *, device,
                      seed: int = 0):
     """A port state of dataclass ``cls`` on ``device`` from flat numpy
-    leaves; a ``torch.Generator`` field is seeded with ``seed``."""
-    extra = set(flat) - set(_keys(cls))
+    leaves; a ``torch.Generator`` field is seeded with ``seed``, and a
+    pod's algorithm state takes the class its leaves name."""
+    extra = set(flat) - set(_keys(cls, flat))
     if extra:
         raise KeyError(f"unknown leaves {sorted(extra)}")
     return _build(cls, flat, "", torch.device(device), seed)

@@ -67,7 +67,9 @@ class GainOracle:
               ) -> torch.Tensor:
         """feats (K, d), linv (K, K), n () live rows, X (B, d) -> (B,);
         with ``kern``, also stacked feats (I, K, d), linv (I, K, K),
-        n (I,) -> (I, B)."""
+        n (I,) -> (I, B), and grouped X (G, B, d) with ``kern`` leaves of
+        G elements: run g of the I / G summaries against X[g] with kernel
+        g (a pod's slots in one launch) -> (I, B)."""
         if self.backend == "cuda" and not X.is_cuda:
             raise ValueError("oracle backend 'cuda' needs CUDA tensors, got "
                              f"X on {X.device}")

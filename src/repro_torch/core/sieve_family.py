@@ -4,7 +4,8 @@
 and row selection of state dataclasses, the ``SieveAlgorithm`` base
 (ladder, hyperparameters, the per-item ``run`` over ``step``) and
 ``StackedSieve``, the engine of the algorithms that keep one summary per
-stacked instance (SieveStreaming, SieveStreaming++, Salsa).
+stacked instance (SieveStreaming, SieveStreaming++, Salsa), with
+``run_slots``, its ``run_batched`` over a pod's slot axis.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import copy_into, tree_map, vmap
 
 from .functions import LogDet
 from .spec import HyperParams
@@ -113,7 +114,11 @@ class SieveAlgorithm:
         raise NotImplementedError
 
     def insertions(self, state) -> torch.Tensor:
-        """Total summary insertions so far — monotone over the stream."""
+        """Total summary insertions so far — monotone over the stream;
+        per slot of a stacked (S, ...) pod state, (S,).  Every hosted
+        algorithm reduces over its own axes only, so the pod calls this
+        on its stacked state directly (``vmap`` would cost each ingest a
+        host pause of about half a millisecond)."""
         raise NotImplementedError
 
 
@@ -175,8 +180,9 @@ class StackedSieve(SieveAlgorithm):
                                    kern=state.hp.kern)
 
     def insertions(self, state) -> torch.Tensor:
-        """Insertions across all stacked instances (monotone)."""
-        return state.lds.n.sum(dtype=torch.int32)
+        """Insertions across all stacked instances (monotone); per slot
+        of a pod state (the sum runs over the instance axis only)."""
+        return state.lds.n.sum(dim=-1, dtype=torch.int32)
 
     def step(self, state, x: torch.Tensor):
         """Process one stream item across all instances."""
@@ -227,3 +233,66 @@ class StackedSieve(SieveAlgorithm):
             state = self._apply_item(state, X[p], acc[:, p])
             cursor = p + 1
         return state
+
+    # ------------------------------------------------------------ pod slots
+    def _gains_slots(self, state, X: torch.Tensor) -> torch.Tensor:
+        """Gains of each slot's chunk X (S, C, d) against that slot's
+        instances -> (S, n_inst, C): ONE grouped oracle call over the
+        S x n_inst summaries (one ``gain_traced`` launch on the card),
+        each slot with its own kernel ``state.hp.kern``."""
+        lds = state.lds
+        S, I = lds.n.shape
+        return self.f.oracle.gains(
+            lds.feats.flatten(0, 1), lds.Linv.flatten(0, 1),
+            lds.n.flatten(), X, kern=state.hp.kern).reshape(S, I, -1)
+
+    def run_slots(self, state, X: torch.Tensor, counts: torch.Tensor):
+        """``run_batched`` of every slot of a stacked (S, ...) state at
+        once, IN PLACE (the JAX pod's ``vmap(run_batched)``); returns
+        ``state``.
+
+        X (S, C, d) holds each slot's chunk, ``counts`` (S,) its valid
+        prefix.  A round prices the chunks of the unfinished slots
+        against all their instances in one grouped gain call; each slot
+        then folds its rejected prefix into ``_bulk_reject`` and applies
+        its first accepting item at or past its cursor, all slots at once
+        (the decision pieces mapped over the slot axis with ``vmap``).
+        One host sync per round reads which slots go on, so the rounds
+        are the most accept events of any one slot.  A slot whose cursor
+        reached its count is neither priced nor changed again.
+        """
+        S, C = X.shape[:2]
+        dev = X.device
+        nv = torch.clamp(counts.to(torch.int32), 0, C)
+        cursor = torch.zeros_like(nv)
+        pos = torch.arange(C, device=dev)
+        thresholds = vmap(self._thresholds)
+        can_accept = vmap(self._can_accept)
+        bulk_reject = vmap(self._bulk_reject)
+        apply_item = vmap(self._apply_item)
+        act = torch.nonzero(nv > 0).flatten()
+        while act.numel():
+            whole = act.numel() == S
+            sub = state if whole else tree_map(
+                lambda l: l.index_select(0, act), state)
+            xs = X if whole else X.index_select(0, act)
+            gains = self._gains_slots(sub, xs)  # (A, n_inst, C)
+            acc = ((gains >= thresholds(sub)[..., None])
+                   & can_accept(sub)[..., None])
+            cur, end = cursor[act], nv[act]
+            acc_item = (acc.any(dim=1) & (pos >= cur[:, None])
+                        & (pos < end[:, None]))
+            hit = acc_item.any(dim=1)
+            p = torch.where(hit, acc_item.to(torch.uint8).argmax(dim=1),
+                            end).to(torch.int32)
+            sub = bulk_reject(sub, p - cur)
+            pc = torch.clamp_max(p, C - 1).long()
+            takes = acc.gather(2, pc[:, None, None].expand(
+                -1, acc.shape[1], 1))[..., 0]
+            rows = torch.arange(act.numel(), device=dev)
+            sub = tree_select(hit, apply_item(sub, xs[rows, pc], takes), sub)
+            copy_into(state, sub, None if whole else act)
+            cursor[act] = torch.where(hit, p + 1, end)
+            act = act[hit & (p + 1 < end)]
+        return state
+

@@ -26,10 +26,15 @@
 //
 // Grid: (ceil(B / BT), I) blocks of RB_NT = 128 threads.  blockIdx.x walks
 // tiles of BT candidate rows; blockIdx.y walks I stacked summaries (feats
-// (I, K, d), Linv (I, K, K), n (I,)), all priced against the same
-// candidates with one shared kernel -- the instances of a stacked sieve
+// (I, K, d), Linv (I, K, K), n (I,)) -- the instances of a stacked sieve
 // (SieveStreaming, Salsa), which the JAX package vmaps over the Pallas
-// call.  I = 1 is the unstacked call (always, for gain_static).  BT (64,
+// call.  I = 1 is the unstacked call (always, for gain_static).
+// gain_traced takes G groups of candidates: x (G, B, d) with inv2l2 (G,)
+// and kind (G,), and summary i is priced against group i / (I / G) -- a
+// pod of stacked sieves, whose S slots each bring their own chunk and
+// kernel to their I / G rungs (the JAX pod vmaps the Pallas call over
+// slots as well).  G = 1 is one chunk and one kernel for all I: group 0,
+// the same offsets, geometry and bits as before the group axis.  BT (64,
 // 32, 16 or 8) is chosen by the wrapper (kernels/rbf_gain/kernel.py,
 // gain_block_rows) from B, I and K: the largest tile that still gives two
 // blocks per SM, or the smallest that fits when B x I is too small for
@@ -161,15 +166,20 @@ __device__ __forceinline__ void gain_block(
 }
 
 // Two kernels over the one block, so a trace names the form it ran.
-template <int BT>
+// gain_traced: summary blockIdx.y reads candidate group g = y / (I / G).
+// GROUPED = false is the launch of one group (G = 1), compiled as before
+// the group axis (ptxas gave its 8-row tile 140 registers instead of 80
+// with the group offset in it).
+template <int BT, bool GROUPED>
 __global__ void __launch_bounds__(RB_NT)
 gain_traced_kernel(const float* __restrict__ x, const float* __restrict__ feats,
                    const float* __restrict__ linv, const int* n_ptr,
                    const float* fn2, const float* inv2l2_ptr,
                    const int* kind_ptr, float* __restrict__ out, int B, int K,
-                   int d, float a, int vec) {
-  gain_block<BT, -1>(x, feats, linv, n_ptr, fn2, out, B, K, d, a,
-                     *inv2l2_ptr, *kind_ptr, vec);
+                   int d, int per_group, float a, int vec) {
+  const int g = GROUPED ? blockIdx.y / per_group : 0;
+  gain_block<BT, -1>(x + (size_t)g * B * d, feats, linv, n_ptr, fn2, out, B,
+                     K, d, a, inv2l2_ptr[g], kind_ptr[g], vec);
 }
 
 template <int BT, int KIND>
@@ -190,7 +200,7 @@ template <int BT, int KIND>
 int launch(const float* x, const float* feats, const float* linv,
            const int* n, float* fn2, const float* inv2l2_ptr,
            const int* kind_ptr, float* out, int B, int K, int d, int I,
-           float a, float inv2l2, cudaStream_t stream) {
+           int G, float a, float inv2l2, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)gain_block_floats(BT, K);
   const int vec = (d % 4 == 0 && aligned16(x) ? VEC_X : 0) |
                   (d % 4 == 0 && aligned16(feats) ? VEC_F : 0) |
@@ -200,12 +210,15 @@ int launch(const float* x, const float* feats, const float* linv,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((B + BT - 1) / BT, I);
   if constexpr (KIND < 0) {
-    e = cudaFuncSetAttribute(gain_traced_kernel<BT>,
+    auto* kernel = G > 1 ? gain_traced_kernel<BT, true>
+                         : gain_traced_kernel<BT, false>;
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
-    gain_traced_kernel<BT><<<grid, RB_NT, smem, stream>>>(
-        x, feats, linv, n, fn2, inv2l2_ptr, kind_ptr, out, B, K, d, a, vec);
+    kernel<<<grid, RB_NT, smem, stream>>>(
+        x, feats, linv, n, fn2, inv2l2_ptr, kind_ptr, out, B, K, d, I / G, a,
+        vec);
   } else {
     e = cudaFuncSetAttribute(gain_static_kernel<BT, KIND>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -221,8 +234,8 @@ template <int KIND>
 int launch_bt(int bt, const float* x, const float* feats, const float* linv,
               const int* n, float* fn2, const float* inv2l2_ptr,
               const int* kind_ptr, float* out, int B, int K, int d, int I,
-              float a, float inv2l2, cudaStream_t s) {
-#define GAIN_ARGS x, feats, linv, n, fn2, inv2l2_ptr, kind_ptr, out, B, K, d, I, a, inv2l2, s
+              int G, float a, float inv2l2, cudaStream_t s) {
+#define GAIN_ARGS x, feats, linv, n, fn2, inv2l2_ptr, kind_ptr, out, B, K, d, I, G, a, inv2l2, s
   switch (bt) {
     case 64: return launch<64, KIND>(GAIN_ARGS);
     case 32: return launch<32, KIND>(GAIN_ARGS);
@@ -235,15 +248,18 @@ int launch_bt(int bt, const float* x, const float* feats, const float* linv,
 
 }  // namespace
 
-// fn2: scratch of I x K floats (the summaries' squared row norms).
+// fn2: scratch of I x K floats (the summaries' squared row norms).  x is
+// (G, B, d), inv2l2 and kind (G,); G divides I.
 extern "C" int gain_traced_launch(const float* x, const float* feats,
                                   const float* linv, const int* n,
                                   const float* inv2l2, const int* kind,
                                   float* fn2, float* out, int B, int K, int d,
-                                  int I, float a, int bt, void* stream) {
+                                  int I, int G, float a, int bt,
+                                  void* stream) {
   if (B <= 0 || I <= 0) return 0;
+  if (G <= 0 || I % G != 0) return (int)cudaErrorInvalidValue;
   return launch_bt<-1>(bt, x, feats, linv, n, fn2, inv2l2, kind, out, B, K,
-                       d, I, a, 0.0f, static_cast<cudaStream_t>(stream));
+                       d, I, G, a, 0.0f, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gain_static_launch(const float* x, const float* feats,
@@ -255,9 +271,9 @@ extern "C" int gain_static_launch(const float* x, const float* feats,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case 0: return launch_bt<0>(bt, x, feats, linv, n, fn2, nullptr, nullptr,
-                                out, B, K, d, 1, a, inv2l2, s);
+                                out, B, K, d, 1, 1, a, inv2l2, s);
     case 1: return launch_bt<1>(bt, x, feats, linv, n, fn2, nullptr, nullptr,
-                                out, B, K, d, 1, a, inv2l2, s);
+                                out, B, K, d, 1, 1, a, inv2l2, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,0 +1,32 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""repro_torch.ingest — the streaming front end of the SummarizerPod
+(port of ``repro/ingest``; the pub/sub log waits for a later slice,
+ROADMAP.md).
+
+Sources produce tagged host batches, the bounded TaggedBuffer absorbs
+rate mismatch under an explicit backpressure policy (plus optional
+per-session token-bucket rate limits and the watermark shedding ladder,
+``repro_torch.ingest.shedding``), and IngestPipeline double-buffers the
+staging of the next batch against the card's step:
+
+    Source -> TaggedBuffer -> pinned copy -> route -> ingest_routed
+    (producer threads)        (overlapped with the running pod step)
+
+(a pod on the CPU takes ``host_route`` in place of the copy and the
+card's route).
+
+Above that sits the fleet edge: ``PodRouter`` fans one tagged ingress
+across pods.
+"""
+from .buffer import PAD_SID, POLICIES, TaggedBuffer
+from .pipeline import IngestPipeline, PodRouter, host_route
+from .shedding import RUNGS, RateLimit, ShedPolicy, TokenBucket
+from .sources import (MAGIC, DriftSource, ReplaySource, SocketSource, Source,
+                      SubsampleSource, TaggedBatch, connect_producer,
+                      send_frame)
+
+__all__ = ["PAD_SID", "POLICIES", "TaggedBuffer", "IngestPipeline",
+           "PodRouter", "host_route", "MAGIC", "DriftSource",
+           "ReplaySource", "SocketSource", "Source", "SubsampleSource",
+           "TaggedBatch", "connect_producer", "send_frame",
+           "RUNGS", "RateLimit", "ShedPolicy", "TokenBucket"]

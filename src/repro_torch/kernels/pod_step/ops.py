@@ -2,25 +2,39 @@
 """Public pod-step entry (port of ``repro/kernels/pod_step/ops.py``).
 
 ``pod_step(algo, state, chunks, counts)`` advances every session of a
-pod by one ingest chunk and updates ``state`` IN PLACE.  Backends:
+pod by one ingest chunk and updates ``state`` IN PLACE, for every
+algorithm the JAX pod hosts.  By algorithm:
 
-    auto    the CUDA kernel for CUDA tensors, the plain per-slot loop
-            (``ref.pod_step_ref``) for CPU tensors;
-    torch   the plain loop on any device;
-    cuda    the kernel; CPU tensors raise.
+    ThreeSieves     the fused ``pod_step`` CUDA kernel (``fusable``);
+    StackedSieve    (SieveStreaming, SieveStreaming++, Salsa) the batched
+                    step ``StackedSieve.run_slots``: every slot at once,
+                    one grouped ``gain_traced`` launch per round;
+    other           (QuickStream) the per-slot loop ``ref.pod_step_ref``:
+                    the JAX pod vmaps a jnp Cholesky there, and no TPU
+                    kernel is behind it.
+
+Backends:
+
+    auto    ThreeSieves: the kernel for CUDA tensors, the plain per-slot
+            loop for CPU tensors; StackedSieve: ``run_slots`` with the
+            objective's gain oracle (the kernel on CUDA tensors, its
+            plain version on the CPU);
+    torch   the plain per-slot loop on any device;
+    cuda    the kernels; CPU tensors, and an algorithm with no kernel,
+            raise.
 
 Unlike the JAX wrapper there is no lane/sublane padding and no ``C < 2``
 detour: the CUDA kernel masks its own edges and launches at C = 1 too.
-Only ThreeSieves has a fused kernel (``fusable``); a pod of the other
-sieves (the JAX pod's vmapped ``run_batched`` path) is the next slice of
-the port (ROADMAP.md), and ``pod_step`` raises for it.
 """
 from __future__ import annotations
 
+import dataclasses
 
 import torch
 
+from repro_torch.core.sieve_family import StackedSieve
 from repro_torch.core.threesieves import ThreeSieves, TSState
+from repro_torch.tree import copy_into
 
 from .kernel import pod_step_cuda
 from .ref import pod_step_ref
@@ -46,35 +60,34 @@ def _tables(state: TSState, counts: torch.Tensor, C: int):
     return ints, flts
 
 
-def _write_back(state: TSState, new: TSState) -> TSState:
-    """Copy a stepped state into ``state``'s tensors, in place."""
-    old_ld, new_ld = state.ld, new.ld
-    for name in ("feats", "L", "Linv", "n", "fval", "n_queries"):
-        getattr(old_ld, name).copy_(getattr(new_ld, name))
-    for name in ("j", "t", "n_fused"):
-        getattr(state, name).copy_(getattr(new, name))
-    return state
-
-
-def pod_step(algo, state: TSState, chunks: torch.Tensor,
+def pod_step(algo, state, chunks: torch.Tensor,
              counts: torch.Tensor, *, backend: str = "auto",
-             tier: str | None = None, window: int | None = None) -> TSState:
+             tier: str | None = None, window: int | None = None):
     """Advance every pod session by one chunk, in place; returns ``state``.
 
     chunks (S, C, d); counts (S,) valid prefixes (clamped to [0, C]).
-    ``tier`` / ``window`` force the kernel's layout (``kernel.layout``
-    chooses it from K and d); every layout gives the same bits.
+    ``tier`` / ``window`` force the ThreeSieves kernel's layout
+    (``kernel.layout`` chooses it from K and d); every layout gives the
+    same bits.
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} invalid; choose from "
                          f"{BACKENDS}")
-    if not fusable(algo):
-        raise NotImplementedError(
-            f"{type(algo).__name__} has no pod-step kernel (only "
-            "ThreeSieves has one)")
-    use_kernel = backend == "cuda" or (backend == "auto" and chunks.is_cuda)
-    if not use_kernel:
-        return _write_back(state, pod_step_ref(algo, state, chunks, counts))
+    if backend == "cuda" and not chunks.is_cuda:
+        raise ValueError("pod_step backend 'cuda' needs CUDA tensors, got "
+                         f"chunks on {chunks.device}")
+    if backend == "torch" or not (fusable(algo)
+                                  or isinstance(algo, StackedSieve)):
+        if backend == "cuda":
+            raise ValueError(f"{type(algo).__name__} has no pod-step kernel")
+        return copy_into(state, pod_step_ref(algo, state, chunks, counts))
+    if isinstance(algo, StackedSieve):
+        if backend == "cuda":  # the gain kernel whatever the objective says
+            algo = dataclasses.replace(
+                algo, f=dataclasses.replace(algo.f, backend="cuda"))
+        return algo.run_slots(state, chunks, counts)
+    if not chunks.is_cuda:
+        return copy_into(state, pod_step_ref(algo, state, chunks, counts))
     C = chunks.shape[1]
     ints, flts = _tables(state, counts, C)
     ld = state.ld

@@ -9,8 +9,9 @@ kernel itself; the launch count adds one per call.
 * ``gain_traced``, twin of the TPU kernel
   ``repro/kernels/rbf_gain/kernel.py:gain_pallas_traced``: the kernel
   hyperparameters are device scalars; an optional leading instance axis
-  prices I stacked summaries in one launch.  Launches count in
-  ``KERNEL.launches``.
+  prices I stacked summaries in one launch, and an optional group axis
+  gives each of G equal runs of them its own candidates and kernel (a
+  pod's slots).  Launches count in ``KERNEL.launches``.
 * ``gain_static``, twin of ``gain_pallas``: the kernel kind is a
   template parameter, ``inv2l2`` and ``a`` are passed by value.  Launches count in ``KERNEL_STATIC.launches``.
 
@@ -27,9 +28,9 @@ from repro_torch.kernels.build import CudaKernel, check
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL = CudaKernel("gain_traced", "rbf_gain.cu", {
-    # x, feats, linv, n, inv2l2, kind, fn2, out, B, K, d, I, a, bt, stream
+    # x, feats, linv, n, inv2l2, kind, fn2, out, B, K, d, I, G, a, bt, stream
     "gain_traced_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _F, _I, _P),
+                           _I, _F, _I, _P),
 })
 KERNEL_STATIC = CudaKernel("gain_static", "rbf_gain.cu", {
     # x, feats, linv, n, fn2, out, B, K, d, a, inv2l2, kind, bt, stream
@@ -111,10 +112,15 @@ def _check_f32(name, t, shape, device):
 
 
 def _check_scalar(name, t, dtype, device):
-    if t.device != device or t.dtype != dtype or t.numel() != 1:
-        raise ValueError(f"{name} must be a one-element {dtype} tensor on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}")
+    _check_groups(name, t, dtype, 1, device)
+
+
+def _check_groups(name, t, dtype, G, device):
+    if (t.device != device or t.dtype != dtype or t.numel() != G
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} must be {G} contiguous {dtype} "
+                         f"element(s) on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
 def _check_smem(what, K, bt):
@@ -136,19 +142,27 @@ def gain_traced(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
 
     x (B, d); feats (K, d) and linv (K, K) with n of one element, or
     feats (I, K, d) and linv (I, K, K) with n of I elements, all priced
-    against the same x with the same kernel.  f32 contiguous; n and
-    kind_id int32 and inv2l2 f32 device tensors, read by the kernel on the
-    device (no host sync).  Raises on anything else.
+    against the same x with the same kernel.  Grouped: x (G, B, d) with
+    inv2l2 and kind_id of G elements and stacked summaries, G dividing
+    I; summary i is priced against x[i // (I // G)] with that group's
+    kernel.  f32 contiguous; n and kind_id int32 and inv2l2 f32 device
+    tensors, read by the kernel on the device (no host sync).  Raises on
+    anything else.
     """
     if not x.is_cuda:
         raise ValueError("gain_traced launches on CUDA tensors only")
     dev = x.device
-    B, d = x.shape
+    grouped = x.dim() == 3
+    G, B, d = x.shape if grouped else (1, *x.shape)
     stacked = feats.dim() == 3
     I = feats.shape[0] if stacked else 1
     K = feats.shape[-2]
     lead = (I,) if stacked else ()
-    _check_f32("x", x, (B, d), dev)
+    if grouped and not (stacked and G > 0 and I % G == 0):
+        raise ValueError(f"grouped candidates ({G} groups) need stacked "
+                         f"summaries in equal runs per group, got "
+                         f"{tuple(feats.shape)}")
+    _check_f32("x", x, (G, B, d) if grouped else (B, d), dev)
     _check_f32("feats", feats, (*lead, K, d), dev)
     _check_f32("linv", linv, (*lead, K, K), dev)
     if (n.device != dev or n.dtype != torch.int32 or n.numel() != I
@@ -156,8 +170,8 @@ def gain_traced(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
         raise ValueError(f"n must be {I} contiguous int32 element(s) on "
                          f"{dev}, got {n.dtype} {tuple(n.shape)} on "
                          f"{n.device}")
-    _check_scalar("inv2l2", inv2l2, torch.float32, dev)
-    _check_scalar("kind_id", kind_id, torch.int32, dev)
+    _check_groups("inv2l2", inv2l2, torch.float32, G, dev)
+    _check_groups("kind_id", kind_id, torch.int32, G, dev)
     bt = gain_block_rows(B, I, K)
     _check_smem("gain_traced", K, bt)
     lib = KERNEL.get()
@@ -167,7 +181,7 @@ def gain_traced(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
         err = lib.gain_traced_launch(
             x.data_ptr(), feats.data_ptr(), linv.data_ptr(), n.data_ptr(),
             inv2l2.data_ptr(), kind_id.data_ptr(), fn2.data_ptr(),
-            out.data_ptr(), B, K, d, I, float(a), bt, _stream(dev))
+            out.data_ptr(), B, K, d, I, G, float(a), bt, _stream(dev))
     check(KERNEL, err, "gain_traced")
     KERNEL.launches += 1
     return out

@@ -36,14 +36,16 @@ def fused_gains_traced(x: torch.Tensor, feats: torch.Tensor,
                        linv: torch.Tensor, n: torch.Tensor,
                        kern: KernelParams, *, a: float) -> torch.Tensor:
     """Marginal gains of x (B, d) against a summary -> (B,) f32, or
-    against stacked summaries (feats (I, K, d), n (I,)) -> (I, B)."""
+    against stacked summaries (feats (I, K, d), n (I,)) -> (I, B); with
+    groups, x (G, B, d) and ``kern`` leaves of G elements, run g of the
+    I / G summaries priced against x[g] with kernel g -> (I, B)."""
     if not on_card(x):
         return gain_traced_ref(x, feats, linv, n, kern, a=a)
     return gain_traced(
         *kernel_operands(x, feats, linv),
         n.to(torch.int32).reshape(-1).contiguous(),
-        kern.inv2l2.to(torch.float32).reshape(1),
-        kern.kind_id.to(torch.int32).reshape(1), a=a)
+        kern.inv2l2.to(torch.float32).reshape(-1).contiguous(),
+        kern.kind_id.to(torch.int32).reshape(-1).contiguous(), a=a)
 
 
 def fused_gains(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,

@@ -3,7 +3,8 @@
 ``repro/kernels/rbf_gain/ref.py``).
 
 ``gain_traced_ref`` is the plain ``gain_traced`` (kernel hyperparameters
-as tensors, ``kernelmath.traced_gain_rows``), stacked summaries included.
+as tensors, ``kernelmath.traced_gain_rows``), stacked summaries and
+groups of candidates included.
 ``gain_ref`` is the plain ``gain_static`` in the order of operations of
 the Pallas body ``_gain_kernel`` (``repro/kernels/rbf_gain/kernel.py``):
 rbf in the expanded-square form, ``linear_norm`` normalising the rows
@@ -22,7 +23,21 @@ def gain_traced_ref(x: torch.Tensor, feats: torch.Tensor, linv: torch.Tensor,
                     a: float) -> torch.Tensor:
     """x (B, d) against feats (K, d), linv (K, K), n () live rows -> (B,)
     f32; or against stacked feats (I, K, d), linv (I, K, K), n (I,) ->
-    (I, B)."""
+    (I, B).  Grouped: x (G, B, d) and ``kern`` leaves of G elements
+    against stacked summaries, G dividing I -> (I, B), each run of I / G
+    summaries priced as one stacked call with its group's x and kernel."""
+    if x.dim() == 3:
+        G = x.shape[0]
+        if feats.dim() != 3 or feats.shape[0] % G:
+            raise ValueError(f"grouped candidates ({G} groups) need stacked "
+                             f"summaries in equal runs per group, got "
+                             f"{tuple(feats.shape)}")
+        per = feats.shape[0] // G
+        inv2l2, kind = kern.inv2l2.reshape(G), kern.kind_id.reshape(G)
+        return torch.cat([gain_traced_ref(
+            x[g], feats[g * per:(g + 1) * per], linv[g * per:(g + 1) * per],
+            n.reshape(-1)[g * per:(g + 1) * per],
+            KernelParams(inv2l2[g], kind[g]), a=a) for g in range(G)])
     K = feats.shape[-2]
     live = torch.arange(K, device=feats.device) < n.reshape(*n.shape, 1)
     mask = live.to(torch.float32).unsqueeze(-2)  # (1, K) or (I, 1, K)

@@ -1,0 +1,32 @@
+# podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
+"""repro_torch.obs — the fleet telemetry layer (port of ``repro/obs``).
+
+Three pieces, one rule:
+
+  * :mod:`~repro_torch.obs.registry` — counters / gauges / histograms
+    with labels; lock-free snapshot reads; JSON snapshot + Prometheus
+    text exposition; ``NULL`` (a no-op registry) switches a component
+    off;
+  * :mod:`~repro_torch.obs.spans` — structured spans for control-plane
+    operations (admission, eviction, drift resets), emitted as JSONL
+    with durations, nesting and outcomes;
+  * :mod:`~repro_torch.obs.drain` — the device-counter drain:
+    PodState's on-device accept/drop ledgers are harvested into host
+    metrics at existing host-sync boundaries ONLY.
+
+The rule: **telemetry never touches the hot path** — no ``.item()``, no
+host copy, no metric recording inside the ingest step; the span API
+no-ops while ``torch.compile`` traces.  The reference's XLA compile
+counter (``repro/obs/jaxbridge.py``) has no twin yet (ROADMAP.md).
+"""
+from . import drain
+from .registry import (DEFAULT_BUCKETS, MetricFamily, MetricsRegistry,
+                       MetricsSnapshot, NULL, NullRegistry, get_registry,
+                       reset_default_registry)
+from .spans import Span, SpanRecorder, get_recorder, span
+
+__all__ = [
+    "DEFAULT_BUCKETS", "MetricFamily", "MetricsRegistry", "MetricsSnapshot",
+    "NULL", "NullRegistry", "get_registry", "reset_default_registry",
+    "Span", "SpanRecorder", "get_recorder", "span", "drain",
+]

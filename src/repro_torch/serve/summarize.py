@@ -2,38 +2,46 @@
 """SummarizerPod: many summarization sessions as one stacked state
 (port of ``repro/serve/summarize.py``).
 
-S ThreeSieves sessions share one stacked state (every tensor has a
-leading (S,) slot axis) plus per-slot metadata.  ``ingest`` routes a
-tagged batch ``(session_id, x)`` into per-session chunk buffers with one
-scatter and advances every session with ONE pod step: the CUDA
-``pod_step`` kernel on the card, its plain per-slot loop on the CPU.
-Admit, evict and drift reset reuse slots through masked row selects.
+S sessions share one stacked state (every tensor has a leading (S,) slot
+axis) plus per-slot metadata.  ``ingest`` routes a tagged batch
+``(session_id, x)`` into per-session chunk buffers with one scatter and
+advances every session with ONE pod step (``kernels.pod_step``): for
+ThreeSieves the CUDA ``pod_step`` kernel on the card, for SieveStreaming,
+SieveStreaming++ and Salsa the batched ``StackedSieve.run_slots`` (one
+grouped ``gain_traced`` launch per round), for QuickStream a per-slot
+loop; on the CPU the plain versions.  Admit, evict and drift reset reuse
+slots through masked row selects.  ``insertions``, ``summary`` and a
+drift reset's fresh rows are taken per slot, as the JAX pod vmaps them
+(``summary`` and ``init`` through ``tree.vmap``).
 
-Per-session hyperparameters (K, T, eps, lengthscale, kernel kind) are
-state rows stamped at ``admit(..., spec=SessionSpec(...))``.
+Per-session hyperparameters (K, T, eps, lengthscale, kernel kind) of the
+sieve family are state rows stamped at ``admit(..., spec=SessionSpec(
+...))``; QuickStream has none.
 
 The pod step updates the algorithm state IN PLACE (the stand-in for
-JAX's donation): tensors returned by ``readout`` are views of the live
-state, so clone them to keep a snapshot across an ingest.  The
+JAX's donation): tensors returned by ``readout`` may be views of the
+live state, so clone them to keep a snapshot across an ingest.  The
 lifecycle methods (admit, evict, reset) return fresh state.
 
-``save``/``restore`` wait for the checkpoint port, ``make_sharded_update``
-and ``serve`` for the ingest front end (ROADMAP.md).
+``serve`` drives the pod from an ``ingest.IngestPipeline`` (the
+double-buffered front end) with drift checks between pipeline runs.
+``save``/``restore`` wait for the checkpoint port and
+``make_sharded_update`` for a sharded pod (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sieve_family import (SieveAlgorithm, stack_states,
                                            tree_select)
 from repro_torch.core.spec import HyperParams, SessionSpec
-from repro_torch.core.threesieves import TSState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pod_step import pod_step
-from repro_torch.tree import leaves_with_keys, tree_map
+from repro_torch.tree import leaves_with_keys, tree_map, vmap
 
 
 class PodReadout(NamedTuple):
@@ -51,7 +59,7 @@ class PodReadout(NamedTuple):
 class PodState:
     """Stacked state of S summarizer sessions; every tensor is (S, ...)."""
 
-    algo: TSState  # stacked algorithm state (leading session axis)
+    algo: Any  # stacked algorithm state (leading session axis)
     sid: torch.Tensor  # (S,) int32 — session id in the slot, -1 when free
     active: torch.Tensor  # (S,) bool — slot hosts a live session
     items: torch.Tensor  # (S,) int32 — items routed since admission
@@ -73,11 +81,11 @@ class SummarizerPod:
 
     ``chunk`` is the per-session capacity of one ingest (the tail is
     counted as dropped).  ``device=None`` means ``cuda`` and must be the
-    device of ``algo``'s objective; the pod step runs the CUDA kernel
-    there and its plain per-slot loop on the CPU.
+    device of ``algo``'s objective; the pod step runs the CUDA kernels
+    there and the plain versions on the CPU (``kernels.pod_step``).
     """
 
-    algo: SieveAlgorithm
+    algo: Any  # ThreeSieves, SieveStreaming(++), Salsa or QuickStream
     sessions: int
     chunk: int
     device: torch.device | str | None = None
@@ -117,6 +125,11 @@ class SummarizerPod:
         if not isinstance(spec, SessionSpec):
             raise TypeError("spec must be a SessionSpec, HyperParams or "
                             f"None, got {type(spec).__name__}")
+        if not isinstance(self.algo, SieveAlgorithm):
+            raise ValueError(
+                "per-session specs need a sieve-family algorithm (traced "
+                f"hyperparam state); this pod hosts "
+                f"{type(self.algo).__name__}")
         from repro_torch.core.api import _ALIASES, algo_name
 
         want = _ALIASES.get(spec.algo.lower(), spec.algo.lower())
@@ -160,7 +173,8 @@ class SummarizerPod:
         ok = (sess >= 0) & torch.where(present, spec_ok, free.any())
         hot = ((torch.arange(self.sessions, device=self.device) == slot)
                & ok & ~present)
-        fresh = stack_states(self.algo.init(hyper), self.sessions)
+        one = self.algo.init() if hyper is None else self.algo.init(hyper)
+        fresh = stack_states(one, self.sessions)
         z = self._zeros()
         state = dataclasses.replace(
             state,
@@ -198,11 +212,13 @@ class SummarizerPod:
 
     def reset_slots(self, state: PodState, mask: torch.Tensor) -> PodState:
         """Drift reset: re-arm the masked sessions' summaries, each from
-        its own hyperparameter row."""
+        ``init`` of its own hyperparameter row (the JAX pod's
+        ``vmap(algo.init)(hp)``; the pod default for an algorithm
+        without them)."""
         mask = mask & state.active
-        fresh = dataclasses.replace(
-            stack_states(self.algo.init(), self.sessions),
-            hp=state.algo.hp)
+        hp = getattr(state.algo, "hp", None)
+        fresh = (stack_states(self.algo.init(), self.sessions) if hp is None
+                 else vmap(self.algo.init)(hp))
         z = self._zeros()
         return dataclasses.replace(
             state,
@@ -274,6 +290,10 @@ class SummarizerPod:
         """Advance every session from pre-routed chunk buffers.
 
         The algorithm state is stepped in place; the counters are new."""
+        # per-session insertions, the monotone accept metric (not
+        # ``summary()[1]``: a multi-rung algorithm's winning rung can
+        # switch to a smaller summary); one call on the stacked state is
+        # per slot, see ``SieveAlgorithm.insertions``
         n_before = self.algo.insertions(state.algo).clone()
         algo2 = pod_step(self.algo, state.algo, chunks, counts)
         acc = self.algo.insertions(algo2) - n_before
@@ -294,10 +314,61 @@ class SummarizerPod:
 
     # ---------------------------------------------------------------- readout
     def readout(self, state: PodState) -> PodReadout:
-        """Per-session summaries, drop ledgers and hyperparameter rows
-        (views of the live state)."""
-        feats, n, fval = self.algo.summary(state.algo)
+        """Per-session summaries (each slot's ``summary``), drop ledgers
+        and hyperparameter rows (``None`` for an algorithm without
+        them)."""
+        feats, n, fval = vmap(self.algo.summary)(state.algo)
         drops = {"overflow": state.drops_overflow,
                  "unknown": state.drops_unknown.sum()}
         return PodReadout(feats=feats, n=n, fval=fval, active=state.active,
-                          drops=drops, specs=state.algo.hp)
+                          drops=drops, specs=getattr(state.algo, "hp", None))
+
+    def drain_metrics(self, state: PodState, *, pod: str = "0",
+                      registry=None) -> None:
+        """Harvest this pod's device ledgers into host metrics.
+
+        Host-only, and ONLY at a host-sync boundary (a readout, the end
+        of a pipeline run): ``repro_torch.obs.drain.drain_pod`` documents
+        the rule.
+        """
+        obs.drain.drain_pod(state, pod=pod, registry=registry)
+
+    # ------------------------------------------------------------------ serve
+    def serve(self, state: PodState, pipeline, *, max_batches=None,
+              drift_every: int = 0, min_items: int = 0,
+              min_rate: float = 0.0):
+        """Drive the pod from an ``ingest.IngestPipeline`` — the
+        streaming front-end loop.
+
+        The pipeline owns the hot loop (double-buffered staging of the
+        next batch while the card runs the current one); every
+        ``drift_every`` device batches this pauses it at a safe point and
+        runs ``drift_check`` (resets do not move slots, so the pipeline's
+        slot table stays valid).  Returns ``(state, stats)``: the
+        pipeline's counts summed over its runs, and a dict-valued stat
+        (what an ``on_sync`` hook returns) from the latest run.
+        """
+        if not drift_every or drift_every <= 0:
+            return pipeline.run(state, max_batches=max_batches)
+        total = {}
+        remaining = max_batches
+        while True:
+            n = (drift_every if remaining is None
+                 else min(drift_every, remaining))
+            state, stats = pipeline.run(state, max_batches=n)
+            for k, v in stats.items():
+                if isinstance(v, dict):
+                    total[k] = v  # not additive: the latest wins
+                else:
+                    total[k] = total.get(k, 0) + v
+            # host-side control plane between pipeline runs
+            with obs.span("drift_reset", pod=str(pipeline.pod_id),
+                          every=drift_every):
+                state, _ = self.drift_check(state, min_items=min_items,
+                                            min_rate=min_rate)
+            if remaining is not None:
+                remaining -= stats["batches"]
+                if remaining <= 0:
+                    return state, total
+            if stats["batches"] < n or pipeline.exhausted:
+                return state, total

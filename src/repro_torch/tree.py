@@ -43,3 +43,55 @@ def leaves_with_keys(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
         elif isinstance(v, torch.Tensor):
             out[key] = v
     return out
+
+
+def copy_into(dst: Any, src: Any, rows=None) -> Any:
+    """Copy the leaves of ``src`` into ``dst``'s tensors in place (the
+    port's stand-in for a donated update) -> ``dst``: every leaf, or only
+    the leading-axis ``rows`` (an index tensor) of each; a leaf of
+    ``src`` that already is ``dst``'s own data is left."""
+    for d, s in zip(leaves_with_keys(dst).values(),
+                    leaves_with_keys(src).values()):
+        if rows is not None:
+            d.index_copy_(0, rows, s)
+        elif s.data_ptr() != d.data_ptr():
+            d.copy_(s)
+    return dst
+
+
+def _flatten(tree: Any):
+    """(tensor leaves, rebuild) of a dataclass tree, a tuple / list of
+    trees, a tensor or ``None``."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda it: next(it)
+    if isinstance(tree, (tuple, list)):
+        parts = [_flatten(t) for t in tree]
+        return ([l for ls, _ in parts for l in ls],
+                lambda it: type(tree)(r(it) for _, r in parts))
+    if dataclasses.is_dataclass(tree):
+        leaves = list(leaves_with_keys(tree).values())
+        return leaves, lambda it: tree_map(lambda _: next(it), tree)
+    return [], lambda it: tree
+
+
+def vmap(fn: Callable) -> Callable:
+    """``torch.func.vmap`` over dataclass trees (the JAX package's
+    ``jax.vmap`` of a state pytree): every tensor leaf of every argument
+    is mapped along its leading axis; the result's dataclasses come back
+    with the mapped axis leading.  A result leaf that does not depend on
+    a mapped input comes back expanded (stride 0): copy it before writing
+    into it."""
+    def mapped(*args):
+        flat = [_flatten(a) for a in args]
+        out_rebuild = []
+
+        def inner(*leaf_lists):
+            out = fn(*(r(iter(ls)) for (_, r), ls in zip(flat, leaf_lists)))
+            leaves, rebuild = _flatten(out)
+            out_rebuild.append(rebuild)
+            return tuple(leaves)
+
+        outs = torch.func.vmap(inner)(*(ls for ls, _ in flat))
+        return out_rebuild[0](iter(outs))
+
+    return mapped

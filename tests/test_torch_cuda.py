@@ -921,3 +921,148 @@ def test_mamba2_layer_bf16_takes_the_tensor_core_route(cuda):
     assert out["auto"][1] == 1 and out["torch"][1] == 0
     err = (out["auto"][0].float() - out["torch"][0].float()).abs().max()
     assert float(err) <= 5e-2
+
+
+# ---------------------------------------------------- grouped gain_traced
+@pytest.mark.parametrize("G,per", [(1, 49), (4, 3), (16, 49), (64, 5)])
+@pytest.mark.parametrize("B", [1, 300, 1024])
+def test_gain_traced_groups_match_plain(cuda, G, per, B):
+    """Grouped candidates (one chunk and one kernel per group of
+    summaries) against the plain version, and each group bit for bit the
+    ungrouped launch of its own summaries; G = 1 bit for bit the call
+    without a group axis."""
+    from repro_torch.kernelmath import KernelParams
+    from repro_torch.kernels.rbf_gain import gain_traced, gain_traced_ref
+
+    g = torch.Generator(device=cuda).manual_seed(G * 1000 + B)
+    K, d, I = 100, 64, G * per
+    X = 0.2 * torch.randn(G, B, d, generator=g, device=cuda)
+    feats = 0.2 * torch.randn(I, K, d, generator=g, device=cuda)
+    n = torch.randint(0, K + 1, (I,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    inv2l2 = 1.0 + 3.0 * torch.rand(G, generator=g, device=cuda)
+    kind = (torch.arange(G, device=cuda) % 2).to(torch.int32)
+    # each group's summaries carry LogDet's own factors under its kernel
+    linv = torch.cat([_logdet_linv(
+        feats[j * per:(j + 1) * per], n[j * per:(j + 1) * per],
+        KernelParams(inv2l2[j], kind[j]), 1.0) for j in range(G)])
+    got = gain_traced(X, feats, linv, n, inv2l2, kind, a=1.0)
+    want = gain_traced_ref(X, feats, linv, n, KernelParams(inv2l2, kind),
+                           a=1.0)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for j in range(G):
+        rows = slice(j * per, (j + 1) * per)
+        one = gain_traced(X[j].contiguous(), feats[rows].contiguous(),
+                          linv[rows].contiguous(), n[rows].contiguous(),
+                          inv2l2[j:j + 1].contiguous(),
+                          kind[j:j + 1].contiguous(), a=1.0)
+        assert torch.equal(got[rows], one), j
+    if G == 1:
+        flat = gain_traced(X[0].contiguous(), feats, linv, n, inv2l2, kind,
+                           a=1.0)
+        assert torch.equal(got, flat)
+    if G > 1:  # groups that do not split the summaries evenly
+        with pytest.raises(ValueError, match="equal runs per group"):
+            gain_traced(X, feats[:I - 1].contiguous(),
+                        linv[:I - 1].contiguous(), n[:I - 1].contiguous(),
+                        inv2l2, kind, a=1.0)
+    with pytest.raises(ValueError, match=f"inv2l2 must be {G} "):
+        gain_traced(X, feats, linv, n, inv2l2.repeat(2), kind, a=1.0)
+
+
+def _stacked_tenants(cuda, name, S, K=20, d=16):
+    from repro_torch.core.api import make
+    from repro_torch.core.spec import SessionSpec
+    from repro_torch.tree import tree_map
+
+    spec = SessionSpec(algo=name, K=K, d=d, eps=0.2, lengthscale=0.6)
+    algo = make(spec, device=cuda)
+    plain = make(spec.replace(backend="torch"), device=cuda)
+    rows = [algo.init(algo.hyper(K=(K, 5, 12)[s % 3], lengthscale=(
+        0.6, 0.9, 0.4)[s % 3], kernel_kind=("rbf", "linear_norm")[s % 2]))
+        for s in range(S)]
+    return algo, plain, tree_map(lambda *xs: torch.stack(xs), *rows)
+
+
+@pytest.mark.parametrize("name", ["sievestreaming", "sievestreaming++",
+                                  "salsa"])
+def test_stacked_pod_step_matches_the_per_slot_loop(cuda, name):
+    """The batched stacked-sieve step (one grouped ``gain_traced`` launch
+    per round) against the per-slot loop of ``run_batched`` on the same
+    kernel and against the plain loop: integers equal, floats within
+    1e-5 (the appends run as batched products of another shape); the
+    first round's gains bit for bit the per-slot launches', as the same
+    kernel prices the same rows."""
+    from repro_torch.kernels.pod_step import pod_step
+    from repro_torch.kernels.rbf_gain import KERNEL
+    from repro_torch.tree import leaves_with_keys, tree_map
+
+    S, C, d = 6, 64, 16
+    algo, plain, fast = _stacked_tenants(cuda, name, S)
+    loop = tree_map(lambda t: t.clone(), fast)
+    ref = tree_map(lambda t: t.clone(), fast)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for counts in ([C, 0, 17, C, 1, 40], [5, C, C, 0, 33, C]):
+        chunks = 0.5 * torch.randn(S, C, d, generator=g, device=cuda)
+        counts = torch.tensor(counts, dtype=torch.int32, device=cuda)
+        grouped = algo._gains_slots(fast, chunks)
+        for s in range(S):
+            row = tree_map(lambda t, s=s: t[s], fast)
+            assert torch.equal(grouped[s], algo._gains_all(row, chunks[s]))
+        before = KERNEL.launches
+        pod_step(algo, fast, chunks, counts, backend="cuda")
+        rounds = KERNEL.launches - before
+        pod_step(algo, loop, chunks, counts, backend="torch")
+        pod_step(plain, ref, chunks, counts, backend="torch")
+        loop_launches = KERNEL.launches - before - rounds
+        assert 0 < rounds < loop_launches
+        a = leaves_with_keys(fast)
+        for other in (loop, ref):
+            b = leaves_with_keys(other)
+            for k in a:
+                if a[k].dtype.is_floating_point:
+                    torch.testing.assert_close(a[k], b[k], rtol=1e-5,
+                                               atol=1e-5)
+                else:
+                    assert torch.equal(a[k], b[k]), k
+
+
+def test_pipeline_final_state_equals_direct_ingest(cuda):
+    """The double-buffered pipeline (pinned copy on a side stream, routed
+    on the card) ends in the state of ``pod.ingest`` per batch, bit for
+    bit."""
+    import numpy as np
+
+    from repro_torch.core.api import make
+    from repro_torch.ingest import IngestPipeline, ReplaySource
+    from repro_torch.serve.summarize import SummarizerPod
+    from repro_torch.tree import leaves_with_keys
+
+    S, C, d, B = 8, 32, 16, 128
+    algo = make("threesieves", K=10, d=d, eps=0.1, T=20, lengthscale=0.7,
+                device=cuda)
+    pod = SummarizerPod(algo=algo, sessions=S, chunk=C, device=cuda)
+    rng = np.random.default_rng(0)
+    feed = [(rng.integers(0, S, B).astype(np.int32),
+             rng.standard_normal((B, d)).astype(np.float32))
+            for _ in range(5)]
+
+    def fresh():
+        st = pod.init()
+        for sid in range(S):
+            st, _, _ = pod.admit(st, sid)
+        return st
+
+    direct = fresh()
+    for sids, X in feed:
+        direct, _ = pod.ingest(direct, torch.from_numpy(sids).to(cuda),
+                               torch.from_numpy(X).to(cuda))
+    timings = []
+    pipe = IngestPipeline(pod, source=ReplaySource.from_batches(feed),
+                          batch=B, timings=timings)
+    st, stats = pipe.run(fresh())
+    a, b = leaves_with_keys(direct), leaves_with_keys(st)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert stats["batches"] == 5 and len(timings) == 5
+    assert all(t["h2d"][1] >= t["h2d"][0] and t["step"][1] >= t["step"][0]
+               for t in timings)
