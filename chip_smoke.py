@@ -169,7 +169,58 @@ exit and no result line:
                      batches through ``pod.ingest``: the final state
                      bit-equal to the direct one, no drop; per batch the
                      host's staging ms, the copy's and the step's device
-                     ms, items/s, and each path's device idle share.
+                     ms, items/s, and each path's device idle share;
+ 19. ckpt            checkpoint -> restore -> continue on the pod of
+                     ``pod``: two ingests, ``SummarizerPod.save`` to a
+                     ``ckpt.CheckpointStore`` (sync, then async while the
+                     third ingest steps the state in place) and to a
+                     ``MemoryStore``; each restored and the third ingest
+                     run again, bit-equal to the uninterrupted pod; 8
+                     rows restored into a second pod of 128 tenants and
+                     128 free slots, their next ingest bit-equal to the
+                     source's; the bf16 pod of ``pod_bf16`` (32 tenants)
+                     round-tripped bit for bit; save / restore ms, bytes,
+                     MB/s;
+ 20. handoff         two pods of that shape in a ``PodRouter`` fleet of
+                     buffer-mode ``IngestPipeline``s (256 tenants; 128
+                     and 128 free slots), 4 batches of 384 items per
+                     session: one, then ``PodAutoscaler.maybe_rebalance``
+                     (8 victims, fewest insertions) while the next waits
+                     in the buffers, a third landing behind the parked
+                     backlog, a fourth; a control fleet on the same
+                     batches without the handoff: zero drops, every
+                     session bit for bit the control's but n_fused (the
+                     gain passes, one per chunk: the backlog changes the
+                     chunk split), the moved sessions against
+                     ``pod_step_ref`` over their whole stream (integers
+                     but n_fused equal, floats within 1e-5, near-tie
+                     rule); the handoff's latency and phase spans, the
+                     backlog, items/s before, during and after;
+ 21. pubsub          4 ``Publisher``s over loopback TCP into a
+                     ``PubSubListener`` (8 partitions), each owning a
+                     quarter of the sessions, 2 batches of 262,144 items
+                     (268 MB); producer 2's wire dies mid-way through the
+                     second and it replays from its ACK; a
+                     ``PubSubFrontEnd`` attached to the pipeline of the
+                     ``ingest`` phase's pod pumps each batch, commits at
+                     the pipeline's sync and is restarted from
+                     ``committed()`` between them: every frame in the
+                     broker once, no drop, the final state bit-equal to
+                     the same batches through ``pod.ingest``; items/s,
+                     lag, the card's idle share;
+ 22. distributed     ``DistributedSummarizer`` of ThreeSieves (K=100,
+                     d=256, T and eps of ``paper``) on 32 shards of the
+                     ``paper`` stream (65,536 items in batches of 32 x
+                     1,024), update and merge under ``auto`` (the
+                     kernels; the merge one ``gain_static`` launch a
+                     round, 100) and ``torch``: shard states held under
+                     the near-tie rule, the merges equal (a first
+                     differing round a near-tie of the reference's top
+                     two gains), f(merged) at least every shard's;
+                     f(merged) / best shard and / f_greedy of ``paper``,
+                     merge ms; then ``CoresetSelector(K=100, d=256)`` over
+                     the same stream on both routes, ``assign`` of the
+                     last 1,024 items equal.
 
 "Held against" (the summarization kernels): integers equal (n, j, t, n_fused,
 n_queries, accepted items); floats within rtol = atol = 1e-5 (f32 with a
@@ -293,6 +344,18 @@ REPLAY_SLOTS = 12  # replayed through pod_step_ref: four of each tier
 # phase ingest: device batches of the pod phase's shape through the
 # pipeline and through pod.ingest
 INGEST_BATCHES = 4
+# phase handoff: batches of HANDOFF_SHARE items per session of both pods
+# (a victim's parked share plus its next one, 768, stays under the chunk
+# of 1,024); the victims of one rebalance (the dry-run cell
+# paper-summarizer__handoff__pod256's 8)
+HANDOFF_BATCHES, HANDOFF_SHARE, HANDOFF_VICTIMS = 4, 384, 8
+# phase pubsub: batches of CHUNK items per session (268 MB), producers,
+# broker partitions, frames per producer and batch, front-end read size
+PUBSUB_BATCHES, PUBSUB_PRODUCERS, PUBSUB_PARTITIONS = 2, 4, 8
+PUBSUB_FRAMES, PUBSUB_READ = 4, 16384
+# phase distributed: shards of the paper stream (P x K = 3,200 pooled
+# candidates, 3.2 MB: the data/distributed.py docstring's sizing)
+DIST_SHARDS = 32
 DEV = "cuda"
 
 
@@ -480,19 +543,23 @@ def pod_work(torch, before, after, chunks, margins):
 
 
 def compare_sessions(torch, ker, ref, chunks, n_before, margins, what, *,
-                     tie=TIE, tol=RTOL, factors=True):
+                     tie=TIE, tol=RTOL, factors=True, passes=True):
     """Hold a kernel-stepped stacked TSState against the reference under
     the near-tie rule (a first differing accept within ``tie``, relative,
     of its threshold) -> (max abs float error, [near-tie sessions]).
     fval must agree within rtol = atol = ``tol``, and so must L and Linv
-    where ``factors`` (else their error is only measured)."""
+    where ``factors`` (else their error is only measured).  n_fused (the
+    gain passes) is held only where ``passes``: it counts a pass per
+    chunk, so it differs where the two ran the items in other chunks."""
     ties, err = [], 0.0
     S = chunks.shape[0]
     for s in range(S):
         ints_k = [int(ker.ld.n[s]), int(ker.j[s]), int(ker.t[s]),
-                  int(ker.n_fused[s]), int(ker.ld.n_queries[s])]
+                  int(ker.n_fused[s]) if passes else 0,
+                  int(ker.ld.n_queries[s])]
         ints_r = [int(ref.ld.n[s]), int(ref.j[s]), int(ref.t[s]),
-                  int(ref.n_fused[s]), int(ref.ld.n_queries[s])]
+                  int(ref.n_fused[s]) if passes else 0,
+                  int(ref.ld.n_queries[s])]
         nk, nr = ints_k[0], ints_r[0]
         same_rows = nk == nr and torch.equal(ker.ld.feats[s, :nk],
                                              ref.ld.feats[s, :nr])
@@ -1602,7 +1669,7 @@ def phase_paper(torch, gen):
          max_abs_err=max_err)
     return {"gain_static": static,
             "gain_traced": sum(r["launches"]["gain_traced"] for r in rows),
-            "max_abs_err": max_err}
+            "max_abs_err": max_err, "X": X, "f_greedy": f_greedy}
 
 
 def flash_work(B, Hq, Hkv, Sq, Sk, dh, causal, esize):
@@ -2730,6 +2797,604 @@ def phase_ingest(torch, gen):
     return {"launches": launches}
 
 
+# ------------------------------------------------- checkpoints and handoff
+def _admitted(pod, base, n):
+    """``pod.init()`` with tenants ``base + i`` (i < n) in spec_of(i)'s
+    tier admitted."""
+    state = pod.init()
+    for i in range(n):
+        state, _, ok = pod.admit(state, base + i, spec=spec_of(i))
+        if not bool(ok):
+            fail(f"admit of tenant {base + i} refused")
+    return state
+
+
+def _tagged_batch(torch, gen, sids, per):
+    """``per`` items of every session in ``sids`` in a random order, from
+    ``mixture``."""
+    n = len(sids) * per
+    perm = torch.randperm(n, generator=gen, device=DEV)
+    return sids.repeat_interleave(per)[perm], mixture(torch, gen, n)
+
+
+def _first_difference(torch, a, b, skip=()):
+    """The first leaf key where two trees differ bit for bit, or None."""
+    from repro_torch.tree import leaves_with_keys
+
+    la, lb = leaves_with_keys(a), leaves_with_keys(b)
+    for k in la:
+        if k not in skip and not torch.equal(la[k], lb[k]):
+            return k
+    return None
+
+
+def _session_rows(pod, state):
+    """{sid: that session's row of every leaf} of a pod state."""
+    from repro_torch.tree import tree_map
+
+    return {sid: tree_map(lambda l: l[slot], state)
+            for sid, slot in pod.routing_table(state).items()}
+
+
+def _tree_bytes(tree):
+    from repro_torch.tree import leaves_with_keys
+
+    return sum(t.numel() * t.element_size()
+               for t in leaves_with_keys(tree).values())
+
+
+def phase_ckpt(torch, gen):
+    """checkpoint -> restore -> continue on the pod of phase ``pod``: two
+    ingests, a save to the disk store (sync, then async while the third
+    ingest runs) and to the memory store, the third ingest; each store
+    restored and the third ingest run again, bit-equal to the pod that
+    never stopped; 8 rows restored into a second pod with free slots,
+    their next ingest bit-equal to the source's; the bf16 pod of
+    ``pod_bf16`` round-tripped bit for bit."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.ckpt import CheckpointStore, MemoryStore
+    from repro_torch.core.functions import (KernelConfig, LogDet,
+                                            rbf_lengthscale_stream)
+    from repro_torch.core.threesieves import ThreeSieves
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.serve.summarize import SummarizerPod
+
+    algo, _ = _pod_algos(torch)
+    pod = SummarizerPod(algo=algo, sessions=SESSIONS, chunk=CHUNK, device=DEV)
+    sids = torch.arange(1000, 1000 + SESSIONS, dtype=torch.int32, device=DEV)
+    state = _admitted(pod, 1000, SESSIONS)
+    batches = [_tagged_batch(torch, gen, sids, CHUNK) for _ in range(3)]
+    torch.cuda.synchronize()
+    rec = obs.get_recorder()
+    POD.launches = 0  # the main path starts here
+    for tags, X in batches[:2]:
+        state, _ = pod.ingest(state, tags, X)
+    nbytes = _tree_bytes(state)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        disk, mem = CheckpointStore(tmp, keep=2), MemoryStore()
+        ms = {}
+        ms["save_sync"], _ = host_ms(torch, lambda: pod.save(disk, 1, state))
+        ms["save_memory"], _ = host_ms(torch, lambda: pod.save(mem, 1,
+                                                               state))
+        ms["save_async_call"], _ = host_ms(
+            torch, lambda: disk.save_async(2, state))
+        # the third ingest steps the state in place while the write runs
+        cont, _ = pod.ingest(state, *batches[2])
+        ms["wait"], _ = host_ms(torch, disk.wait)
+        ms["async_write"] = rec.find("ckpt_write")[-1]["dur_s"] * 1e3
+        files = sum(p.stat().st_size
+                    for p in (Path(tmp) / "step_000000001").glob("*.npy"))
+        restored = {}
+        for name, store, step in (("disk_sync", disk, 1),
+                                  ("disk_async", disk, 2),
+                                  ("memory", mem, 1)):
+            ms[f"restore_{name}"], (st, _) = host_ms(
+                torch, lambda: pod.restore(store, step))
+            restored[name] = st
+        for name, st in restored.items():
+            st, _ = pod.ingest(st, *batches[2])
+            torch.cuda.synchronize()
+            k = _first_difference(torch, st, cont)
+            if k is not None:
+                fail(f"ckpt: the pod restored from {name} differs from the "
+                     f"uninterrupted pod after the next ingest in {k}")
+        # 8 rows into a second pod of 128 tenants and 128 free slots
+        pod2 = SummarizerPod(algo=algo, sessions=SESSIONS, chunk=CHUNK,
+                             device=DEV)
+        st2 = _admitted(pod2, 3000, SESSIONS // 2)
+        slots = torch.randperm(SESSIONS, generator=gen,
+                               device=DEV)[:8].sort().values.cpu().numpy()
+        torch.cuda.synchronize()
+        ms["restore_8_rows"], (st2, _) = host_ms(
+            torch, lambda: pod2.restore(mem, 1, slots=slots, into=st2))
+        moved = torch.as_tensor(1000 + slots, dtype=torch.int32, device=DEV)
+        tags, X = batches[2]
+        keep = torch.isin(tags, moved)
+        st2, _ = pod2.ingest(st2, tags[keep], X[keep])
+        got, want = _session_rows(pod2, st2), _session_rows(pod, cont)
+        for sid in moved.tolist():
+            k = _first_difference(torch, got[sid], want[sid],
+                                  skip=("drops_unknown",))
+            if k is not None:
+                fail(f"ckpt: restored session {sid} differs from the "
+                     f"source pod after the next ingest in {k}")
+
+        # the bf16 pod of pod_bf16: 32 tenants, two ingests, a round trip
+        f16 = LogDet(K=K_MAX, d=D, kernel=KernelConfig(
+            "rbf", rbf_lengthscale_stream(D)), dtype=torch.bfloat16,
+            device=DEV)
+        pod16 = SummarizerPod(algo=ThreeSieves(f=f16, T=1000, eps=0.01),
+                              sessions=32, chunk=CHUNK, device=DEV)
+        st16 = _admitted(pod16, 1000, 32)
+        b16 = [_tagged_batch(torch, gen, sids[:32], CHUNK)
+               for _ in range(3)]
+        for tags, X in b16[:2]:
+            st16, _ = pod16.ingest(st16, tags, X)
+        pod16.save(disk, 3, st16)
+        cont16, _ = pod16.ingest(st16, *b16[2])
+        back16, _ = pod16.restore(disk, 3)
+        if back16.algo.ld.feats.dtype != torch.bfloat16:
+            fail("ckpt: the bf16 pod came back as "
+                 f"{back16.algo.ld.feats.dtype}")
+        back16, _ = pod16.ingest(back16, *b16[2])
+        torch.cuda.synchronize()
+        k = _first_difference(torch, back16, cont16)
+        if k is not None:
+            fail(f"ckpt: the bf16 pod differs after its round trip in {k}")
+    launches = POD.launches
+    # two ingests, the third, its three replays, the 8 rows', bf16's four
+    if launches != 2 + 1 + 3 + 1 + 4:
+        fail(f"ckpt: pod_step launched {launches} times")
+    mb = nbytes / 1e6
+    emit("ckpt", sessions=SESSIONS, K=K_MAX, d=D, chunk=CHUNK,
+         state_bytes=nbytes, file_bytes=files,
+         bytes_per_session=nbytes / SESSIONS, ms=ms,
+         mb_per_s={"save_sync": mb / (ms["save_sync"] / 1e3),
+                   "save_memory": mb / (ms["save_memory"] / 1e3),
+                   "save_async_call": mb / (ms["save_async_call"] / 1e3),
+                   "restore_disk_sync": mb / (ms["restore_disk_sync"] / 1e3),
+                   "restore_memory": mb / (ms["restore_memory"] / 1e3)},
+         restored_rows=len(slots), bit_equal=True, bf16_bit_equal=True,
+         launches=launches)
+    return {"launches": launches}
+
+
+def _drain_fleet(pipes, states):
+    """Run every pipeline, one device batch at a time, until its buffer is
+    empty -> (states, [the stats of every run])."""
+    runs = []
+    for pid, pipe in pipes.items():
+        while pipe.buffer.size:
+            states[pid], st = pipe.run(states[pid], max_batches=1)
+            if not st["items"]:
+                fail(f"handoff: pod {pid}'s buffer holds "
+                     f"{pipe.buffer.size} items it does not drain")
+            runs.append(st)
+    return states, runs
+
+
+def phase_handoff(torch, gen):
+    """Two pods of the ``pod`` phase's shape in a ``PodRouter`` fleet, each
+    fed by a buffer-mode ``IngestPipeline``: pod 0 with 256 tenants, pod 1
+    with 128 and 128 free slots.  A batch, then ``maybe_rebalance`` (8
+    victims, fewest insertions) while the next batch waits in the buffers,
+    then two batches; a control fleet gets the same batches and no
+    handoff.  Zero drops; every session bit for bit the control's; the
+    moved sessions against ``pod_step_ref`` over their whole stream."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.ingest import IngestPipeline, PodRouter, TaggedBuffer
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.kernels.pod_step import pod_step_ref
+    from repro_torch.serve import PodAutoscaler, ScalePolicy
+    from repro_torch.serve.summarize import SummarizerPod
+    from repro_torch.tree import tree_map
+
+    algo, algo_ref = _pod_algos(torch)
+    live = {0: SESSIONS, 1: SESSIONS // 2}
+    every = torch.cat([torch.arange(1000, 1000 + live[0]),
+                       torch.arange(5000, 5000 + live[1])]).to(
+        torch.int32).to(DEV)
+    feed = []
+    for _ in range(HANDOFF_BATCHES):
+        tags, X = _tagged_batch(torch, gen, every, HANDOFF_SHARE)
+        feed.append((tags.cpu().numpy(), X.cpu().numpy()))
+    B = live[0] * HANDOFF_SHARE  # one device batch holds a round of pod 0
+
+    def fleet():
+        pods = {pid: SummarizerPod(algo=algo, sessions=SESSIONS, chunk=CHUNK,
+                                   device=DEV) for pid in live}
+        pipes = {pid: IngestPipeline(pod, buffer=TaggedBuffer(4 * B),
+                                     batch=B, get_timeout=60.0)
+                 for pid, pod in pods.items()}
+        router = PodRouter(pipelines=pipes)
+        states = {0: _admitted(pods[0], 1000, live[0]),
+                  1: _admitted(pods[1], 5000, live[1])}
+        router.assign(np.arange(1000, 1000 + live[0]), 0)
+        router.assign(np.arange(5000, 5000 + live[1]), 1)
+        for pipe in pipes.values():
+            pipe._stage_slots()  # the pinned staging, out of the timings
+        return pods, pipes, router, states
+
+    def run(move):
+        pods, pipes, router, states = fleet()
+        asc = PodAutoscaler(router=router, pods=pods, policy=ScalePolicy(
+            max_occupancy=0.9, victims=HANDOFF_VICTIMS,
+            victim_policy="fewest-insertions"))
+        torch.cuda.synchronize()
+        windows, rep, spans = [], None, {}
+        rec = obs.get_recorder()
+        # before: batch 0; during: batch 1 waits in the buffers while
+        # the handoff parks and forwards the victims' share, batch 2 lands
+        # behind it, both drained (a victim's backlog and its next share
+        # in one chunk, where the control splits them); after: batch 3
+        for window in ([0], [1, 2], list(range(3, HANDOFF_BATCHES))):
+            t0 = time.perf_counter()
+            for b in window:
+                router.put(*feed[b])
+                if move and b == 1:
+                    rec.clear()
+                    states, rep = asc.maybe_rebalance(states)
+                    if rep is None or not rep.ok:
+                        fail(f"handoff: maybe_rebalance moved nothing "
+                             f"({rep})")
+                    spans = {e["name"]: e["dur_s"] * 1e3
+                             for e in rec.events if e["name"] in (
+                                 "handoff", "quiesce", "snapshot",
+                                 "restore", "evict", "flip")}
+            states, runs = _drain_fleet(pipes, states)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            windows.append({"items": sum(s["items"] for s in runs),
+                            "s": wall, "runs": len(runs),
+                            "drops": sum(s["dropped_unknown"]
+                                         + s["dropped_overflow"]
+                                         for s in runs)})
+        drops = (sum(w["drops"] for w in windows)
+                 + sum(router.drops_unrouted.values())
+                 + sum(sum(p.buffer.drop_counts().values())
+                       for p in pipes.values())
+                 + sum(int(s.drops_overflow.sum()) + int(s.drops_unknown.sum())
+                       for s in states.values()))
+        rows = {}
+        for pid, pod in pods.items():
+            rows.update(_session_rows(pod, states[pid]))
+        return rows, rep, windows, drops, spans
+
+    POD.launches = 0  # the main path starts here
+    rows, rep, windows, drops, spans = run(True)
+    launches = POD.launches
+    control, _, cwin, cdrops, _ = run(False)
+    if drops or cdrops:
+        fail(f"handoff: {drops} drops with the handoff, {cdrops} without")
+    if len(rep.moved) != HANDOFF_VICTIMS or sorted(rows) != sorted(control):
+        fail(f"handoff: moved {rep.moved}; sessions {len(rows)} against "
+             f"{len(control)}")
+    # every leaf but the pod-scoped ledger and n_fused, the count of gain
+    # passes: one per chunk not ending on an accept, so it follows the
+    # chunk split (measured below, not held)
+    first_diff, passes = None, []
+    for sid in sorted(rows):
+        k = _first_difference(torch, rows[sid], control[sid],
+                              skip=("drops_unknown", "algo/n_fused"))
+        if k is not None and first_diff is None:
+            first_diff = {"session": sid, "leaf": k,
+                          "moved": sid in rep.moved}
+        passes.append(int(rows[sid].algo.n_fused)
+                      - int(control[sid].algo.n_fused))
+    # the moved sessions against pod_step_ref over their whole stream
+    idx = [int(s) - 1000 for s in rep.moved]
+    per = [[X[tags == s] for tags, X in feed] for s in rep.moved]
+    C = max(sum(len(p) for p in items) for items in per)
+    chunks = torch.zeros((len(idx), C, D), device=DEV)
+    counts = torch.zeros((len(idx),), dtype=torch.int32, device=DEV)
+    for j, items in enumerate(per):
+        allx = torch.from_numpy(np.concatenate(items)).to(DEV)
+        chunks[j, :len(allx)] = allx
+        counts[j] = len(allx)
+    fresh = _stacked_tiers(torch, algo_ref, SESSIONS)
+    fresh = tree_map(lambda l: l[torch.as_tensor(idx, device=DEV)], fresh)
+    margins = [dict() for _ in idx]
+    ref = pod_step_ref(algo_ref, fresh, chunks, counts, margins=margins)
+    ker = tree_map(lambda *ls: torch.stack(ls),
+                   *[rows[s].algo for s in rep.moved])
+    err, ties = compare_sessions(
+        torch, ker, ref, chunks, torch.zeros(len(idx), dtype=torch.int32),
+        margins, "handoff: moved sessions against pod_step_ref",
+        passes=False)
+    if first_diff is not None:
+        fail(f"handoff: not bit-equal to the control fleet: {first_diff}")
+
+    def rate(w):
+        return w["items"] / w["s"]
+
+    emit("handoff", sessions=live, K=K_MAX, d=D, chunk=CHUNK,
+         share_per_session=HANDOFF_SHARE, batches=HANDOFF_BATCHES,
+         device_batch=B, moved=rep.moved, reason=rep.reason,
+         backlog_items=rep.backlog_items,
+         payload_bytes=HANDOFF_VICTIMS * _tree_bytes(
+             next(iter(rows.values()))),
+         handoff_latency_ms=rep.latency_s * 1e3, spans_ms=spans,
+         before_items_per_sec=rate(windows[0]),
+         during_items_per_sec=rate(windows[1]),
+         after_items_per_sec=rate(windows[2]),
+         device_batches=[w["runs"] for w in windows],
+         control_items_per_sec=[rate(w) for w in cwin],
+         control_device_batches=[w["runs"] for w in cwin], drops=0,
+         bit_equal_to_control=True,
+         n_fused_vs_control={"sessions_differing": sum(map(bool, passes)),
+                             "min": min(passes), "max": max(passes)}, vs_pod_step_ref_max_abs_err=err,
+         near_ties=ties, launches=launches)
+    return {"launches": launches, "max_abs_err": err}
+
+
+def phase_pubsub(torch, gen):
+    """Producers over loopback TCP into a ``PubSubListener`` (8
+    partitions); a ``PubSubFrontEnd`` pumps the broker into a router
+    fleet of the ``ingest`` phase's pod, committing at its pipeline's
+    sync.  One producer's wire dies mid-stream and it replays from its
+    ACK; the front end is restarted from ``committed()`` between the
+    batches.  Every frame lands once; no drop; the final state is
+    bit-equal to the same per-session orders through ``pod.ingest``."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.ingest import (IngestPipeline, PodRouter, Publisher,
+                                    PubSubBroker, PubSubFrontEnd,
+                                    PubSubListener, TaggedBuffer)
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.serve.summarize import SummarizerPod
+
+    algo, _ = _pod_algos(torch)
+    pod = SummarizerPod(algo=algo, sessions=SESSIONS, chunk=CHUNK, device=DEV)
+    state0 = _admitted(pod, 1000, SESSIONS)
+    sids = torch.arange(1000, 1000 + SESSIONS, dtype=torch.int32, device=DEV)
+    N = SESSIONS * CHUNK
+    dev = [_tagged_batch(torch, gen, sids, CHUNK)
+           for _ in range(PUBSUB_BATCHES)]
+    host = [(t.cpu().numpy(), x.cpu().numpy()) for t, x in dev]
+    # the direct path: the same batches through pod.ingest
+    direct = clone_state(state0)
+    for tags, X in dev:
+        direct, _ = pod.ingest(direct, tags, X)
+    torch.cuda.synchronize()
+
+    pipe = IngestPipeline(pod, buffer=TaggedBuffer(2 * N), batch=N,
+                          get_timeout=60.0, timings=[])
+    router = PodRouter({0: pipe})
+    router.assign(np.arange(1000, 1000 + SESSIONS), 0)
+    broker = PubSubBroker(n_partitions=PUBSUB_PARTITIONS)
+    fe = PubSubFrontEnd(broker, router, read_batch=PUBSUB_READ)
+    fe.attach(pipe)
+    pipe._stage_slots()  # the pinned staging, out of the timings
+    state = clone_state(state0)
+    P, frames = PUBSUB_PRODUCERS, PUBSUB_FRAMES
+    errors, lags, marks, steps = [], [], [], []
+    torch.cuda.synchronize()
+    POD.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    with PubSubListener(broker, timeout=60.0) as lis:
+        pubs = [Publisher("127.0.0.1", lis.port, producer_id=k,
+                          timeout=60.0) for k in range(P)]
+
+        def produce(k, tags, X, kill):
+            # producer k owns the sessions sid % P == k, in stream order
+            try:
+                mine = (tags % P) == k
+                for j, (s, x) in enumerate(zip(
+                        np.array_split(tags[mine], frames),
+                        np.array_split(X[mine], frames))):
+                    if kill and j == frames // 2:
+                        pubs[k]._sock.close()  # the wire dies mid-stream
+                        try:
+                            pubs[k].publish(s, x)
+                            raise RuntimeError("publish on a dead wire")
+                        except OSError:
+                            pubs[k].connect()  # replays from its ACK
+                    else:
+                        pubs[k].publish(s, x)
+            except Exception as e:  # raised by the main thread below
+                errors.append(e)
+
+        for b, (tags, X) in enumerate(host):
+            threads = [threading.Thread(target=produce,
+                                        args=(k, tags, X, b == 1 and k == 2))
+                       for k in range(P)]
+            t1 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                fail(f"pubsub: a producer failed: {errors[0]!r}")
+            t2 = time.perf_counter()
+            lags.append(fe.lag())
+            fe.pump()
+            lags.append(fe.lag())
+            t3 = time.perf_counter()
+            pipe.timings = []
+            state, stats = pipe.run(state, max_batches=1)
+            marks.append(stats)
+            rows, idle = _pipeline_batches(pipe.timings, N)
+            steps.append({"publish_s": t2 - t1, "pump_s": t3 - t2,
+                          "run_s": stats["wall_s"], **rows[0],
+                          "idle_share_run": idle})
+            if b == 0:  # restart the front end from its commits
+                fe = PubSubFrontEnd(broker, router, read_batch=PUBSUB_READ,
+                                    start=fe.committed())
+                fe.attach(pipe)
+        for p in pubs:
+            p.close()
+        dups = lis.duplicates
+        last_seq = dict(lis.last_seq)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = POD.launches
+    total = sum(broker.high_water(p) for p in range(PUBSUB_PARTITIONS))
+    if total != PUBSUB_BATCHES * N or last_seq != {
+            k: PUBSUB_BATCHES * frames for k in range(P)}:
+        fail(f"pubsub: broker holds {total} items (want "
+             f"{PUBSUB_BATCHES * N}); producers' seqs {last_seq}")
+    drops = (sum(m["dropped_unknown"] + m["dropped_overflow"] for m in marks)
+             + sum(router.drops_unrouted.values())
+             + sum(pipe.buffer.drop_counts().values())
+             + int(state.drops_overflow.sum()) + int(state.drops_unknown.sum()))
+    items = sum(m["items"] for m in marks)
+    if drops or items != PUBSUB_BATCHES * N or launches != PUBSUB_BATCHES:
+        fail(f"pubsub: {drops} drops, {items} items, {launches} launches")
+    k = _first_difference(torch, state, direct)
+    if k is not None:
+        fail(f"pubsub: the final state differs from direct ingest in {k}")
+    busy = sum(r["h2d_ms"] + r["step_ms"] for r in steps)
+    emit("pubsub", producers=P, partitions=PUBSUB_PARTITIONS,
+         frames_per_producer=PUBSUB_BATCHES * frames, items=total,
+         batch_mb=N * D * 4 / 1e6, duplicates=dups, reconnects=[
+             p.reconnects for p in pubs],
+         committed=sum(fe.committed().values()), lag=lags, s=wall,
+         items_per_s=total / wall, batches=steps,
+         idle_share=1 - busy / (wall * 1e3),
+         drops=0, bit_equal_to_direct=True, launches=launches)
+    return {"launches": launches}
+
+
+def phase_distributed(torch, gen, paper):
+    """ThreeSieves on P shards of the ``paper`` stream (K = 100, d = 256,
+    T and eps as there), ``DistributedSummarizer`` update and merge under
+    ``auto`` (the kernels) and ``torch``; then ``CoresetSelector`` over the
+    same stream on both routes."""
+    from repro_torch.core.api import make
+    from repro_torch.core.functions import rbf_lengthscale_stream
+    from repro_torch.core.spec import SessionSpec
+    from repro_torch.data import CoresetSelector, DistributedSummarizer
+    from repro_torch.kernels.rbf_gain import KERNEL as GAIN
+    from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
+    from repro_torch.tree import tree_map
+
+    X, f_greedy = paper["X"], paper["f_greedy"]
+    ls = rbf_lengthscale_stream(D)
+    base = SessionSpec(K=K_MAX, d=D, lengthscale=ls, eps=PAPER_EPS, T=1000)
+    algo = make(base, device=DEV)
+    plain = make(base.replace(backend="torch"), device=DEV)
+    P, B = DIST_SHARDS, CHUNK
+    dist, dref = DistributedSummarizer(algo, P), DistributedSummarizer(
+        plain, P)
+    batches = X.split(P * B)
+    st, sr = dist.init(), dref.init()
+    kernels = (GAIN, STATIC)
+    secs = {"update": 0.0, "update_plain": 0.0}
+    err, ties = 0.0, []
+    launches = {k.name: 0 for k in kernels}
+    for b, Xb in enumerate(batches):
+        before = st
+        st, dt, ln = _counted(torch, kernels, lambda: dist.update(st, Xb))
+        secs["update"] += dt
+        for k, v in ln.items():
+            launches[k] += v
+        t0 = time.perf_counter()
+        sr = dref.update(sr, Xb)
+        torch.cuda.synchronize()
+        secs["update_plain"] += time.perf_counter() - t0
+        for p in range(P):
+            ker_p = tree_map(lambda l: l[p], st)
+            ref_p = tree_map(lambda l: l[p], sr)
+            if _first_difference(torch, ker_p, ref_p) is None:
+                continue
+            margins = {}
+            Xp = Xb[p * B:(p + 1) * B]
+            ref_p = plain.run_batched(tree_map(lambda l: l[p], before), Xp,
+                                      margins=margins)
+            e, tie = hold_states(torch, ker_p, ref_p,
+                                 tree_map(lambda l: l[p], before), Xp,
+                                 margins, f"distributed shard {p} batch {b}")
+            err = max(err, e)
+            if tie:
+                ties.append({"shard": p, "batch": b, **tie})
+                sr = tree_map(lambda a, k: a.index_copy(
+                    0, torch.tensor([p], device=DEV), k[p:p + 1]), sr, st)
+    # the merge on the kernels' shard states, both routes
+    merged, dt, ln = _counted(torch, kernels, lambda: dist.merge(st))
+    secs["merge"] = dt
+    launches["gain_static_merge"] = ln["gain_static"]
+    for k, v in ln.items():
+        launches[k] += v
+    gaps = []
+    t0 = time.perf_counter()
+    mref = dref.merge(st, gaps=gaps)
+    torch.cuda.synchronize()
+    secs["merge_plain"] = time.perf_counter() - t0
+    mk, mr = merged.ld, mref.ld
+    merge_tie = None
+    if int(mk.n) != int(mr.n) or not torch.equal(mk.feats, mr.feats):
+        rows = (mk.feats != mr.feats).any(-1)
+        r = int(torch.nonzero(rows)[0, 0]) if rows.any() else min(
+            int(mk.n), int(mr.n))
+        if gaps[r] > TIE:
+            fail(f"distributed merge: rounds differ first at {r} with the "
+                 f"two largest reference gains {gaps[r]} apart (> {TIE})")
+        merge_tie = {"round": r, "gap": gaps[r]}
+    else:
+        for name in ("fval", "L", "Linv"):
+            a, c = getattr(mk, name), getattr(mr, name)
+            if not torch.allclose(a, c, rtol=RTOL, atol=ATOL):
+                fail(f"distributed merge: {name} off by "
+                     f"{(a - c).abs().max().item()}")
+            err = max(err, (a - c).abs().max().item())
+    if launches["gain_static_merge"] != K_MAX:
+        fail(f"distributed merge: {launches['gain_static_merge']} "
+             f"gain_static launches, want {K_MAX}")
+    local = [float(algo.summary(tree_map(lambda l: l[p], st))[2])
+             for p in range(P)]
+    f_merged = float(mk.fval)
+    if f_merged < max(local) - 1e-4:
+        fail(f"distributed merge: f {f_merged} below a shard's {max(local)}")
+
+    # the coreset selector over the same stream, both routes
+    sel = CoresetSelector(K_MAX, D, T=1000, eps=PAPER_EPS, lengthscale=ls,
+                          device=DEV)
+    sel_ref = CoresetSelector(K_MAX, D, T=1000, eps=PAPER_EPS,
+                              lengthscale=ls, backend="torch", device=DEV)
+    GAIN.launches = 0
+    t0 = time.perf_counter()
+    for Xc in X.split(CHUNK):
+        sel.update(Xc)
+    torch.cuda.synchronize()
+    secs["coreset"] = time.perf_counter() - t0
+    launches["gain_traced_coreset"] = GAIN.launches
+    launches["gain_traced"] += GAIN.launches
+    for Xc in X.split(CHUNK):
+        sel_ref.update(Xc)
+    fk, nk, vk = sel.summary()
+    fr, nr, vr = sel_ref.summary()
+    if int(nk) != int(nr) or not torch.equal(fk, fr) or not torch.allclose(
+            vk, vr, rtol=RTOL, atol=ATOL):
+        fail(f"distributed coreset: n {int(nk)} / {int(nr)}, fval "
+             f"{float(vk)} / {float(vr)}")
+    last = X[-CHUNK:]
+    ak, ar = sel.assign(last), sel_ref.assign(last)
+    if not torch.equal(ak, ar):
+        fail(f"distributed coreset: assign differs in "
+             f"{int((ak != ar).sum())} of {CHUNK} rows")
+    emit("distributed", algo="threesieves", K=K_MAX, d=D, shards=P,
+         items=X.shape[0], batch=P * B, pool=P * K_MAX,
+         pool_mb=P * K_MAX * D * 4 / 1e6, n_merged=int(mk.n),
+         f_merged=f_merged, f_merged_over_best_local=f_merged / max(local),
+         f_merged_over_greedy=f_merged / f_greedy,
+         local_n=[int(n) for n in st.ld.n.tolist()], seconds=secs,
+         merge_ms=secs["merge"] * 1e3, launches=launches, max_abs_err=err,
+         near_ties=ties, merge_near_tie=merge_tie,
+         coreset={"n": int(nk), "fval": float(vk),
+                  "f_over_greedy": float(vk) / f_greedy,
+                  "assign_equal": True})
+    return {"gain_traced": launches["gain_traced"],
+            "gain_static": launches["gain_static"], "max_abs_err": err}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2788,6 +3453,12 @@ def main(argv=None):
     # this slice: every algorithm in the pod, the ingest front end
     sieves = timed("pod_sieves", phase_pod_sieves, torch, gen, args.seed)
     ingest = timed("ingest", phase_ingest, torch, gen)
+    # this slice: checkpoints, the live handoff, the pub/sub front end,
+    # the distributed merge and the coreset
+    ckpt = timed("ckpt", phase_ckpt, torch, gen)
+    handoff = timed("handoff", phase_handoff, torch, gen)
+    pubsub = timed("pubsub", phase_pubsub, torch, gen)
+    dist = timed("distributed", phase_distributed, torch, gen, paper)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -2795,27 +3466,30 @@ def main(argv=None):
          "source": "src/repro_torch/csrc/rbf_gain.cu",
          "replaces": "src/repro/kernels/rbf_gain/kernel.py:126",
          "launches": (sieve["launches"] + paper["gain_traced"]
-                      + sieves["launches"]),
+                      + sieves["launches"] + dist["gain_traced"]),
          "max_abs_err": max(gain["max_abs_err"], stacked["max_abs_err"],
                             sieve["max_abs_err"], paper["max_abs_err"],
-                            sieves["max_abs_err"]),
+                            sieves["max_abs_err"], dist["max_abs_err"]),
          "ms": gain["ms"], "plain_ms": gain["plain_ms"],
          "bound_ms": gain["bound_ms"], "bound_by": gain["bound_by"],
          "library_ms": None},
         {"name": "gain_static", "route": "cuda",
          "source": "src/repro_torch/csrc/rbf_gain.cu",
          "replaces": "src/repro/kernels/rbf_gain/kernel.py:74",
-         "launches": paper["gain_static"],
-         "max_abs_err": max(static["max_abs_err"], paper["max_abs_err"]),
+         "launches": paper["gain_static"] + dist["gain_static"],
+         "max_abs_err": max(static["max_abs_err"], paper["max_abs_err"],
+                            dist["max_abs_err"]),
          "ms": static["ms"], "plain_ms": static["plain_ms"],
          "bound_ms": static["bound_ms"], "bound_by": static["bound_by"],
          "library_ms": None},
         {"name": "pod_step", "route": "cuda",
          "source": "src/repro_torch/csrc/pod_step.cu",
          "replaces": "src/repro/kernels/pod_step/kernel.py:160",
-         "launches": pod["launches"] + ingest["launches"],
+         "launches": (pod["launches"] + ingest["launches"]
+                      + ckpt["launches"] + handoff["launches"]
+                      + pubsub["launches"]),
          "max_abs_err": max(pod_err, large["max_abs_err"],
-                            pod["max_abs_err"]),
+                            pod["max_abs_err"], handoff["max_abs_err"]),
          "ms": pod["ms"], "plain_ms": pod["plain_ms"],
          "bound_ms": pod["bound_ms"], "bound_by": pod["bound_by"],
          "library_ms": None},

@@ -14,6 +14,14 @@ read and the port's generator starts fresh from ``seed``.
 
 A model's parameter tree (the nested dict of the JAX package's
 ``Model.init``) carries across key for key (``model_params_from_jax``).
+
+A bfloat16 leaf crosses as its raw 16-bit words: numpy has no bfloat16
+of its own and the port does not import ``ml_dtypes``.  Out, it is a
+``uint16`` array of the bits (``leaf_to_numpy``; ``dtype_name`` gives
+``"bfloat16"``, the name the JAX checkpoint store records); in, any
+2-byte array that is not a float (``ml_dtypes.bfloat16``, the raw
+``|V2`` that ``np.save`` writes for it, ``int16`` or ``uint16``) is
+taken as bfloat16 bits and reinterpreted, never converted by value.
 """
 from __future__ import annotations
 
@@ -65,7 +73,7 @@ def _build(cls, flat: Dict[str, np.ndarray], prefix: str, device, seed):
         else:
             if key not in flat:
                 raise KeyError(f"missing leaf {key!r}")
-            kw[f.name] = torch.from_numpy(np.array(flat[key])).to(device)
+            kw[f.name] = tensor_from_numpy(flat[key], device)
     return cls(**kw)
 
 
@@ -90,16 +98,48 @@ def state_from_numpy(cls, flat: Dict[str, np.ndarray], *, device,
     return _build(cls, flat, "", torch.device(device), seed)
 
 
+def is_bf16_bits(arr: np.ndarray) -> bool:
+    """A 2-byte array that is not a float: bfloat16 bits."""
+    return arr.dtype.itemsize == 2 and arr.dtype.kind in "Viu"
+
+
+def dtype_name(t: torch.Tensor) -> str:
+    """The numpy name of a leaf's dtype (``"bfloat16"`` for bfloat16)."""
+    return str(t.dtype).removeprefix("torch.")
+
+
+def leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of one leaf, on every device (a CPU tensor's
+    ``.numpy()`` would share its memory, and the pod steps its state in
+    place); a bfloat16 leaf as the ``uint16`` array of its bits."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    out = t.to("cpu", copy=True).numpy()
+    return out.view(np.uint16) if out.dtype == np.int16 else out
+
+
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    """A tensor on ``device`` from one numpy leaf; 2-byte non-float data
+    comes in as bfloat16 by reinterpreting the bits (``is_bf16_bits``)."""
+    arr = np.asarray(arr)
+    if is_bf16_bits(arr):
+        return torch.from_numpy(np.array(arr.view(np.int16))).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
 def state_to_numpy(state) -> Dict[str, np.ndarray]:
-    """Flat numpy leaves of a port state (host copies)."""
-    return {k: v.detach().cpu().numpy()
-            for k, v in leaves_with_keys(state).items()}
+    """Flat numpy leaves of a port state: host copies on every device,
+    a bfloat16 leaf as its ``uint16`` bits (``leaf_to_numpy``)."""
+    return {k: leaf_to_numpy(v) for k, v in leaves_with_keys(state).items()}
 
 
 def model_params_from_jax(tree, device):
     """The port's parameter tree from the JAX package's (a nested dict of
     numpy arrays, e.g. ``Model.init`` passed through ``np.asarray``):
-    the same keys, shapes and dtypes, as tensors on ``device``."""
+    the same keys, shapes and dtypes, as tensors on ``device`` (a
+    bfloat16 leaf by its bits, ``tensor_from_numpy``)."""
     if isinstance(tree, dict):
         return {k: model_params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(device)
+    return tensor_from_numpy(tree, device)

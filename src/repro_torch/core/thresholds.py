@@ -4,7 +4,8 @@
   * ``Ladder``        — static: the bounds (ilo/ihi/num_rungs) come from
                         float64 Python ``math``, exactly as in the JAX
                         package; ``HyperParams.build`` derives per-session
-                        rows from it.
+                        rows from it; ``value``/``values`` give its rungs
+                        in float32.
   * ``rung_value`` /  — the same rung values from 0-dim (or batched)
     ``TracedLadder``    tensors, geometry in float32; ``values``/``valid``
                         materialize a stacked sieve's rung axis.
@@ -50,6 +51,20 @@ class Ladder:
     @property
     def num_rungs(self) -> int:
         return max(self.ihi - self.ilo + 1, 1)
+
+    def value(self, j, dtype=torch.float32):
+        """Threshold at rung j (an int or a tensor; clamped), largest
+        first: ``(1 + eps) ** (ihi - j)`` in float32, delivered in
+        ``dtype`` on ``j``'s device (the CPU for an int)."""
+        j = torch.as_tensor(j)
+        jc = torch.clamp(j, 0, self.num_rungs - 1)
+        base = torch.tensor(1.0 + self.eps, device=j.device)
+        return torch.pow(base, (self.ihi - jc).to(torch.float32)).to(dtype)
+
+    def values(self, dtype=torch.float32) -> torch.Tensor:
+        """All rungs, descending (the materialized ladder), on the CPU."""
+        i = torch.arange(self.num_rungs, dtype=torch.float32)
+        return torch.pow(torch.tensor(1.0 + self.eps), self.ihi - i).to(dtype)
 
 
 def rung_value(base, ihi, num_rungs, j, dtype=torch.float32):

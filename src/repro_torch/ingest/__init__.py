@@ -1,7 +1,6 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
 """repro_torch.ingest — the streaming front end of the SummarizerPod
-(port of ``repro/ingest``; the pub/sub log waits for a later slice,
-ROADMAP.md).
+(port of ``repro/ingest``).
 
 Sources produce tagged host batches, the bounded TaggedBuffer absorbs
 rate mismatch under an explicit backpressure policy (plus optional
@@ -16,10 +15,15 @@ staging of the next batch against the card's step:
 card's route).
 
 Above that sits the fleet edge: ``PodRouter`` fans one tagged ingress
-across pods.
+across pods, and ``repro_torch.ingest.pubsub`` puts a partitioned,
+offset-addressed log (broker + wire protocol + front end) between
+untrusted producers and the router, with exactly-once producer resume
+and offset commits at the pipeline's sync boundary.
 """
 from .buffer import PAD_SID, POLICIES, TaggedBuffer
 from .pipeline import IngestPipeline, PodRouter, host_route
+from .pubsub import (Publisher, PubSubBroker, PubSubFrontEnd, PubSubListener,
+                     partition_of, publish_frame)
 from .shedding import RUNGS, RateLimit, ShedPolicy, TokenBucket
 from .sources import (MAGIC, DriftSource, ReplaySource, SocketSource, Source,
                       SubsampleSource, TaggedBatch, connect_producer,
@@ -29,4 +33,6 @@ __all__ = ["PAD_SID", "POLICIES", "TaggedBuffer", "IngestPipeline",
            "PodRouter", "host_route", "MAGIC", "DriftSource",
            "ReplaySource", "SocketSource", "Source", "SubsampleSource",
            "TaggedBatch", "connect_producer", "send_frame",
+           "Publisher", "PubSubBroker", "PubSubFrontEnd", "PubSubListener",
+           "partition_of", "publish_frame",
            "RUNGS", "RateLimit", "ShedPolicy", "TokenBucket"]

@@ -25,14 +25,18 @@ lifecycle methods (admit, evict, reset) return fresh state.
 
 ``serve`` drives the pod from an ``ingest.IngestPipeline`` (the
 double-buffered front end) with drift checks between pipeline runs.
-``save``/``restore`` wait for the checkpoint port and
-``make_sharded_update`` for a sharded pod (ROADMAP.md).
+``save``/``restore`` checkpoint the whole pod through a
+``ckpt.CheckpointStore`` or ``MemoryStore`` and restore it, or a subset
+of its session rows into another live pod (the handoff of
+``serve.autoscale``).  ``make_sharded_update`` waits for a sharded pod
+(ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -41,7 +45,7 @@ from repro_torch.core.sieve_family import (SieveAlgorithm, stack_states,
 from repro_torch.core.spec import HyperParams, SessionSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pod_step import pod_step
-from repro_torch.tree import leaves_with_keys, tree_map, vmap
+from repro_torch.tree import copy_into, leaves_with_keys, tree_map, vmap
 
 
 class PodReadout(NamedTuple):
@@ -113,6 +117,20 @@ class SummarizerPod:
             resets=self._zeros(), drops_overflow=self._zeros(),
             drops_unknown=self._zeros(),
         )
+
+    def abstract_state(self) -> PodState:
+        """The pod's state on the ``meta`` device: shapes and dtypes, no
+        storage — the ``like`` donor of ``restore``.  Taken from one
+        session's state on the host (a meta ``torch.eye`` would cost its
+        first caller a second of PyTorch's meta-kernel import)."""
+        cpu = torch.device("cpu")
+        one = dataclasses.replace(
+            self, algo=dataclasses.replace(
+                self.algo, f=dataclasses.replace(self.algo.f, device=cpu)),
+            sessions=1, device=cpu).init()
+        return tree_map(lambda l: torch.empty(
+            (self.sessions,) + tuple(l.shape[1:]), dtype=l.dtype,
+            device="meta"), one)
 
     # -------------------------------------------------------------- lifecycle
     def _hyper_of(self, spec) -> Optional[HyperParams]:
@@ -372,3 +390,82 @@ class SummarizerPod:
                     return state, total
             if stats["batches"] < n or pipeline.exhausted:
                 return state, total
+
+    # ------------------------------------------------------------- checkpoint
+    def save(self, store, step: int, state: PodState,
+             extra: Optional[Dict] = None):
+        """Checkpoint the whole pod (a host snapshot, copied before this
+        returns; the next ingest may step the state in place)."""
+        return store.save(step, state, extra or {})
+
+    def restore(self, store, step: Optional[int] = None, *, slots=None,
+                into: Optional[PodState] = None,
+                saved_sessions: Optional[int] = None
+                ) -> Tuple[PodState, Dict]:
+        """Restore a pod mid-stream onto this pod's device.
+
+        ``slots`` selects a *subset* of the saved session rows — a bool
+        mask or an index array over the saved pod's slots — and places
+        them into the free slots of the live pod state ``into`` (the
+        session-migration half of pod autoscaling: drain on pod A,
+        restore rows into pod B without touching B's resident tenants).
+        ``saved_sessions`` sizes the saved pod when it differs from this
+        pod's ``sessions`` (migrating between pods of different width).
+        Inactive saved rows among the selection are skipped; a selected
+        session id already live in ``into`` is a conflict (the session
+        would be hosted twice) and raises.  ``into``'s pod-scoped
+        ``drops_unknown`` ledger is kept as-is — it is not session
+        state.  Per-slot hyperparams migrate with their rows, so a K=10
+        tenant restored into a K_max=100 pod keeps its K=10 budget.
+
+        The saved pod is read on the host; only the selected rows go to
+        the card, and they are written into ``into``'s tensors in place
+        (``index_copy_``, one per leaf: the card's share of the cost
+        scales with the rows moved, not with the pod's width) after every
+        check has passed, and ``into`` is returned.
+        """
+        if step is None:
+            step = store.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint in {store.root}")
+        if slots is None:
+            return store.load(step, self.abstract_state(),
+                              device=self.device)
+
+        if into is None:
+            raise ValueError("slot-subset restore needs the live pod state: "
+                             "restore(..., slots=..., into=state)")
+        donor = (self if saved_sessions is None
+                 else dataclasses.replace(self, sessions=saved_sessions))
+        saved, extra = store.load(step, donor.abstract_state(),
+                                  device="cpu")
+        S_saved = donor.sessions
+        slots = np.asarray(slots)
+        sel = (np.flatnonzero(slots) if slots.dtype == bool
+               else slots.astype(np.int64).ravel())
+        if sel.size and (sel.min() < 0 or sel.max() >= S_saved):
+            raise IndexError(f"slot index out of range for saved pod of "
+                             f"{S_saved} sessions: {sel}")
+        # dedupe (first occurrence wins): a repeated index would place the
+        # same session into two slots — the double-hosted state admit()'s
+        # idempotency guard exists to prevent
+        sel = sel[np.sort(np.unique(sel, return_index=True)[1])]
+        sel = sel[saved.active.numpy()[sel]]  # skip dead saved rows
+        into_active = into.active.cpu().numpy()
+        live_sids = into.sid.cpu().numpy()[into_active]
+        moving = saved.sid.numpy()[sel]
+        clash = np.intersect1d(moving, live_sids)
+        if clash.size:
+            raise ValueError(f"session ids {clash.tolist()} are already live "
+                             "in the target pod")
+        free = np.flatnonzero(~into_active)
+        if sel.size > free.size:
+            raise ValueError(f"target pod has {free.size} free slots for "
+                             f"{sel.size} restored sessions")
+        src = torch.as_tensor(sel)
+        dst = torch.as_tensor(free[: sel.size], device=self.device)
+        rows = tree_map(lambda l: l.index_select(0, src).to(self.device),
+                        saved)
+        rows = dataclasses.replace(
+            rows, drops_unknown=into.drops_unknown.index_select(0, dst))
+        return copy_into(into, rows, rows=dst), extra

@@ -1066,3 +1066,132 @@ def test_pipeline_final_state_equals_direct_ingest(cuda):
     assert stats["batches"] == 5 and len(timings) == 5
     assert all(t["h2d"][1] >= t["h2d"][0] and t["step"][1] >= t["step"][0]
                for t in timings)
+
+
+def _card_pod(cuda, dtype=torch.float32, S=8, C=32, d=16, K=10):
+    from repro_torch.core.functions import KernelConfig, LogDet
+    from repro_torch.core.threesieves import ThreeSieves
+    from repro_torch.serve.summarize import SummarizerPod
+
+    f = LogDet(K=K, d=d, kernel=KernelConfig("rbf", 0.7), dtype=dtype,
+               device=cuda)
+    return SummarizerPod(algo=ThreeSieves(f=f, T=20, eps=0.1), sessions=S,
+                         chunk=C, device=cuda)
+
+
+def _card_batches(cuda, S, d, n, B=128, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [(torch.randint(0, S, (B,), generator=g, device=cuda,
+                           dtype=torch.int32),
+             torch.randn(B, d, generator=g, device=cuda))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_round_trip_on_the_card_bit_equal(cuda, tmp_path, dtype):
+    """checkpoint -> restore -> continue on the card: from the disk store
+    (sync and async) and the memory store, the continued pod equals the
+    pod that never stopped, bit for bit, f32 and bf16."""
+    from repro_torch.ckpt import CheckpointStore, MemoryStore
+    from repro_torch.tree import leaves_with_keys
+
+    pod = _card_pod(cuda, getattr(torch, dtype))
+    st = pod.init()
+    for sid in range(pod.sessions):
+        st, _, _ = pod.admit(st, sid)
+    batches = _card_batches(cuda, pod.sessions, 16, 3)
+    for sids, X in batches[:2]:
+        st, _ = pod.ingest(st, sids, X)
+    disk, mem = CheckpointStore(tmp_path), MemoryStore()
+    pod.save(disk, 1, st)
+    disk.save_async(2, st)
+    pod.save(mem, 1, st)
+    cont, _ = pod.ingest(st, *batches[2])
+    disk.wait()
+    want = leaves_with_keys(cont)
+    assert want["algo/ld/feats"].dtype == getattr(torch, dtype)
+    for store, step in ((disk, 1), (disk, 2), (mem, 1)):
+        got, _ = pod.restore(store, step)
+        assert got.sid.device.type == cuda.type
+        got, _ = pod.ingest(got, *batches[2])
+        got = leaves_with_keys(got)
+        assert all(torch.equal(got[k], want[k]) for k in want), (store, step)
+
+
+def test_handoff_moves_sessions_bit_equal_to_the_control_fleet(cuda):
+    """Two pods on the card under a fleet of buffer-mode pipelines: the
+    sessions moved by ``maybe_rebalance`` end bit for bit where the same
+    batches leave them in a fleet that never moved them."""
+    import numpy as np
+
+    from repro_torch.ingest import IngestPipeline, PodRouter, TaggedBuffer
+    from repro_torch.serve import PodAutoscaler, ScalePolicy
+    from repro_torch.tree import leaves_with_keys, tree_map
+
+    S, d, C = 8, 16, 64
+    rng = np.random.default_rng(3)
+    feed = [(rng.integers(0, 12, 48).astype(np.int32),
+             rng.standard_normal((48, d)).astype(np.float32))
+            for _ in range(3)]
+
+    def run(move):
+        pods = {0: _card_pod(cuda, S=S, C=C), 1: _card_pod(cuda, S=S, C=C)}
+        pipes = {i: IngestPipeline(p, buffer=TaggedBuffer(4096), batch=64,
+                                   get_timeout=30.0)
+                 for i, p in pods.items()}
+        router = PodRouter(pipelines=pipes)
+        states = {i: p.init() for i, p in pods.items()}
+        for sid in range(12):
+            pid = 0 if sid < 8 else 1
+            states[pid], _, _ = pods[pid].admit(states[pid], sid)
+            router.assign([sid], pid)
+        asc = PodAutoscaler(router=router, pods=pods, policy=ScalePolicy(
+            max_occupancy=0.9, victims=3))
+        rep = None
+        for i, (sids, X) in enumerate(feed):
+            router.put(sids, X)
+            if move and i == 1:
+                states, rep = asc.maybe_rebalance(states)
+            for pid in pods:
+                states[pid], _ = pipes[pid].run(states[pid], max_batches=1)
+        rows = {}
+        for pid, p in pods.items():
+            for sid, slot in p.routing_table(states[pid]).items():
+                rows[sid] = leaves_with_keys(
+                    tree_map(lambda l: l[slot], states[pid]))
+        return rows, rep
+
+    moved, rep = run(True)
+    control, _ = run(False)
+    assert rep is not None and rep.ok and len(rep.moved) == 3
+    assert sorted(moved) == sorted(control) == list(range(12))
+    for sid in moved:
+        for k in control[sid]:
+            if k == "drops_unknown":
+                continue  # the pod-scoped ledger stays with the pod
+            assert torch.equal(moved[sid][k], control[sid][k]), (sid, k)
+
+
+def test_merge_kernel_route_matches_the_plain_route(cuda):
+    """``DistributedSummarizer.merge`` on ``gain_static`` (one launch a
+    round) against the same merge on the plain route."""
+    from repro_torch.core.api import make
+    from repro_torch.data import DistributedSummarizer
+    from repro_torch.kernels.rbf_gain import KERNEL_STATIC
+
+    kw = dict(K=12, d=16, T=30, eps=0.1, lengthscale=2.0)
+    algo = make("threesieves", device=cuda, **kw)
+    plain = make("threesieves", backend="torch", device=cuda, **kw)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    X = torch.randn(4 * 256, 16, generator=g, device=cuda)
+    X += 3.0 * torch.arange(4, device=cuda).repeat_interleave(256)[:, None]
+    dist = DistributedSummarizer(algo, shards=4)
+    states = dist.update(dist.init(), X)
+    KERNEL_STATIC.launches = 0
+    ker = dist.merge(states).ld
+    assert KERNEL_STATIC.launches == 12
+    ref = DistributedSummarizer(plain, shards=4).merge(states).ld
+    assert int(ker.n) == int(ref.n) > 1
+    assert torch.equal(ker.feats, ref.feats)
+    torch.testing.assert_close(ker.fval, ref.fval, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ker.Linv, ref.Linv, rtol=1e-5, atol=1e-5)
