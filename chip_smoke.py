@@ -356,6 +356,35 @@ PUBSUB_FRAMES, PUBSUB_READ = 4, 16384
 # phase distributed: shards of the paper stream (P x K = 3,200 pooled
 # candidates, 3.2 MB: the data/distributed.py docstring's sizing)
 DIST_SHARDS = 32
+# phase deepseek: deepseek-v2-lite-16b at published widths and full depth
+# (27 layers: one dense MLA layer, then 26 MLA + MoE layers); slots,
+# prompt tokens, new tokens, timed generates; the teacher-forcing check's
+# (batch, length, prefilled tokens) and its gate, rtol = atol = 3e-2
+# (tests/test_arch_smoke.py:84-92, the reference's own); the gates of two
+# routes' prefill logits, float32 and bf16 (WHISPER_TOL, MAMBA_TOL); the
+# capacity factor at which dispatch cannot drop (E / top_k = 64 / 6: N
+# slots per expert).  Teacher forcing is gated in float32 and printed in
+# bf16: there the rounding alone takes the full-width models past the
+# reference's gate (shares 1.2-2.7 on an H100, dense models too), and it
+# moves some top-k router choices (98 of 3,328 in deepseek's, none in
+# float32); the phases print those flips
+DEEPSEEK_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW, DEEPSEEK_REPS = 8, 512, 32, 3
+DEEPSEEK_TF = (2, 64, 32)
+TF_TOL = 3e-2
+ROUTE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+NO_DROP_CAPACITY = 64 / 6
+# phase archs: the five dense architectures at published widths and full
+# depth, grok-1-314b at published widths cut to GROK_LAYERS of its 64
+# layers (1,179 GiB of float32 parameters do not fit one card), reduced
+# jamba-1.5-large-398b served on the SSD kernel, then the SSD kernel at
+# the layer shape of Jamba's published config (8 B / C groups of 32 heads)
+ARCHS_DENSE = ("qwen2-1.5b", "chatglm3-6b", "phi3-mini-3.8b",
+               "phi-3-vision-4.2b", "mistral-nemo-12b")
+ARCHS_B, ARCHS_PROMPT, ARCHS_NEW = 8, 128, 8
+ARCHS_TF = (1, 16, 8)
+GROK_LAYERS = 2
+JAMBA_SSD_CASE = ("jamba_layer_g8", 2, 4096, 256, 8, 64, 128, 256,
+                  "bfloat16", 1.0)
 DEV = "cuda"
 
 
@@ -634,6 +663,7 @@ def serial_chain(before, after, ms):
 # ------------------------------------------------------------------ phases
 def phase_build(torch):
     from repro_torch.kernels import build
+    from repro_torch.obs import get_registry
     from repro_torch.kernels.flash_attention import KERNEL as FLASH
     from repro_torch.kernels.pod_step import KERNEL as POD
     from repro_torch.kernels.rbf_gain import KERNEL as GAIN
@@ -651,10 +681,16 @@ def phase_build(torch):
     spills = [ln for ln in ptxas
               if "spill" in ln and (" 0 bytes spill stores" not in ln
                                     or " 0 bytes spill loads" not in ln)]
+    # the builds as the metrics registry counted them (kernels/build.py)
+    counted = ("kernel_build_total", "kernel_build_seconds")
+    counters = {f["name"]: {s["labels"]["source"]: s.get("value", s.get("sum"))
+                            for s in f["series"]}
+                for f in get_registry().snapshot().families
+                if f["name"] in counted}
     emit("build", seconds=round(time.perf_counter() - t0, 3),
          per_source_seconds={name: k.build_seconds
                              for name, k in sources.items()},
-         ptxas=ptxas, spills=spills, nvcc=build.nvcc_path())
+         ptxas=ptxas, spills=spills, nvcc=build.nvcc_path(), **counters)
 
 
 def _ptxas_entries(log):
@@ -2143,82 +2179,92 @@ def phase_ssd(torch, gen):
     kernel names); in every case the plain version without the diagonal,
     and in bf16 the kernel fed Adt shifted by one step, must fail the
     check (the margin: the fault's error over the gate)."""
-    from repro_torch.kernels.ssd_chunk import (ROUTES, ssd_chunk_cuda,
-                                               ssd_chunks)
+    from repro_torch.kernels.ssd_chunk import ROUTES
 
-    cases, max_err = [], 0.0
-    for name, b, L, h, g, p, n, q, dtype, decay in SSD_CASES:
-        dt = getattr(torch, dtype)
-        c = L // q
-        X, Adt, B, C = _ssd_inputs(torch, gen, b, L, h, g, p, n, dtype,
-                                   decay)
-        Y, st = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
-        Yr, sr = ssd_chunks(X, Adt, B, C, chunk=q, backend="torch")
-        torch.cuda.synchronize()
-        tol, scaled_tol = SSD_TOL[dtype], SSD_SCALED_TOL[dtype]
-        if Y.dtype != dt or st.dtype != torch.float32 or not (
-                torch.isfinite(Y.float()).all() and torch.isfinite(st).all()):
-            fail(f"ssd {name}: Y {Y.dtype}, states {st.dtype}, or not finite")
-        y_err, y_scaled, y_ok = ssd_errors(torch, Y, Yr, tol)
-        s_err, s_scaled, s_ok = ssd_errors(torch, st, sr, tol)
-        if not (y_ok and s_ok) or max(y_scaled, s_scaled) > scaled_tol:
-            fail(f"ssd {name}: Y off by {y_err} ({y_scaled} of the largest), "
-                 f"states by {s_err} ({s_scaled}); tol {tol} / "
-                 f"{scaled_tol}")
-        controls = {}
-        bad = _without_diagonal(X, B, C, Yr)
-        controls["strict_tril"] = ssd_errors(torch, bad, Yr, tol)
-        del bad
-        if dt == torch.bfloat16:
-            shifted = torch.cat([Adt[:, :1], Adt[:, :-1]], 1)
-            controls["shifted_adt"] = ssd_errors(
-                torch, ssd_chunk_cuda(X, shifted, B, C, chunk=q)[0], Yr, tol)
-            del shifted
-        for fault, (c_err, c_scaled, c_ok) in controls.items():
-            if c_ok and c_scaled <= scaled_tol:
-                fail(f"ssd {name}: the check passes the {fault} fault "
-                     f"({c_err}, {c_scaled} of the largest)")
-        max_err = max(max_err, y_err, s_err)
-        flops, nbytes = ssd_work(b, h, g, c, q, p, n, X.element_size())
-        peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
-        b_ms, b_by = bound(flops, nbytes, peak)
-        per_head_ms, per_head_by = bound(*ssd_work(b, h, h, c, q, p, n,
-                                                   X.element_size()), peak)
-        seen = {}
-        ms = device_ms(torch, lambda: ssd_chunk_cuda(X, Adt, B, C, chunk=q),
-                       SSD_KERNELS[::-1] if dtype == "bfloat16"
-                       else SSD_KERNELS, seen=seen)
-        ran = ("tensor-core" if any("mma" in k for k in seen)
-               else "cuda-core")
-        if len(seen) != 1 or not ROUTES[dt].startswith(ran):
-            fail(f"ssd {name}: {dtype} ran {sorted(seen)}, expected the "
-                 f"{ROUTES[dt]} kernel alone")
-        cases.append({
-            "case": name, "shape": [b, L, h, g, p, n, q], "dtype": dtype,
-            "route": ran, "decay": decay,
-            "acum_min": Adt.float().reshape(b, c, q, h).sum(2).min().item(),
-            "y_max_abs_err": y_err, "y_scaled_err": y_scaled,
-            "y_share_differing": (Y != Yr).float().mean().item(),
-            "state_max_abs_err": s_err, "state_scaled_err": s_scaled,
-            "tol": tol, "scaled_tol": scaled_tol,
-            "max_abs_want": Yr.float().abs().max().item(),
-            **{f"control_{k}_max_abs_err": v[0] for k, v in controls.items()},
-            **{f"control_{k}_scaled_err": v[1] for k, v in controls.items()},
-            **{f"control_{k}_margin": v[1] / scaled_tol
-               for k, v in controls.items()},
-            "ms": ms, "call_ms": timed_ms(torch, lambda: ssd_chunks(
-                X, Adt, B, C, chunk=q, backend="cuda")),
-            "plain_ms": timed_ms(torch, lambda: ssd_chunks(
-                X, Adt, B, C, chunk=q, backend="torch")),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bound_per_head_ms": per_head_ms,
-            "bound_per_head_by": per_head_by, "flops": flops,
-            "bytes": nbytes, "tflops": flops / ms / 1e9,
-            "tb_per_s": nbytes / ms / 1e9})
-        del X, Adt, B, C, Y, st, Yr, sr
+    cases = [_ssd_case(torch, gen, case) for case in SSD_CASES]
+    max_err = max(max(c["y_max_abs_err"], c["state_max_abs_err"])
+                  for c in cases)
     emit("ssd", cases=cases, max_abs_err=max_err, library=None,
          routes={str(k).replace("torch.", ""): v for k, v in ROUTES.items()})
     return {"max_abs_err": max_err, **cases[0]}
+
+
+def _ssd_case(torch, gen, case):
+    """One case of SSD_CASES (or the Jamba layer's): the kernel against
+    its plain version under the gates, the planted faults, the route
+    from the profiler, the times and both bounds -> the case's line."""
+    from repro_torch.kernels.ssd_chunk import (ROUTES, ssd_chunk_cuda,
+                                               ssd_chunks)
+
+    name, b, L, h, g, p, n, q, dtype, decay = case
+    dt = getattr(torch, dtype)
+    c = L // q
+    X, Adt, B, C = _ssd_inputs(torch, gen, b, L, h, g, p, n, dtype,
+                               decay)
+    Y, st = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
+    Yr, sr = ssd_chunks(X, Adt, B, C, chunk=q, backend="torch")
+    torch.cuda.synchronize()
+    tol, scaled_tol = SSD_TOL[dtype], SSD_SCALED_TOL[dtype]
+    if Y.dtype != dt or st.dtype != torch.float32 or not (
+            torch.isfinite(Y.float()).all() and torch.isfinite(st).all()):
+        fail(f"ssd {name}: Y {Y.dtype}, states {st.dtype}, or not finite")
+    y_err, y_scaled, y_ok = ssd_errors(torch, Y, Yr, tol)
+    s_err, s_scaled, s_ok = ssd_errors(torch, st, sr, tol)
+    if not (y_ok and s_ok) or max(y_scaled, s_scaled) > scaled_tol:
+        fail(f"ssd {name}: Y off by {y_err} ({y_scaled} of the largest), "
+             f"states by {s_err} ({s_scaled}); tol {tol} / "
+             f"{scaled_tol}")
+    controls = {}
+    bad = _without_diagonal(X, B, C, Yr)
+    controls["strict_tril"] = ssd_errors(torch, bad, Yr, tol)
+    del bad
+    if dt == torch.bfloat16:
+        shifted = torch.cat([Adt[:, :1], Adt[:, :-1]], 1)
+        controls["shifted_adt"] = ssd_errors(
+            torch, ssd_chunk_cuda(X, shifted, B, C, chunk=q)[0], Yr, tol)
+        del shifted
+    for fault, (c_err, c_scaled, c_ok) in controls.items():
+        if c_ok and c_scaled <= scaled_tol:
+            fail(f"ssd {name}: the check passes the {fault} fault "
+                 f"({c_err}, {c_scaled} of the largest)")
+    flops, nbytes = ssd_work(b, h, g, c, q, p, n, X.element_size())
+    peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_FP32
+    b_ms, b_by = bound(flops, nbytes, peak)
+    per_head_ms, per_head_by = bound(*ssd_work(b, h, h, c, q, p, n,
+                                               X.element_size()), peak)
+    seen = {}
+    ms = device_ms(torch, lambda: ssd_chunk_cuda(X, Adt, B, C, chunk=q),
+                   SSD_KERNELS[::-1] if dtype == "bfloat16"
+                   else SSD_KERNELS, seen=seen)
+    ran = ("tensor-core" if any("mma" in k for k in seen)
+           else "cuda-core")
+    if len(seen) != 1 or not ROUTES[dt].startswith(ran):
+        fail(f"ssd {name}: {dtype} ran {sorted(seen)}, expected the "
+             f"{ROUTES[dt]} kernel alone")
+    out = {
+        "case": name, "shape": [b, L, h, g, p, n, q], "dtype": dtype,
+        "route": ran, "decay": decay,
+        "acum_min": Adt.float().reshape(b, c, q, h).sum(2).min().item(),
+        "y_max_abs_err": y_err, "y_scaled_err": y_scaled,
+        "y_share_differing": (Y != Yr).float().mean().item(),
+        "state_max_abs_err": s_err, "state_scaled_err": s_scaled,
+        "tol": tol, "scaled_tol": scaled_tol,
+        "max_abs_want": Yr.float().abs().max().item(),
+        **{f"control_{k}_max_abs_err": v[0] for k, v in controls.items()},
+        **{f"control_{k}_scaled_err": v[1] for k, v in controls.items()},
+        **{f"control_{k}_margin": v[1] / scaled_tol
+           for k, v in controls.items()},
+        "ms": ms, "call_ms": timed_ms(torch, lambda: ssd_chunks(
+            X, Adt, B, C, chunk=q, backend="cuda")),
+        "plain_ms": timed_ms(torch, lambda: ssd_chunks(
+            X, Adt, B, C, chunk=q, backend="torch")),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bound_per_head_ms": per_head_ms,
+        "bound_per_head_by": per_head_by, "flops": flops,
+        "bytes": nbytes, "tflops": flops / ms / 1e9,
+        "tb_per_s": nbytes / ms / 1e9}
+    del X, Adt, B, C, Y, st, Yr, sr
+    return out
 
 
 class _SsdRoute:
@@ -3395,6 +3441,460 @@ def phase_distributed(torch, gen, paper):
             "gain_static": launches["gain_static"], "max_abs_err": err}
 
 
+# ---------------------------- this slice: MoE, MLA and every architecture
+def _all_kernels():
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.pod_step import KERNEL as POD
+    from repro_torch.kernels.rbf_gain import KERNEL as GAIN
+    from repro_torch.kernels.rbf_gain import KERNEL_STATIC as STATIC
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+
+    return (GAIN, STATIC, POD, FLASH, SSD)
+
+
+def _free(torch):
+    """Release what the last model left on the card before the next one
+    is built."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _gib(nbytes):
+    return nbytes / 2 ** 30
+
+
+def _with_dtype(model, params, dtype, **moe):
+    """A model of ``model``'s config in ``dtype`` (and MoE fields
+    ``moe``) on the same parameters (no copy)."""
+    import dataclasses
+
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
+    out = Model(cfg, device=DEV)
+    out.load(params)
+    return out
+
+
+class _RouteLog:
+    """Record the top-k experts of every MoE router call
+    (``models.moe._route``) for a block, one (tokens, k) sorted tensor a
+    layer call."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+
+        self.saved, self.idx = moe._route, []
+
+        def recording(p, x, cfg):
+            out = self.saved(p, x, cfg)
+            k = out[1].shape[-1]
+            self.idx.append(torch.sort(out[1].reshape(-1, k), -1).values)
+            return out
+
+        moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self.saved
+
+
+def _flips(a, b):
+    """-> ((token, layer) router choices that differ between two logs of
+    the same tokens, choices compared)."""
+    return (sum(int((x != y).any(-1).sum()) for x, y in zip(a, b)),
+            sum(x.shape[0] for x in a))
+
+
+def _teacher_forcing(torch, model, params, B, S, pre, gen):
+    """Teacher forcing, the reference's gate (tests/test_arch_smoke.py:
+    69-92): prefill ``pre`` tokens, then decode positions pre..S-1 on the
+    true tokens; the prefill's last logits and every decode step's within
+    rtol = atol = TF_TOL of ``train_logits`` at the same position.  Holds
+    the cache path (MLA: the absorbed decode) against the full forward
+    (MLA: the decompressed path).  Gated in float32; in the config's
+    bf16 printed beside it with the MoE router choices that differ
+    between the two paths (bf16 rounding moves a top-k choice, a step in
+    the function no fixed tolerance bounds) -> {dtype: readings}."""
+    from repro_torch.models import init_cache
+
+    cfg = model.cfg
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    out = {}
+    for dtype in ("float32", cfg.dtype):
+        m = _with_dtype(model, params, dtype)
+        with torch.inference_mode():
+            with _RouteLog() as full_log:
+                full, _ = m.train_logits(params, {"tokens": tokens})
+            caches = init_cache(m.cfg, B, S, device=DEV)
+            with _RouteLog() as path_log:
+                last, caches, _ = m.prefill(
+                    params, {"tokens": tokens[:, :pre]}, caches)
+                steps = [(pre - 1, last)]
+                for t in range(pre, S):
+                    logits, caches = m.decode_step(
+                        params, tokens[:, t:t + 1], caches, t)
+                    steps.append((t, logits))
+        err = share = 0.0
+        for t, logits in steps:
+            got, want = logits.float(), full[:, t].float()
+            if not torch.isfinite(got).all():
+                fail(f"{cfg.name} {dtype}: non-finite decode logits at "
+                     f"position {t}")
+            d = (got - want).abs()
+            err = max(err, d.max().item())
+            share = max(share, (d / (TF_TOL + TF_TOL * want.abs()))
+                        .max().item())
+        # the path's router calls: the prefill's, then one per step, each
+        # against the full forward's choices at the same positions
+        L = len(full_log.idx)
+        k = full_log.idx[0].shape[-1] if L else 0
+        ref = [f.reshape(B, S, k) for f in full_log.idx]
+        want_idx = ([r[:, :pre].reshape(-1, k) for r in ref]
+                    + [r[:, t] for t in range(pre, S) for r in ref])
+        flips = _flips(path_log.idx, want_idx)
+        gated = dtype == "float32"
+        if gated and share > 1.0:
+            fail(f"{cfg.name}: float32 teacher-forced decode off the train "
+                 f"logits by {err} ({share} of the rtol = atol = {TF_TOL} "
+                 "gate)")
+        out[dtype] = {"max_abs_err": err, "gate_share": share,
+                      "router_flips": flips, "gated": gated}
+        del m, full, caches, steps
+    return {"batch": B, "length": S, "prefilled": pre, "tol": TF_TOL, **out}
+
+
+class _DropCount:
+    """Wrap ``models.moe.dispatch_slots`` for a block: the (token, choice)
+    pairs the dispatch drops and routes, summed on the card."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.saved, self.sums = moe.dispatch_slots, []
+
+        def counting(idx, n_experts, cap):
+            out = self.saved(idx, n_experts, cap)
+            self.sums.append(((~out[2]).sum(), out[2].numel()))
+            return out
+
+        moe.dispatch_slots = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.dispatch_slots = self.saved
+
+    def counts(self):
+        """-> (dropped pairs, routed pairs)."""
+        return (sum(int(d) for d, _ in self.sums),
+                sum(n for _, n in self.sums))
+
+
+def _check_tokens(torch, out, prompts, vocab, what):
+    B, P = prompts.shape
+    if out.shape[0] != B or not torch.equal(out[:, :P], prompts):
+        fail(f"{what}: output {tuple(out.shape)} does not extend the "
+             "prompts")
+    if int(out.min()) < 0 or int(out.max()) >= vocab:
+        fail(f"{what}: a token outside the vocabulary")
+
+
+def _prefill_logits(torch, model, params, batch, max_seq):
+    from repro_torch.models import init_cache
+    from repro_torch.serve import make_prefill_step
+
+    B = batch["tokens"].shape[0]
+    caches = init_cache(model.cfg, B, max_seq, device=DEV)
+    with torch.inference_mode():
+        logits = make_prefill_step(model)(params, batch, caches)[0]
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{model.cfg.name}: non-finite prefill logits")
+    return logits.float()
+
+
+def _routes_vs(torch, model, ref_model, params, prompts, max_seq, what,
+               ref_route=None):
+    """Prefill logits of two routes of one model within ROUTE_TOL, in
+    float32 and in the config's bf16, with the router choices that
+    differ -> {dtype: readings}."""
+    import contextlib
+
+    out = {}
+    for dtype in ("float32", model.cfg.dtype):
+        m = _with_dtype(model, params, dtype)
+        r = _with_dtype(ref_model, params, dtype)
+        with _RouteLog() as log:
+            got = _prefill_logits(torch, m, params, {"tokens": prompts},
+                                  max_seq)
+        with _RouteLog() as ref_log, ref_route or contextlib.nullcontext():
+            want = _prefill_logits(torch, r, params, {"tokens": prompts},
+                                   max_seq)
+        err = (got - want).abs().max().item()
+        if err > ROUTE_TOL[dtype]:
+            fail(f"{what}: {dtype} prefill logits off by {err} (tol "
+                 f"{ROUTE_TOL[dtype]})")
+        out[dtype] = {"prefill_logits_max_abs_err": err,
+                      "tol": ROUTE_TOL[dtype],
+                      "router_flips": _flips(log.idx, ref_log.idx)}
+    return out
+
+
+def _tokens_vs(torch, model, ref_model, params, prompts, N, max_seq, what,
+               ref_route=None):
+    """Greedy tokens of ``model`` against ``ref_model``'s (generated inside
+    ``ref_route``, a context) under the near-tie rule (TOKEN_TIE on the
+    reference's top-2 gap) -> (rows equal, near ties, smallest reference
+    gap)."""
+    import contextlib
+
+    from repro_torch.serve import ServeDriver
+
+    B, P = prompts.shape
+    out = ServeDriver(model=model, max_seq=max_seq, batch=B).generate(
+        params, prompts, N)
+    gaps = []
+    ref = ServeDriver(model=ref_model, max_seq=max_seq, batch=B)
+    ref._prefill = _gap_recorder(torch, ref._prefill, gaps, 0)
+    ref._decode = _gap_recorder(torch, ref._decode, gaps, 1)
+    with ref_route or contextlib.nullcontext():
+        want = ref.generate(params, prompts, N)
+    _check_tokens(torch, out, prompts, model.cfg.vocab, what)
+    ties = _first_diff(out, want, P, gaps, what)
+    return {"tokens_equal_rows": int((out == want).all(1).sum()),
+            "near_ties": ties, "min_ref_gap": min(min(g) for g in gaps)}
+
+
+def phase_deepseek(torch, gen, seed):
+    """deepseek-v2-lite-16b at published widths and full depth serving 8
+    requests of 512 prompt tokens through ``ServeDriver.generate`` (32
+    new tokens), float32 master parameters and bf16 activations, MoE on
+    the config's ``impl="dense"``; the teacher-forcing gate (the MLA
+    absorbed decode against the decompressed path); dispatch at a
+    capacity that cannot drop against dense; dispatch at the config's
+    capacity factor, its drops and tokens/s.  The path meets no CUDA
+    kernel of the port: MLA runs the plain chunked attention and the
+    MoE plain matrix products, as in the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeDriver
+    from repro_torch.tree import leaves_with_keys
+
+    kernels = _all_kernels()
+    B, P, N = DEEPSEEK_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW
+    cfg = get_config("deepseek-v2-lite-16b", use_pallas_attention=True)
+    _free(torch)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+    n_params = sum(t.numel() for t in leaves_with_keys(params).values())
+    param_gib = _gib(torch.cuda.memory_allocated() - resident)
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    max_seq = P + N + 8
+    driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
+    out = driver.generate(params, prompts, N)  # warms
+    _check_tokens(torch, out, prompts, cfg.vocab, "deepseek")
+
+    # the main path: timed generates, every count set to 0 before each
+    timing, lns = _generates(torch, driver, kernels, lambda: (
+        driver.generate(params, prompts, N)), N, DEEPSEEK_REPS)
+    if any(v for ln in lns for v in ln.values()):
+        fail(f"deepseek: a CUDA kernel launched on a path that has none: "
+             f"{lns}")
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, by = _profile(torch, lambda: driver.generate(params, prompts,
+                                                             N))
+    tf = _teacher_forcing(torch, model, params, *DEEPSEEK_TF, gen)
+
+    # dispatch at a capacity that cannot drop against dense: prefill
+    # logits in float32 and bf16, float32 tokens under the near-tie rule
+    # (bf16 holds logits only, as in whisper), no pair dropped
+    no_drop = dict(impl="dispatch", capacity_factor=NO_DROP_CAPACITY)
+    with _DropCount() as dc:
+        routes = _routes_vs(torch, _with_dtype(model, params, cfg.dtype,
+                                               **no_drop),
+                            model, params, prompts, max_seq,
+                            "deepseek dispatch against dense")
+        tokens = _tokens_vs(torch, _with_dtype(model, params, "float32",
+                                               **no_drop),
+                            _with_dtype(model, params, "float32"), params,
+                            prompts, N, max_seq, "deepseek dispatch float32")
+    drops = dc.counts()
+    if drops[0]:
+        fail(f"deepseek: dispatch at capacity factor {NO_DROP_CAPACITY} "
+             f"dropped {drops[0]} of {drops[1]} pairs")
+
+    # the config's capacity factor: drops and tokens/s, not gated
+    capped = _with_dtype(model, params, cfg.dtype, impl="dispatch")
+    cdrv = ServeDriver(model=capped, max_seq=max_seq, batch=B)
+    cdrv.generate(params, prompts, N)  # warms
+    with _DropCount() as dcap:
+        cap_timing, _ = _generates(torch, cdrv, kernels, lambda: (
+            cdrv.generate(params, prompts, N)), N, 1)
+    emit("deepseek", arch=cfg.name, layers=cfg.n_layers,
+         layers_published=27, cut=None, params=n_params,
+         params_analytic=cfg.param_count(),
+         active_params=cfg.active_param_count(), param_gib=param_gib,
+         dtype=cfg.dtype, param_dtype=cfg.param_dtype, impl=cfg.moe.impl,
+         batch=B, prompt=P, new_tokens=N, generates=len(lns),
+         launches=lns[0], **timing, peak_mem_gib=_gib(peak),
+         profile={"wall_ms": wall, "device_busy_ms": busy,
+                  "idle_share": 1 - busy / wall,
+                  "top": [{"ms": t, "count": c, "kernel": k}
+                          for t, c, k in by[:12]]},
+         teacher_forcing=tf,
+         dispatch_no_drop={"capacity_factor": NO_DROP_CAPACITY,
+                           "dropped_routed_pairs": drops, **routes,
+                           "float32_tokens": tokens},
+         dispatch_capped={"capacity_factor": cfg.moe.capacity_factor,
+                          "dropped_routed_pairs": dcap.counts(),
+                          **cap_timing})
+    del model, params, driver, capped, cdrv
+    _free(torch)
+    return {"tokens_per_s": timing["tokens_per_s"]["median"]}
+
+
+def _serve_arch(torch, gen, seed, cfg, *, teacher, cut=None):
+    """One generate of ARCHS_B x ARCHS_PROMPT tokens (ARCHS_NEW new) after
+    a warm-up one, prefill and decode timed by CUDA events, the counts set
+    to 0 before it; the teacher-forcing gate unless exempt; peak memory."""
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeDriver
+    from repro_torch.tree import leaves_with_keys
+
+    B, P, N = ARCHS_B, ARCHS_PROMPT, ARCHS_NEW
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+    n_params = sum(t.numel() for t in leaves_with_keys(params).values())
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    fe = ({"prefix": torch.randn(B, cfg.n_prefix, cfg.d_model, generator=gen,
+                                 device=DEV).to(cfg.activation_dtype)}
+          if cfg.n_prefix else None)
+    driver = ServeDriver(model=model, max_seq=P + N + cfg.n_prefix + 8,
+                         batch=B)
+    out = driver.generate(params, prompts, N, frontend=fe)  # warms
+    _check_tokens(torch, out, prompts, cfg.vocab, cfg.name)
+    timing, lns = _generates(torch, driver, _all_kernels(), lambda: (
+        driver.generate(params, prompts, N, frontend=fe)), N, 1)
+    if any(v for v in lns[0].values()):
+        fail(f"{cfg.name}: a CUDA kernel launched on a path that has none: "
+             f"{lns[0]}")
+    peak = torch.cuda.max_memory_allocated()
+    tf = (_teacher_forcing(torch, model, params, *ARCHS_TF, gen)
+          if teacher else "exempt: the stub prefix shifts the positions "
+          "(tests/test_arch_smoke.py:73-74)")
+    emit("archs", arch=cfg.name, layers=cfg.n_layers, cut=cut,
+         params=n_params, params_analytic=cfg.param_count(), batch=B,
+         prompt=P, prefix_rows=cfg.n_prefix, new_tokens=N,
+         launches=lns[0], prefill_ms=timing["prefill_ms"]["median"],
+         decode_ms_per_token=timing["decode_ms_per_token"]["median"],
+         generate_ms=timing["generate_ms"]["median"],
+         tokens_per_s=timing["tokens_per_s"]["median"],
+         peak_mem_gib=_gib(peak), teacher_forcing=tf)
+    del model, params, driver
+    _free(torch)
+
+
+def _serve_jamba(torch, gen, seed):
+    """Reduced jamba-1.5-large-398b on the card: its Mamba layers on the
+    SSD kernel (B / C in 2 groups), its MoE layers in the ``"DE"``
+    pattern; in bf16 (the config's dtype) every SSD launch of a counted
+    generate on the tensor-core kernel; the kernel route against the
+    plain SSD route in prefill logits (float32 and bf16) and in float32
+    tokens under the near-tie rule -> the launches of that generate."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeDriver
+
+    B, P, N = ARCHS_B, ARCHS_PROMPT, ARCHS_NEW
+    cfg = get_config("jamba-1.5-large-398b", reduced=True,
+                     use_pallas_attention=True)
+    n_mamba = sum(cfg.layer_kind(i) == "M" for i in range(cfg.n_layers))
+    model = Model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    max_seq = P + N + 8
+    driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
+    calls = []
+    with _SsdRoute(_recording_ssd(calls)):
+        out = driver.generate(params, prompts, N)  # warms
+    _check_tokens(torch, out, prompts, cfg.vocab, "jamba")
+    if len(calls) != n_mamba or any(c["groups"] != cfg.ssm.n_groups
+                                    for c in calls):
+        fail(f"jamba: the SSD route was handed {calls}; expected "
+             f"{n_mamba} calls with B / C in {cfg.ssm.n_groups} groups")
+    routed = dict(ROUTE_LAUNCHES)
+    timing, lns = _generates(torch, driver, _all_kernels(), lambda: (
+        driver.generate(params, prompts, N)), N, 1)
+    routes = {r: ROUTE_LAUNCHES[r] - routed[r] for r in ROUTE_LAUNCHES}
+    if lns[0]["ssd_chunk"] != n_mamba or routes["tensor-core"] != n_mamba:
+        fail(f"jamba: launches {lns[0]}, routes {routes}; expected "
+             f"{n_mamba} ssd_chunk on the tensor-core kernel")
+    logits = _routes_vs(torch, model, model, params, prompts, max_seq,
+                        "jamba kernel route against the plain SSD route",
+                        ref_route=_SsdRoute(_plain_ssd))
+    f32 = _with_dtype(model, params, "float32")
+    tokens = _tokens_vs(torch, f32, f32, params, prompts, N, max_seq,
+                        "jamba float32", ref_route=_SsdRoute(_plain_ssd))
+    emit("archs", arch=cfg.name, layers=cfg.n_layers, cut="reduced widths",
+         batch=B, prompt=P, new_tokens=N, launches=lns[0],
+         ssd_routes=routes, ssd_groups=cfg.ssm.n_groups, **logits,
+         float32_tokens=tokens, prefill_ms=timing["prefill_ms"]["median"],
+         decode_ms_per_token=timing["decode_ms_per_token"]["median"],
+         tokens_per_s=timing["tokens_per_s"]["median"])
+    del model, params, driver, f32
+    _free(torch)
+    return lns[0]["ssd_chunk"]
+
+
+def phase_archs(torch, gen, seed):
+    """The five dense architectures at published widths and full depth,
+    grok-1-314b at published widths cut to GROK_LAYERS layers, reduced
+    jamba-1.5-large-398b on the SSD kernel, then the SSD kernel at the
+    layer shape of Jamba's published config against its plain version."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    for arch in ARCHS_DENSE:
+        _serve_arch(torch, gen, seed, get_config(
+            arch, use_pallas_attention=True),
+            teacher=arch != "phi-3-vision-4.2b")
+    grok = get_config("grok-1-314b", use_pallas_attention=True)
+    cut = {"layers": GROK_LAYERS, "of": grok.n_layers,
+           "why": f"{grok.param_count()} float32 parameters "
+                  f"({_gib(4 * grok.param_count()):.0f} GiB) do not fit one "
+                  "card; every width is the published one"}
+    print(f"grok-1-314b: cut to {GROK_LAYERS} of {grok.n_layers} layers at "
+          f"published widths ({cut['why']})", flush=True)
+    _serve_arch(torch, gen, seed, dataclasses.replace(
+        grok, n_layers=GROK_LAYERS), teacher=True, cut=cut)
+    jamba_launches = _serve_jamba(torch, gen, seed)
+    case = _ssd_case(torch, gen, JAMBA_SSD_CASE)
+    emit("archs_ssd", **case)
+    return {"jamba_launches": jamba_launches, **case,
+            "max_abs_err": max(case["y_max_abs_err"],
+                               case["state_max_abs_err"])}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3459,6 +3959,9 @@ def main(argv=None):
     handoff = timed("handoff", phase_handoff, torch, gen)
     pubsub = timed("pubsub", phase_pubsub, torch, gen)
     dist = timed("distributed", phase_distributed, torch, gen, paper)
+    # this slice: MoE, MLA and every architecture of the registry
+    timed("deepseek", phase_deepseek, torch, gen, args.seed)
+    archs = timed("archs", phase_archs, torch, gen, args.seed)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -3508,6 +4011,17 @@ def main(argv=None):
          "max_abs_err": ssd["max_abs_err"],
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],
+         "library_ms": None},
+        # the same kernel at the layer shape of Jamba's published config
+        # (8 B / C groups of 32 heads); its launches: the reduced Jamba's
+        # counted generate
+        {"name": "ssd_chunk_jamba_g8", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
+         "launches": archs["jamba_launches"],
+         "max_abs_err": archs["max_abs_err"],
+         "ms": archs["ms"], "plain_ms": archs["plain_ms"],
+         "bound_ms": archs["bound_ms"], "bound_by": archs["bound_by"],
          "library_ms": None},
     ]
     for k in kernels:

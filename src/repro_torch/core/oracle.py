@@ -21,12 +21,22 @@ Backends:
             ``jnp`` branch;
     cuda    the kernel; a CPU tensor raises.
 
+``resolve_backend(backend, device)`` names the route a backend takes for
+inputs on ``device``: ``cuda`` (the kernel), ``plain`` (the kernel's
+plain version: ``auto`` on a CPU tensor) or ``torch``.  The process
+default (``make(backend=None)``) is ``REPRO_TORCH_ORACLE_BACKEND``, else
+``auto``; the variable is the port's own, so an environment set up for
+the JAX package's ``pallas`` / ``jnp`` cannot reach it.
+
 There is no fallback between them: a kernel that cannot build or launch
-raises.
+raises, and where the reference degrades an explicit kernel request to
+its plain path with a warning (``pallas`` off the TPU), the port raises
+``ValueError``; so it has no ``backend_fallback_total`` to record.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -37,6 +47,34 @@ from repro_torch.kernels.rbf_gain import (fused_gains, fused_gains_traced,
 from .functions import KernelConfig, KernelParams
 
 BACKENDS = ("auto", "torch", "cuda")
+_ENV_VAR = "REPRO_TORCH_ORACLE_BACKEND"
+
+
+def default_backend() -> str:
+    """Process-wide default: ``REPRO_TORCH_ORACLE_BACKEND``, else auto."""
+    backend = os.environ.get(_ENV_VAR, "auto")
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"{_ENV_VAR}={backend!r} invalid; choose from {BACKENDS}")
+    return backend
+
+
+def resolve_backend(backend: str, device) -> str:
+    """The route ``backend`` takes for inputs on ``device``: ``cuda``
+    (the kernel), ``plain`` (``auto`` on a CPU tensor: the kernel's plain
+    version) or ``torch``.  An explicit ``cuda`` for a CPU tensor raises
+    ``ValueError``: the port never falls back."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} invalid; choose from "
+                         f"{BACKENDS}")
+    on_card = torch.device(device).type == "cuda"
+    if backend == "auto":
+        return "cuda" if on_card else "plain"
+    if backend == "cuda" and not on_card:
+        raise ValueError("oracle backend 'cuda' needs CUDA tensors, got "
+                         f"them on {device}; the port does not fall back "
+                         "to the plain version")
+    return backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +95,11 @@ class GainOracle:
             raise ValueError(f"backend {self.backend!r} invalid; choose "
                              f"from {BACKENDS}")
 
+    def resolved(self, device) -> str:
+        """The route of this oracle's backend for inputs on ``device``
+        (``resolve_backend``)."""
+        return resolve_backend(self.backend, device)
+
     @property
     def inv2l2(self) -> float:
         """1/(2 l^2) of the static kernel (a by-value kernel constant)."""
@@ -70,16 +113,16 @@ class GainOracle:
         n (I,) -> (I, B), and grouped X (G, B, d) with ``kern`` leaves of
         G elements: run g of the I / G summaries against X[g] with kernel
         g (a pod's slots in one launch) -> (I, B)."""
-        if self.backend == "cuda" and not X.is_cuda:
-            raise ValueError("oracle backend 'cuda' needs CUDA tensors, got "
-                             f"X on {X.device}")
+        # cuda and plain both go through the kernel wrappers, which take
+        # the kernel on a CUDA tensor and its plain version on the CPU
+        route = self.resolved(X.device)
         if kern is None:
-            if self.backend == "torch":
+            if route == "torch":
                 return self._static_gains(feats, linv, n, X)
             return fused_gains(X, feats, linv, n, a=self.a,
                                inv2l2=self.inv2l2,
                                kind=self.kernel.kind).to(self.dtype)
-        if self.backend == "torch":
+        if route == "torch":
             return gain_traced_ref(X, feats, linv, n, kern,
                                    a=self.a).to(self.dtype)
         return fused_gains_traced(X, feats, linv, n, kern,
@@ -105,6 +148,7 @@ class GainOracle:
 
 def make(kernel: KernelConfig, a: float = 1.0, *, backend: str | None = None,
          dtype: torch.dtype = torch.float32) -> GainOracle:
-    """Build a ``GainOracle``; ``backend=None`` means ``auto``."""
-    return GainOracle(kernel=kernel, a=a, backend=backend or "auto",
-                      dtype=dtype)
+    """Build a ``GainOracle``; ``backend=None`` reads the process default
+    (``default_backend``)."""
+    return GainOracle(kernel=kernel, a=a,
+                      backend=backend or default_backend(), dtype=dtype)

@@ -12,6 +12,11 @@ per source at once.
 The C entry points take plain pointers and return ``cudaGetLastError()``
 after the launch; the wrappers raise on a non-zero code.  Nothing here
 runs at import time.
+
+Each ``nvcc`` run that builds a library is a stall of its caller, as a
+compile is: it is counted in ``kernel_build_total`` and its seconds in
+``kernel_build_seconds`` (labelled by source) in the default metrics
+registry (``repro_torch.obs``); a library found built counts nothing.
 """
 from __future__ import annotations
 
@@ -113,8 +118,10 @@ def build_all(kernels: List[CudaKernel]) -> None:
         failures = []
         for ks, out, tmp, t0, p in procs:
             log, _ = p.communicate()
+            seconds = time.perf_counter() - t0
+            _record_build(ks[0].source.name, seconds)
             for k in ks:
-                k.build_seconds = time.perf_counter() - t0
+                k.build_seconds = seconds
                 k.ptxas_log = log
             if p.returncode != 0:
                 failures.append(f"{ks[0].source.name} (nvcc exit "
@@ -125,6 +132,18 @@ def build_all(kernels: List[CudaKernel]) -> None:
                 k._bind(out)
         if failures:
             raise RuntimeError("CUDA build failed: " + "\n".join(failures))
+
+
+def _record_build(source: str, seconds: float) -> None:
+    from repro_torch.obs import get_registry
+
+    reg = get_registry()
+    if not reg.enabled:
+        return
+    reg.counter("kernel_build_total", "nvcc builds of a CUDA source",
+                ("source",)).labels(source=source).inc()
+    reg.histogram("kernel_build_seconds", "nvcc build durations",
+                  ("source",)).labels(source=source).observe(seconds)
 
 
 def check(kernel: CudaKernel, err: int, what: str) -> None:

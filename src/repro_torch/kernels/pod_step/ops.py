@@ -21,7 +21,16 @@ Backends:
             plain version on the CPU);
     torch   the plain per-slot loop on any device;
     cuda    the kernels; CPU tensors, and an algorithm with no kernel,
-            raise.
+            raise ``ValueError`` (the reference degrades both to its
+            plain path with a warning; the port never falls back, so it
+            records no ``backend_fallback_total``).
+
+``resolve(backend, algo, device=)`` names the route: ``cuda`` (the
+algorithm's kernels), ``slots`` (``run_slots`` on the objective's own
+gain oracle) or ``torch`` (the per-slot loop).  ``backend=None`` reads
+the process default, ``REPRO_TORCH_PODSTEP_BACKEND``, else ``auto``: the
+port's own variable, which an environment set up for the JAX package
+cannot reach.
 
 Unlike the JAX wrapper there is no lane/sublane padding and no ``C < 2``
 detour: the CUDA kernel masks its own edges and launches at C = 1 too.
@@ -29,6 +38,7 @@ detour: the CUDA kernel masks its own edges and launches at C = 1 too.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -40,11 +50,47 @@ from .kernel import pod_step_cuda
 from .ref import pod_step_ref
 
 BACKENDS = ("auto", "torch", "cuda")
+_ENV_VAR = "REPRO_TORCH_PODSTEP_BACKEND"
+
+
+def default_backend() -> str:
+    """Process-wide default: ``REPRO_TORCH_PODSTEP_BACKEND``, else auto."""
+    backend = os.environ.get(_ENV_VAR, "auto")
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"{_ENV_VAR}={backend!r} invalid; choose from {BACKENDS}")
+    return backend
 
 
 def fusable(algo) -> bool:
     """Whether ``algo`` has a fused pod-step kernel."""
     return isinstance(algo, ThreeSieves)
+
+
+def resolve(backend: str | None, algo, *, device) -> str:
+    """The route a pod step of ``algo`` on ``device`` takes: ``cuda``,
+    ``slots`` or ``torch`` (module docstring); an explicit ``cuda`` that
+    cannot be honoured raises ``ValueError`` with the reason."""
+    backend = default_backend() if backend is None else backend
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} invalid; choose from "
+                         f"{BACKENDS}")
+    on_card = torch.device(device).type == "cuda"
+    stacked = isinstance(algo, StackedSieve)
+    if backend == "cuda":
+        if not on_card:
+            raise ValueError("pod_step backend 'cuda' needs CUDA tensors, "
+                             f"got chunks on {device}")
+        if not (fusable(algo) or stacked):
+            raise ValueError(f"{type(algo).__name__} has no pod-step "
+                             "kernel (ThreeSieves and the stacked sieves "
+                             "have); the port does not fall back")
+        return "cuda"
+    if backend == "auto" and stacked:
+        return "slots"
+    if backend == "auto" and fusable(algo) and on_card:
+        return "cuda"
+    return "torch"
 
 
 def _tables(state: TSState, counts: torch.Tensor, C: int):
@@ -61,7 +107,7 @@ def _tables(state: TSState, counts: torch.Tensor, C: int):
 
 
 def pod_step(algo, state, chunks: torch.Tensor,
-             counts: torch.Tensor, *, backend: str = "auto",
+             counts: torch.Tensor, *, backend: str | None = None,
              tier: str | None = None, window: int | None = None):
     """Advance every pod session by one chunk, in place; returns ``state``.
 
@@ -70,24 +116,14 @@ def pod_step(algo, state, chunks: torch.Tensor,
     (``kernel.layout`` chooses it from K and d); every layout gives the
     same bits.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} invalid; choose from "
-                         f"{BACKENDS}")
-    if backend == "cuda" and not chunks.is_cuda:
-        raise ValueError("pod_step backend 'cuda' needs CUDA tensors, got "
-                         f"chunks on {chunks.device}")
-    if backend == "torch" or not (fusable(algo)
-                                  or isinstance(algo, StackedSieve)):
-        if backend == "cuda":
-            raise ValueError(f"{type(algo).__name__} has no pod-step kernel")
+    route = resolve(backend, algo, device=chunks.device)
+    if route == "torch":
         return copy_into(state, pod_step_ref(algo, state, chunks, counts))
     if isinstance(algo, StackedSieve):
-        if backend == "cuda":  # the gain kernel whatever the objective says
+        if route == "cuda":  # the gain kernel whatever the objective says
             algo = dataclasses.replace(
                 algo, f=dataclasses.replace(algo.f, backend="cuda"))
         return algo.run_slots(state, chunks, counts)
-    if not chunks.is_cuda:
-        return copy_into(state, pod_step_ref(algo, state, chunks, counts))
     C = chunks.shape[1]
     ints, flts = _tables(state, counts, C)
     ld = state.ld

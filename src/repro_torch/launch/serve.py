@@ -7,6 +7,11 @@ Usage:
         --batch 4 --prompt-len 16 --new-tokens 16 [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --batch 8 --prompt-len 2000 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --batch 8 --prompt-len 512 \
+        --new-tokens 32
+
+``--arch`` takes every id of the registry (``configs.all_archs()``).
 
 ``--device`` defaults to ``cuda`` (and fails without a card); parameters
 come from the port's seeded init (``--seed``).  Full-sequence attention

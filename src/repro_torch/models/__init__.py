@@ -1,6 +1,6 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Port of ``repro.models``: the model stack (attention and Mamba2 layers,
-dense FFNs, the Whisper encoder-decoder)."""
+"""Port of ``repro.models``: the model stack (GQA, MLA and Mamba2 layers,
+dense and MoE FFNs, the Whisper encoder-decoder)."""
 from .config import (EncoderConfig, MLAConfig, MoEConfig, ModelConfig,
                      SSMConfig)
 from .transformer import Model, init_cache, model_spec

@@ -1,6 +1,7 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Port of ``repro.models.attention``: GQA (dense archs) and
-cross-attention (enc-dec).  Three entry modes per layer:
+"""Port of ``repro.models.attention``: GQA (dense archs), MLA
+(DeepSeek-V2) and cross-attention (enc-dec).  Three entry modes per
+layer:
 
   * train    full-sequence attention (``gqa_train``; also the Whisper
              encoder, non-causal)
@@ -11,7 +12,10 @@ cross-attention (enc-dec).  Three entry modes per layer:
 the plain JAX chunked attention is in the reference.  With
 ``cfg.use_pallas_attention`` set, ``gqa_train`` routes to the CUDA
 flash-attention kernel (``kernels.flash_attention``; its plain version
-for a CPU tensor).  MLA waits for the ``ROADMAP.md`` item that ports it.
+for a CPU tensor).  MLA trains and prefills on the decompressed K/V
+through ``chunked_attention`` (qk width 192, v width 128 at DeepSeek-V2's
+widths) and decodes with the absorbed matmuls in float32 against its
+compressed cache (``ckv``, ``krope``).
 
 The KV cache is updated in place and returned (the JAX package returns a
 new, donated buffer).
@@ -25,7 +29,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .config import ModelConfig
-from .layers import ParamDef, apply_rope
+from .layers import ParamDef, apply_norm, apply_rope, norm_spec
 
 NEG = -1e30
 
@@ -54,8 +58,9 @@ def _attend_block(q, k, v, qpos, kv_len, causal):
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, chunk: int = 512, kv_len=None,
                       q_offset: int = 0) -> torch.Tensor:
-    """q (B,S,H,hd), k/v (B,T,Kv,hd) -> (B,S,H,hd), over query chunks so
-    the scores of one chunk, not of the whole sequence, are live."""
+    """q (B,S,H,hd), k (B,T,Kv,hd), v (B,T,Kv,dv) -> (B,S,H,dv), over
+    query chunks so the scores of one chunk, not of the whole sequence,
+    are live (dv may differ from hd: MLA's qk 192 against v 128)."""
     B, S, H, hd = q.shape
     T, Kv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -145,6 +150,98 @@ def gqa_decode(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
     o = chunked_attention(q, cache["k"], cache["v"], causal=False,
                           chunk=cfg.attn_chunk, kv_len=pos + 1)
     return _out(p, o), cache
+
+
+# ------------------------------------------------------------- MLA layer
+def mla_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": ParamDef((d, H, qk_hd), ("fsdp", "heads", None)),
+        "w_dkv": ParamDef((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                          ("fsdp", None)),
+        "ckv_norm": norm_spec(m.kv_lora_rank, "rmsnorm"),
+        "w_uk": ParamDef((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                         (None, "heads", None)),
+        "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim),
+                         (None, "heads", None)),
+        "wo": ParamDef((H, m.v_head_dim, d), ("heads", None, "fsdp")),
+    }
+
+
+def _mla_q_ckv(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
+    m, dt = cfg.mla, x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], pos,
+                        theta=cfg.rope_theta)
+    dkv = x @ p["w_dkv"].to(dt)  # (B, S, lora + rope)
+    ckv = apply_norm(p["ckv_norm"], dkv[..., :m.kv_lora_rank], "rmsnorm")
+    k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], pos,
+                        theta=cfg.rope_theta)[:, :, 0]  # one shared head
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The decompressed path (K and V materialized): train and prefill."""
+    m, dt = cfg.mla, x.dtype
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None, :]
+    q_nope, q_rope, ckv, k_rope = _mla_q_ckv(p, x, pos, cfg)
+    k_nope = torch.einsum("bsl,lhn->bshn", ckv, p["w_uk"].to(dt))
+    v = torch.einsum("bsl,lhn->bshn", ckv, p["w_uv"].to(dt))
+    k_rope_h = k_rope[:, :, None, :].expand(B, S, cfg.n_heads,
+                                            m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope_h], -1)
+    o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(dt))
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device) -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    return {"ckv": torch.zeros((batch, max_seq, m.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_seq, m.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def mla_prefill(p, x: torch.Tensor, cache, cfg: ModelConfig):
+    """The decompressed prompt pass that writes the compressed cache at
+    positions [0, S)."""
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)[None, :]
+    _, _, ckv, k_rope = _mla_q_ckv(p, x, pos, cfg)
+    cache["ckv"][:, :S] = ckv
+    cache["krope"][:, :S] = k_rope
+    return mla_train(p, x, cfg), cache
+
+
+def mla_decode(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
+    """Absorbed-matmul decode: attention in the compressed latent space,
+    W_uk folded into the query and W_uv into the output (DeepSeek-V2
+    section 2.1.2); scores and softmax in float32, keys t <= pos."""
+    m, dt = cfg.mla, x.dtype
+    q_nope, q_rope, ckv, k_rope = _mla_q_ckv(
+        p, x, torch.full((1, 1), pos, device=x.device), cfg)
+    cache["ckv"][:, pos:pos + 1] = ckv
+    cache["krope"][:, pos:pos + 1] = k_rope
+    q_lat = torch.einsum("bshn,lhn->bshl", q_nope, p["w_uk"].to(dt))
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    ckv_f = cache["ckv"].float()
+    s = (torch.einsum("bshl,btl->bhst", q_lat.float(), ckv_f)
+         + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                        cache["krope"].float())) * scale
+    t = torch.arange(cache["ckv"].shape[1], device=x.device)
+    s = torch.where((t <= pos)[None, None, None, :], s,
+                    torch.tensor(NEG, device=x.device))
+    w = torch.exp(s - torch.amax(s, -1, keepdim=True))
+    w = w / torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-30)
+    ctx = torch.einsum("bhst,btl->bshl", w, ckv_f)
+    v_ctx = torch.einsum("bshl,lhv->bshv", ctx.to(dt), p["w_uv"].to(dt))
+    return torch.einsum("bshv,hvd->bsd", v_ctx, p["wo"].to(dt)), cache
 
 
 # ------------------------------------------------------- cross-attention

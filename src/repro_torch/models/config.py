@@ -2,11 +2,10 @@
 """Port of ``repro.models.config``: one composable ``ModelConfig``.
 
 The fields and their defaults are the JAX package's, so a configuration
-means the same in both packages.  The port runs attention layers (``A``)
-and Mamba2 layers (``M``) with dense FFNs (``D``) or none (``-``), and
-the Whisper encoder; MoE FFNs, MLA and leading dense layers raise
-``NotImplementedError`` (``unported``) naming the ``ROADMAP.md`` item
-that ports them.
+means the same in both packages: attention (GQA or MLA) and Mamba2
+layers (``layer_pattern``), dense, MoE or no FFNs (``ffn_pattern``),
+leading dense layers (``first_k_dense``), the Whisper encoder and the
+stub modality prefix.
 """
 from __future__ import annotations
 
@@ -14,9 +13,6 @@ import dataclasses
 from typing import Optional
 
 import torch
-
-ROADMAP_MOE_MLA = ("ROADMAP.md section 1, 'the remaining configs and "
-                   "MoE/MLA'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +127,19 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     @property
+    def is_hybrid(self) -> bool:
+        return "M" in self.layer_pattern and "A" in self.layer_pattern
+
+    @property
+    def is_ssm_only(self) -> bool:
+        return set(self.layer_pattern) == {"M"}
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long contexts: attention-free or mostly SSM."""
+        return "M" in self.layer_pattern
+
+    @property
     def n_blocks(self) -> int:
         rest = self.n_layers - self.first_k_dense
         if rest % self.block_size:
@@ -152,6 +161,15 @@ class ModelConfig:
                           + 2 * self.d_model)
             total += self.d_model
         return total
+
+    def active_param_count(self) -> int:
+        """Parameters one token touches (MoE: its routed experts only)."""
+        total = self.vocab * self.d_model
+        if not self.tie_embeddings:
+            total += self.vocab * self.d_model
+        for i in range(self.n_layers):
+            total += self._layer_params(i, active_only=True)
+        return total + self.d_model
 
     def _attn_params(self) -> int:
         d, hd = self.d_model, self.hd
@@ -183,7 +201,7 @@ class ModelConfig:
         p += di * d  # out_proj
         return p
 
-    def _ffn_params(self, kind: str) -> int:
+    def _ffn_params(self, kind: str, active_only: bool = False) -> int:
         d = self.d_model
         if kind == "-":
             return 0
@@ -191,10 +209,11 @@ class ModelConfig:
             m = self.moe
             eff = m.expert_ff or self.d_ff
             per = (3 if self.ffn == "swiglu" else 2) * d * eff
-            return per * (m.n_experts + m.n_shared) + d * m.n_experts
+            routed = m.top_k if active_only else m.n_experts
+            return per * (routed + m.n_shared) + d * m.n_experts
         return (3 if self.ffn == "swiglu" else 2) * d * self.d_ff
 
-    def _layer_params(self, i: int) -> int:
+    def _layer_params(self, i: int, active_only: bool = False) -> int:
         p = 2 * self.d_model  # norms
         if self.layer_kind(i) == "M":
             p += self._mamba_params()
@@ -202,14 +221,5 @@ class ModelConfig:
             p += self._attn_params()
             if self.encoder is not None:  # decoder cross-attention
                 p += self._attn_params() + self.d_model
-        return p + self._ffn_params(self.ffn_kind(i))
+        return p + self._ffn_params(self.ffn_kind(i), active_only)
 
-
-def unported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the parts of ``cfg`` the port does
-    not run yet, naming the ``ROADMAP.md`` item that ports each."""
-    ffns = {cfg.ffn_kind(i) for i in range(cfg.n_layers)}
-    if cfg.mla is not None or "E" in ffns or cfg.first_k_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA, MoE FFNs and leading dense layers are not "
-            f"ported yet; {ROADMAP_MOE_MLA}")

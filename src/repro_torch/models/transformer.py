@@ -1,16 +1,18 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Port of ``repro.models.transformer``: decoder-only LMs with attention
-or Mamba2 (SSD) layers and dense FFNs, and enc-dec (Whisper), one
-``Model`` per ``ModelConfig``.
+"""Port of ``repro.models.transformer``: decoder-only LMs (dense, MoE,
+SSM, hybrid), enc-dec (Whisper) and the stub-frontend VLM, one ``Model``
+per ``ModelConfig``.
 
 Layers are grouped into superblocks of ``cfg.block_size`` consecutive
 layers whose parameters are stacked along a leading ``blocks`` axis, as
 in the JAX package; a Python loop over that axis takes the place of
-``lax.scan``.  MoE FFNs, MLA and leading dense layers raise
-``NotImplementedError`` (``config.unported``).
+``lax.scan``.  The ``cfg.first_k_dense`` leading layers (DeepSeek) stand
+apart under ``head_layers/h<i>``, their caches under ``head/h<i>``, and
+run before the blocks.
 
 Entry points:
-  * ``train_logits``  the training forward
+  * ``train_logits``  the training forward, with the summed MoE aux loss
+  * ``loss``          next-token cross-entropy plus the weighted aux loss
   * ``prefill``       populate the caches for a prompt
   * ``decode_step``   one token against every cache
 """
@@ -27,10 +29,11 @@ from repro_torch.device import resolve_device
 
 from . import attention as attn
 from . import mamba as mb
-from .config import ModelConfig, unported
+from .config import ModelConfig
 from .layers import (ParamDef, apply_mlp, apply_norm, embed_lookup,
                      embed_spec, init_tree, mlp_spec, norm_spec, stack_spec,
                      tree_map)
+from .moe import apply_moe, moe_spec
 
 
 # ------------------------------------------------------------------ specs
@@ -39,14 +42,18 @@ def _layer_spec(cfg: ModelConfig, i: int, *, decoder_cross: bool) -> Dict:
     s: Dict[str, Any] = {"ln1": norm_spec(cfg.d_model, cfg.norm)}
     if kind == "M":
         s["mamba"] = mb.mamba_spec(cfg)
+    elif cfg.mla is not None:
+        s["attn"] = attn.mla_spec(cfg)
     else:
         s["attn"] = attn.gqa_spec(cfg)
     if decoder_cross and kind == "A":
         s["cross_ln"] = norm_spec(cfg.d_model, cfg.norm)
         s["cross"] = attn.cross_spec(cfg)
-    if cfg.ffn_kind(i) != "-":
+    fk = cfg.ffn_kind(i)
+    if fk != "-":
         s["ln2"] = norm_spec(cfg.d_model, cfg.norm)
-        s["ffn"] = mlp_spec(cfg.d_model, cfg.d_ff, cfg.ffn)
+        s["ffn"] = moe_spec(cfg) if fk == "E" else mlp_spec(
+            cfg.d_model, cfg.d_ff, cfg.ffn)
     return s
 
 
@@ -60,7 +67,6 @@ def _enc_layer_spec(cfg: ModelConfig) -> Dict:
 
 
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    unported(cfg)
     d = cfg.d_model
     spec: Dict[str, Any] = {
         "embed": embed_spec(cfg.vocab, d),
@@ -72,7 +78,12 @@ def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.n_prefix:
         spec["prefix_proj"] = ParamDef((d, d), ("fsdp", None))
     cross = cfg.encoder is not None
-    block = {f"l{j}": _layer_spec(cfg, j, decoder_cross=cross)
+    if cfg.first_k_dense:
+        spec["head_layers"] = {
+            f"h{i}": _layer_spec(cfg, i, decoder_cross=cross)
+            for i in range(cfg.first_k_dense)}
+    block = {f"l{j}": _layer_spec(cfg, cfg.first_k_dense + j,
+                                  decoder_cross=cross)
              for j in range(cfg.block_size)}
     spec["blocks"] = stack_spec(block, cfg.n_blocks)
     if cross:
@@ -88,20 +99,28 @@ def _layer_cache(cfg: ModelConfig, i: int, batch: int, max_seq: int, dtype,
                  device):
     if cfg.layer_kind(i) == "M":
         return mb.mamba_init_cache(cfg, batch, dtype, device)
+    if cfg.mla is not None:
+        return attn.mla_init_cache(cfg, batch, max_seq, dtype, device)
     return attn.gqa_init_cache(cfg, batch, max_seq, dtype, device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
                device) -> Dict[str, Any]:
-    """{'blocks': {l<j>: layer cache stacked (n_blocks, ...)}}, zeros: an
-    attention layer's {'k', 'v'}, a Mamba layer's {'conv', 'ssm'}."""
-    unported(cfg)
+    """{'blocks': {l<j>: layer cache stacked (n_blocks, ...)}[, 'head':
+    {h<i>: layer cache}]}, zeros: a GQA layer's {'k', 'v'}, an MLA
+    layer's {'ckv', 'krope'}, a Mamba layer's {'conv', 'ssm'}."""
     dtype = dtype or cfg.activation_dtype
-    return {"blocks": {
+    out = {"blocks": {
         f"l{j}": tree_map(
             lambda t: t.expand(cfg.n_blocks, *t.shape).clone(),
-            _layer_cache(cfg, j, batch, max_seq, dtype, device))
+            _layer_cache(cfg, cfg.first_k_dense + j, batch, max_seq, dtype,
+                         device))
         for j in range(cfg.block_size)}}
+    if cfg.first_k_dense:
+        out["head"] = {f"h{i}": _layer_cache(cfg, i, batch, max_seq, dtype,
+                                             device)
+                       for i in range(cfg.first_k_dense)}
+    return out
 
 
 def _index(tree, i: int):
@@ -112,8 +131,10 @@ def _index(tree, i: int):
 # ------------------------------------------------------ layer application
 def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, i: int, *, mode: str,
                  cache=None, pos: Optional[int] = None, enc_out=None):
-    """One sublayer in mode 'train' | 'prefill' | 'decode' -> (x, cache);
-    the cache is updated in place."""
+    """One sublayer in mode 'train' | 'prefill' | 'decode' -> (x, aux,
+    cache); the cache is updated in place, aux is the MoE FFN's
+    load-balancing loss (0.0 for a dense FFN: no device op per layer)."""
+    aux = 0.0
     h = apply_norm(p["ln1"], x, cfg.norm)
     if cfg.layer_kind(i) == "M":
         if mode == "train":
@@ -122,6 +143,13 @@ def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, i: int, *, mode: str,
             h, cache = mb.mamba_prefill(p["mamba"], h, cache, cfg)
         else:
             h, cache = mb.mamba_decode(p["mamba"], h, cache, cfg)
+    elif cfg.mla is not None:
+        if mode == "train":
+            h = attn.mla_train(p["attn"], h, cfg)
+        elif mode == "prefill":
+            h, cache = attn.mla_prefill(p["attn"], h, cache, cfg)
+        else:
+            h, cache = attn.mla_decode(p["attn"], h, cache, pos, cfg)
     elif mode == "train":
         h = attn.gqa_train(p["attn"], h, cfg)
     elif mode == "prefill":
@@ -135,20 +163,28 @@ def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, i: int, *, mode: str,
         h = apply_norm(p["cross_ln"], x, cfg.norm)
         enc_kv = attn.cross_encode(p["cross"], enc_out, cfg)
         x = x + attn.cross_attend(p["cross"], h, enc_kv, cfg)
-    if cfg.ffn_kind(i) != "-":
+    fk = cfg.ffn_kind(i)
+    if fk != "-":
         h = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + apply_mlp(p["ffn"], h, cfg.ffn)
-    return x, cache
+        if fk == "E":
+            h, aux = apply_moe(p["ffn"], h, cfg)
+        else:
+            h = apply_mlp(p["ffn"], h, cfg.ffn)
+        x = x + h
+    return x, aux, cache
 
 
 def _apply_block(bp, x, cfg: ModelConfig, *, mode, caches=None, pos=None,
                  enc_out=None):
-    """One superblock (``block_size`` sublayers)."""
+    """One superblock (``block_size`` sublayers, layer numbers
+    ``first_k_dense + j``) -> (x, summed aux)."""
+    aux = 0.0
     for j in range(cfg.block_size):
         c = caches[f"l{j}"] if caches is not None else None
-        x, _ = _apply_layer(bp[f"l{j}"], x, cfg, j, mode=mode, cache=c,
-                            pos=pos, enc_out=enc_out)
-    return x
+        x, a, _ = _apply_layer(bp[f"l{j}"], x, cfg, cfg.first_k_dense + j,
+                               mode=mode, cache=c, pos=pos, enc_out=enc_out)
+        aux = aux + a
+    return x, aux
 
 
 class _ParamTree(nn.Module):
@@ -176,7 +212,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params: Optional[_ParamTree] = None
@@ -242,27 +277,53 @@ class Model(nn.Module):
             w = params["lm_head"].to(cfg.activation_dtype)
         return x @ w
 
-    def _blocks(self, params, x, *, mode, caches=None, pos=None,
+    def _layers(self, params, x, *, mode, caches=None, pos=None,
                 enc_out=None):
-        for i in range(self.cfg.n_blocks):
+        """The head layers, then the blocks -> (x, summed aux)."""
+        cfg = self.cfg
+        aux = 0.0
+        for i in range(cfg.first_k_dense):
+            c = caches["head"][f"h{i}"] if caches is not None else None
+            x, a, _ = _apply_layer(params["head_layers"][f"h{i}"], x, cfg, i,
+                                   mode=mode, cache=c, pos=pos,
+                                   enc_out=enc_out)
+            aux = aux + a
+        for i in range(cfg.n_blocks):
             bc = _index(caches["blocks"], i) if caches is not None else None
-            x = _apply_block(_index(params["blocks"], i), x, self.cfg,
-                             mode=mode, caches=bc, pos=pos, enc_out=enc_out)
-        return x
+            x, a = _apply_block(_index(params["blocks"], i), x, cfg,
+                                mode=mode, caches=bc, pos=pos,
+                                enc_out=enc_out)
+            aux = aux + a
+        return x, aux
 
     # ---------------------------------------------------------------- train
     def train_logits(self, params, batch: Dict[str, torch.Tensor]):
         """batch: tokens (B,S) [+ prefix (B,P,D) | frames (B,F,D)] ->
-        (logits (B, S, V), aux loss 0: no MoE layer runs in the port)."""
+        (logits (B, S, V), the MoE layers' summed aux loss)."""
         cfg = self.cfg
         enc_out = (self._encode(params, batch["frames"])
                    if cfg.encoder is not None else None)
         x = self._embed_inputs(params, batch["tokens"], batch.get("prefix"))
-        x = self._blocks(params, x, mode="train", enc_out=enc_out)
+        x, aux = self._layers(params, x, mode="train", enc_out=enc_out)
         logits = self._head(params, x)
         if cfg.n_prefix:
             logits = logits[:, cfg.n_prefix:]
-        return logits, torch.zeros((), device=x.device)
+        return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                       device=x.device)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor]):
+        """Next-token cross-entropy plus ``aux_loss_weight`` times the MoE
+        aux loss -> (loss, {'ce', 'aux'}); the labels default to the
+        shifted tokens."""
+        cfg = self.cfg
+        logits, aux = self.train_logits(params, batch)
+        labels = batch.get("labels")
+        if labels is None:
+            labels, logits = batch["tokens"][:, 1:], logits[:, :-1]
+        logp = torch.log_softmax(logits.float(), -1)
+        ce = -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean()
+        w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+        return ce + w * aux, {"ce": ce, "aux": aux}
 
     # ---------------------------------------------------------------- serve
     def prefill(self, params, batch: Dict[str, torch.Tensor], caches):
@@ -272,8 +333,8 @@ class Model(nn.Module):
         enc_out = (self._encode(params, batch["frames"])
                    if cfg.encoder is not None else None)
         x = self._embed_inputs(params, batch["tokens"], batch.get("prefix"))
-        x = self._blocks(params, x, mode="prefill", caches=caches,
-                         enc_out=enc_out)
+        x, _ = self._layers(params, x, mode="prefill", caches=caches,
+                            enc_out=enc_out)
         return self._head(params, x[:, -1:])[:, 0], caches, enc_out
 
     def decode_step(self, params, token: torch.Tensor, caches, pos,
@@ -281,6 +342,6 @@ class Model(nn.Module):
         """token (B, 1) int, pos the token's position (an int) ->
         (logits (B, V), caches updated in place)."""
         x = embed_lookup(params["embed"], token, self.cfg.activation_dtype)
-        x = self._blocks(params, x, mode="decode", caches=caches,
-                         pos=int(pos), enc_out=enc_out)
+        x, _ = self._layers(params, x, mode="decode", caches=caches,
+                            pos=int(pos), enc_out=enc_out)
         return self._head(params, x)[:, 0], caches

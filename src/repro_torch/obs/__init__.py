@@ -12,21 +12,30 @@ Three pieces, one rule:
     with durations, nesting and outcomes;
   * :mod:`~repro_torch.obs.drain` — the device-counter drain:
     PodState's on-device accept/drop ledgers are harvested into host
-    metrics at existing host-sync boundaries ONLY.
+    metrics at existing host-sync boundaries ONLY;
+  * :mod:`~repro_torch.obs.torchbridge` — compile accounting (port of
+    ``repro/obs/jaxbridge.py``): every Dynamo compile counted in
+    ``torch_compile_total`` / ``torch_compile_seconds`` (installed once,
+    below, at import); the CUDA builds are counted by ``kernels/build.py``
+    in ``kernel_build_total`` / ``kernel_build_seconds``.
 
 The rule: **telemetry never touches the hot path** — no ``.item()``, no
 host copy, no metric recording inside the ingest step; the span API
-no-ops while ``torch.compile`` traces.  The reference's XLA compile
-counter (``repro/obs/jaxbridge.py``) has no twin yet (ROADMAP.md).
+no-ops while ``torch.compile`` traces.
 """
 from . import drain
 from .registry import (DEFAULT_BUCKETS, MetricFamily, MetricsRegistry,
                        MetricsSnapshot, NULL, NullRegistry, get_registry,
                        reset_default_registry)
 from .spans import Span, SpanRecorder, get_recorder, span
+from .torchbridge import install as install_torch_bridge
 
 __all__ = [
     "DEFAULT_BUCKETS", "MetricFamily", "MetricsRegistry", "MetricsSnapshot",
     "NULL", "NullRegistry", "get_registry", "reset_default_registry",
     "Span", "SpanRecorder", "get_recorder", "span", "drain",
+    "install_torch_bridge",
 ]
+
+# always-on compile accounting: one listener pair, installed exactly once
+install_torch_bridge()

@@ -1,8 +1,12 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
 """Shared helpers of the tests/test_torch_*.py files: the same numpy
 inputs through the JAX package and its PyTorch port, compared leaf by
-leaf (integers equal; floats within f32 tolerance)."""
+leaf (integers equal; floats within f32 tolerance); and the port's
+compile budget, ``compile_budget``."""
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 
 RTOL = ATOL = 1e-5  # f32, different summation order (XLA vs ATen) at K <= 8
@@ -102,3 +106,57 @@ def model_pair(jcfg, *, seed=0, **port_overrides):
     tp = tm.load(model_params_from_jax(
         jax.tree_util.tree_map(np.asarray, jp), "cpu"))
     return jm, jp, tm, tp
+
+
+class CompileBudget:
+    """Counts fresh ``torch.compile`` (Dynamo) compiles; ``budget(n)``
+    asserts at scope exit that at most ``n`` happened inside it (the
+    port's ``retrace_guard``, tests/conftest.py).
+
+    Usage::
+
+        def test_x(compile_budget):
+            step(x)                          # warm-up: compiles here
+            with compile_budget.budget(0):   # the guarded region
+                step(x)                      # must hit the cache
+    """
+
+    def __init__(self):
+        self.compiles = 0
+        self._active = False
+
+    def _on_end(self, args):
+        if self._active:
+            self.compiles += 1
+
+    @contextlib.contextmanager
+    def budget(self, max_compiles=0):
+        start = self.compiles
+        self._active = True
+        try:
+            yield self
+        finally:
+            self._active = False
+        fresh = self.compiles - start
+        assert fresh <= max_compiles, (
+            f"compile_budget: {fresh} fresh Dynamo compile(s) inside a "
+            f"budget of {max_compiles}: something recompiled (new shapes, "
+            "dtypes, a Python constant, or an uncached compile wrapper)")
+
+
+_BUDGET = []  # the one CompileBudget, its listener registered once
+
+
+@pytest.fixture
+def compile_budget():
+    """Per-test compile budget (``CompileBudget``): Dynamo has no
+    per-test listener scope, so one listener is registered at first use
+    and toggled."""
+    if not _BUDGET:
+        from torch._dynamo.callback import callback_handler
+
+        _BUDGET.append(CompileBudget())
+        callback_handler.register_end_callback(_BUDGET[0]._on_end)
+    _BUDGET[0].compiles = 0
+    _BUDGET[0]._active = False
+    yield _BUDGET[0]

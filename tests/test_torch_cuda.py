@@ -1195,3 +1195,56 @@ def test_merge_kernel_route_matches_the_plain_route(cuda):
     assert torch.equal(ker.feats, ref.feats)
     torch.testing.assert_close(ker.fval, ref.fval, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(ker.Linv, ref.Linv, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------ MoE, MLA and Jamba's SSD groups
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_jamba_groups_match_plain(cuda, dtype):
+    """B / C in 8 groups of 32 heads (Jamba's published SSD layout, 256
+    heads) at a cut length: the dtype's kernel against the plain version
+    under the gates of ``_assert_ssd_close``."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_cuda, ssd_chunks
+
+    X, Adt, B, C = _ssd_inputs(cuda, 1, 256, 2, 256, 64, 128, dtype, g=8,
+                               seed=8)
+    got = ssd_chunk_cuda(X, Adt, B, C, chunk=256)
+    _assert_ssd_close(got, ssd_chunks(X, Adt, B, C, chunk=256,
+                                      backend="torch"), dtype)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "grok-1-314b",
+                                  "jamba-1.5-large-398b"])
+def test_reduced_moe_models_on_the_card_match_the_cpu(cuda, arch):
+    """The reduced MoE models on the card against the same parameters on
+    the CPU: train logits and aux, prefill and one decode step, float32
+    within the port's model tolerance (1e-4).  Float32, not the configs'
+    bf16: bf16 rounding that differs between cuBLAS and the CPU moves
+    some top-k router choices (grok and jamba failed a 5e-2 bf16 gate on
+    the H100 that way), a step no fixed tolerance bounds.  The plain
+    attention route: the reduced head width, 16, is not one the flash
+    kernel takes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, init_cache
+    from repro_torch.models.layers import tree_map
+
+    cfg = get_config(arch, reduced=True, dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    p_card = card.load(tree_map(lambda t: t.to(cuda), p_cpu))
+    tokens = torch.randint(0, cfg.vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    out = {}
+    with torch.inference_mode():
+        for name, m, p, dev in (("cpu", cpu, p_cpu, "cpu"),
+                                ("card", card, p_card, cuda)):
+            tok = tokens.to(dev)
+            logits, aux = m.train_logits(p, {"tokens": tok})
+            caches = init_cache(cfg, 2, 20, device=dev)
+            last, caches, _ = m.prefill(p, {"tokens": tok[:, :15]}, caches)
+            step, _ = m.decode_step(p, tok[:, 15:], caches, 15)
+            out[name] = [t.float().cpu() for t in (logits, aux, last, step)]
+    for a, b in zip(out["card"], out["cpu"]):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -100,6 +100,9 @@ def test_whisper_config_matches_jax(reduced):
 def test_param_count_matches_jax(arch):
     j = jget(arch)
     assert port_config(j).param_count() == j.param_count()
+    assert port_config(j).active_param_count() == j.active_param_count()
+    for name in ("is_hybrid", "is_ssm_only", "sub_quadratic"):
+        assert getattr(port_config(j), name) == getattr(j, name), name
     assert [port_config(j).layer_kind(i) for i in range(j.n_layers)] == [
         j.layer_kind(i) for i in range(j.n_layers)]
     assert [port_config(j).ffn_kind(i) for i in range(j.n_layers)] == [
@@ -110,20 +113,10 @@ def test_whisper_small_size():
     assert 0.2e9 <= get_config("whisper-small").param_count() <= 0.3e9
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "deepseek-v2-lite-16b", "grok-1-314b"])
-def test_unported_layers_raise_naming_the_roadmap(arch):
-    cfg = port_config(jget(arch, reduced=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Model(cfg, device="cpu")
-
-
 def test_get_config_registry():
-    assert all_archs() == ["whisper-small", "mamba2-370m"]
-    for arch in ALL:
-        if arch not in all_archs():
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                get_config(arch)
+    from repro.configs import all_archs as jall
+
+    assert all_archs() == jall() == ALL
     with pytest.raises(ValueError, match="unknown arch"):
         get_config("gpt-2")
 
@@ -136,7 +129,7 @@ def test_model_defaults_to_cuda_and_raises_without_it():
 
 
 # ------------------------------------------------------ parameter trees
-@pytest.mark.parametrize("arch", DENSE + ["mamba2-370m"])
+@pytest.mark.parametrize("arch", ALL)
 def test_init_tree_matches_jax_layout(arch):
     """The port's seeded init has the JAX tree's keys, shapes and dtypes;
     constant leaves are equal, random leaves have the JAX init's scale."""
@@ -157,7 +150,7 @@ def test_init_tree_matches_jax_layout(arch):
     assert {k.replace(".", "/")[len("params/"):] for k in sd} == set(tl)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ALL)
 def test_model_params_from_jax_key_for_key(arch):
     _, jp, tm, tp = model_pair(_f32(arch))
     jl = jax_leaves(jp)

@@ -16,13 +16,19 @@ from repro import obs as jobs  # noqa: E402
 from repro.concurrency import lockdep as jlockdep  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
 from repro_torch.concurrency import lockdep as tlockdep  # noqa: E402
+from repro_torch.obs import torchbridge  # noqa: E402
+
+from _torch_port import compile_budget  # noqa: E402, F401  (fixture)
 
 
 def pod_families(reg):
-    """A snapshot's families without the reference's XLA compile
-    accounting (``repro/obs/jaxbridge.py``, which the port has not)."""
+    """A snapshot's families without the compile and build accounting,
+    which differs by package (``repro/obs/jaxbridge.py`` counts XLA
+    compiles, ``repro_torch/obs/torchbridge.py`` Dynamo compiles and
+    ``kernels/build.py`` nvcc builds)."""
     return [f for f in reg.snapshot().families
-            if not f["name"].startswith(("jax_", "xla_"))]
+            if not f["name"].startswith(("jax_", "xla_", "torch_compile",
+                                         "kernel_build"))]
 
 
 @pytest.fixture
@@ -126,6 +132,72 @@ def test_span_is_a_noop_while_torch_compile_traces(fresh, tmp_path):
     assert len(rec.find("traced-span")) == 1
     path = rec.dump_jsonl(str(tmp_path / "spans.jsonl"))
     assert path.read_text().count("traced-span") == 1
+
+
+# ------------------------------------------------------- torch bridge
+def test_torch_bridge_installs_exactly_once(fresh):
+    """repro_torch.obs installed the bridge at import; every later
+    install() is a no-op, so no compile is counted twice."""
+    assert torchbridge.installed()
+    assert tobs.install_torch_bridge() is False
+    assert tobs.install_torch_bridge() is False
+    assert torchbridge.registrations() == 1
+
+
+def test_bridge_and_budget_count_the_same_compiles(fresh, compile_budget):
+    """Two independent listeners, one event stream: the bridge's
+    torch_compile_total agrees with the compile budget over a scope that
+    compiles; each compile's duration lands in torch_compile_seconds."""
+    _, treg = fresh
+    with compile_budget.budget(10):
+        f = torch.compile(lambda x: x * 3 + 1, backend="eager")
+        f(torch.arange(11))
+        f(torch.arange(11.0))  # a new dtype: a second compile
+    fresh_compiles = compile_budget.compiles
+    assert fresh_compiles >= 2
+    snap = treg.snapshot()
+    assert snap.get("torch_compile_total") == fresh_compiles
+    hist = next(f for f in snap.families
+                if f["name"] == "torch_compile_seconds")
+    assert hist["series"][0]["count"] == fresh_compiles
+    assert hist["series"][0]["sum"] > 0
+
+
+def test_budget_fails_on_a_fresh_compile_and_passes_on_a_cache_hit(
+        fresh, compile_budget):
+    f = torch.compile(lambda x: x - 7, backend="eager")
+    x = torch.arange(5)
+    with pytest.raises(AssertionError, match="compile_budget: 1 fresh"):
+        with compile_budget.budget(0):
+            f(x)
+    with compile_budget.budget(0):  # the same shapes: served from cache
+        f(x)
+        f(x + 1)
+    assert compile_budget.compiles == 1
+
+
+def test_bridge_binds_the_registry_late(fresh):
+    """The listeners read the default registry when the event arrives:
+    a compile after ``reset_default_registry`` lands in the new one."""
+    _, old = fresh
+    new = tobs.reset_default_registry()
+    torch.compile(lambda x: x * 5, backend="eager")(torch.arange(4))
+    assert new.snapshot().get("torch_compile_total") == 1
+    assert old.snapshot().get("torch_compile_total") is None
+
+
+def test_kernel_builds_are_counted(fresh):
+    """Each nvcc build is a counted stall, labelled by its source."""
+    from repro_torch.kernels import build
+
+    _, treg = fresh
+    build._record_build("ssd_chunk.cu", 1.5)
+    build._record_build("ssd_chunk.cu", 2.0)
+    build._record_build("pod_step.cu", 0.5)
+    snap = treg.snapshot()
+    assert snap.get("kernel_build_total", source="ssd_chunk.cu") == 2
+    assert snap.get("kernel_build_total", source="pod_step.cu") == 1
+    assert snap.get("kernel_build_seconds", source="ssd_chunk.cu") == 3.5
 
 
 def test_drain_pod_reads_the_ports_pod_state_like_jax(fresh):
