@@ -232,6 +232,39 @@ gains are within 1e-4 relative; for Whisper's tokens: a first differing
 token whose two largest plain-route logits are within 1e-3 relative).
 Then the phases' seconds, the kernels' summary line, the card's name and
 power limit, and the result line.
+
+Then this slice's phases, after ``archs``:
+
+ train_grad          ``Model.loss(...).backward()`` through the kernel
+                     routes (SSD; flash at head width 16 under
+                     ``use_pallas_attention``) against the plain routes:
+                     reduced Mamba2, Jamba (g = 2), qwen2-1.5b and
+                     whisper-small at 2 x 64 tokens, then Mamba2-370m
+                     whole at 2 x 2048 (remat ``full``: 96 SSD launches);
+                     float32: every leaf within 1e-4 of its largest
+                     plain gradient, which the detached route (the
+                     kernels' outputs with no autograd Function) must
+                     fail, and the loss within 1e-4 (relative) of the
+                     plain loss; bf16 printed;
+ flash_dh16          head width 16 under the gates of ``flash``: causal
+                     GQA and full, ragged S, the reduced models' own
+                     shapes of train_grad, both dtypes (bf16 on the
+                     tensor-core kernel), the padded-keys and non-causal
+                     faults, timed beside SDPA and the bound;
+ train_qwen2         qwen2-1.5b whole (1.54e9 parameters, float32 master
+                     weights, gradients and AdamW moments; bf16
+                     activations, remat ``full``) through ``run_training``
+                     into a ``CheckpointStore``: 6 steps of 8 x 512
+                     tokens, a checkpoint every 3, then a kill after step
+                     3's and a resume, compared with steps 4-6; ms a step
+                     (CUDA events), tokens/s, peak memory, model FLOP
+                     utilisation, a profiled step by kernel kind and the
+                     idle share; the step with remat off;
+ train_mamba         mamba2-370m whole, bf16, 8 x 2048 tokens, remat
+                     ``full``, 4 AdamW steps: 96 ``ssd_chunk`` launches a
+                     step on the tensor-core route; ms a step, tokens/s,
+                     peak memory, the plain SSD backward's share of a
+                     profiled step against the kernel's forward.
 """
 from __future__ import annotations
 
@@ -2267,22 +2300,29 @@ def _ssd_case(torch, gen, case):
     return out
 
 
-class _SsdRoute:
-    """Swap ``models.mamba.ssd_chunks``, the prefill's SSD route, for
-    ``fn`` for a block, then restore it."""
+class _Route:
+    """Swap module attributes (``(module, name, value)`` triples) for a
+    block, then restore them."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, *swaps):
+        self.swaps = swaps
 
     def __enter__(self):
-        from repro_torch.models import mamba
-
-        self.saved, mamba.ssd_chunks = mamba.ssd_chunks, self.fn
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.swaps]
+        for m, n, v in self.swaps:
+            setattr(m, n, v)
 
     def __exit__(self, *exc):
-        from repro_torch.models import mamba
+        for m, n, v in self.saved:
+            setattr(m, n, v)
 
-        mamba.ssd_chunks = self.saved
+
+def _SsdRoute(fn):
+    """Swap ``models.mamba.ssd_chunks``, the prefill's SSD route, for
+    ``fn`` for a block, then restore it."""
+    from repro_torch.models import mamba
+
+    return _Route((mamba, "ssd_chunks", fn))
 
 
 def _plain_ssd(X, Adt, B, C, *, chunk):
@@ -3895,6 +3935,512 @@ def phase_archs(torch, gen, seed):
                                case["state_max_abs_err"])}
 
 
+# -------------------------------------- this slice: training, flash at dh 16
+# phase flash_dh16: head width 16 (every reduced config's), both dtypes;
+# the ragged cases (S = 300 padded to 384) carry the padded-keys control,
+# the causal ones the non-causal control, the full one (no padding)
+# none
+FLASH_DH16_CASES = [
+    ("dh16_causal_gqa_bf16", 4, 4, 2, 1024, 16, True, "bfloat16", 0.5),
+    ("dh16_full_bf16", 4, 4, 4, 1024, 16, False, "bfloat16", 0.5),
+    ("dh16_ragged_bf16", 2, 4, 2, 300, 16, False, "bfloat16", 0.5),
+    ("dh16_causal_gqa_f32", 2, 4, 2, 512, 16, True, "float32", 0.5),
+    ("dh16_ragged_f32", 2, 4, 2, 300, 16, False, "float32", 0.5),
+    # the shapes train_grad hands the kernel: the reduced qwen2-1.5b's
+    # causal GQA at GRAD_SHAPE, the reduced whisper-small's encoder frames
+    ("dh16_reduced_qwen2_f32", 2, 4, 2, 64, 16, True, "float32", 0.5),
+    ("dh16_reduced_qwen2_bf16", 2, 4, 2, 64, 16, True, "bfloat16", 0.5),
+    ("dh16_reduced_enc_f32", 2, 4, 4, 16, 16, False, "float32", 0.5),
+    ("dh16_reduced_enc_bf16", 2, 4, 4, 16, 16, False, "bfloat16", 0.5),
+]
+# phase train_grad: the reduced models on the kernel routes (SSD, flash at
+# dh 16) against the plain routes, tokens (B, S); every leaf's gradient
+# within GRAD_TOL of that leaf's largest plain gradient (float32; bf16
+# printed), and the loss within GRAD_TOL of the plain loss (relative);
+# then Mamba2-370m whole at GRAD_FULL (B, S), float32
+GRAD_ARCHS = ("mamba2-370m", "jamba-1.5-large-398b", "qwen2-1.5b",
+              "whisper-small")
+GRAD_SHAPE = (2, 64)
+GRAD_FULL = (2, 2048)
+GRAD_TOL = 1e-4
+# phase train_qwen2: qwen2-1.5b whole, batch x tokens, AdamW warmup, steps,
+# checkpoint interval, steps timed with remat off
+QWEN_B, QWEN_S, QWEN_WARMUP, QWEN_STEPS, QWEN_CKPT = 8, 512, 2, 6, 3
+QWEN_NOREMAT_STEPS = 3
+# phase train_mamba: mamba2-370m whole, batch x tokens, steps
+MAMBA_TRAIN_B, MAMBA_TRAIN_S, MAMBA_TRAIN_STEPS = 8, 2048, 4
+
+
+def phase_flash_dh16(torch, gen):
+    """Head width 16 on both routes under the gates of ``flash``: causal
+    GQA and full attention, ragged S; the kernel told to keep the padded
+    keys (full cases the wrapper pads) or to see every key (causal cases)
+    must fail; the
+    bf16 cases on the tensor-core kernel (the route check of
+    ``_flash_case``); timed beside SDPA, the plain version and the
+    bound."""
+    from repro_torch.kernels.flash_attention import KERNEL
+
+    sass = sass_counts(KERNEL, ("HGMMA", "HGMMA.64x16x16"))
+    cases = [_flash_case(torch, gen, case, "non_causal" if case[6]
+                         else "padded_keys"
+                         if (-case[4]) % min(128, max(case[4], 8)) else None)
+             for case in FLASH_DH16_CASES]
+    emit("flash_dh16", sass=sass, cases=cases,
+         max_abs_err=max(c["max_abs_err"] for c in cases),
+         library="torch.nn.functional.scaled_dot_product_attention")
+    if not sass["HGMMA"]:
+        fail(f"flash_dh16: no HGMMA in the SASS ({sass})")
+    return {**cases[0], "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+def _plain_routes():
+    """Both kernel routes on their plain versions (backend ``torch``)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention, mamba
+
+    def flash(q, k, v, *, causal=True):
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         backend="torch")
+
+    return _Route((mamba, "ssd_chunks", _plain_ssd),
+                  (attention, "flash_attention", flash))
+
+
+def _detached_routes():
+    """The planted fault: both kernels' outputs with no autograd Function
+    (the parent's route), so no gradient flows through them."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+
+    def bare(forward, plain, *inputs, **kw):
+        return forward(*inputs, **kw)
+
+    return _Route((flash_ops, "with_plain_grad", bare),
+                  (ssd_ops, "with_plain_grad", bare))
+
+
+def _grads(torch, model, params, batch):
+    """(loss, {key: gradient}) of ``model.loss`` through
+    ``train.step.make_grad_fn``."""
+    from repro_torch.train.step import TrainStepConfig, make_grad_fn
+    from repro_torch.tree import leaves_with_keys
+
+    g, m = make_grad_fn(model, TrainStepConfig())(params, batch)
+    out = leaves_with_keys(g)
+    torch.cuda.synchronize()
+    return float(m["loss"]), out
+
+
+def _grad_errors(got, want):
+    """Per leaf max |got - want| / max |want| -> (worst share, its key)."""
+    worst, at = 0.0, None
+    for k, w in want.items():
+        size = w.float().abs().max().item()
+        e = (got[k].float() - w.float()).abs().max().item()
+        share = e / size if size > 0 else (0.0 if e == 0 else math.inf)
+        if share >= worst:
+            worst, at = share, k
+    return worst, at
+
+
+def _train_batch(torch, gen, cfg, B, S):
+    b = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                 device=DEV, dtype=torch.int32)}
+    if cfg.encoder is not None:
+        b["frames"] = torch.randn(B, cfg.encoder.n_frames, cfg.d_model,
+                                  generator=gen, device=DEV)
+    return b
+
+
+def _grad_case(torch, gen, seed, arch, *, reduced, shape, dtypes):
+    """One model's gradients: kernel route, plain route and the planted
+    detached route, per dtype -> (its JSON record (float32 gated), the
+    kernel route's launches summed over the dtypes)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES
+    from repro_torch.models import Model
+
+    base = get_config(arch, reduced=reduced, use_pallas_attention=True)
+    params = Model(base, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(seed))
+    batch = _train_batch(torch, gen, base, *shape)
+    rec = {"arch": base.name, "batch": list(shape), "remat": base.remat,
+           "n_layers": base.n_layers, "dtypes": {}}
+    launches = {"ssd_chunk": 0, "flash_attention": 0}
+    for dtype in dtypes:
+        model = Model(dataclasses.replace(base, dtype=dtype), device=DEV)
+        ssd0, flash0 = SSD.launches, FLASH.launches
+        routes0 = dict(ROUTE_LAUNCHES)
+        loss, got = _grads(torch, model, params, batch)
+        n_ssd, n_flash = SSD.launches - ssd0, FLASH.launches - flash0
+        routes = {r: ROUTE_LAUNCHES[r] - routes0[r] for r in ROUTE_LAUNCHES}
+        launches["ssd_chunk"] += n_ssd
+        launches["flash_attention"] += n_flash
+        with _plain_routes():
+            ssd0, flash0 = SSD.launches, FLASH.launches
+            ref_loss, want = _grads(torch, model, params, batch)
+            if SSD.launches != ssd0 or FLASH.launches != flash0:
+                fail(f"train_grad {arch}: the plain route launched a kernel")
+        with _detached_routes():
+            _, bad = _grads(torch, model, params, batch)
+        err, at = _grad_errors(got, want)
+        fault, fault_at = _grad_errors(bad, want)
+        loss_err = abs(loss - ref_loss) / max(1.0, abs(ref_loss))
+        rec["dtypes"][dtype] = {
+            "loss": loss, "plain_loss": ref_loss,
+            "scaled_loss_err": loss_err, "leaves": len(want),
+            "max_scaled_grad_err": err, "at": at,
+            "control_detached_scaled_err": fault, "control_at": fault_at,
+            "launches": {"ssd_chunk": n_ssd, "flash_attention": n_flash},
+            "ssd_routes": routes}
+        if not math.isfinite(loss) or not all(
+                torch.isfinite(g).all() for g in got.values()):
+            fail(f"train_grad {arch} {dtype}: non-finite loss or gradient")
+        if dtype == "float32":
+            if err > GRAD_TOL:
+                fail(f"train_grad {arch}: gradient of {at} off by {err} of "
+                     f"its largest plain value (tol {GRAD_TOL})")
+            if loss_err > GRAD_TOL:
+                fail(f"train_grad {arch}: loss {loss} against the plain "
+                     f"route's {ref_loss} ({loss_err} relative, tol "
+                     f"{GRAD_TOL})")
+            if fault <= GRAD_TOL:
+                fail(f"train_grad {arch}: the check passes the detached "
+                     f"route ({fault} at {fault_at}, tol {GRAD_TOL})")
+        if n_ssd + n_flash == 0:
+            fail(f"train_grad {arch} {dtype}: no kernel launched")
+    del params
+    _free(torch)
+    return rec, launches
+
+
+def phase_train_grad(torch, gen, seed):
+    """``Model.loss(...).backward()`` through the kernel routes (the SSD
+    kernel, flash at head width 16) against the plain routes: reduced
+    Mamba2, Jamba (g = 2), qwen2-1.5b and whisper-small with
+    ``use_pallas_attention``, then Mamba2-370m whole at 2 x 2048 in
+    float32 (remat ``full``: each layer's kernel launched twice)."""
+    cases, launches = [], {"ssd_chunk": 0, "flash_attention": 0}
+    for arch in GRAD_ARCHS:
+        rec, ln = _grad_case(torch, gen, seed, arch, reduced=True,
+                             shape=GRAD_SHAPE,
+                             dtypes=("float32", "bfloat16"))
+        cases.append(rec)
+        for k in launches:
+            launches[k] += ln[k]
+    rec, ln = _grad_case(torch, gen, seed, "mamba2-370m", reduced=False,
+                         shape=GRAD_FULL, dtypes=("float32",))
+    cases.append(rec)
+    for k in launches:
+        launches[k] += ln[k]
+    full = rec["dtypes"]["float32"]["launches"]["ssd_chunk"]
+    want = rec["n_layers"] * (2 if rec["remat"] else 1)
+    if full != want:
+        fail(f"train_grad mamba2-370m: {full} ssd_chunk launches in a "
+             f"step, expected {want} (a forward and, under remat, a "
+             "recompute per layer)")
+    worst = max(r["dtypes"]["float32"]["max_scaled_grad_err"] for r in cases)
+    emit("train_grad", cases=cases, tol=GRAD_TOL, launches=launches,
+         max_scaled_grad_err=worst)
+    return {"launches": launches, "max_scaled_grad_err": worst}
+
+
+def _step_events(torch, step, events, metrics):
+    """``step`` bracketed by CUDA events, its metrics kept (on the card:
+    read after the run, no extra sync)."""
+    def timed(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(*a)
+        end.record()
+        events.append((start, end))
+        metrics.append(out[-1])
+        return out
+    return timed
+
+
+def _kind_of(name):
+    """A device kernel's bucket in a training step's profile."""
+    low = name.lower()
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "sm90_",
+                              "ampere_", "gemv", "splitk", "nvjet")):
+        return "cublas"
+    if "softmax" in low or "nll" in low or "gather" in low or \
+            "scatter" in low:
+        return "loss"
+    if "ssd_chunk" in low:
+        return "ssd_chunk_kernel"
+    if "flash_attention" in low:
+        return "flash_kernel"
+    if "bfloat16_copy" in low:
+        return "casts_to_bf16"
+    if "copy" in low:
+        return "other_copies"
+    if "reduce" in low or "norm" in low:
+        return "reductions"
+    if "elementwise" in low or "functor" in low:
+        return "elementwise"
+    return "other"
+
+
+def _by_kind(by):
+    out = {}
+    for t, c, k in by:
+        kind = _kind_of(k)
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + t, n + c)
+    return {k: {"ms": ms, "kernels": n} for k, (ms, n) in out.items()}
+
+
+def _ms_stats(xs):
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "all": xs}
+
+
+def phase_train_qwen2(torch, gen, seed):
+    """qwen2-1.5b at full width and depth trained on one card: float32
+    parameters, gradients and AdamW moments, bf16 activations, remat
+    ``full``, 8 x 512 tokens a step, through ``run_training`` into a
+    ``CheckpointStore`` in a temporary directory (6 steps, a checkpoint
+    every 3); then a kill after step 3's checkpoint (step 6's removed) and
+    a resume from it, compared with the uninterrupted steps 4-6; ms per
+    step (CUDA events), tokens/s, peak memory, model FLOP utilisation,
+    one profiled step; and the step with remat off."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.tree import leaves_with_keys, tree_map
+
+    cfg = get_config("qwen2-1.5b")
+    model = Model(cfg, device=DEV)
+    opt_cfg = AdamWConfig(warmup_steps=QWEN_WARMUP, total_steps=QWEN_STEPS)
+    step = make_train_step(model, opt_cfg)
+    batch_fn = deterministic_batch_fn(seed, TokenStreamSpec(
+        vocab=cfg.vocab, seq=QWEN_S, batch=QWEN_B), device=DEV)
+    tokens = QWEN_B * QWEN_S
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+        n_params = sum(t.numel() for t in leaves_with_keys(params).values())
+        opt = init_opt_state(params, opt_cfg)
+        events, metrics = [], []
+        store = CheckpointStore(root / "run", keep=2)
+        t0 = time.perf_counter()
+        pA, oA, repA = run_training(
+            _step_events(torch, step, events, metrics), params, opt,
+            batch_fn, store, LoopConfig(total_steps=QWEN_STEPS,
+                                        ckpt_every=QWEN_CKPT, log_every=100),
+            log=lambda s: None)
+        loop_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ms = [s.elapsed_time(e) for s, e in events]
+        lossA = [float(m["loss"]) for m in metrics]
+        saved = store.committed_steps()
+        del params, opt
+
+        # the kill: step 6's checkpoint is gone, the newest is step 3
+        shutil.rmtree(root / "run" / f"step_{QWEN_STEPS:09d}")
+        like = tree_map(lambda t: torch.empty_like(t, device="meta"),
+                        (pA, oA))
+        ev_b, met_b = [], []
+        pB, oB, repB = run_training(
+            _step_events(torch, step, ev_b, met_b), like[0], like[1],
+            batch_fn, store, LoopConfig(total_steps=QWEN_STEPS,
+                                        ckpt_every=QWEN_CKPT, log_every=100),
+            log=lambda s: None)
+        lossB = [float(m["loss"]) for m in met_b]
+        la, lb = leaves_with_keys((pA, oA)), leaves_with_keys((pB, oB))
+        unequal = [k for k in la if not torch.equal(la[k], lb[k])]
+        resumed = {
+            "start_step": repB.start_step, "end_step": repB.end_step,
+            "loss_uninterrupted_4_6": lossA[QWEN_CKPT:],
+            "loss_resumed_4_6": lossB,
+            "losses_bit_equal": lossA[QWEN_CKPT:] == lossB,
+            "leaves_bit_equal": len(la) - len(unequal),
+            "leaves": len(la), "unequal": unequal[:8],
+            "max_abs_diff": max(((la[k].float() - lb[k].float()).abs()
+                                 .max().item() for k in unequal),
+                                default=0.0)}
+        del pA, oA, la, like
+        _free(torch)
+        if repB.start_step != QWEN_CKPT or repB.end_step != QWEN_STEPS:
+            fail(f"train_qwen2: resumed {repB.start_step}->{repB.end_step}")
+        if not all(math.isfinite(x) for x in lossA + lossB):
+            fail(f"train_qwen2: non-finite loss {lossA} {lossB}")
+
+        # one profiled step, on the resumed state; the optimizer's window
+        # (CUDA events around adamw_update)
+        from repro_torch.train import step as step_mod
+
+        batch = batch_fn(QWEN_STEPS)
+        opt_ev = []
+        real_update = step_mod.adamw_update
+
+        def update(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real_update(*a)
+            end.record()
+            opt_ev.append((start, end))
+            return out
+
+        step_mod.adamw_update = update
+        try:
+            wall, busy, by = _profile(torch, lambda: step(pB, oB, batch))
+        finally:
+            step_mod.adamw_update = real_update
+        opt_ms = sum(s.elapsed_time(e) for s, e in opt_ev)
+        steady = ms[1:]
+        med = statistics.median(steady)
+        flops = 6 * n_params * tokens
+        # remat off: the same step, timed
+        step_nr = make_train_step(
+            Model(dataclasses.replace(cfg, remat=False), device=DEV),
+            opt_cfg)
+        step_nr(pB, oB, batch)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev_nr, met_nr = [], []
+        timed_nr = _step_events(torch, step_nr, ev_nr, met_nr)
+        for _ in range(QWEN_NOREMAT_STEPS):
+            timed_nr(pB, oB, batch)
+        torch.cuda.synchronize()
+        peak_nr = torch.cuda.max_memory_allocated()
+        ms_nr = [s.elapsed_time(e) for s, e in ev_nr]
+        emit("train_qwen2", arch=cfg.name, params=n_params,
+             batch=[QWEN_B, QWEN_S], remat=cfg.remat_policy,
+             activations=cfg.dtype, param_dtype=cfg.param_dtype,
+             steps=QWEN_STEPS, ckpt_every=QWEN_CKPT, saved_steps=saved,
+             loss=lossA, loop_s=loop_s, step_ms=ms,
+             step_ms_2_6=_ms_stats(steady),
+             tokens_per_s=tokens / med * 1e3, peak_mem_gib=peak / 2 ** 30,
+             model_flops_per_step=flops,
+             mfu_6n=flops / (med / 1e3) / PEAK_BF16,
+             mfu_note="6 N tokens over the step and the dense bf16 peak; "
+                      "remat's recompute is not counted as useful work",
+             resumed=resumed,
+             profile={"wall_ms": wall, "device_busy_ms": busy,
+                      "idle_share": 1 - busy / wall, "by_kind": _by_kind(by),
+                      "optimizer_window_ms": opt_ms,
+                      "top": [{"ms": t, "count": c, "kernel": k}
+                              for t, c, k in by[:15]]},
+             remat_off={"step_ms": _ms_stats(ms_nr),
+                        "tokens_per_s": tokens / statistics.median(ms_nr)
+                        * 1e3, "peak_mem_gib": peak_nr / 2 ** 30})
+        del pB, oB
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free(torch)
+    return {"ms": med}
+
+
+def phase_train_mamba(torch, gen, seed):
+    """mamba2-370m at full width and depth trained on one card: bf16
+    activations, 8 x 2048 tokens (the ``mamba`` cell's prompt shape),
+    remat ``full``, AdamW, 4 steps; ``ssd_chunk`` launches a step (96:
+    48 forward, 48 recompute, all on the tensor-core route); ms a step,
+    tokens/s, peak memory; from one profiled step, the share of the step
+    in the plain SSD backward (``PlainGrad.backward``, CUDA events)
+    against the kernel's forward launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
+    from repro_torch.kernels import autograd
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.tree import leaves_with_keys
+
+    cfg = get_config("mamba2-370m")
+    model = Model(cfg, device=DEV)
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=MAMBA_TRAIN_STEPS)
+    step = make_train_step(model, opt_cfg)
+    batch_fn = deterministic_batch_fn(seed, TokenStreamSpec(
+        vocab=cfg.vocab, seq=MAMBA_TRAIN_S, batch=MAMBA_TRAIN_B), device=DEV)
+    tokens = MAMBA_TRAIN_B * MAMBA_TRAIN_S
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+    n_params = sum(t.numel() for t in leaves_with_keys(params).values())
+    opt = init_opt_state(params, opt_cfg)
+    events, metrics, per_step, routes = [], [], [], []
+    timed = _step_events(torch, step, events, metrics)
+    for i in range(MAMBA_TRAIN_STEPS):
+        n0, r0 = SSD.launches, dict(ROUTE_LAUNCHES)
+        params, opt, _ = timed(params, opt, batch_fn(i))
+        per_step.append(SSD.launches - n0)
+        routes.append({r: ROUTE_LAUNCHES[r] - r0[r] for r in r0})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    ms = [s.elapsed_time(e) for s, e in events]
+    loss = [float(m["loss"]) for m in metrics]
+    want = 2 * cfg.n_layers
+    if any(n != want for n in per_step) or any(
+            r["tensor-core"] != want for r in routes):
+        fail(f"train_mamba: ssd_chunk launches a step {per_step}, routes "
+             f"{routes}; expected {want} on the tensor-core route")
+    if not all(math.isfinite(x) for x in loss):
+        fail(f"train_mamba: non-finite loss {loss}")
+
+    # one profiled step; the plain SSD backward timed by CUDA events
+    plain = []
+    real = autograd.PlainGrad.backward
+
+    def backward(ctx, *grads):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(ctx, *grads)
+        end.record()
+        plain.append((start, end))
+        return out
+
+    batch = batch_fn(MAMBA_TRAIN_STEPS)
+    autograd.PlainGrad.backward = staticmethod(backward)
+    try:
+        wall, busy, by = _profile(torch, lambda: step(params, opt, batch))
+    finally:
+        autograd.PlainGrad.backward = staticmethod(real)
+    plain_ms = sum(s.elapsed_time(e) for s, e in plain)
+    kernel_ms = sum(t for t, _, k in by if any(n in k for n in SSD_KERNELS))
+    med = statistics.median(ms[1:])
+    emit("train_mamba", arch=cfg.name, params=n_params,
+         batch=[MAMBA_TRAIN_B, MAMBA_TRAIN_S], remat=cfg.remat_policy,
+         activations=cfg.dtype, steps=MAMBA_TRAIN_STEPS, loss=loss,
+         step_ms=ms, step_ms_2_4=_ms_stats(ms[1:]),
+         tokens_per_s=tokens / med * 1e3, peak_mem_gib=peak / 2 ** 30,
+         ssd_launches_per_step=per_step, ssd_routes_per_step=routes,
+         profile={"wall_ms": wall, "device_busy_ms": busy,
+                  "idle_share": 1 - busy / wall,
+                  "plain_ssd_backward_ms": plain_ms,
+                  "plain_ssd_backward_calls": len(plain),
+                  "plain_ssd_backward_share": plain_ms / wall,
+                  "ssd_kernel_forward_ms": kernel_ms,
+                  "ssd_kernel_share": kernel_ms / wall,
+                  "by_kind": _by_kind(by),
+                  "top": [{"ms": t, "count": c, "kernel": k}
+                          for t, c, k in by[:15]]})
+    del params, opt
+    _free(torch)
+    return {"launches": sum(per_step), "ms": med}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3962,6 +4508,12 @@ def main(argv=None):
     # this slice: MoE, MLA and every architecture of the registry
     timed("deepseek", phase_deepseek, torch, gen, args.seed)
     archs = timed("archs", phase_archs, torch, gen, args.seed)
+    # this slice: training; first the gradient through the kernel routes
+    # and flash at head width 16
+    tgrad = timed("train_grad", phase_train_grad, torch, gen, args.seed)
+    flash16 = timed("flash_dh16", phase_flash_dh16, torch, gen)
+    timed("train_qwen2", phase_train_qwen2, torch, gen, args.seed)
+    tmamba = timed("train_mamba", phase_train_mamba, torch, gen, args.seed)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -4004,10 +4556,22 @@ def main(argv=None):
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"]},
+        # the same kernel at head width 16 (every reduced config's); its
+        # launches: the reduced models' gradient steps of train_grad, in
+        # both dtypes
+        {"name": "flash_attention_dh16", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+         "launches": tgrad["launches"]["flash_attention"],
+         "max_abs_err": flash16["max_abs_err"],
+         "ms": flash16["ms"], "plain_ms": flash16["plain_ms"],
+         "bound_ms": flash16["bound_ms"], "bound_by": flash16["bound_by"],
+         "library_ms": flash16["library_ms"]},
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
-         "launches": mamba["launches"],
+         "launches": (mamba["launches"] + tgrad["launches"]["ssd_chunk"]
+                      + tmamba["launches"]),
          "max_abs_err": ssd["max_abs_err"],
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],

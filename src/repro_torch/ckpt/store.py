@@ -191,7 +191,8 @@ class CheckpointStore:
 def _rebuild_like(like, read: Callable[[str], Tuple[np.ndarray, str]],
                   device=None, prefix: str = ""):
     """``like`` rebuilt from host leaves fetched by key through ``read``
-    (dataclasses and dicts recursed, other non-tensor fields kept); each
+    (dataclasses, dicts, tuples and NamedTuples recursed, keyed as
+    ``leaves_with_keys`` keys them; other non-tensor fields kept); each
     leaf must have the donor's shape and dtype."""
     if dataclasses.is_dataclass(like):
         return dataclasses.replace(like, **{
@@ -201,6 +202,13 @@ def _rebuild_like(like, read: Callable[[str], Tuple[np.ndarray, str]],
     if isinstance(like, dict):
         return {k: _rebuild_like(v, read, device, f"{prefix}{k}/")
                 for k, v in like.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(
+            _rebuild_like(v, read, device, f"{prefix}{k}/")
+            for k, v in zip(like._fields, like)))
+    if isinstance(like, tuple):
+        return type(like)(_rebuild_like(v, read, device, f"{prefix}{i}/")
+                          for i, v in enumerate(like))
     if not isinstance(like, torch.Tensor):
         return like
     key = prefix[:-1]

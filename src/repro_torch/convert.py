@@ -13,7 +13,8 @@ key has no ``torch.Generator`` counterpart, so its ``key`` leaf is not
 read and the port's generator starts fresh from ``seed``.
 
 A model's parameter tree (the nested dict of the JAX package's
-``Model.init``) carries across key for key (``model_params_from_jax``).
+``Model.init``) carries across key for key (``model_params_from_jax``),
+and so does an optimizer state (``opt_state_from_jax``).
 
 A bfloat16 leaf crosses as its raw 16-bit words: numpy has no bfloat16
 of its own and the port does not import ``ml_dtypes``.  Out, it is a
@@ -143,3 +144,15 @@ def model_params_from_jax(tree, device):
     if isinstance(tree, dict):
         return {k: model_params_from_jax(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def opt_state_from_jax(state, device):
+    """The port's ``train.OptState`` from the JAX package's (``m`` and
+    ``v`` nested dicts of numpy arrays like the parameters, ``step`` a
+    numpy int32 scalar, e.g. the JAX state passed through ``np.asarray``
+    leaf by leaf): the same keys, shapes and dtypes, on ``device``."""
+    from repro_torch.train.optim import OptState
+
+    return OptState(m=model_params_from_jax(state.m, device),
+                    v=model_params_from_jax(state.v, device),
+                    step=tensor_from_numpy(state.step, device))

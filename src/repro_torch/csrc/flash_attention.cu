@@ -53,12 +53,13 @@
 //   encoded in the C launch function on every call, since the pointers
 //   change, and passed as const __grid_constant__ CUtensorMap.
 // * Each map views a tensor as (B*H, S, dh): global strides of dh * 2 and
-//   S * dh * 2 bytes are multiples of 16 for dh in {32, 64, 96, 128}, and a
+//   S * dh * 2 bytes are multiples of 16 for dh in {16, 32, 64, 96, 128}, and a
 //   box never crosses from one head into the next: rows past S read as
 //   zeros.  The wrapper still pads S to the TPU kernel's blocks, but at
 //   S < 128 (or S = 100) the box is longer than the tensor; keys at or
 //   past Sk get -inf (they do not exist), keys at or past kv_len -1e30.
-// * The swizzle of the TMA box (128 B; 64 B at dh = 32 and 96) must match
+// * The swizzle of the TMA box (128 B; 64 B at dh = 32 and 96; 32 B at
+//   dh = 16) must match
 //   the layout field of the wgmma descriptors, with tiles 1024-byte aligned;
 //   a mismatch gives plausible garbage, not a fault, which
 //   tests/test_torch_cuda.py holds against attention_ref at small shapes.
@@ -70,6 +71,9 @@
 //   32-column blocks with the 64-byte swizzle (three TMA boxes per tile),
 //   S = Q K^T in six k16 steps (two per block), O += P V as m64n96k16 with
 //   V's three blocks LBO apart.
+// * dh = 16 (the reduced configs' head width) is 32 bytes a row: one
+//   16-column block with the 32-byte swizzle (TMA's SWIZZLE_32B, wgmma
+//   layout 3), S = Q K^T in a single k16 step, O += P V as m64n16k16.
 // * wgmma.fence precedes each batch of products (the accumulators were
 //   written by ordinary instructions), and commit_group / wait_group 0
 //   come before the softmax reads S and before a stage is released.
@@ -277,6 +281,7 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
               float scale, cudaStream_t s) {
 #define FLASH_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, kv_len, causal, scale, s
   switch (dh) {
+    case 16: return launch<T, 16>(FLASH_ARGS);
     case 32: return launch<T, 32>(FLASH_ARGS);
     case 64: return launch<T, 64>(FLASH_ARGS);
     case 96: return launch<T, 96>(FLASH_ARGS);
@@ -303,14 +308,17 @@ constexpr float MASKED = -1e30f;  // kv_len / causal masks, as the reference
 
 // Shared-memory geometry for head width DH.  A tile of R rows is stored
 // as DH / CB column blocks of R rows x SW bytes, each as TMA writes it
-// with an SW-byte swizzle (128 B at dh 64 / 128, 64 B at dh 32 / 96).
+// with an SW-byte swizzle (128 B at dh 64 / 128, 64 B at dh 32 / 96, 32 B
+// at dh 16).
 template <int DH>
 struct Geo {
-  static constexpr int SW = DH % 64 == 0 ? 128 : 64;  // bytes of a block row
+  static constexpr int SW =  // bytes of a block row
+      DH == 16 ? 32 : DH % 64 == 0 ? 128 : 64;
   static constexpr int CB = SW / 2;               // bf16 columns per block
   static constexpr int NCB = DH / CB;             // column blocks
   static constexpr int KPB = CB / 16;             // k16 steps per block
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // wgmma swizzle
+  static constexpr uint64_t LAYOUT =  // wgmma swizzle: 1 128 B, 2 64, 3 32
+      SW == 128 ? 1 : SW == 64 ? 2 : 3;
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BK * DH * 2;
   static constexpr int TILES = Q_BYTES + 2 * STAGES * KV_BYTES;
@@ -322,7 +330,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // wgmma matrix descriptor: start address, leading / stride byte offsets,
-// swizzle (1 = 128 B, 2 = 64 B).
+// swizzle (1 = 128 B, 2 = 64 B, 3 = 32 B).
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
                                          uint32_t sbo, uint64_t layout) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
@@ -412,6 +420,21 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 16, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 16) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 32, f32) += A . B, A (64 x 16) bf16 in registers (four
 // bf16x2 per thread), B (16 x 32) bf16 in shared memory, MN-major.
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -498,7 +521,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DH == 32) wgmma_rs_n32(o, a, db);
+  if constexpr (DH == 16) wgmma_rs_n16(o, a, db);
+  else if constexpr (DH == 32) wgmma_rs_n32(o, a, db);
   else if constexpr (DH == 64) wgmma_rs_n64(o, a, db);
   else if constexpr (DH == 96) wgmma_rs_n96(o, a, db);
   else wgmma_rs_n128(o, a, db);
@@ -749,7 +773,8 @@ EncodeTiled encoder() {
 
 // A (BH, S, dh) bf16 tensor as a TMA map with boxes of `rows` rows x one
 // column block.  Global strides (dh * 2 and S * dh * 2 bytes) are
-// multiples of 16 for dh in {32, 64, 96, 128}; rows past S read as zeros.
+// multiples of 16 for dh in {16, 32, 64, 96, 128}; rows past S read as
+// zeros.
 template <int DH>
 bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int rows) {
   using G = Geo<DH>;
@@ -761,8 +786,9 @@ bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int rows) {
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                         : CU_TENSOR_MAP_SWIZZLE_64B,
+            G::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : G::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                          : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -812,6 +838,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                     kv_len, causal, scale, s);
     case 1:
       switch (dh) {
+        case 16: return tc::launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
+                                       kv_len, causal, scale, s);
         case 32: return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                        kv_len, causal, scale, s);
         case 64: return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,

@@ -29,7 +29,7 @@ DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "cuda-core (flash_attention_kernel, FP32 FMA)",
           torch.bfloat16: "tensor-core (flash_attention_wgmma_kernel, "
                           "wgmma + TMA)"}
-HEAD_DIMS = (32, 64, 96, 128)  # the template instances of the source
+HEAD_DIMS = (16, 32, 64, 96, 128)  # the template instances of the source
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/flash_attention.cu: the tensor-core kernel's query rows, keys per
 # tile, ring stages and threads (namespace tc), the CUDA-core kernel's

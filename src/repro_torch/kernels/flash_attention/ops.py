@@ -15,12 +15,18 @@ Backends:
 Both routes see the same padded inputs, so the CPU tests reach the
 padding the kernel gets.  There is no fallback between them: a kernel
 that cannot build or launch raises.
+
+The kernel route is differentiable: ``kernels.autograd.with_plain_grad``
+runs the kernel forward and ``attention_ref``'s gradient backward (the
+JAX package trains through its plain attention); under
+``torch.inference_mode`` it is the kernel alone.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..autograd import with_plain_grad
 from .kernel import flash_attention_cuda
 from .ref import attention_ref
 
@@ -51,7 +57,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qp = _pad_seq(q, (-Sq) % bq)
     kp = _pad_seq(k, (-Sk) % bk)
     vp = _pad_seq(v, (-Sk) % bk)
-    fn = flash_attention_cuda if kernel else attention_ref
-    out = fn(qp.contiguous(), kp.contiguous(), vp.contiguous(),
-             causal=causal, kv_len=Sk)
+    args = (qp.contiguous(), kp.contiguous(), vp.contiguous())
+    if kernel:
+        out = with_plain_grad(flash_attention_cuda, attention_ref, *args,
+                              causal=causal, kv_len=Sk)
+    else:
+        out = attention_ref(*args, causal=causal, kv_len=Sk)
     return out[:, :, :Sq]

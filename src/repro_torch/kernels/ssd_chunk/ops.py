@@ -19,11 +19,17 @@ Backends:
 
 There is no fallback between them: a kernel that cannot build or launch
 raises.
+
+The kernel route is differentiable: ``kernels.autograd.with_plain_grad``
+runs the kernel forward and the plain version's gradient backward (the
+JAX package trains through its plain ``ssd``); under
+``torch.inference_mode`` it is the kernel alone.
 """
 from __future__ import annotations
 
 import torch
 
+from ..autograd import with_plain_grad
 from .kernel import ssd_chunk_cuda
 from .ref import ssd_chunk_ref
 
@@ -50,7 +56,18 @@ def ssd_chunks(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     if g == 0 or h % g:
         raise ValueError(f"{h} heads do not group over {g} B/C groups")
     if backend == "cuda" or (backend == "auto" and X.is_cuda):
-        return ssd_chunk_cuda(X, Adt, B, C, chunk=chunk)
+        return with_plain_grad(ssd_chunk_cuda, ssd_plain, X, Adt, B, C,
+                               chunk=chunk)
+    return ssd_plain(X, Adt, B, C, chunk=chunk)
+
+
+def ssd_plain(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
+              C: torch.Tensor, *, chunk: int):
+    """The plain route on the model layout (``ssd_chunks``' signature and
+    results): B and C repeated over the heads of their group, the
+    (b, h, c, q, x) tiles through ``ssd_chunk_ref``."""
+    b, L, h, p = X.shape
+    g = B.shape[2]
     if g != h:  # each head its group's B and C
         B = torch.repeat_interleave(B, h // g, dim=2)
         C = torch.repeat_interleave(C, h // g, dim=2)

@@ -40,15 +40,19 @@ def ssd_chunk_ref(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
 
     Two explicit products, S = (C B^T) * L then Y = S X, so the live
     intermediates are (..., q, q), never (..., q, q, n).  Above the
-    diagonal exp(acum_i - acum_j) may overflow to inf; ``where`` selects
-    0 there (a mask multiplied by inf would give NaN).
+    diagonal acum_i - acum_j may be large enough for exp to overflow to
+    inf; it is set to -inf before the exponent, so L is 0 there and so
+    is its gradient (masking after the exponent would give the same L,
+    but a gradient of 0 x inf = NaN, which training at Mamba2-370m's
+    decays reaches; this version is the kernel route's backward,
+    ``kernels.autograd``).
     """
     Xf, Bf, Cf = X.float(), B.float(), C.float()
     acum = chunk_cumsum(Adt)
     q = X.shape[-2]
     tri = torch.ones(q, q, dtype=torch.bool, device=X.device).tril()
-    L = torch.where(tri, torch.exp(acum[..., :, None] - acum[..., None, :]),
-                    torch.zeros((), device=X.device))
+    L = torch.exp(torch.where(tri, acum[..., :, None] - acum[..., None, :],
+                              torch.tensor(float("-inf"), device=X.device)))
     S = (Cf @ Bf.transpose(-1, -2)) * L
     Y = S @ Xf
     decay = torch.exp(acum[..., -1:] - acum)

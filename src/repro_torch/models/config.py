@@ -93,8 +93,11 @@ class ModelConfig:
 
     dtype: str = "bfloat16"
     param_dtype: str = "float32"  # master params
-    # remat, remat_policy, scan_layers and attn_seq_shard shape the JAX
-    # package's compiled program; the port runs eagerly and ignores them
+    # remat / remat_policy: the training forward's blocks (and the Whisper
+    # encoder's layers) under torch.utils.checkpoint, "full" or "dots"
+    # (models/transformer.py: _remat); scan_layers and attn_seq_shard
+    # shape the JAX package's compiled program, the port runs eagerly and
+    # ignores them
     remat: bool = True
     remat_policy: str = "full"
     scan_layers: bool = True

@@ -10,6 +10,14 @@ in the JAX package; a Python loop over that axis takes the place of
 apart under ``head_layers/h<i>``, their caches under ``head/h<i>``, and
 run before the blocks.
 
+With ``cfg.remat`` each block of the training forward, and each layer of
+the Whisper encoder, runs under ``torch.utils.checkpoint`` (the JAX
+package's ``jax.checkpoint``): ``remat_policy="full"`` keeps only the
+block's inputs, ``"dots"`` keeps the matrix products' outputs too
+(``jax.checkpoint_policies.checkpoint_dots``) and recomputes the rest.
+Under ``torch.no_grad`` / ``torch.inference_mode`` (serving) nothing is
+recomputed and the blocks run as they are.
+
 Entry points:
   * ``train_logits``  the training forward, with the summed MoE aux loss
   * ``loss``          next-token cross-entropy plus the weighted aux loss
@@ -19,11 +27,14 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve_device
 
@@ -34,6 +45,35 @@ from .layers import (ParamDef, apply_mlp, apply_norm, embed_lookup,
                      embed_spec, init_tree, mlp_spec, norm_spec, stack_spec,
                      tree_map)
 from .moe import apply_moe, moe_spec
+
+
+# ------------------------------------------------------------------ remat
+# the matrix products whose outputs "dots" keeps (einsum and @ lower to
+# these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, cfg: ModelConfig):
+    """``body`` under ``torch.utils.checkpoint`` with the configured
+    policy ('full' or 'dots') when ``cfg.remat`` is set and grad mode is
+    on; ``body`` itself otherwise (port of the JAX package's
+    ``_remat``)."""
+    if not cfg.remat or not torch.is_grad_enabled():
+        return body
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"remat_policy {cfg.remat_policy!r}: 'full' or "
+                         "'dots'")
+    return functools.partial(checkpoint, body, use_reentrant=False, **kw)
 
 
 # ------------------------------------------------------------------ specs
@@ -126,6 +166,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None, *,
 def _index(tree, i: int):
     """Block ``i`` of a tree stacked along a leading axis (views)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """The ``n`` blocks of a tree stacked along a leading axis, each leaf
+    cut by one ``unbind`` (views).  Under autograd the backward of an
+    unbind is one ``stack`` per leaf, where ``n`` separate ``t[i]`` would
+    each write a zero tensor the size of the whole stacked leaf."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p, i=i: p[i], parts) for i in range(n)]
 
 
 # ------------------------------------------------------ layer application
@@ -246,13 +295,17 @@ class Model(nn.Module):
         pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
         x = frames.to(dt) + pe.to(dt)
         enc_cfg = dataclasses.replace(cfg, rope="none")
-        blocks = params["encoder"]["blocks"]
-        for i in range(cfg.encoder.n_layers):
-            bp = _index(blocks, i)
+
+        def body(x, bp):
             h = apply_norm(bp["ln1"], x, cfg.norm)
             x = x + attn.gqa_train(bp["attn"], h, enc_cfg, causal=False)
             h = apply_norm(bp["ln2"], x, cfg.norm)
-            x = x + apply_mlp(bp["ffn"], h, cfg.ffn)
+            return x + apply_mlp(bp["ffn"], h, cfg.ffn)
+
+        f = _remat(body, cfg)
+        for bp in _unstack(params["encoder"]["blocks"],
+                           cfg.encoder.n_layers):
+            x = f(x, bp)
         return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
 
     # ---------------------------------------------------------------- embed
@@ -288,11 +341,11 @@ class Model(nn.Module):
                                    mode=mode, cache=c, pos=pos,
                                    enc_out=enc_out)
             aux = aux + a
-        for i in range(cfg.n_blocks):
+        block = _remat(_apply_block, cfg) if mode == "train" else _apply_block
+        for i, bp in enumerate(_unstack(params["blocks"], cfg.n_blocks)):
             bc = _index(caches["blocks"], i) if caches is not None else None
-            x, a = _apply_block(_index(params["blocks"], i), x, cfg,
-                                mode=mode, caches=bc, pos=pos,
-                                enc_out=enc_out)
+            x, a = block(bp, x, cfg, mode=mode, caches=bc, pos=pos,
+                         enc_out=enc_out)
             aux = aux + a
         return x, aux
 

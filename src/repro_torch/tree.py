@@ -1,12 +1,14 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Nested frozen dataclasses (or nested dicts) of tensors as the port's
-pytrees.
+"""Nested frozen dataclasses, dicts, tuples and NamedTuples of tensors as
+the port's pytrees.
 
 The JAX package registers its state dataclasses as pytrees; the port
 keeps plain frozen dataclasses and walks them here.  Leaves are tensors;
 ``None`` fields and ``torch.Generator`` fields (the random baseline's
 draws) pass through untouched and are no leaves.  A model's parameters
-are nested dicts, walked by ``leaves_with_keys`` too.
+are nested dicts; a training checkpoint is the tuple ``(params,
+OptState(m, v, step))``, keyed as JAX keys it: a tuple by the index, a
+NamedTuple by the field name (``0/embed``, ``1/m/embed``, ``1/step``).
 """
 from __future__ import annotations
 
@@ -16,29 +18,56 @@ from typing import Any, Callable, Dict
 import torch
 
 
+def _is_namedtuple(t: Any) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
-    """Apply ``fn`` leafwise over dataclasses of identical structure."""
+    """Apply ``fn`` leafwise over trees of identical structure."""
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{
             f.name: tree_map(fn, getattr(tree, f.name),
                              *(getattr(r, f.name) for r in rest))
             for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        out = [tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return (type(tree)(*out) if _is_namedtuple(tree)
+                else type(tree)(out))
     if tree is None or isinstance(tree, torch.Generator):
         return tree
     return fn(tree, *rest)
 
 
+def _items(tree: Any):
+    """(key, child) pairs of one node: dict keys, NamedTuple fields,
+    tuple indices, dataclass fields."""
+    if isinstance(tree, dict):
+        return tree.items()
+    if _is_namedtuple(tree):
+        return zip(tree._fields, tree)
+    if isinstance(tree, tuple):
+        return ((str(i), v) for i, v in enumerate(tree))
+    return ((f.name, getattr(tree, f.name))
+            for f in dataclasses.fields(tree))
+
+
+def _is_node(t: Any) -> bool:
+    """Whether ``t`` is an inner node of a tree (not a leaf)."""
+    return dataclasses.is_dataclass(t) or isinstance(t, (dict, tuple))
+
+
 def leaves_with_keys(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
     """``{"ld/feats": tensor, ...}`` — the key scheme of the JAX
-    package's ``ckpt.store._flatten_with_keys`` (field names, or dict
-    keys, joined by ``/``)."""
+    package's ``ckpt.store._flatten_with_keys`` (field names, dict keys
+    or tuple indices, joined by ``/``)."""
     out: Dict[str, torch.Tensor] = {}
-    items = (tree.items() if isinstance(tree, dict) else
-             ((f.name, getattr(tree, f.name))
-              for f in dataclasses.fields(tree)))
-    for name, v in items:
+    for name, v in _items(tree):
         key = f"{prefix}{name}"
-        if dataclasses.is_dataclass(v) or isinstance(v, dict):
+        if _is_node(v):
             out.update(leaves_with_keys(v, key + "/"))
         elif isinstance(v, torch.Tensor):
             out[key] = v

@@ -1221,8 +1221,8 @@ def test_reduced_moe_models_on_the_card_match_the_cpu(cuda, arch):
     bf16: bf16 rounding that differs between cuBLAS and the CPU moves
     some top-k router choices (grok and jamba failed a 5e-2 bf16 gate on
     the H100 that way), a step no fixed tolerance bounds.  The plain
-    attention route: the reduced head width, 16, is not one the flash
-    kernel takes."""
+    attention route (flash at the reduced head width, 16, is held by
+    ``test_flash_head_width_16_matches_plain``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model, init_cache
     from repro_torch.models.layers import tree_map
@@ -1248,3 +1248,148 @@ def test_reduced_moe_models_on_the_card_match_the_cpu(cuda, arch):
     for a, b in zip(out["card"], out["cpu"]):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- training through the kernels
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [64, 300])
+def test_flash_head_width_16_matches_plain(cuda, dtype, causal, S):
+    """Head width 16 (every reduced config's), GQA, on both kernels: bf16
+    on the tensor cores (32-byte swizzle, m64n16k16), float32 on the CUDA
+    cores; S = 300 pads to 384 keys."""
+    from repro_torch.kernels.flash_attention import (KERNEL, attention_ref,
+                                                     flash_attention)
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(S + causal)
+    q = (0.5 * torch.randn(2, 4, S, 16, generator=g, device=cuda)).to(dt)
+    k = (0.5 * torch.randn(2, 2, S, 16, generator=g, device=cuda)).to(dt)
+    v = torch.randn(2, 2, S, 16, generator=g, device=cuda).to(dt)
+    before = KERNEL.launches
+    got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    want = attention_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dt == torch.bfloat16 else 2e-4
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _grads_of(fn, inputs, seed=0):
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device=xs[0].device).manual_seed(seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g,
+                                        device=o.device)).sum()
+               for o in outs)
+    return torch.autograd.grad(loss, xs)
+
+
+@pytest.mark.parametrize("route", ["ssd", "flash"])
+def test_kernel_route_gradient_is_the_plain_gradient(cuda, route):
+    """The kernel routes under ``with_plain_grad`` (float32): the input
+    gradients equal those of the plain route, which runs the same plain
+    autograd on the same inputs; the forward launched the kernel once."""
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    if route == "ssd":
+        kern = SSD
+        inputs = (0.5 * torch.randn(2, 64, 4, 16, generator=g, device=cuda),
+                  -0.1 * torch.rand(2, 64, 4, generator=g, device=cuda),
+                  0.5 * torch.randn(2, 64, 2, 16, generator=g, device=cuda),
+                  0.5 * torch.randn(2, 64, 2, 16, generator=g, device=cuda))
+
+        def run(backend):
+            return lambda *x: ssd_chunks(*x, chunk=16, backend=backend)
+    else:
+        kern = FLASH
+        inputs = tuple(torch.randn(2, h, 100, 16, generator=g, device=cuda)
+                       for h in (4, 2, 2))
+
+        def run(backend):
+            return lambda *x: flash_attention(*x, causal=True,
+                                              backend=backend)
+    before = kern.launches
+    got = _grads_of(run("cuda"), inputs)
+    assert kern.launches == before + 1
+    want = _grads_of(run("torch"), inputs)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_kernel_route_costs_inference_nothing(cuda):
+    """Under inference_mode the kernel route returns the kernel's own
+    outputs: no autograd node."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+
+    X = torch.randn(1, 32, 2, 16, device=cuda, requires_grad=True)
+    Adt = -0.1 * torch.rand(1, 32, 2, device=cuda)
+    B = torch.randn(1, 32, 1, 16, device=cuda)
+    with torch.inference_mode():
+        Y, st = ssd_chunks(X, Adt, B, B, chunk=16, backend="cuda")
+    assert Y.grad_fn is None and st.grad_fn is None
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", ["mamba2-370m", "jamba-1.5-large-398b",
+                                  "qwen2-1.5b", "whisper-small"])
+def test_reduced_model_gradients_on_the_kernel_routes(cuda, arch, remat):
+    """``Model.loss(...).backward()`` of the reduced models on the card,
+    float32, with ``use_pallas_attention`` (flash at head width 16) and
+    the SSD kernel: every leaf's gradient within 1e-4 of its largest
+    value on the plain routes, with and without remat; each kernel
+    launched once per layer, twice under remat."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+    from repro_torch.models import Model, attention, mamba
+    from repro_torch.train.step import TrainStepConfig, make_grad_fn
+    from repro_torch.tree import leaves_with_keys
+
+    cfg = dataclasses.replace(get_config(
+        arch, reduced=True, dtype="float32", use_pallas_attention=True),
+        remat=remat)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                                     device=cuda, dtype=torch.int32)}
+    if cfg.encoder is not None:
+        batch["frames"] = torch.randn(2, cfg.encoder.n_frames, cfg.d_model,
+                                      generator=g, device=cuda)
+    grad_fn = make_grad_fn(model, TrainStepConfig())
+    n0 = SSD.launches + FLASH.launches
+    got = leaves_with_keys(grad_fn(params, batch)[0])
+    launched = SSD.launches + FLASH.launches - n0
+    kernel_layers = sum(cfg.layer_kind(i) == "M" for i in range(
+        cfg.n_layers)) + sum(cfg.layer_kind(i) == "A" for i in range(
+            cfg.n_layers)) + (cfg.encoder.n_layers if cfg.encoder else 0)
+    assert launched == kernel_layers * (2 if remat else 1)
+
+    def flash_plain(q, k, v, *, causal=True):
+        return flash_ops.flash_attention(q, k, v, causal=causal,
+                                         backend="torch")
+
+    def ssd_plain(X, Adt, B, C, *, chunk):
+        return ssd_chunks(X, Adt, B, C, chunk=chunk, backend="torch")
+
+    saved = mamba.ssd_chunks, attention.flash_attention
+    try:
+        mamba.ssd_chunks, attention.flash_attention = ssd_plain, flash_plain
+        want = leaves_with_keys(grad_fn(params, batch)[0])
+    finally:
+        mamba.ssd_chunks, attention.flash_attention = saved
+    for k, w in want.items():
+        size = w.abs().max().item()
+        err = (got[k] - w).abs().max().item()
+        assert err <= 1e-4 * size, (k, err, size)
