@@ -265,6 +265,42 @@ Then this slice's phases, after ``archs``:
                      step on the tensor-core route; ms a step, tokens/s,
                      peak memory, the plain SSD backward's share of a
                      profiled step against the kernel's forward.
+
+Then the scale-out path, each phase's ranks spawned (``spawn``) on the
+one card, one process group each; a rank that raises or outlives its
+timeout fails the run with every rank's traceback:
+
+ sharded_pod         the ``pod`` phase's 256 tenants as 4 gloo ranks x 64
+                     sessions through ``make_sharded_update``: 2 ingests
+                     of 262,144 tagged items (65,536 a rank) on a (4, 1)
+                     ("data", "model") mesh, 2 pre-routed (chunks from
+                     ``ingest.host_route``), then one of each on a (2, 2)
+                     ("pod", "data") mesh with the tuple axis; every
+                     rank's rows bit for bit the one-process 256-session
+                     pod's fed the same items; items/s over all ranks,
+                     ms an ingest a rank, host-route ms, launches;
+ sharded_merge       ``DistributedSummarizer`` of ThreeSieves on a (4,)
+                     ("data",) mesh, one shard a rank, over the ``paper``
+                     stream in batches of 4 x 1,024: every rank's shard
+                     state bit for bit the one-process loop's at
+                     ``shards=4``, every rank's merge bit for bit the
+                     others' and the loop's (near-tie rule of
+                     ``distributed``); the all-gather's bytes and ms
+                     (CUDA tensors over gloo), the merge's ms, 100
+                     ``gain_static`` launches a rank;
+ pod_compress        two gloo ranks as two pods, each training
+                     mamba2-370m whole (8 x 2048 tokens, bf16, remat
+                     ``full``) on its own batches, 3 AdamW steps through
+                     ``Compressor(mesh, "pod")``: the parameters bit for
+                     bit the same on both after every step, each reduced
+                     gradient within the int8 bound of the pods' mean
+                     (``_check_reduced``), 96 ``ssd_chunk`` launches a
+                     step a rank; ms a step, the compress window, the
+                     int32 bytes a step, peak memory;
+ nccl                one rank on an NCCL group: the pod (64 sessions),
+                     the merge (8 batches of the stream) and the
+                     compressor (reduced mamba2-370m, 2 steps) under the
+                     same gates, every kernel but flash launched.
 """
 from __future__ import annotations
 
@@ -455,11 +491,19 @@ def device_ms(torch, fn, kernels, *, reps=20, setup=None, seen=None,
     on the H100, and in one run every one of them), so the calls are
     counted by the events of the call's own kernel, one per call, not
     taken as ``reps``, and a window that saw none is profiled again, up
-    to ``windows`` times.  Fails when no window saw device time for it.
-    ``seen`` collects {name: count}."""
+    to ``windows`` times.  ``seen`` collects {name: count}.
+
+    After the ``deepseek`` phase's profiled generate the profiler can go
+    blind for a while: it records the runtime calls of a window but none
+    of its kernels (2 of 20 windows in one run, 8 in a row in another).
+    When every window is blind, the calls are timed by CUDA events
+    instead (the whole device span of ``reps`` calls over ``reps``),
+    ``seen`` stays empty and a ``profiler_blind`` line says so; callers
+    that check the route then read the wrapper's route counters."""
     from torch.profiler import ProfilerActivity, profile
 
     kernels = (kernels,) if isinstance(kernels, str) else tuple(kernels)
+    blind = []
     for _ in range(windows):
         argsets = [setup() if setup else () for _ in range(reps)]
         fn(*argsets[0])  # warm
@@ -470,7 +514,8 @@ def device_ms(torch, fn, kernels, *, reps=20, setup=None, seen=None,
                 fn(*args)
             torch.cuda.synchronize()
         total, calls, names = 0.0, 0, {}
-        for ev in prof.key_averages():
+        events = prof.key_averages()
+        for ev in events:
             if any(k in ev.key for k in kernels):
                 t = getattr(ev, "self_device_time_total", None)
                 if t is None:
@@ -484,8 +529,37 @@ def device_ms(torch, fn, kernels, *, reps=20, setup=None, seen=None,
             if seen is not None:
                 seen.update(names)
             return total / calls / 1e3
-    fail(f"the profiler saw no device time for {kernels[0]} in {windows} "
-         "windows")
+        blind.append(sorted(ev.key[:40] for ev in events))
+    argsets = [setup() if setup else () for _ in range(reps)]
+    fn(*argsets[0])  # warm
+    argsets[0] = setup() if setup else ()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for args in argsets:
+        fn(*args)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    emit("profiler_blind", kernel=kernels[0], windows=windows,
+         window_events=blind, event_ms=ms)
+    return ms
+
+
+def _route_ran(seen, tensor_core, counts, before):
+    """The route a timed call took: from the kernel names the profiler
+    saw (one kernel, ``tensor_core`` in the tensor-core kernel's name),
+    or, when ``device_ms`` found the profiler blind, from the wrapper's
+    route counters (one route launched); "mixed" when more than one
+    ran."""
+    if seen:
+        if len(seen) != 1:
+            return "mixed"
+        return ("tensor-core" if any(tensor_core in k for k in seen)
+                else "cuda-core")
+    ran = [r for r in counts if counts[r] > before[r]]
+    return ran[0] if len(ran) == 1 else "mixed"
 
 
 def host_ms(torch, fn):
@@ -1770,6 +1844,8 @@ def _flash_case(torch, gen, case, control):
     "non_causal" (the kernel of a causal case told to see every key)."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES as \
+        FLASH_ROUTE_LAUNCHES
     from repro_torch.kernels.flash_attention import (ROUTES, attention_ref,
                                                      flash_attention,
                                                      flash_attention_cuda)
@@ -1816,14 +1892,13 @@ def _flash_case(torch, gen, case, control):
                                q.element_size())
     b_ms, b_by = bound(flops, nbytes, PEAK_BF16 if dt == torch.bfloat16
                        else PEAK_FP32)
-    seen = {}
+    seen, before = {}, dict(FLASH_ROUTE_LAUNCHES)
     ms = device_ms(torch, kernel, FLASH_KERNELS[::-1] if dtype ==
                    "bfloat16" else FLASH_KERNELS, seen=seen)
-    ran = ("tensor-core" if any("wgmma" in k for k in seen)
-           else "cuda-core")
-    if len(seen) != 1 or not ROUTES[dt].startswith(ran):
-        fail(f"flash {name}: {dtype} ran {sorted(seen)}, expected the "
-             f"{ROUTES[dt]} kernel alone")
+    ran = _route_ran(seen, "wgmma", FLASH_ROUTE_LAUNCHES, before)
+    if not ROUTES[dt].startswith(ran):
+        fail(f"flash {name}: {dtype} ran {sorted(seen) or ran}, expected "
+             f"the {ROUTES[dt]} kernel alone")
     return {
         "case": name, "route": ran, "kernels_seen": seen,
         "shape": [B, Hq, Hkv, S, dh], "causal": causal,
@@ -2226,6 +2301,8 @@ def _ssd_case(torch, gen, case):
     """One case of SSD_CASES (or the Jamba layer's): the kernel against
     its plain version under the gates, the planted faults, the route
     from the profiler, the times and both bounds -> the case's line."""
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES as \
+        SSD_ROUTE_LAUNCHES
     from repro_torch.kernels.ssd_chunk import (ROUTES, ssd_chunk_cuda,
                                                ssd_chunks)
 
@@ -2265,14 +2342,13 @@ def _ssd_case(torch, gen, case):
     b_ms, b_by = bound(flops, nbytes, peak)
     per_head_ms, per_head_by = bound(*ssd_work(b, h, h, c, q, p, n,
                                                X.element_size()), peak)
-    seen = {}
+    seen, before = {}, dict(SSD_ROUTE_LAUNCHES)
     ms = device_ms(torch, lambda: ssd_chunk_cuda(X, Adt, B, C, chunk=q),
                    SSD_KERNELS[::-1] if dtype == "bfloat16"
                    else SSD_KERNELS, seen=seen)
-    ran = ("tensor-core" if any("mma" in k for k in seen)
-           else "cuda-core")
-    if len(seen) != 1 or not ROUTES[dt].startswith(ran):
-        fail(f"ssd {name}: {dtype} ran {sorted(seen)}, expected the "
+    ran = _route_ran(seen, "mma", SSD_ROUTE_LAUNCHES, before)
+    if not ROUTES[dt].startswith(ran):
+        fail(f"ssd {name}: {dtype} ran {sorted(seen) or ran}, expected the "
              f"{ROUTES[dt]} kernel alone")
     out = {
         "case": name, "shape": [b, L, h, g, p, n, q], "dtype": dtype,
@@ -2884,11 +2960,11 @@ def phase_ingest(torch, gen):
 
 
 # ------------------------------------------------- checkpoints and handoff
-def _admitted(pod, base, n):
-    """``pod.init()`` with tenants ``base + i`` (i < n) in spec_of(i)'s
-    tier admitted."""
+def _admitted(pod, base, n, first=0):
+    """``pod.init()`` with tenants ``base + i`` (first <= i < first + n)
+    in spec_of(i)'s tier admitted."""
     state = pod.init()
-    for i in range(n):
+    for i in range(first, first + n):
         state, _, ok = pod.admit(state, base + i, spec=spec_of(i))
         if not bool(ok):
             fail(f"admit of tenant {base + i} refused")
@@ -4441,6 +4517,735 @@ def phase_train_mamba(torch, gen, seed):
     return {"launches": sum(per_step), "ms": med}
 
 
+# --------------------------- this slice: the scale-out path, run as ranks
+# phase sharded_pod: the pod phase's 256 tenants as SHARD_RANKS ranks of
+# SHARD_SESSIONS sessions sharing the card, one gloo group; per segment
+# (name, mesh shape, mesh axis names, the sharded axis, pre-routed,
+# ingests of SESSIONS x CHUNK tagged items)
+SHARD_RANKS = 4
+SHARD_SESSIONS = SESSIONS // SHARD_RANKS
+SHARD_SEGMENTS = (
+    ("data", (SHARD_RANKS, 1), ("data", "model"), "data", False, 2),
+    ("data_routed", (SHARD_RANKS, 1), ("data", "model"), "data", True, 2),
+    ("pod_data", (2, SHARD_RANKS // 2), ("pod", "data"), ("pod", "data"),
+     False, 1),
+    ("pod_data_routed", (2, SHARD_RANKS // 2), ("pod", "data"),
+     ("pod", "data"), True, 1))
+# phase sharded_merge: ranks of one shard each over the paper stream in
+# batches of CHUNK items a shard (the distributed phase's)
+MERGE_RANKS = 4
+# phase pod_compress: two ranks as two pods, each training mamba2-370m
+# whole at the train_mamba cell's shape on its own batches, AdamW steps
+# through Compressor(mesh, "pod")
+COMPRESS_PODS, COMPRESS_STEPS = 2, 3
+# the one-rank NCCL leg, at a reduced size: a pod of NCCL_SESSIONS, a
+# merge over NCCL_MERGE_BATCHES batches of the paper stream, the reduced
+# mamba2-370m config trained NCCL_STEPS steps at GRAD_SHAPE
+NCCL_SESSIONS, NCCL_MERGE_BATCHES, NCCL_STEPS = 64, 8, 2
+RANK_TIMEOUT = {"sharded_pod": 240, "sharded_merge": 240,
+                "pod_compress": 480, "nccl": 300}
+
+
+def _rank_main(rank, world, work, backend, dev, fn, cfg):
+    """One spawned rank: its process group (``backend``, a ``file://``
+    store in ``work``), then ``fn(torch, rank, world, cfg)``; the result,
+    or the rank's own traceback, written to ``work``."""
+    global DEV
+    import os
+    import pickle
+    import traceback
+
+    DEV = dev
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        dist.init_process_group(backend, init_method=f"file://{work}/store",
+                                rank=rank, world_size=world)
+        out = fn(torch, rank, world, cfg)
+        with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(torch, name, fn, world, cfg, *, backend="gloo"):
+    """``fn`` on ``world`` ranks spawned from this process (``spawn``: the
+    parent holds a CUDA context), all on the one card -> (the ranks'
+    results in rank order, seconds from spawn to the last exit).  A rank
+    that raises, or a group still running after ``RANK_TIMEOUT[name]``
+    seconds, fails the run with every rank's traceback; every process
+    started here has ended when this returns."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_rank_main, args=(
+            world, work, backend, DEV, fn, cfg), nprocs=world, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + RANK_TIMEOUT[name]
+        try:
+            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"ranks still running after "
+                                       f"{RANK_TIMEOUT[name]} s")
+        except Exception as e:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in ctx.processes:
+                p.join(30)
+            told = ""
+            for r in range(world):
+                err = Path(work) / f"rank{r}.err"
+                if err.exists():
+                    told += f"\n--- rank {r}:\n{err.read_text()}"
+            fail(f"{name}: rank group failed: {e}{told}")
+        seconds = time.perf_counter() - t0
+        out = []
+        for r in range(world):
+            with open(Path(work) / f"rank{r}.pkl", "rb") as f:
+                out.append(pickle.load(f))  # written by the rank above
+    return out, seconds
+
+
+def _launches():
+    return {k.name: k.launches for k in _all_kernels()}
+
+
+def _zero_launches():
+    for k in _all_kernels():
+        k.launches = 0
+
+
+def _shard_batch(torch, seed, b, sessions):
+    """Ingest ``b`` of the sharded phases: CHUNK items of every one of
+    ``sessions`` tenants (ids 1000 + i) in a random order, from
+    ``mixture``; the same on every rank and in the parent (a generator
+    seeded from ``seed`` and ``b`` on the card)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1_000_003 * seed + 7919 * b + 1)
+    sids = torch.arange(1000, 1000 + sessions, dtype=torch.int32,
+                        device=DEV)
+    return _tagged_batch(torch, gen, sids, CHUNK)
+
+
+def _rank_items(tags, X, rank, S):
+    """The items of one rank's sessions (1000 + rank S .. + S), in the
+    batch's order: what the front end routes to that rank."""
+    mine = (tags - 1000) // S == rank
+    return tags[mine], X[mine]
+
+
+def _ingest_segments(torch, pod, state, rank, world, seed, segments):
+    """A rank's pod through ``make_sharded_update`` over ``segments`` ->
+    per segment {the state's leaves, per ingest the start and end on the
+    host's monotonic clock, the host-route ms of a pre-routed ingest}.  A barrier starts every ingest on all ranks
+    together; each ends at the card's synchronize."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.ingest import host_route
+    from repro_torch.tree import local_tree, shard_tree
+
+    S = pod.sessions
+    out, b = {}, 0
+    for name, shape, names, axis, routed, n in segments:
+        mesh = init_device_mesh(DEV, shape, mesh_dim_names=names)
+        update = pod.make_sharded_update(mesh, axis, pre_routed=routed)
+        glob = shard_tree(state, mesh, axis)
+        spans, host = [], []
+        for _ in range(n):
+            tags, X = _rank_items(*_shard_batch(torch, seed, b, world * S),
+                                  rank, S)
+            b += 1
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.monotonic()
+            if routed:
+                local = local_tree(glob, mesh, axis)
+                h0 = time.perf_counter()
+                chunks, counts, unknown, overflow = host_route(
+                    local.sid.cpu().numpy(), local.active.cpu().numpy(),
+                    tags.cpu().numpy(), X.cpu().numpy(), pod.chunk)
+                args = tuple(torch.from_numpy(a).to(DEV) for a in (
+                    chunks, counts, unknown.reshape(1), overflow))
+                host.append((time.perf_counter() - h0) * 1e3)
+            else:
+                args = (tags, X)
+            glob, _ = update(glob, *(shard_tree(a, mesh, axis)
+                                     for a in args))
+            torch.cuda.synchronize()
+            spans.append((t0, time.monotonic()))
+        state = local_tree(glob, mesh, axis)
+        out[name] = {"state": state_to_numpy(state), "spans": spans,
+                     "host_route_ms": host}
+    return out
+
+
+def _rank_sharded_pod(torch, rank, world, cfg):
+    from repro_torch.serve.summarize import SummarizerPod
+
+    algo, _ = _pod_algos(torch)
+    S = cfg["sessions"]
+    pod = SummarizerPod(algo=algo, sessions=S, chunk=CHUNK, device=DEV)
+    state = _admitted(pod, 1000, S, first=rank * S)
+    torch.cuda.synchronize()
+    _zero_launches()  # the main path starts here
+    out = _ingest_segments(torch, pod, state, rank, world, cfg["seed"],
+                           cfg["segments"])
+    return {"segments": out, "launches": _launches(),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _control_pod(torch, seed, sessions, segments):
+    """The one-process pod of ``sessions`` tenants fed every batch of the
+    segments through ``pod.ingest`` -> the state's leaves after each
+    segment."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.serve.summarize import SummarizerPod
+
+    algo, _ = _pod_algos(torch)
+    pod = SummarizerPod(algo=algo, sessions=sessions, chunk=CHUNK,
+                        device=DEV)
+    state = _admitted(pod, 1000, sessions)
+    out, b = {}, 0
+    for name, *_, n in segments:
+        for _ in range(n):
+            state, _ = pod.ingest(state, *_shard_batch(torch, seed, b,
+                                                        sessions))
+            b += 1
+        out[name] = state_to_numpy(state)
+    return out
+
+
+def _hold_rows(got, want, S, what):
+    """Every rank's rows bit for bit the control's rows of its sessions;
+    the unknown-id ledger (one a pod, on its slot 0) in sum."""
+    for name, ctrl in want.items():
+        for r, g in enumerate(got):
+            mine = g["segments"][name]["state"]
+            for k, a in ctrl.items():
+                if k == "drops_unknown":
+                    continue
+                rows = a[r * S:(r + 1) * S]
+                if rows.shape != mine[k].shape or not (rows == mine[k]).all():
+                    fail(f"{what} {name}: rank {r} leaf {k} differs from "
+                         "the one-process pod's rows")
+        total = sum(int(g["segments"][name]["state"]["drops_unknown"].sum())
+                    for g in got)
+        if total != int(ctrl["drops_unknown"].sum()):
+            fail(f"{what} {name}: unknown-id drops {total} vs "
+                 f"{int(ctrl['drops_unknown'].sum())}")
+
+
+def _segment_times(got, segments, items):
+    """Per segment: each ingest's wall (first start to last end over the
+    ranks), items/s over all ranks, ms a rank, host-route ms."""
+    out = {}
+    for name, *_ in segments:
+        per = [g["segments"][name] for g in got]
+        walls = [max(p["spans"][i][1] for p in per)
+                 - min(p["spans"][i][0] for p in per)
+                 for i in range(len(per[0]["spans"]))]
+        out[name] = {
+            "wall_ms": [w * 1e3 for w in walls],
+            "items_per_s": [items / w for w in walls],
+            "ms_per_ingest_rank": [[(e - s) * 1e3 for s, e in p["spans"]]
+                                   for p in per],
+            "host_route_ms_rank": [p["host_route_ms"] for p in per]}
+    return out
+
+
+def phase_sharded_pod(torch, seed):
+    """The pod of ``pod`` as 4 ranks x 64 sessions: ``make_sharded_update``
+    on a (4, 1) ("data", "model") mesh, plain and pre-routed (host-routed
+    chunks), then on a (2, 2) ("pod", "data") mesh with the tuple axis;
+    every rank's rows against the one-process 256-session pod."""
+    segs = SHARD_SEGMENTS
+    got, secs = run_ranks(torch, "sharded_pod", _rank_sharded_pod,
+                          SHARD_RANKS, {"seed": seed,
+                                        "sessions": SHARD_SESSIONS,
+                                        "segments": segs})
+    want = _control_pod(torch, seed, SESSIONS, segs)
+    _hold_rows(got, want, SHARD_SESSIONS, "sharded_pod")
+    ingests = sum(s[-1] for s in segs)
+    pod_steps = [g["launches"]["pod_step"] for g in got]
+    if pod_steps != [ingests] * SHARD_RANKS:
+        fail(f"sharded_pod: pod_step launches a rank {pod_steps}, want "
+             f"{ingests}")
+    emit("sharded_pod", ranks=SHARD_RANKS, sessions_a_rank=SHARD_SESSIONS,
+         K=K_MAX, d=D, chunk=CHUNK, items_per_ingest=SESSIONS * CHUNK,
+         items_per_rank=SHARD_SESSIONS * CHUNK, backend="gloo",
+         segments={name: {"mesh": list(shape), "axis": axis,
+                          "pre_routed": routed, "ingests": n}
+                   for name, shape, _, axis, routed, n in segs},
+         times=_segment_times(got, segs, SESSIONS * CHUNK),
+         launches_a_rank=[g["launches"] for g in got],
+         bit_equal_to_one_pod=True,
+         peak_mem_gib_rank=[g["peak_mem_gib"] for g in got],
+         spawn_to_exit_s=secs)
+    return {"launches": sum(pod_steps)}
+
+
+def _rank_sharded_merge(torch, rank, world, cfg):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.data import DistributedSummarizer
+    from repro_torch.launch.mesh import all_gather
+    from repro_torch.tree import local_tree, shard_tree, vmap
+
+    X = torch.load(cfg["stream"]).to(DEV)[:cfg["items"]]
+    mesh = init_device_mesh(DEV, (world,), mesh_dim_names=("data",))
+    algo = _dist_algo(torch)
+    ds = DistributedSummarizer(algo, mesh)
+    B = CHUNK
+    torch.cuda.synchronize()
+    _zero_launches()  # the main path starts here
+    st = ds.init()
+    for Xb in X.split(world * B):
+        st = ds.update(st, shard_tree(Xb[rank * B:(rank + 1) * B], mesh,
+                                      "data"))
+    torch.cuda.synchronize()
+    update = _launches()
+    _zero_launches()
+    dist.barrier()
+    t0 = time.perf_counter()
+    merged = ds.merge(st)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    merge = _launches()
+    # the all-gather alone: the two collectives of the merge, timed
+    feats, n, _ = vmap(algo.summary)(local_tree(st, mesh, "data"))
+    feats, n = feats.contiguous(), n.contiguous()
+    gather_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        pool = all_gather(feats, mesh, "data")
+        ns = all_gather(n, mesh, "data")
+        torch.cuda.synchronize()
+        gather_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"merged": state_to_numpy(merged.ld),
+            "state": state_to_numpy(local_tree(st, mesh, "data")),
+            "launches_update": update, "launches_merge": merge,
+            "merge_ms": merge_ms, "gather_ms": gather_ms,
+            "gather_bytes_rank": (feats.numel() * feats.element_size()
+                                  + n.numel() * n.element_size()),
+            "gathered_bytes": (pool.numel() * pool.element_size()
+                               + ns.numel() * ns.element_size()),
+            "n_shards": ds.n_shards}
+
+
+def _dist_algo(torch):
+    """ThreeSieves at K = 100, d = 256 with the ``paper`` phase's eps and
+    the ``distributed`` phase's T."""
+    from repro_torch.core.api import make
+    from repro_torch.core.functions import rbf_lengthscale_stream
+    from repro_torch.core.spec import SessionSpec
+
+    return make(SessionSpec(K=K_MAX, d=D, lengthscale=rbf_lengthscale_stream(
+        D), eps=PAPER_EPS, T=1000), device=DEV)
+
+
+def _control_merge(torch, X, P):
+    """The one-process loop at ``shards=P`` over X in batches of P x
+    CHUNK -> (stacked states, merged ld, gaps of the merge's rounds)."""
+    from repro_torch.data import DistributedSummarizer
+
+    loop = DistributedSummarizer(_dist_algo(torch), shards=P)
+    st = loop.init()
+    for Xb in X.split(P * CHUNK):
+        st = loop.update(st, Xb)
+    gaps = []
+    return st, loop.merge(st, gaps=gaps).ld, gaps
+
+
+def _hold_merge(torch, got, X, P, what):
+    """Each rank's shard state bit for bit the loop's shard; every rank's
+    merged summary bit for bit rank 0's, and rank 0's the loop's (a first
+    differing round a near-tie of the loop's two largest gains) -> the
+    near tie or None."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.tree import tree_map
+
+    st, ref, gaps = _control_merge(torch, X, P)
+    for r, g in enumerate(got):
+        mine = state_to_numpy(tree_map(lambda l: l[r:r + 1], st))
+        for k, a in mine.items():
+            if not (a == g["state"][k]).all():
+                fail(f"{what}: rank {r} shard state {k} differs from the "
+                     "loop's shard")
+        for k, a in got[0]["merged"].items():
+            if not (a == g["merged"][k]).all():
+                fail(f"{what}: rank {r} merged {k} differs from rank 0's")
+    mine, want = got[0]["merged"], state_to_numpy(ref)
+    if all((want[k] == mine[k]).all() for k in want):
+        return None
+    rows = (want["feats"] != mine["feats"]).any(-1)
+    r = int(rows.argmax()) if rows.any() else min(int(want["n"]),
+                                                  int(mine["n"]))
+    if gaps[r] > TIE:
+        fail(f"{what}: merges differ first at round {r}, the loop's two "
+             f"largest gains {gaps[r]} apart (> {TIE})")
+    return {"round": r, "gap": gaps[r]}
+
+
+def phase_sharded_merge(torch, paper):
+    """``DistributedSummarizer`` of ThreeSieves on a (4,) ("data",) mesh
+    of 4 ranks, one shard each, over the ``paper`` stream in batches of
+    4 x 1,024; the merge's all-gather (features and n of every rank) and
+    its K rounds on every rank; against the one-process loop at
+    ``shards=4``."""
+    import tempfile
+
+    X = paper["X"]
+    P = MERGE_RANKS
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "stream.pt")
+        torch.save(X.cpu(), path)
+        got, secs = run_ranks(torch, "sharded_merge", _rank_sharded_merge,
+                              P, {"stream": path, "items": X.shape[0]})
+    tie = _hold_merge(torch, got, X, P, "sharded_merge")
+    static = [g["launches_merge"]["gain_static"] for g in got]
+    traced = [g["launches_update"]["gain_traced"] for g in got]
+    if static != [K_MAX] * P or min(traced) == 0:
+        fail(f"sharded_merge: gain_static launches in the merge {static} "
+             f"(want {K_MAX} a rank), gain_traced in the updates {traced}")
+    if [g["n_shards"] for g in got] != [P] * P:
+        fail("sharded_merge: n_shards is not the mesh axis's size")
+    emit("sharded_merge", algo="threesieves", ranks=P, K=K_MAX, d=D,
+         items=X.shape[0], batch=P * CHUNK, backend="gloo",
+         n_merged=int(got[0]["merged"]["n"]),
+         f_merged=float(got[0]["merged"]["fval"]), merge_near_tie=tie,
+         gather_bytes_rank=got[0]["gather_bytes_rank"],
+         gathered_bytes=got[0]["gathered_bytes"],
+         gather_ms_rank=[g["gather_ms"] for g in got],
+         merge_ms_rank=[g["merge_ms"] for g in got],
+         launches_update_rank=[g["launches_update"] for g in got],
+         launches_merge_rank=[g["launches_merge"] for g in got],
+         bit_equal_across_ranks=True, spawn_to_exit_s=secs)
+    return {"gain_traced": sum(traced), "gain_static": sum(static)}
+
+
+class _RecordedCompressor:
+    """A ``Compressor``'s ``compress_reduce`` bracketed by the host clock
+    (synchronized), its inputs and output kept for the check after the
+    step."""
+
+    def __init__(self, torch, comp):
+        self.torch = torch
+        self.comp = comp
+        self.ms = None
+        self.record = None
+
+    def init_ef(self, grads_like):
+        return self.comp.init_ef(grads_like)
+
+    def compress_reduce(self, grads, ef):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.comp.compress_reduce(grads, ef)
+        self.torch.cuda.synchronize()
+        self.ms = (time.perf_counter() - t0) * 1e3
+        self.record = (grads, ef, out[0])
+        return out
+
+
+def _gather_all(torch, t, group):
+    """Every rank's ``t`` as float32, stacked: (P, ...) (a list
+    ``all_gather``: the check's own collective, not the code under
+    test's)."""
+    import torch.distributed as dist
+
+    t = t.detach().float().contiguous()
+    parts = [torch.empty_like(t) for _ in range(group.size())]
+    dist.all_gather(parts, t, group=group)
+    return torch.stack(parts)
+
+
+def _check_reduced(torch, mesh, record, chunk=1 << 24):
+    """Each leaf's reduced gradient against ``reference_reduce`` of the
+    pods' gradients.  With v_p = g_p + e_p, q_p, s_p = Q(v_p) and m the
+    mean scale, reduced = sum q_p m / P = mean v_p - mean r_p + D, where
+    r_p = v_p - q_p s_p (|r_p| <= s_p / 2) and D = sum q_p (m - s_p) / P,
+    the mean-scale decode; so |reduced - mean g_p - D| <= |mean e_p| +
+    max s_p / 2 (at most one quantization step when the residuals are
+    at most half a step), plus float32 rounding: 4 ulps of the decode
+    and of the mean, and 2^-16 of a step for v / s rounded before the
+    round to an integer (half an ulp at 127 is 2^-17).  Each rank's s_p
+    from its own v_p; the leaves compared ``chunk`` elements at a time ->
+    (worst share of that bound, worst |reduced - mean g| in steps, max
+    |D| in steps)."""
+    from repro_torch.train.compress import reference_reduce
+    from repro_torch.tree import leaves_with_keys
+
+    grads, ef, reduced = (leaves_with_keys(t) for t in record)
+    group = mesh.get_group("pod")
+    P = group.size()
+    worst = steps = dmax = 0.0
+    for k, red in reduced.items():
+        g = grads[k].detach().float().reshape(-1)
+        e = ef[k].reshape(-1)
+        s_own = torch.clamp((g + e).abs().max(), min=1e-12) / 127.0
+        scale = _gather_all(torch, s_own.reshape(1), group).reshape(P, 1)
+        m = (scale.sum() / P).double()
+        step = float(scale.max())
+        red = red.detach().reshape(-1)
+        for a in range(0, g.numel(), chunk):
+            G = _gather_all(torch, g[a:a + chunk], group)
+            E = _gather_all(torch, e[a:a + chunk], group)
+            Q = torch.clamp(torch.round((G + E) / scale), -127, 127)
+            Dd = (Q.double() * (m - scale.double())).sum(0) / P
+            ref = reference_reduce(list(G.unbind(0))).double()
+            r = red[a:a + chunk].double()
+            slack = 4 * 2 ** -23 * (r.abs() + ref.abs()) + 2 ** -16 * step
+            bnd = E.double().mean(0).abs() + step / 2 + slack
+            worst = max(worst, float(((r - ref - Dd).abs() / bnd).max()))
+            steps = max(steps, float((r - ref).abs().max()) / step)
+            dmax = max(dmax, float(Dd.abs().max()) / step)
+    return worst, steps, dmax
+
+
+def _params_equal(torch, mesh, params):
+    """Whether every rank holds the same bits in every parameter leaf:
+    the elementwise max and min over the ranks of each leaf's int32 view
+    equal its own."""
+    import torch.distributed as dist
+
+    from repro_torch.tree import leaves_with_keys
+
+    group = mesh.get_group("pod")
+    same = True
+    for t in leaves_with_keys(params).values():
+        bits = t.detach().contiguous().view(torch.int32)
+        hi, lo = bits.clone(), bits.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        same = same and torch.equal(hi, bits) and torch.equal(lo, bits)
+        del hi, lo
+    flag = torch.tensor([int(same)], dtype=torch.int32, device=DEV)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    return bool(flag.item())
+
+
+def _rank_pod_compress(torch, rank, world, cfg):
+    """One pod of ``world``: the model trained ``cfg["steps"]`` AdamW
+    steps on its own batches through ``Compressor(mesh, "pod")``; after
+    each step the reduced gradient checked against the pods' mean and
+    the parameters against the other pods'."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.train.compress import Compressor
+    from repro_torch.tree import leaves_with_keys
+
+    mcfg = get_config(cfg["arch"], reduced=cfg["reduced"])
+    model = Model(mcfg, device=DEV)
+    mesh = init_device_mesh(DEV, (world,), mesh_dim_names=("pod",))
+    comp = _RecordedCompressor(torch, Compressor(mesh, "pod"))
+    opt_cfg = AdamWConfig(warmup_steps=2, total_steps=cfg["steps"])
+    step = make_train_step(model, opt_cfg, compressor=comp)
+    B, S = cfg["shape"]
+    batch_fn = deterministic_batch_fn(cfg["seed"] + 1 + rank, TokenStreamSpec(
+        vocab=mcfg.vocab, seq=S, batch=B), device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=DEV).manual_seed(cfg["seed"]))
+    leaves = leaves_with_keys(params)
+    n_params = sum(t.numel() for t in leaves.values())
+    opt = init_opt_state(params, opt_cfg)
+    ef = comp.init_ef(params)
+    start_equal = _params_equal(torch, mesh, params)
+    out = {"step_ms": [], "compress_ms": [], "ssd_launches": [], "loss": [],
+           "bound_share": [], "err_steps": [], "decode_steps": [],
+           "params_equal": [], "params": n_params,
+           "wire_bytes_a_step": 4 * n_params + 4 * len(leaves),
+           "start_equal": start_equal}
+    torch.cuda.synchronize()
+    _zero_launches()  # the main path starts here
+    for i in range(cfg["steps"]):
+        n0 = SSD.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, ef, metrics = step(params, opt, batch_fn(i), ef)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["ssd_launches"].append(SSD.launches - n0)
+        out["compress_ms"].append(comp.ms)
+        out["loss"].append(float(metrics["loss"]))
+        share, steps, dsteps = _check_reduced(torch, mesh, comp.record)
+        comp.record = None
+        out["bound_share"].append(share)
+        out["err_steps"].append(steps)
+        out["decode_steps"].append(dsteps)
+        out["params_equal"].append(_params_equal(torch, mesh, params))
+    out["launches"] = _launches()
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _hold_compress(got, cfg, what):
+    want_ssd = cfg["ssd_a_step"]
+    for r, g in enumerate(got):
+        if not g["start_equal"] or not all(g["params_equal"]):
+            fail(f"{what}: rank {r} parameters differ from the other "
+                 f"pods' (after each step: {g['params_equal']})")
+        if max(g["bound_share"]) > 1:
+            fail(f"{what}: rank {r} reduced gradient off the int8 bound "
+                 f"(worst share {max(g['bound_share'])})")
+        if g["ssd_launches"] != [want_ssd] * cfg["steps"]:
+            fail(f"{what}: rank {r} ssd_chunk launches a step "
+                 f"{g['ssd_launches']}, want {want_ssd}")
+        if not all(math.isfinite(x) for x in g["loss"]):
+            fail(f"{what}: rank {r} loss {g['loss']}")
+
+
+def _ssd_a_step(cfg):
+    """``ssd_chunk`` launches of one training step: one a Mamba layer's
+    forward, and one more for its recompute under remat."""
+    return cfg.n_layers * (2 if cfg.remat else 1)
+
+
+def phase_pod_compress(torch, seed):
+    """Two ranks as two pods, each training mamba2-370m whole (8 x 2048
+    tokens, bf16, remat ``full``) on its own batches, 3 AdamW steps
+    through ``Compressor(mesh, "pod")``: the int8 payloads summed in
+    int32 over the pod axis's gloo group (staged through host memory).
+    Gates: parameters bit-equal across the pods after every step, every
+    reduced gradient within the int8 bound of the pods' mean, 96
+    ``ssd_chunk`` launches a step a rank."""
+    from repro_torch.configs import get_config
+
+    cfg = {"arch": "mamba2-370m", "reduced": False, "seed": seed,
+           "steps": COMPRESS_STEPS, "shape": (MAMBA_TRAIN_B, MAMBA_TRAIN_S),
+           "ssd_a_step": _ssd_a_step(get_config("mamba2-370m"))}
+    _free(torch)
+    got, secs = run_ranks(torch, "pod_compress", _rank_pod_compress,
+                          COMPRESS_PODS, cfg)
+    _hold_compress(got, cfg, "pod_compress")
+    emit("pod_compress", arch=cfg["arch"], pods=COMPRESS_PODS,
+         batch=list(cfg["shape"]), steps=COMPRESS_STEPS, backend="gloo",
+         params=got[0]["params"],
+         wire_bytes_a_step_rank=got[0]["wire_bytes_a_step"],
+         loss_rank=[g["loss"] for g in got],
+         step_ms_rank=[g["step_ms"] for g in got],
+         compress_ms_rank=[g["compress_ms"] for g in got],
+         bound_share_rank=[g["bound_share"] for g in got],
+         err_steps_rank=[g["err_steps"] for g in got],
+         decode_steps_rank=[g["decode_steps"] for g in got],
+         params_bit_equal=True,
+         ssd_launches_rank=[g["ssd_launches"] for g in got],
+         peak_mem_gib_rank=[g["peak_mem_gib"] for g in got],
+         spawn_to_exit_s=secs)
+    return {"launches": sum(sum(g["ssd_launches"]) for g in got)}
+
+
+def _rank_nccl(torch, rank, world, cfg):
+    """The three pieces at a reduced size on a one-rank NCCL group."""
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.data import DistributedSummarizer
+    from repro_torch.serve.summarize import SummarizerPod
+    from repro_torch.tree import local_tree, shard_tree
+    from torch.distributed.device_mesh import init_device_mesh
+
+    out = {}
+    algo, _ = _pod_algos(torch)
+    S = cfg["sessions"]
+    pod = SummarizerPod(algo=algo, sessions=S, chunk=CHUNK, device=DEV)
+    state = _admitted(pod, 1000, S)
+    torch.cuda.synchronize()
+    _zero_launches()  # the main path starts here
+    out["pod"] = _ingest_segments(torch, pod, state, rank, world,
+                                  cfg["seed"], cfg["segments"])
+    X = torch.load(cfg["stream"]).to(DEV)[:cfg["items"]]
+    mesh = init_device_mesh(DEV, (world,), mesh_dim_names=("data",))
+    ds = DistributedSummarizer(_dist_algo(torch), mesh)
+    st = ds.init()
+    for Xb in X.split(world * CHUNK):
+        st = ds.update(st, shard_tree(Xb, mesh, "data"))
+    out["merge"] = {"merged": state_to_numpy(ds.merge(st).ld),
+                    "state": state_to_numpy(local_tree(st, mesh, "data"))}
+    pod_launches = _launches()
+    out["compress"] = _rank_pod_compress(torch, rank, world, cfg["compress"])
+    for k, v in pod_launches.items():
+        out["compress"]["launches"][k] += v
+    out["launches"] = out["compress"]["launches"]
+    return out
+
+
+def phase_nccl(torch, seed, paper):
+    """The one-rank NCCL leg: the pod (64 sessions; both variants on a
+    (1, 1) mesh and the tuple axis on a (1, 1) ("pod", "data") mesh), the
+    merge (8 batches of the paper stream) and the compressor (the reduced
+    mamba2-370m config, 2 steps), on CUDA tensors through NCCL (no host
+    staging), under the gates of the gloo phases."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    segs = (("data", (1, 1), ("data", "model"), "data", False, 1),
+            ("data_routed", (1, 1), ("data", "model"), "data", True, 1),
+            ("pod_data", (1, 1), ("pod", "data"), ("pod", "data"), False,
+             1))
+    items = NCCL_MERGE_BATCHES * CHUNK
+    comp = {"arch": "mamba2-370m", "reduced": True, "seed": seed,
+            "steps": NCCL_STEPS, "shape": GRAD_SHAPE,
+            "ssd_a_step": _ssd_a_step(get_config("mamba2-370m",
+                                                 reduced=True))}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "stream.pt")
+        torch.save(paper["X"][:items].cpu(), path)
+        got, secs = run_ranks(torch, "nccl", _rank_nccl, 1, {
+            "seed": seed, "sessions": NCCL_SESSIONS, "segments": segs,
+            "stream": path, "items": items, "compress": comp},
+            backend="nccl")
+    g = got[0]
+    _hold_rows([{"segments": g["pod"]}],
+               _control_pod(torch, seed, NCCL_SESSIONS, segs),
+               NCCL_SESSIONS, "nccl pod")
+    tie = _hold_merge(torch, [g["merge"]], paper["X"][:items], 1,
+                      "nccl merge")
+    _hold_compress([g["compress"]], comp, "nccl compress")
+    missing = [k for k, v in g["launches"].items()
+               if k != "flash_attention" and v == 0]
+    if missing:
+        fail(f"nccl: no launch of {missing}")
+    emit("nccl", backend="nccl", sessions=NCCL_SESSIONS,
+         items_per_ingest=NCCL_SESSIONS * CHUNK, merge_items=items,
+         compress_arch="mamba2-370m reduced", compress_batch=list(GRAD_SHAPE),
+         launches=g["launches"], merge_near_tie=tie,
+         times=_segment_times([{"segments": g["pod"]}], segs,
+                              NCCL_SESSIONS * CHUNK),
+         compress={k: g["compress"][k] for k in (
+             "step_ms", "compress_ms", "loss", "bound_share", "err_steps",
+             "wire_bytes_a_step")},
+         bit_equal=True,
+         spawn_to_exit_s=secs)
+    return g["launches"]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4514,6 +5319,11 @@ def main(argv=None):
     flash16 = timed("flash_dh16", phase_flash_dh16, torch, gen)
     timed("train_qwen2", phase_train_qwen2, torch, gen, args.seed)
     tmamba = timed("train_mamba", phase_train_mamba, torch, gen, args.seed)
+    # this slice: the scale-out path, ranks spawned on the one card
+    spod = timed("sharded_pod", phase_sharded_pod, torch, args.seed)
+    smerge = timed("sharded_merge", phase_sharded_merge, torch, paper)
+    scomp = timed("pod_compress", phase_pod_compress, torch, args.seed)
+    nccl = timed("nccl", phase_nccl, torch, args.seed, paper)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -4521,7 +5331,8 @@ def main(argv=None):
          "source": "src/repro_torch/csrc/rbf_gain.cu",
          "replaces": "src/repro/kernels/rbf_gain/kernel.py:126",
          "launches": (sieve["launches"] + paper["gain_traced"]
-                      + sieves["launches"] + dist["gain_traced"]),
+                      + sieves["launches"] + dist["gain_traced"]
+                      + smerge["gain_traced"] + nccl["gain_traced"]),
          "max_abs_err": max(gain["max_abs_err"], stacked["max_abs_err"],
                             sieve["max_abs_err"], paper["max_abs_err"],
                             sieves["max_abs_err"], dist["max_abs_err"]),
@@ -4531,7 +5342,8 @@ def main(argv=None):
         {"name": "gain_static", "route": "cuda",
          "source": "src/repro_torch/csrc/rbf_gain.cu",
          "replaces": "src/repro/kernels/rbf_gain/kernel.py:74",
-         "launches": paper["gain_static"] + dist["gain_static"],
+         "launches": (paper["gain_static"] + dist["gain_static"]
+                      + smerge["gain_static"] + nccl["gain_static"]),
          "max_abs_err": max(static["max_abs_err"], paper["max_abs_err"],
                             dist["max_abs_err"]),
          "ms": static["ms"], "plain_ms": static["plain_ms"],
@@ -4542,7 +5354,8 @@ def main(argv=None):
          "replaces": "src/repro/kernels/pod_step/kernel.py:160",
          "launches": (pod["launches"] + ingest["launches"]
                       + ckpt["launches"] + handoff["launches"]
-                      + pubsub["launches"]),
+                      + pubsub["launches"] + spod["launches"]
+                      + nccl["pod_step"]),
          "max_abs_err": max(pod_err, large["max_abs_err"],
                             pod["max_abs_err"], handoff["max_abs_err"]),
          "ms": pod["ms"], "plain_ms": pod["plain_ms"],
@@ -4571,7 +5384,8 @@ def main(argv=None):
          "source": "src/repro_torch/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
          "launches": (mamba["launches"] + tgrad["launches"]["ssd_chunk"]
-                      + tmamba["launches"]),
+                      + tmamba["launches"] + scomp["launches"]
+                      + nccl["ssd_chunk"]),
          "max_abs_err": ssd["max_abs_err"],
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],

@@ -12,6 +12,10 @@ package therefore loads into the port leaf for leaf, and back.
 key has no ``torch.Generator`` counterpart, so its ``key`` leaf is not
 read and the port's generator starts fresh from ``seed``.
 
+A state sharded over a device mesh crosses as its global leaves (the
+JAX package's P*S rows): ``split_sharded`` gives each rank its rows and
+``join_sharded`` joins them back.
+
 A model's parameter tree (the nested dict of the JAX package's
 ``Model.init``) carries across key for key (``model_params_from_jax``),
 and so does an optimizer state (``opt_state_from_jax``).
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import typing
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -156,3 +160,37 @@ def opt_state_from_jax(state, device):
     return OptState(m=model_params_from_jax(state.m, device),
                     v=model_params_from_jax(state.v, device),
                     step=tensor_from_numpy(state.step, device))
+
+
+def split_sharded(flat: Dict[str, np.ndarray], parts: int, *,
+                  keep_axis: bool = True) -> List[Dict[str, np.ndarray]]:
+    """A global state's flat leaves -> the ``parts`` ranks' own: leaf by
+    leaf the leading axis split into equal pieces, in rank order (the
+    rows ``shard_map`` hands each rank).  A JAX sharded pod state (P*S
+    session rows) gives the P ranks' pod states; a distributed
+    summarizer's stacked states (P rows) the ranks' (1, ...) states.
+    ``keep_axis=False`` takes rows of one instead and drops the axis: a
+    per-pod tree stacked on a leading pod axis (the compressor's
+    error-feedback residuals, one tree a pod) gives each pod's tree."""
+    out: List[Dict[str, np.ndarray]] = [{} for _ in range(parts)]
+    for key, arr in flat.items():
+        arr = np.asarray(arr)
+        if arr.ndim == 0 or arr.shape[0] % parts:
+            raise ValueError(f"leaf {key!r} of shape {arr.shape} does not "
+                             f"split over {parts} ranks")
+        if not keep_axis and arr.shape[0] != parts:
+            raise ValueError(f"leaf {key!r} of shape {arr.shape} is not "
+                             f"stacked over {parts} pods")
+        for p, piece in enumerate(np.split(arr, parts)):
+            out[p][key] = piece if keep_axis else piece[0]
+    return out
+
+
+def join_sharded(parts: List[Dict[str, np.ndarray]], *,
+                 keep_axis: bool = True) -> Dict[str, np.ndarray]:
+    """The inverse of ``split_sharded``: the ranks' flat leaves, in rank
+    order, concatenated on the leading axis (``keep_axis=False``:
+    stacked on a new one)."""
+    join = np.concatenate if keep_axis else np.stack
+    return {key: join([np.asarray(p[key]) for p in parts])
+            for key in parts[0]}

@@ -5,7 +5,8 @@ Twin of the TPU kernel ``repro/kernels/flash_attention/kernel.py:
 flash_attention_pallas``.  ``flash_attention_cuda`` launches on PyTorch's
 current stream and counts its launches in ``KERNEL.launches``.  The input's
 dtype picks the kernel (``ROUTES``): bfloat16 runs on the tensor cores
-(wgmma, TMA), float32 on the CUDA cores.
+(wgmma, TMA), float32 on the CUDA cores.  ``ROUTE_LAUNCHES`` counts the
+launches of each route.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {torch.float32: "cuda-core (flash_attention_kernel, FP32 FMA)",
           torch.bfloat16: "tensor-core (flash_attention_wgmma_kernel, "
                           "wgmma + TMA)"}
+ROUTE_LAUNCHES = {"cuda-core": 0, "tensor-core": 0}
 HEAD_DIMS = (16, 32, 64, 96, 128)  # the template instances of the source
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/flash_attention.cu: the tensor-core kernel's query rows, keys per
@@ -102,4 +104,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream(dev).cuda_stream)
     check(KERNEL, err, "flash_attention")
     KERNEL.launches += 1
+    ROUTE_LAUNCHES[ROUTES[q.dtype].split()[0]] += 1
     return out

@@ -1,2 +1,3 @@
 # podlint: skip-file -- PyTorch port; the JAX trace rules do not apply
-"""Port of ``repro.launch``: command-line launchers."""
+"""Port of ``repro.launch``: command-line launchers, device meshes
+(``mesh``) and the sharding rules (``sharding``)."""

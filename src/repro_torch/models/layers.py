@@ -5,8 +5,9 @@ layers (norms, RoPE, MLPs, embeddings).
 Parameters live in plain nested dicts of tensors under the JAX package's
 key paths (``blocks/l0/attn/wq``).  Every leaf is declared as a
 ``ParamDef(shape, axes, init)``; the logical sharding ``axes`` are kept so
-the spec reads like the JAX one, and the mesh that resolves them waits
-for the ``launch/sharding`` item of ``ROADMAP.md``.
+the spec reads like the JAX one, and ``launch.sharding`` resolves them
+to mesh axes (``spec_tree_pspecs``; ``abstract_tree`` and ``param_bytes``
+for shapes and sizes without storage).
 
 Norms and RoPE compute in float32 and cast back to the input's type, as
 in the JAX package; ``jax.nn.gelu`` defaults to its tanh approximation,
@@ -69,6 +70,37 @@ def init_tree(spec: Dict[str, Any], gen: torch.Generator,
     """Real parameters for a spec tree, drawn leaf after leaf from ``gen``
     (the values differ from ``jax.random``'s)."""
     return tree_map(lambda d: _leaf_init(d, gen, device), spec)
+
+
+def abstract_tree(spec: Dict[str, Any]) -> Dict[str, Any]:
+    """Shapes and dtypes of a spec tree as tensors on the ``meta`` device
+    (the JAX package's ``ShapeDtypeStruct`` tree): no storage."""
+    return tree_map(lambda d: torch.empty(
+        d.shape, dtype=getattr(torch, d.dtype), device="meta"), spec)
+
+
+def spec_tree_pspecs(spec: Dict[str, Any],
+                     rules: Dict[Optional[str], Any]):
+    """Logical axes -> partition spec tree under ``rules``: per leaf a
+    tuple with one mesh axis (a name, a tuple of names or ``None``) per
+    dimension, the JAX ``PartitionSpec``'s entries
+    (``launch.mesh.pspec``)."""
+    from repro_torch.launch.mesh import pspec
+
+    return tree_map(lambda d: pspec(*[rules.get(a, None) for a in d.axes]),
+                    spec)
+
+
+def param_bytes(spec: Dict[str, Any]) -> int:
+    """Bytes of every leaf of a spec tree at its dtype."""
+    total = 0
+
+    def add(d: ParamDef):
+        nonlocal total
+        total += math.prod(d.shape) * getattr(torch, d.dtype).itemsize
+
+    tree_map(add, spec)
+    return total
 
 
 def stack_spec(spec: Dict[str, Any], n: int) -> Dict[str, Any]:

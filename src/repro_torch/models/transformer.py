@@ -41,9 +41,9 @@ from repro_torch.device import resolve_device
 from . import attention as attn
 from . import mamba as mb
 from .config import ModelConfig
-from .layers import (ParamDef, apply_mlp, apply_norm, embed_lookup,
-                     embed_spec, init_tree, mlp_spec, norm_spec, stack_spec,
-                     tree_map)
+from .layers import (ParamDef, abstract_tree, apply_mlp, apply_norm,
+                     embed_lookup, embed_spec, init_tree, mlp_spec,
+                     norm_spec, stack_spec, tree_map)
 from .moe import apply_moe, moe_spec
 
 
@@ -272,6 +272,10 @@ class Model(nn.Module):
         """Seeded parameters (``gen`` on this model's device), registered
         on the module and returned as the nested dict."""
         return self.load(init_tree(self.spec(), gen, self.device))
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The parameter tree's shapes and dtypes on the ``meta`` device."""
+        return abstract_tree(self.spec())
 
     def load(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """Register a parameter tree on the module and return it."""

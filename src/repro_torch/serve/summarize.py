@@ -28,8 +28,9 @@ double-buffered front end) with drift checks between pipeline runs.
 ``save``/``restore`` checkpoint the whole pod through a
 ``ckpt.CheckpointStore`` or ``MemoryStore`` and restore it, or a subset
 of its session rows into another live pod (the handoff of
-``serve.autoscale``).  ``make_sharded_update`` waits for a sharded pod
-(ROADMAP.md).
+``serve.autoscale``).  ``make_sharded_update`` maps ``ingest`` over the
+ranks of a device mesh: P pods of S sessions, one a rank, as one pod of
+P*S.
 """
 from __future__ import annotations
 
@@ -45,7 +46,8 @@ from repro_torch.core.sieve_family import (SieveAlgorithm, stack_states,
 from repro_torch.core.spec import HyperParams, SessionSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pod_step import pod_step
-from repro_torch.tree import copy_into, leaves_with_keys, tree_map, vmap
+from repro_torch.tree import (copy_into, leaves_with_keys, shard_map,
+                              tree_map, vmap)
 
 
 class PodReadout(NamedTuple):
@@ -315,7 +317,7 @@ class SummarizerPod:
         n_before = self.algo.insertions(state.algo).clone()
         algo2 = pod_step(self.algo, state.algo, chunks, counts)
         acc = self.algo.insertions(algo2) - n_before
-        unk = unknown.to(torch.int32).sum()
+        unk = unknown.to(torch.int32).sum(dtype=torch.int32)
         drops_unknown = state.drops_unknown.clone()
         drops_unknown[0] += unk
         state2 = dataclasses.replace(
@@ -350,6 +352,30 @@ class SummarizerPod:
         the rule.
         """
         obs.drain.drain_pod(state, pod=pod, registry=registry)
+
+    # -------------------------------------------------------------- scale-out
+    def make_sharded_update(self, mesh, axis="data", *,
+                            pre_routed: bool = False):
+        """The P*S-session pod program: ``ingest`` mapped over the ranks
+        of ``mesh`` along ``axis`` (a mesh axis name or a tuple of names:
+        pass ``("pod", "data")`` on a multi-pod mesh so the session axis
+        splits over both, not replicated over ``pod``), with
+        ``tree.shard_map``.
+
+        Global state and queue leaves are DTensors with a leading P*S
+        (items: P*N) axis split over ``axis`` (``tree.shard_tree`` of
+        each rank's own pod state); each rank routes its N items to its
+        own S slots (the cluster front end routes session_id -> rank).
+        Returns ``(state, sids, X) -> (state, stats)``, the stats split
+        the same way; no collective runs in it.
+
+        ``pre_routed=True`` returns the ``ingest_routed`` program
+        instead: ``(state, chunks, counts, unknown, overflow) -> (state,
+        stats)`` with chunks (P*S, C, d), counts / overflow (P*S,) and
+        unknown (P,) (one host-routed count a rank).
+        """
+        return shard_map(self.ingest_routed if pre_routed else self.ingest,
+                         mesh, axis)
 
     # ------------------------------------------------------------------ serve
     def serve(self, state: PodState, pipeline, *, max_batches=None,

@@ -9,6 +9,10 @@ draws) pass through untouched and are no leaves.  A model's parameters
 are nested dicts; a training checkpoint is the tuple ``(params,
 OptState(m, v, step))``, keyed as JAX keys it: a tuple by the index, a
 NamedTuple by the field name (``0/embed``, ``1/m/embed``, ``1/step``).
+
+``vmap`` maps a function over the leading axis of such trees in one
+process; ``shard_map`` maps it over the ranks of a device mesh, whose
+global trees hold DTensors split on the leading axis.
 """
 from __future__ import annotations
 
@@ -122,5 +126,58 @@ def vmap(fn: Callable) -> Callable:
 
         outs = torch.func.vmap(inner)(*(ls for ls, _ in flat))
         return out_rebuild[0](iter(outs))
+
+    return mapped
+
+
+def _shard0(mesh, axis) -> tuple:
+    from repro_torch.launch.mesh import placements
+
+    return placements((axis,), mesh)
+
+
+def shard_tree(tree: Any, mesh, axis) -> Any:
+    """Each rank's local tree -> the global tree: every tensor leaf a
+    DTensor split on its leading dimension over mesh ``axis`` (a name or a
+    tuple of names), ``Shard(0)``, and replicated over the mesh's other
+    axes.  The local tensors are wrapped, not copied; every rank's leaf
+    must have the same shape."""
+    from torch.distributed.tensor import DTensor
+
+    pl = _shard0(mesh, axis)
+    return tree_map(lambda l: DTensor.from_local(l, mesh, pl,
+                                                 run_check=False), tree)
+
+
+def local_tree(tree: Any, mesh, axis) -> Any:
+    """A global tree of ``shard_tree``'s placements -> this rank's local
+    tensors (the DTensors' own storage, no copy)."""
+    from torch.distributed.tensor import DTensor
+
+    pl = _shard0(mesh, axis)
+
+    def local(l):
+        if not isinstance(l, DTensor):
+            raise TypeError(f"a global leaf must be a DTensor, got "
+                            f"{type(l).__name__}")
+        if l.device_mesh != mesh or tuple(l.placements) != pl:
+            raise ValueError(f"a leaf on {l.device_mesh} with placements "
+                             f"{l.placements}, expected {pl} on {mesh}")
+        return l.to_local()
+
+    return tree_map(local, tree)
+
+
+def shard_map(fn: Callable, mesh, axis) -> Callable:
+    """``shard_map`` over the leading dimension (the JAX package's
+    ``shard_map`` with every in and out spec ``P(axis)``): ``fn`` takes
+    and returns trees of one rank's local tensors; the mapped function
+    takes and returns global trees whose leaves are DTensors split on the
+    leading dimension over ``axis`` (``shard_tree``).  ``axis`` is a mesh
+    axis name or a tuple of names: ``("pod", "data")`` splits the leading
+    dimension over both, pod-major."""
+    def mapped(*args):
+        out = fn(*(local_tree(a, mesh, axis) for a in args))
+        return shard_tree(out, mesh, axis)
 
     return mapped

@@ -1393,3 +1393,95 @@ def test_reduced_model_gradients_on_the_kernel_routes(cuda, arch, remat):
         size = w.abs().max().item()
         err = (got[k] - w).abs().max().item()
         assert err <= 1e-4 * size, (k, err, size)
+
+
+# ------------------------------------- scale-out: ranks sharing the card
+def _ranks_pod_cfg():
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    P, S, N, D = 2, 3, 40, 9
+    sids = [[100 + 10 * p + s for s in range(S)] for p in range(P)]
+    specs = [[dict(K=12, T=6, eps=0.1, lengthscale=0.5),
+              dict(K=5, T=6, eps=0.1, lengthscale=0.5,
+                   kernel_kind="linear_norm"),
+              dict(K=8, T=6, eps=0.1, lengthscale=0.5)] for _ in range(P)]
+    batch_sids = [np.concatenate([rng.choice(sids[p] + [999, -1], size=N)
+                                  for p in range(P)]).astype(np.int32)
+                  for _ in range(4)]
+    batch_X = [rng.standard_normal((P * N, D)).astype(np.float32)
+               for _ in range(4)]
+    return {"d": D, "algo": dict(K=12, T=6, eps=0.1, lengthscale=0.5),
+            "S": S, "C": 16, "N": N, "sids": sids, "specs": specs,
+            "segments": [("data", "data", False, [0]),
+                         ("data_routed", "data", True, [1]),
+                         ("pod_data", "pod_data", False, [2, 3])],
+            "batch_sids": batch_sids, "batch_X": batch_X,
+            "device": "cuda", "backend": "auto"}
+
+
+def test_sharded_pod_on_two_ranks_bit_equal_to_one_pod(cuda, tmp_path):
+    """Two gloo ranks sharing the card, 3 sessions each, through
+    ``make_sharded_update`` (plain, pre-routed, and the ("pod", "data")
+    tuple axis) on the ``pod_step`` kernel: every leaf bit for bit the
+    one-process pod of the 6 sessions fed the same items (the
+    unknown-id ledger, one a pod, in sum)."""
+    import _torch_ranks as ranks
+    from repro_torch.convert import join_sharded, state_to_numpy
+
+    cfg = _ranks_pod_cfg()
+    got = ranks.run_ranks(ranks.sharded_pod_program, 2, tmp_path, cfg)
+    pod = ranks._tpod(dict(cfg, S=2 * cfg["S"]))
+    state = ranks._admitted(pod, sum(cfg["sids"], []),
+                            sum(cfg["specs"], []))
+    for name, _, _, batches in cfg["segments"]:
+        for b in batches:
+            state, _ = pod.ingest(
+                state, torch.from_numpy(cfg["batch_sids"][b]).to(cuda),
+                torch.from_numpy(cfg["batch_X"][b]).to(cuda))
+        want = state_to_numpy(state)
+        joined = join_sharded([g[name]["state"] for g in got])
+        for k, a in want.items():
+            if k == "drops_unknown":  # pod-scoped: on each pod's slot 0
+                assert a.sum() == joined[k].sum() > 0, name
+                continue
+            assert (a == joined[k]).all(), (name, k)
+
+
+def test_mesh_merge_on_two_ranks_bit_equal_to_the_loop(cuda, tmp_path):
+    """``DistributedSummarizer`` on a two-rank gloo mesh on the card (the
+    all-gather of CUDA tensors over gloo) against the one-process loop
+    at ``shards=2``: the merged summary bit for bit on both ranks."""
+    import numpy as np
+
+    import _torch_ranks as ranks
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core.api import make
+    from repro_torch.data import DistributedSummarizer
+
+    rng = np.random.default_rng(4)
+    batches = [rng.standard_normal((2 * 128, 16)).astype(np.float32)
+               for _ in range(3)]
+    algo = dict(K=12, T=30, eps=0.1, lengthscale=2.0)
+    cfg = {"d": 16, "algo": algo, "B": 128, "batches": batches,
+           "device": "cuda", "backend": "auto"}
+    got = ranks.run_ranks(ranks.sharded_merge_program, 2, tmp_path, cfg)
+    loop = DistributedSummarizer(make("threesieves", d=16, device=cuda,
+                                      **algo), shards=2)
+    states = loop.init()
+    for X in batches:
+        states = loop.update(states, torch.from_numpy(X).to(cuda))
+    want = state_to_numpy(loop.merge(states).ld)
+    assert int(want["n"]) > 1
+    for g in got:
+        for k, a in want.items():
+            assert (a == g["merged"][k]).all(), k
+
+
+def test_one_rank_nccl_collectives_compressor_and_merge(cuda, tmp_path):
+    import _torch_ranks as ranks
+
+    out = ranks.run_ranks(ranks.nccl_program, 1, tmp_path, {},
+                          backend="nccl")[0]
+    assert out == {"gather": True, "reduce": True, "compress": True,
+                   "merge": True}
