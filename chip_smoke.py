@@ -307,6 +307,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -368,7 +369,7 @@ FLASH_DH96_CASES = [
 # tolerances of the kernel route against the plain one, and the near-tie
 # bound of a first differing token (top-2 plain-route logit gap, relative)
 WHISPER_B, WHISPER_PROMPT, WHISPER_NEW = 8, 16, 32
-WHISPER_REPS, WHISPER_DRAWS = 5, 3
+WHISPER_REPS, WHISPER_DRAWS = 3, 2
 WHISPER_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TOKEN_TIE = 1e-3
 # phase ssd: (name, b, L, h, g, p, n, q, dtype, decay), in the model's
@@ -392,7 +393,7 @@ SSD_SCALED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # and dtype; input draws; logit tolerances of the kernel route against the
 # plain one
 MAMBA_B, MAMBA_PROMPT, MAMBA_NEW = 8, 2000, 32
-MAMBA_REPS, MAMBA_DRAWS = 5, 3
+MAMBA_REPS, MAMBA_DRAWS = 3, 2
 MAMBA_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # phase pod_sieves: (algorithm, tenants, chunk, pipeline batch) of the
 # pods fed by serve + IngestPipeline from a seeded DriftSource; a batch
@@ -437,7 +438,11 @@ DIST_SHARDS = 32
 # reference's gate (shares 1.2-2.7 on an H100, dense models too), and it
 # moves some top-k router choices (98 of 3,328 in deepseek's, none in
 # float32); the phases print those flips
-DEEPSEEK_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW, DEEPSEEK_REPS = 8, 512, 32, 3
+DEEPSEEK_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW, DEEPSEEK_REPS = 8, 512, 32, 2
+# cut from 27 layers to 9 (the dense first layer and 8 MLA + MoE layers)
+# to keep the script inside its time with the mesh phases; PR 20 served
+# it whole (PERF.md)
+DEEPSEEK_LAYERS = 9
 DEEPSEEK_TF = (2, 64, 32)
 TF_TOL = 3e-2
 ROUTE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -1840,8 +1845,9 @@ def _padded(q, k, v):
 def _flash_case(torch, gen, case, control):
     """One flash case (a FLASH_CASES tuple) against ``attention_ref`` ->
     its JSON record.  ``control`` names the planted fault its check must
-    fail: "padded_keys" (the kernel told to keep the padded keys) or
-    "non_causal" (the kernel of a causal case told to see every key)."""
+    fail: "padded_keys" (the kernel told to keep the padded keys),
+    "non_causal" (the kernel of a causal case told to see every key) or
+    "short_column" (the kernel fed inputs one column short)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES as \
@@ -1870,7 +1876,18 @@ def _flash_case(torch, gen, case, control):
     # the kernel alone on the padded inputs the wrapper hands it
     qp, kp, vp, pad = _padded(q, k, v)
     fault = None
-    if control is not None:
+    if control == "short_column":  # a kernel reading dh - 1 columns
+        def cut(t):
+            return torch.cat([t[..., :-1], torch.zeros_like(t[..., -1:])],
+                             -1).contiguous()
+
+        bad = flash_attention_cuda(cut(qp), cut(kp), cut(vp), causal=causal,
+                                   kv_len=S)[:, :, :S]
+        fault = (bad.float() - want.float()).abs().max().item() / size
+        if fault <= scaled_tol:
+            fail(f"flash {name}: the check passes the {control} fault "
+                 f"({fault} of the largest output, tol {scaled_tol})")
+    elif control is not None:
         bad = flash_attention_cuda(
             qp, kp, vp, causal=causal and control != "non_causal",
             kv_len=S + pad if control == "padded_keys" else S)[:, :, :S]
@@ -3793,7 +3810,8 @@ def _tokens_vs(torch, model, ref_model, params, prompts, N, max_seq, what,
 
 
 def phase_deepseek(torch, gen, seed):
-    """deepseek-v2-lite-16b at published widths and full depth serving 8
+    """deepseek-v2-lite-16b at published widths, cut to DEEPSEEK_LAYERS of
+    its 27 layers, serving 8
     requests of 512 prompt tokens through ``ServeDriver.generate`` (32
     new tokens), float32 master parameters and bf16 activations, MoE on
     the config's ``impl="dense"``; the teacher-forcing gate (the MLA
@@ -3809,7 +3827,8 @@ def phase_deepseek(torch, gen, seed):
 
     kernels = _all_kernels()
     B, P, N = DEEPSEEK_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW
-    cfg = get_config("deepseek-v2-lite-16b", use_pallas_attention=True)
+    cfg = get_config("deepseek-v2-lite-16b", use_pallas_attention=True,
+                     n_layers=DEEPSEEK_LAYERS)
     _free(torch)
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -4537,7 +4556,7 @@ MERGE_RANKS = 4
 # phase pod_compress: two ranks as two pods, each training mamba2-370m
 # whole at the train_mamba cell's shape on its own batches, AdamW steps
 # through Compressor(mesh, "pod")
-COMPRESS_PODS, COMPRESS_STEPS = 2, 3
+COMPRESS_PODS, COMPRESS_STEPS = 2, 2
 # the one-rank NCCL leg, at a reduced size: a pod of NCCL_SESSIONS, a
 # merge over NCCL_MERGE_BATCHES batches of the paper stream, the reduced
 # mamba2-370m config trained NCCL_STEPS steps at GRAD_SHAPE
@@ -4565,6 +4584,10 @@ def _rank_main(rank, world, work, backend, dev, fn, cfg):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     try:
+        if backend == "hostgloo":
+            from repro_torch.launch.mesh import register_host_backend
+
+            register_host_backend()
         dist.init_process_group(backend, init_method=f"file://{work}/store",
                                 rank=rank, world_size=world)
         out = fn(torch, rank, world, cfg)
@@ -5246,6 +5269,429 @@ def phase_nccl(torch, seed, paper):
     return g["launches"]
 
 
+# ------------------------------------------ the last slice: flash at any dh
+# phase flash_dh_any: head widths that are no instance of the kernel
+# (8 ... 112 run on the next instance up, their extra columns zeros) and
+# those past 128 (the 64-key tiles); bf16 causal GQA and float32 ragged
+FLASH_ANY_DH = (8, 24, 40, 48, 80, 112, 136, 160, 192, 256)
+FLASH_ANY_CASES = (
+    [(f"dh{dh}_causal_gqa_bf16", 2, 8, 2, 1024, dh, True, "bfloat16", 0.5)
+     for dh in FLASH_ANY_DH]
+    + [(f"dh{dh}_ragged_f32", 2, 4, 2, 300, dh, False, "float32", 0.5)
+       for dh in FLASH_ANY_DH])
+
+
+def phase_flash_dh_any(torch, gen):
+    """Every head width up to 256 on both routes under the gates of
+    ``flash``: the kernel fed one column short (q, k and v with their
+    last column zeroed, a kernel that reads dh - 1 columns) must fail
+    each case's gate; timed beside the plain version, SDPA and the
+    bound.  Widths past 256 raise, naming the limit."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     launch_geometry)
+
+    cases = [_flash_case(torch, gen, case, "short_column")
+             for case in FLASH_ANY_CASES]
+    wide = torch.zeros(1, 2, 64, 264, device=DEV, dtype=torch.bfloat16)
+    try:
+        flash_attention(wide, wide, wide, backend="cuda")
+        fail("flash_dh_any: head width 264 did not raise")
+    except ValueError as e:
+        if "256" not in str(e):
+            fail(f"flash_dh_any: the refusal does not name 256: {e}")
+        refusal = str(e)
+    geometry = {dh: launch_geometry(torch.bfloat16, 2, 8, 1024, dh)[3]
+                for dh in FLASH_ANY_DH}
+    emit("flash_dh_any", cases=cases, refusal=refusal,
+         smem_bytes_bf16=geometry,
+         max_abs_err=max(c["max_abs_err"] for c in cases),
+         library="torch.nn.functional.scaled_dot_product_attention")
+    top = next(c for c in cases if c["case"] == "dh256_causal_gqa_bf16")
+    return {**top, "max_abs_err": max(c["max_abs_err"] for c in cases)}
+
+
+# --------------------------------------------- the last slice: the mesh
+# the model on a ("data", "model") mesh of ranks sharing the card, on the
+# host-copy gloo backend (launch.mesh.register_host_backend: gloo's own
+# CUDA path crashed in the functional all-gather DTensor uses)
+MESH_BACKEND = "hostgloo"
+MESH_TOL = 1e-4  # of the largest |logit|: float32, sums split over ranks
+TP_QWEN = {"arch": "qwen2-1.5b", "shape": (2, 2), "batch": (8, 512),
+           "runs": [("plain_f32", {"dtype": "float32"}),
+                    ("kernel_f32", {"dtype": "float32",
+                                    "use_pallas_attention": True}),
+                    ("kernel_bf16", {"use_pallas_attention": True})]}
+TP_MAMBA = {"arch": "mamba2-370m", "shape": (1, 2), "batch": (8, 2048),
+            "runs": [("kernel_f32", {"dtype": "float32"}),
+                     ("kernel_bf16", {})]}
+SEQ_PHI3 = {"arch": "phi3-mini-3.8b", "shape": (1, 3), "batch": (4, 1536),
+            "runs": [("plain_f32", {"dtype": "float32",
+                                    "attn_seq_shard": True})]}
+# (1, 2), not (2, 2): on (2, 2) the FSDP gathers over 'data' and the
+# checkpoints (18.6 GB gathered whole on every rank) run through host
+# copies four ways; (1, 2) keeps the tensor-parallel path and halves it
+TRAIN_MESH = {"arch": "qwen2-1.5b", "shape": (1, 2), "batch": (8, 512),
+              "steps": 2}
+TRAIN_MESH_TOL = {"loss": 1e-2, "grad_norm": 5e-2}  # bf16 activations
+RANK_TIMEOUT.update({"tp_qwen2": 300, "tp_mamba": 240, "seq_shard": 300,
+                     "train_mesh": 480})
+
+
+def _mesh_of(torch, shape):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(DEV, tuple(shape),
+                            mesh_dim_names=("data", "model"))
+
+
+def _mesh_tokens(torch, cfg, vocab):
+    g = torch.Generator(device=DEV).manual_seed(cfg["seed"] + 17)
+    B, S = cfg["batch"]
+    return torch.randint(0, vocab, (B, S), generator=g, device=DEV)
+
+
+def _rank_mesh_forward(torch, rank, world, cfg):
+    """Each run of ``cfg["runs"]``: the whole model, seeded alike on every
+    rank, laid out by ``build_rules`` on the mesh; ``train_logits`` on the
+    mesh under ``use_mesh`` with the launch counters zeroed just before
+    and read just after; rank 0 first runs the one-process forward of
+    the same tree and holds the gathered logits against it."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import KERNEL as FLASH
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
+    from repro_torch.launch.hlo_stats import CollectiveCounter
+    from repro_torch.launch.mesh import (distribute, distribute_tree,
+                                         full_tensor, placements, use_mesh)
+    from repro_torch.launch.sharding import (batch_pspec, build_rules,
+                                             shardings)
+    from repro_torch.models import Model
+
+    mesh = _mesh_of(torch, cfg["shape"])
+    out = {}
+    for name, over in cfg["runs"]:
+        mcfg = get_config(cfg["arch"], **over)
+        model = Model(mcfg, device=DEV)
+        params = model.init(torch.Generator(device=DEV).manual_seed(
+            cfg["seed"]))
+        tokens = _mesh_tokens(torch, cfg, mcfg.vocab)
+        want = None
+        with torch.no_grad():
+            if rank == 0:
+                want = model.train_logits(params, {"tokens": tokens})[0]
+            # the model holds the tree it was given: the shards replace it
+            params = model.load(distribute_tree(params, shardings(
+                model.spec(), build_rules(mcfg, mesh), mesh), mesh))
+            _free(torch)
+            tok = distribute(tokens, mesh, placements(
+                batch_pspec(tokens.shape, mesh), mesh))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()  # the mesh path starts here
+            t0 = time.perf_counter()
+            with use_mesh(mesh), CollectiveCounter() as coll:
+                logits, _ = model.train_logits(params, {"tokens": tok})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {"flash_attention": FLASH.launches,
+                        "ssd_chunk": SSD.launches}
+            got = full_tensor(logits)
+        rec = {"ms": ms, "launches": launches,
+               "placements": str(logits.placements),
+               "local_shape": list(logits.to_local().shape),
+               "collectives": coll.stats().as_dict(),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if rank == 0:
+            err = (got.float() - want.float()).abs().max().item()
+            rec.update(max_abs_err=err,
+                       scale=want.float().abs().max().item(),
+                       finite=bool(torch.isfinite(got).all()),
+                       shape=list(got.shape), dtype=str(got.dtype))
+        out[name] = rec
+        del params, logits, got, want
+        _free(torch)
+    return out
+
+
+def _hold_mesh(got, cfg, what, want_launch):
+    """The f32 runs' gate (rank 0's gathered logits within MESH_TOL of
+    the largest one-process logit), finite logits everywhere, and the
+    kernel launches each run must make on every rank."""
+    for name, _ in cfg["runs"]:
+        r0 = got[0][name]
+        if not r0["finite"]:
+            fail(f"{what} {name}: non-finite logits")
+        if "f32" in name and r0["max_abs_err"] > MESH_TOL * r0["scale"]:
+            fail(f"{what} {name}: logits off the one-process forward by "
+                 f"{r0['max_abs_err']} (bound {MESH_TOL} x {r0['scale']})")
+        for r, g in enumerate(got):
+            for kernel, n in want_launch(name).items():
+                if g[name]["launches"][kernel] != n:
+                    fail(f"{what} {name}: rank {r} launched {kernel} "
+                         f"{g[name]['launches'][kernel]} times, want {n}")
+
+
+def _mesh_record(got, cfg):
+    return {name: {
+        "max_abs_err": got[0][name]["max_abs_err"],
+        "scale": got[0][name]["scale"],
+        "scaled_err": got[0][name]["max_abs_err"] / got[0][name]["scale"],
+        "ms_rank": [g[name]["ms"] for g in got],
+        "launches_rank": [g[name]["launches"] for g in got],
+        "collective_bytes_rank": [g[name]["collectives"]["total_bytes"]
+                                  for g in got],
+        "collectives_rank0": got[0][name]["collectives"],
+        "placements": got[0][name]["placements"],
+        "local_shape": got[0][name]["local_shape"],
+        "peak_mem_gib_rank": [g[name]["peak_mem_gib"] for g in got]}
+        for name, _ in cfg["runs"]}
+
+
+def phase_tp_forward(torch, seed):
+    """The model on a mesh of ranks sharing the card: qwen2-1.5b whole on
+    (2, 2), 8 x 512 tokens, on the plain attention route and under
+    ``use_pallas_attention`` (flash on each rank's 6 query and 1 kv
+    heads: 28 launches a rank); mamba2-370m whole on (1, 2), 8 x 2048
+    tokens, ``ssd_chunk`` on each rank's 16 heads (48 launches a rank).
+    Gates: float32 logits within 1e-4 of the largest one-process logit,
+    the launches on every rank; bf16 printed."""
+    from repro_torch.configs import get_config
+
+    _free(torch)
+    q = dict(TP_QWEN, seed=seed)
+    got_q, secs_q = run_ranks(torch, "tp_qwen2", _rank_mesh_forward,
+                              4, q, backend=MESH_BACKEND)
+    n_attn = get_config(q["arch"]).n_layers
+    _hold_mesh(got_q, q, "tp_forward qwen2", lambda name: {
+        "flash_attention": n_attn if "kernel" in name else 0})
+    m = dict(TP_MAMBA, seed=seed)
+    got_m, secs_m = run_ranks(torch, "tp_mamba", _rank_mesh_forward, 2, m,
+                              backend=MESH_BACKEND)
+    n_ssd = get_config(m["arch"]).n_layers
+    _hold_mesh(got_m, m, "tp_forward mamba2", lambda name: {
+        "ssd_chunk": n_ssd})
+    emit("tp_forward", backend=MESH_BACKEND,
+         qwen2={"mesh": list(q["shape"]), "batch": list(q["batch"]),
+                "runs": _mesh_record(got_q, q), "spawn_to_exit_s": secs_q},
+         mamba2={"mesh": list(m["shape"]), "batch": list(m["batch"]),
+                 "runs": _mesh_record(got_m, m), "spawn_to_exit_s": secs_m},
+         tol=MESH_TOL)
+    return {"flash_attention": sum(g[name]["launches"]["flash_attention"]
+                                   for g in got_q for name, _ in q["runs"]),
+            "ssd_chunk": sum(g[name]["launches"]["ssd_chunk"]
+                             for g in got_m for name, _ in m["runs"])}
+
+
+def phase_seq_shard(torch, seed):
+    """Context parallelism: phi3-mini-3.8b whole (32 query heads of
+    width 96) on (1, 3), where 32 does not divide 3, so attention splits
+    the query sequence over 'model' (4 x 1536 tokens, 1536 = 3 x 512):
+    the float32 logits against the one-process forward.  (Under
+    ``use_pallas_attention`` the query sequence is gathered for the
+    kernel and split again: tests/test_torch_mesh_model.py.)"""
+    from repro_torch.configs import get_config
+
+    _free(torch)
+    c = dict(SEQ_PHI3, seed=seed)
+    got, secs = run_ranks(torch, "seq_shard", _rank_mesh_forward, 3, c,
+                          backend=MESH_BACKEND)
+    n_attn = get_config(c["arch"]).n_layers
+    _hold_mesh(got, c, "seq_shard", lambda name: {
+        "flash_attention": n_attn if "kernel" in name else 0})
+    emit("seq_shard", backend=MESH_BACKEND, mesh=list(c["shape"]),
+         batch=list(c["batch"]), runs=_mesh_record(got, c),
+         spawn_to_exit_s=secs, tol=MESH_TOL)
+    return {"flash_attention": sum(g[name]["launches"]["flash_attention"]
+                                   for g in got for name, _ in c["runs"])}
+
+
+def _rank_train_mesh(torch, rank, world, cfg):
+    """``launch.train.main`` on the mesh: one step and a checkpoint, then
+    a second run resuming from it for the second step; an uninterrupted
+    run of the same two steps (the launcher's own pieces) beside it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.hlo_stats import CollectiveCounter
+    from repro_torch.launch.mesh import (distribute, distribute_tree,
+                                         placements, use_mesh)
+    from repro_torch.launch.sharding import (batch_pspec, build_rules,
+                                             shardings)
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+    from repro_torch.tree import leaves_with_keys
+
+    mesh = _mesh_of(torch, cfg["shape"])
+    B, S = cfg["batch"]
+    argv = ["--arch", cfg["arch"], "--batch", str(B), "--seq", str(S),
+            "--ckpt-dir", cfg["dir"], "--ckpt-every", "100", "--seed",
+            str(cfg["seed"])]
+    out = {}
+    t0 = time.perf_counter()
+    _, _, first, _ = launcher.main(argv + ["--steps", "1"], mesh=mesh)
+    out["first_s"] = time.perf_counter() - t0
+    out["first"] = first.last_metrics
+    _free(torch)
+    t0 = time.perf_counter()
+    resumed, _, second, _ = launcher.main(
+        argv + ["--steps", str(cfg["steps"])], mesh=mesh)
+    out["resumed_s"] = time.perf_counter() - t0
+    out["resumed_from"] = second.start_step
+    mine = {k: v.to_local().clone()
+            for k, v in leaves_with_keys(resumed).items()}
+    del resumed
+    _free(torch)
+    # the uninterrupted run: the launcher's init, layout, batches and step
+    mcfg = get_config(cfg["arch"])
+    model = Model(mcfg, device=DEV)
+    params = model.load(distribute_tree(
+        model.init(torch.Generator(device=DEV).manual_seed(cfg["seed"])),
+        shardings(model.spec(), build_rules(mcfg, mesh), mesh), mesh))
+    opt_cfg = AdamWConfig(total_steps=cfg["steps"])
+    opt = init_opt_state(params, opt_cfg)
+    step = make_train_step(model, opt_cfg)
+    batches = deterministic_batch_fn(0, TokenStreamSpec(
+        vocab=mcfg.vocab, seq=S, batch=B), device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms"], out["collective_bytes"] = [], []
+    with use_mesh(mesh):
+        for i in range(cfg["steps"]):
+            b = {k: distribute(v, mesh, placements(batch_pspec(v.shape, mesh),
+                                                   mesh))
+                 for k, v in batches(i).items()}
+            t0 = time.perf_counter()
+            with CollectiveCounter() as coll:
+                params, opt, metrics = step(params, opt, b)
+            torch.cuda.synchronize()
+            out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["collective_bytes"].append(coll.stats().total_bytes)
+            if i == 0:
+                out["loss"] = float(metrics["loss"])
+                out["grad_norm"] = float(metrics["grad_norm"])
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["equal"] = all(torch.equal(mine[k], v.to_local())
+                       for k, v in leaves_with_keys(params).items())
+    return out
+
+
+def _one_process_step(torch, cfg):
+    """The first step of ``TRAIN_MESH`` on one process: (loss, grad
+    norm), the launcher's init and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, init_opt_state,
+                                   make_train_step)
+
+    mcfg = get_config(cfg["arch"])
+    model = Model(mcfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(cfg["seed"]))
+    opt_cfg = AdamWConfig(total_steps=cfg["steps"])
+    B, S = cfg["batch"]
+    b = deterministic_batch_fn(0, TokenStreamSpec(
+        vocab=mcfg.vocab, seq=S, batch=B), device=DEV)(0)
+    m = make_train_step(model, opt_cfg)(
+        params, init_opt_state(params, opt_cfg), b)[2]
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def phase_train_mesh(torch, seed):
+    """Training on the mesh: ``launch.train.main(argv, mesh=...)`` on a
+    (1, 2) mesh of ranks sharing the card, qwen2-1.5b whole (8 x 512
+    tokens, remat ``full``): one step and a checkpoint (the gathered
+    tree, written by rank 0), then a run that resumes from it for the
+    second step.  Gates: the resumed parameters bit-equal on every rank
+    to an uninterrupted two-step run; the first step's loss and global
+    norm within TRAIN_MESH_TOL of the one-process step (bf16
+    activations, sums split over the ranks)."""
+    import shutil
+    import tempfile
+
+    cfg = dict(TRAIN_MESH, seed=seed)
+    loss1, gnorm1 = _one_process_step(torch, cfg)
+    _free(torch)  # the step's tensors died with its frame
+    work = tempfile.mkdtemp(prefix="train_mesh_")
+    try:
+        got, secs = run_ranks(torch, "train_mesh", _rank_train_mesh,
+                              math.prod(cfg["shape"]), dict(cfg, dir=work),
+                              backend=MESH_BACKEND)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r, g in enumerate(got):
+        if not g["equal"] or g["resumed_from"] != 1:
+            fail(f"train_mesh: rank {r} resumed from {g['resumed_from']}, "
+                 f"parameters bit-equal: {g['equal']}")
+    errs = {"loss": abs(got[0]["loss"] - loss1) / abs(loss1),
+            "grad_norm": abs(got[0]["grad_norm"] - gnorm1) / abs(gnorm1)}
+    for k, e in errs.items():
+        if not e <= TRAIN_MESH_TOL[k]:
+            fail(f"train_mesh: {k} off the one-process step by {e} "
+                 f"(bound {TRAIN_MESH_TOL[k]})")
+    emit("train_mesh", arch=cfg["arch"], mesh=list(cfg["shape"]),
+         batch=list(cfg["batch"]), steps=cfg["steps"],
+         backend=MESH_BACKEND, resumed_bit_equal=True,
+         loss=got[0]["loss"], one_process_loss=loss1,
+         grad_norm=got[0]["grad_norm"], one_process_grad_norm=gnorm1,
+         rel_err=errs, tol=TRAIN_MESH_TOL,
+         step_ms_rank=[g["step_ms"] for g in got],
+         gloo_bytes_a_step_rank=[g["collective_bytes"] for g in got],
+         peak_mem_gib_rank=[g["peak_mem_gib"] for g in got],
+         first_run_s=got[0]["first_s"], resumed_run_s=got[0]["resumed_s"],
+         spawn_to_exit_s=secs)
+
+
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("paper-summarizer", None))
+
+
+def phase_dryrun(torch):
+    """``python -m repro_torch.launch.dryrun`` in a process of its own
+    (PyTorch's fake process group of 256 placeholder ranks, under the
+    card's PyTorch) for qwen2-1.5b ``train_4k`` and the summarizer pod
+    cell on the single-pod mesh; a cell that is not ok fails the run."""
+    import tempfile
+
+    cells = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as out:
+        runs = []  # the cells' processes run side by side
+        for arch, shape in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--mesh", "single", "--out", out]
+            if shape:
+                cmd += ["--shape", shape]
+            runs.append((arch, time.perf_counter(), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, env=env)))
+        secs = {}
+        for arch, t0, proc in runs:
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                for _, _, p in runs:
+                    p.kill()
+                fail(f"dryrun {arch}: still running after 600 s")
+            secs[arch] = time.perf_counter() - t0
+            if proc.returncode:
+                fail(f"dryrun {arch}: exit {proc.returncode}\n"
+                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+        for p in sorted(Path(out).glob("*.json")):
+            cell = json.loads(p.read_text())
+            if not cell["ok"]:
+                fail(f"dryrun {cell['cell']}: {cell.get('error')}")
+            cell.pop("traceback", None)
+            arch = cell.get("arch", "paper-summarizer")
+            cells[cell["cell"]] = dict(cell, process_s=secs[arch])
+    train = cells["qwen2-1.5b__train_4k__pod256"]
+    pod = cells["paper-summarizer__pod256"]
+    emit("dryrun", torch=torch.__version__,
+         train_4k={k: train[k] for k in ("memory_analysis", "cost_analysis",
+                                          "collectives", "roofline",
+                                          "run_s", "process_s")},
+         pod256={k: pod[k] for k in ("pod_ingest", "pod_ingest_prerouted",
+                                      "merge", "process_s")})
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5279,8 +5725,12 @@ def main(argv=None):
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
-        out = fn(*a)
-        seconds[name] = time.perf_counter() - t0
+        try:
+            out = fn(*a)
+        finally:  # a failed run still shows where its time went
+            seconds[name] = time.perf_counter() - t0
+            print(f"[chip_smoke] {name}: {seconds[name]:.1f} s",
+                  file=sys.stderr, flush=True)
         return out
 
     # the phases of the first slice first, on the seed's draws as before
@@ -5324,6 +5774,13 @@ def main(argv=None):
     smerge = timed("sharded_merge", phase_sharded_merge, torch, paper)
     scomp = timed("pod_compress", phase_pod_compress, torch, args.seed)
     nccl = timed("nccl", phase_nccl, torch, args.seed, paper)
+    # the last slice: flash at every head width up to 256, the model on a
+    # mesh (tensor and context parallelism, training), the dry-run
+    flash_any = timed("flash_dh_any", phase_flash_dh_any, torch, gen)
+    tp = timed("tp_forward", phase_tp_forward, torch, args.seed)
+    cp = timed("seq_shard", phase_seq_shard, torch, args.seed)
+    timed("train_mesh", phase_train_mesh, torch, args.seed)
+    timed("dryrun", phase_dryrun, torch)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -5364,7 +5821,8 @@ def main(argv=None):
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
-         "launches": whisper["launches"],
+         "launches": (whisper["launches"] + tp["flash_attention"]
+                      + cp["flash_attention"]),
          "max_abs_err": max(flash["max_abs_err"], flash96["max_abs_err"]),
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
@@ -5380,12 +5838,24 @@ def main(argv=None):
          "ms": flash16["ms"], "plain_ms": flash16["plain_ms"],
          "bound_ms": flash16["bound_ms"], "bound_by": flash16["bound_by"],
          "library_ms": flash16["library_ms"]},
+        # the same kernel at the widest head (256, bf16 causal GQA, 64-key
+        # tiles); its launches: the mesh phases', where the kernel runs on
+        # each rank's heads (qwen2 dh 128, phi3 dh 96)
+        {"name": "flash_attention_dh_any", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+         "launches": tp["flash_attention"] + cp["flash_attention"],
+         "max_abs_err": flash_any["max_abs_err"],
+         "ms": flash_any["ms"], "plain_ms": flash_any["plain_ms"],
+         "bound_ms": flash_any["bound_ms"],
+         "bound_by": flash_any["bound_by"],
+         "library_ms": flash_any["library_ms"]},
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
          "launches": (mamba["launches"] + tgrad["launches"]["ssd_chunk"]
                       + tmamba["launches"] + scomp["launches"]
-                      + nccl["ssd_chunk"]),
+                      + nccl["ssd_chunk"] + tp["ssd_chunk"]),
          "max_abs_err": ssd["max_abs_err"],
          "ms": ssd["ms"], "plain_ms": ssd["plain_ms"],
          "bound_ms": ssd["bound_ms"], "bound_by": ssd["bound_by"],

@@ -22,13 +22,17 @@ Every save snapshots the tree to host memory (real copies: the pod steps
 its state in place, so the next ingest overwrites the tensors) before it
 returns.  ``save_async`` writes its files on a daemon thread from that
 snapshot only; ``wait()`` joins it and re-raises its failure.  Saved
-arrays are whole: ``load`` puts every leaf on one device, there is no
-resharding on one card.
+arrays are whole: ``load`` puts every leaf on one device.  A tree of
+DTensors (training on a mesh) is written with no gather, each rank its
+own block of every leaf into the leaf's one file (``_write_blocks``); a
+restore into a DTensor donor reads each rank's block back on the
+donor's placements.  Either way the files are a whole tree's.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import shutil
 import threading
 import time
@@ -51,9 +55,30 @@ HostLeaves = Dict[str, Tuple[np.ndarray, str]]  # key -> (array, dtype name)
 
 def host_snapshot(tree) -> HostLeaves:
     """Every leaf of ``tree`` copied to host memory with its dtype name
-    (a bfloat16 leaf as its ``uint16`` bits)."""
-    return {k: (leaf_to_numpy(v), dtype_name(v))
+    (a bfloat16 leaf as its ``uint16`` bits); a DTensor leaf gathered
+    whole first (a collective: every rank of its mesh snapshots)."""
+    from repro_torch.launch.mesh import full_tensor
+
+    return {k: (leaf_to_numpy(full_tensor(v)), dtype_name(v))
             for k, v in leaves_with_keys(tree).items()}
+
+
+def _sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(v, DTensor)
+               for v in leaves_with_keys(tree).values())
+
+
+def _file_dtype(t: torch.Tensor):
+    """The dtype of a leaf's ``.npy`` records (bfloat16: the raw 2-byte
+    ``V2`` the JAX store writes)."""
+    name = dtype_name(t)
+    return np.dtype("V2") if name == "bfloat16" else np.dtype(name)
+
+
+def _file_of(key: str) -> str:
+    return key.replace("/", "__") + ".npy"
 
 
 class CheckpointStore:
@@ -76,6 +101,8 @@ class CheckpointStore:
         """
         with obs.span("ckpt_save", step=step, mode="sync"):
             self.wait()
+            if _sharded(tree):
+                return self._write_blocks(step, tree, extra or {})
             host = host_snapshot(tree)
             return self._write(step, host, extra or {}, mode="sync")
 
@@ -85,7 +112,12 @@ class CheckpointStore:
         A failure of the in-flight write is never swallowed: it re-raises
         from the next ``wait()`` — which this method calls first, so a
         failed previous save surfaces here rather than looking committed.
+        A sharded tree is saved synchronously (``_write_blocks``: every
+        rank writes as the others do).
         """
+        if _sharded(tree):
+            self.save(step, tree, extra)
+            return
         with obs.span("ckpt_save", step=step, mode="async"):
             # the span prices only the synchronous cost the caller pays
             # (join + host snapshot); the file write is the bg span below
@@ -114,26 +146,80 @@ class CheckpointStore:
 
     def _write(self, step: int, host: HostLeaves, extra: Dict,
                mode: str = "sync") -> Path:
-        d = self._step_dir(step)
-        tmp = d.with_suffix(".tmp")
+        tmp = self._fresh_tmp(step)
+        for key, (arr, dt) in host.items():
+            # bfloat16 bits as the raw 2-byte records the JAX store writes
+            np.save(tmp / _file_of(key),
+                    arr.view("V2") if dt == "bfloat16" else arr)
+        return self._commit(step, tmp, {k: (arr.shape, dt) for k, (arr, dt)
+                                        in host.items()}, extra, mode)
+
+    def _fresh_tmp(self, step: int) -> Path:
+        tmp = self._step_dir(step).with_suffix(".tmp")
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
+        return tmp
+
+    def _write_blocks(self, step: int, tree, extra: Dict) -> Path:
+        """A tree of DTensors (training on a mesh), saved with no gather:
+        global rank 0 lays out each leaf's whole ``.npy`` file, every rank
+        writes its own block of each leaf into it (a block that several
+        ranks hold alike is written by the first of them), and rank 0
+        commits once all have written.  The files are those of a whole
+        tree."""
+        import torch.distributed as dist
+        from numpy.lib.format import open_memmap
+        from torch.distributed.tensor import DTensor, Shard
+
+        from repro_torch.launch.mesh import local_slices
+
+        leaves = leaves_with_keys(tree)
+        first = dist.get_rank() == 0
+        tmp = self._step_dir(step).with_suffix(".tmp")
+        if first:
+            self._fresh_tmp(step)
+            for key, v in leaves.items():
+                open_memmap(tmp / _file_of(key), mode="w+",
+                            dtype=_file_dtype(v), shape=tuple(v.shape))
+        dist.barrier()
+        for key, v in leaves.items():
+            if isinstance(v, DTensor):
+                pl, coord = v.placements, v.device_mesh.get_coordinate()
+                if any(c and not isinstance(p, Shard)
+                       for p, c in zip(pl, coord)):
+                    continue
+                block = local_slices(v.shape, v.device_mesh, pl)
+                arr = leaf_to_numpy(v.to_local())
+            elif first:
+                block, arr = (), leaf_to_numpy(v)
+            else:
+                continue
+            out = open_memmap(tmp / _file_of(key), mode="r+")
+            out[block] = arr.view(out.dtype)
+            out.flush()
+            del out
+        dist.barrier()
+        d = self._step_dir(step)
+        if first:
+            self._commit(step, tmp, {k: (tuple(v.shape), dtype_name(v))
+                                     for k, v in leaves.items()}, extra,
+                         "sync")
+        dist.barrier()  # every rank returns once the step is committed
+        return d
+
+    def _commit(self, step: int, tmp: Path, leaves: Dict, extra: Dict,
+                mode: str) -> Path:
+        """The manifest, the commit mark, the rename; then the GC."""
+        d = self._step_dir(step)
         manifest = {
             "step": step,
             "time": time.time(),
             "extra": extra,
-            "leaves": {},
+            "leaves": {key: {"file": _file_of(key), "shape": list(shape),
+                             "dtype": dt}
+                       for key, (shape, dt) in leaves.items()},
         }
-        for key, (arr, dt) in host.items():
-            fname = key.replace("/", "__") + ".npy"
-            # bfloat16 bits as the raw 2-byte records the JAX store writes
-            np.save(tmp / fname, arr.view("V2") if dt == "bfloat16" else arr)
-            manifest["leaves"][key] = {
-                "file": fname,
-                "shape": list(arr.shape),
-                "dtype": dt,
-            }
         (tmp / MANIFEST).write_text(json.dumps(manifest, indent=1))
         (tmp / COMMIT_MARK).write_text("ok")
         if d.exists():
@@ -146,7 +232,9 @@ class CheckpointStore:
                         ("mode",)).labels(mode=mode).inc()
             reg.counter("ckpt_saved_bytes_total",
                         "leaf bytes written into committed checkpoints"
-                        ).inc(sum(arr.nbytes for arr, _ in host.values()))
+                        ).inc(sum(math.prod(shape) * (
+                            2 if dt == "bfloat16" else np.dtype(dt).itemsize)
+                            for shape, dt in leaves.values()))
         return d
 
     def _gc(self):
@@ -178,13 +266,17 @@ class CheckpointStore:
         leaf goes to ``device``, or to the donor leaf's own device
         (``cuda`` for a ``meta`` donor); there is no ``shardings``
         argument: one card holds the whole tree."""
+        # a DTensor donor leaf comes back a DTensor with its placements
+        # (every rank reads the whole leaf and keeps its own shard)
         with obs.span("ckpt_restore", step=step):
             d = self._step_dir(step)
             manifest = json.loads((d / MANIFEST).read_text())
 
-            def read(key):
+            def read(key, mmap=False):
                 info = manifest["leaves"][key]
-                return np.load(d / info["file"]), info["dtype"]
+                return (np.load(d / info["file"],
+                                mmap_mode="r" if mmap else None),
+                        info["dtype"])
             return _rebuild_like(like, read, device), manifest["extra"]
 
 
@@ -211,8 +303,11 @@ def _rebuild_like(like, read: Callable[[str], Tuple[np.ndarray, str]],
                           for i, v in enumerate(like))
     if not isinstance(like, torch.Tensor):
         return like
+    from torch.distributed.tensor import DTensor
+
     key = prefix[:-1]
-    arr, dt = read(key)
+    sharded = isinstance(like, DTensor)
+    arr, dt = read(key, mmap=True) if sharded else read(key)
     if dt != dtype_name(like) or tuple(arr.shape) != tuple(like.shape):
         raise ValueError(
             f"checkpoint leaf {key!r} is {dt}{list(arr.shape)}, the donor "
@@ -220,6 +315,13 @@ def _rebuild_like(like, read: Callable[[str], Tuple[np.ndarray, str]],
     dev = (resolve_device(device) if device is not None
            else resolve_device(None) if like.device.type == "meta"
            else like.device)
+    if sharded:  # only this rank's block is read from the file
+        from repro_torch.launch.mesh import local_slices
+
+        mesh, pl = like.device_mesh, like.placements
+        local = tensor_from_numpy(arr[local_slices(arr.shape, mesh, pl)], dev)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=like.shape, stride=like.stride())
     return tensor_from_numpy(arr, dev)
 
 
@@ -264,4 +366,5 @@ class MemoryStore:
 
     def load(self, step: int, like, *, device=None) -> Tuple[Any, Dict]:
         leaves, extra = self._steps[step]
-        return _rebuild_like(like, leaves.__getitem__, device), dict(extra)
+        return (_rebuild_like(like, lambda k, mmap=False: leaves[k], device),
+                dict(extra))

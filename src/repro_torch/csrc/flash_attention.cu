@@ -111,6 +111,16 @@ constexpr int RQ = BQ / TY;      // query rows per thread
 constexpr int RK = BK / TX;      // keys per thread
 constexpr float NEG_INF = -1e30f;
 
+// The template instances, shared by both kernels: a head width dh runs
+// on the narrowest instance at least dh wide (0 past MAX_DH).
+constexpr int MAX_DH = 256;
+inline int instance_width(int dh) {
+  constexpr int widths[] = {16, 32, 64, 96, 128, 160, 192, 256};
+  for (int w : widths)
+    if (dh >= 1 && dh <= w) return w;
+  return 0;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T>
@@ -130,8 +140,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int Sq, int Sk, int kv_len, int causal,
-                       float scale) {
+                       int Hkv, int Sq, int Sk, int dh, int kv_len,
+                       int causal, float scale) {
   constexpr int LDQ = DH + 1, LDK = DH + 1, LDV = DH, LDP = BK + 1;
   constexpr int CD = DH / TX;  // output columns per thread
   extern __shared__ float smem[];
@@ -145,14 +155,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
-  const T* qb = q + (size_t)(b * Hq + h) * Sq * DH;
-  const T* kb = k + (size_t)(b * Hkv + hk) * Sk * DH;
-  const T* vb = v + (size_t)(b * Hkv + hk) * Sk * DH;
-  T* ob = o + (size_t)(b * Hq + h) * Sq * DH;
+  // rows are dh wide in memory; columns dh .. DH - 1 of the instance
+  // read as zeros and are never stored
+  const T* qb = q + (size_t)(b * Hq + h) * Sq * dh;
+  const T* kb = k + (size_t)(b * Hkv + hk) * Sk * dh;
+  const T* vb = v + (size_t)(b * Hkv + hk) * Sk * dh;
+  T* ob = o + (size_t)(b * Hq + h) * Sq * dh;
 
   for (int e = tid; e < BQ * DH; e += NT) {
     const int r = e / DH, c = e % DH;
-    Qs[r * LDQ + c] = q0 + r < Sq ? to_f(qb[(size_t)(q0 + r) * DH + c]) : 0.f;
+    Qs[r * LDQ + c] = q0 + r < Sq && c < dh
+                          ? to_f(qb[(size_t)(q0 + r) * dh + c]) : 0.f;
   }
 
   float m[RQ], l[RQ], acc[RQ][CD];
@@ -173,8 +186,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's K, V and P are consumed
     for (int e = tid; e < BK * DH; e += NT) {
       const int r = e / DH, c = e % DH;
-      const bool in = k0 + r < Sk;
-      const size_t g = (size_t)(k0 + r) * DH + c;
+      const bool in = k0 + r < Sk && c < dh;
+      const size_t g = (size_t)(k0 + r) * dh + c;
       Ks[r * LDK + c] = in ? to_f(kb[g]) : 0.f;
       Vs[r * LDV + c] = in ? to_f(vb[g]) : 0.f;
     }
@@ -254,13 +267,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CD; ++c)
-      ob[(size_t)r * DH + tx + TX * c] = from_f<T>(acc[i][c] / den);
+      if (tx + TX * c < dh)
+        ob[(size_t)r * dh + tx + TX * c] = from_f<T>(acc[i][c] / den);
   }
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Sk, int kv_len, int causal,
+           int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len, int causal,
            float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)smem_floats<DH>();
   cudaError_t e = cudaFuncSetAttribute(
@@ -270,8 +284,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B), block(TX, TY);
   flash_attention_kernel<T, DH><<<grid, block, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, kv_len,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, dh,
+      kv_len, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -279,13 +293,17 @@ template <typename T>
 int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
               int B, int Hq, int Hkv, int Sq, int Sk, int kv_len, int causal,
               float scale, cudaStream_t s) {
-#define FLASH_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, kv_len, causal, scale, s
-  switch (dh) {
+#define FLASH_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, s
+  // the instance: the narrowest at least dh wide (instance_width)
+  switch (instance_width(dh)) {
     case 16: return launch<T, 16>(FLASH_ARGS);
     case 32: return launch<T, 32>(FLASH_ARGS);
     case 64: return launch<T, 64>(FLASH_ARGS);
     case 96: return launch<T, 96>(FLASH_ARGS);
     case 128: return launch<T, 128>(FLASH_ARGS);
+    case 160: return launch<T, 160>(FLASH_ARGS);
+    case 192: return launch<T, 192>(FLASH_ARGS);
+    case 256: return launch<T, 256>(FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS
@@ -300,7 +318,6 @@ namespace tc {
 
 constexpr int BQ = 128;      // query rows per block: two consumer warpgroups
 constexpr int WG_ROWS = 64;  // query rows of one consumer warpgroup
-constexpr int BK = 128;      // keys per kv tile
 constexpr int STAGES = 2;    // K / V ring
 constexpr int THREADS = 384;  // producer warpgroup + two consumers
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 64,512 of 65,536
@@ -312,6 +329,10 @@ constexpr float MASKED = -1e30f;  // kv_len / causal masks, as the reference
 // at dh 16).
 template <int DH>
 struct Geo {
+  // keys per kv tile: 128, or 64 past dh 128, where the O accumulator
+  // (DH / 2 floats a thread) and the K / V ring of 128-key tiles would
+  // not fit (2 * 2 * 128 * 256 * 2 bytes of ring alone at dh 256)
+  static constexpr int BK = DH > 128 ? 64 : 128;
   static constexpr int SW =  // bytes of a block row
       DH == 16 ? 32 : DH % 64 == 0 ? 128 : 64;
   static constexpr int CB = SW / 2;               // bf16 columns per block
@@ -517,6 +538,120 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 64, f32) = (scale_d ? D : 0) + A . B^T, A (64 x 16) and B
+// (64 x 16) bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 160, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 160) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 192, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 192) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, f32) += A . B, A (64 x 16) bf16 in registers (four
+// bf16x2 per thread), B (16 x 256) bf16 in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
@@ -525,7 +660,10 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
   else if constexpr (DH == 32) wgmma_rs_n32(o, a, db);
   else if constexpr (DH == 64) wgmma_rs_n64(o, a, db);
   else if constexpr (DH == 96) wgmma_rs_n96(o, a, db);
-  else wgmma_rs_n128(o, a, db);
+  else if constexpr (DH == 128) wgmma_rs_n128(o, a, db);
+  else if constexpr (DH == 160) wgmma_rs_n160(o, a, db);
+  else if constexpr (DH == 192) wgmma_rs_n192(o, a, db);
+  else wgmma_rs_n256(o, a, db);
 }
 
 // 2^x on the special-function unit (ex2.approx, about 2 ulp), without
@@ -548,9 +686,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                              const __grid_constant__ CUtensorMap tmk,
                              const __grid_constant__ CUtensorMap tmv,
                              __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
-                             int Sq, int Sk, int kv_len, int causal,
+                             int Sq, int Sk, int dh, int kv_len, int causal,
                              float scale_log2) {
   using G = Geo<DH>;
+  constexpr int BK = G::BK;
   extern __shared__ uint8_t smem_raw[];
   // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows of
   // 128 B, and TMA and wgmma must agree on where a repeat starts
@@ -624,18 +763,19 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       const uint32_t k_base = sk_ + s * G::KV_BYTES;
       const uint32_t v_base = sv_ + s * G::KV_BYTES;
 
-      // S = Q K^T: 64 x 128 in f32, in registers
+      // S = Q K^T: 64 x BK in f32, in registers
       float sacc[BK / 2];
       fence_regs(sacc);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         const uint32_t colb = kk / G::KPB, kin = (kk % G::KPB) * 32;
-        wgmma_ss_n128(
-            sacc,
-            desc(q_base + colb * BQ * G::SW + kin, 16, 8 * G::SW, G::LAYOUT),
-            desc(k_base + colb * BK * G::SW + kin, 16, 8 * G::SW, G::LAYOUT),
-            kk > 0);
+        const uint64_t da =
+            desc(q_base + colb * BQ * G::SW + kin, 16, 8 * G::SW, G::LAYOUT);
+        const uint64_t db =
+            desc(k_base + colb * BK * G::SW + kin, 16, 8 * G::SW, G::LAYOUT);
+        if constexpr (BK == 128) wgmma_ss_n128(sacc, da, db, kk > 0);
+        else wgmma_ss_n64(sacc, da, db, kk > 0);
       }
       wg_commit();
       wg_wait0();
@@ -733,9 +873,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       const float den = fmaxf(lt, 1e-30f);
       const int qi = r0 + 8 * hh;
       if (qi >= Sq) continue;
-      __nv_bfloat16* orow = o + ((size_t)bhq * Sq + qi) * DH;
+      // rows are dh wide (a multiple of 8); columns past dh are not stored
+      __nv_bfloat16* orow = o + ((size_t)bhq * Sq + qi) * dh;
 #pragma unroll
       for (int g = 0; g < DH / 8; ++g) {
+        if (8 * g + 2 * quad >= dh) continue;
         __nv_bfloat162 v = __floats2bfloat162_rn(
             oacc[4 * g + 2 * hh] / den, oacc[4 * g + 2 * hh + 1] / den);
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g + 2 * quad) = v;
@@ -772,16 +914,18 @@ EncodeTiled encoder() {
 }
 
 // A (BH, S, dh) bf16 tensor as a TMA map with boxes of `rows` rows x one
-// column block.  Global strides (dh * 2 and S * dh * 2 bytes) are
-// multiples of 16 for dh in {16, 32, 64, 96, 128}; rows past S read as
-// zeros.
+// column block of the instance DH >= dh.  Global strides (dh * 2 and
+// S * dh * 2 bytes) are multiples of 16 for dh a multiple of 8; rows past
+// S and columns past dh read as zeros (the box's out-of-bounds fill), so
+// an instance wider than dh computes on zero columns.
 template <int DH>
-bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int rows) {
+bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int dh,
+            int rows) {
   using G = Geo<DH>;
   EncodeTiled fn = encoder();
   if (!fn) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)DH, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)DH * 2, (cuuint64_t)S * DH * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)S * dh * 2};
   const cuuint32_t box[3] = {(cuuint32_t)G::CB, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
@@ -795,9 +939,10 @@ bool encode(CUtensorMap* map, const void* ptr, int BH, int S, int rows) {
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Sk, int kv_len, int causal,
+           int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len, int causal,
            float scale, cudaStream_t stream) {
   using G = Geo<DH>;
+  if (dh % 8 || dh > DH) return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, o};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16)
@@ -805,9 +950,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (Sk <= 0) return (int)cudaErrorInvalidValue;  // TMA needs a row
   // the maps are encoded per call: the pointers change from call to call
   CUtensorMap mq, mk, mv;
-  if (!encode<DH>(&mq, q, B * Hq, Sq, BQ) ||
-      !encode<DH>(&mk, k, B * Hkv, Sk, BK) ||
-      !encode<DH>(&mv, v, B * Hkv, Sk, BK))
+  if (!encode<DH>(&mq, q, B * Hq, Sq, dh, BQ) ||
+      !encode<DH>(&mk, k, B * Hkv, Sk, dh, G::BK) ||
+      !encode<DH>(&mv, v, B * Hkv, Sk, dh, G::BK))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       flash_attention_wgmma_kernel<DH>,
@@ -815,16 +960,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_attention_wgmma_kernel<DH><<<grid, THREADS, G::SMEM, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, kv_len,
-      causal, scale * 1.4426950408889634f);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, dh,
+      kv_len, causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
 // dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
-// kernel; q, k, v, o 16-byte aligned).  q (B, Hq, Sq, dh), k / v (B, Hkv,
-// Sk, dh), o like q, all contiguous; Hq a multiple of Hkv.
+// kernel; q, k, v, o 16-byte aligned, dh a multiple of 8).  q (B, Hq, Sq,
+// dh), k / v (B, Hkv, Sk, dh), o like q, all contiguous; Hq a multiple of
+// Hkv; 1 <= dh <= MAX_DH.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int dh,
@@ -837,19 +983,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 0: return launch_dh<float>(dh, q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                     kv_len, causal, scale, s);
     case 1:
-      switch (dh) {
-        case 16: return tc::launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                       kv_len, causal, scale, s);
-        case 32: return tc::launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                       kv_len, causal, scale, s);
-        case 64: return tc::launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                       kv_len, causal, scale, s);
-        case 96: return tc::launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                       kv_len, causal, scale, s);
-        case 128: return tc::launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                         kv_len, causal, scale, s);
+#define TC_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, s
+      switch (instance_width(dh)) {
+        case 16: return tc::launch<16>(TC_ARGS);
+        case 32: return tc::launch<32>(TC_ARGS);
+        case 64: return tc::launch<64>(TC_ARGS);
+        case 96: return tc::launch<96>(TC_ARGS);
+        case 128: return tc::launch<128>(TC_ARGS);
+        case 160: return tc::launch<160>(TC_ARGS);
+        case 192: return tc::launch<192>(TC_ARGS);
+        case 256: return tc::launch<256>(TC_ARGS);
         default: return (int)cudaErrorInvalidValue;
       }
+#undef TC_ARGS
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaKernel, check
 
@@ -31,32 +32,45 @@ ROUTES = {torch.float32: "cuda-core (flash_attention_kernel, FP32 FMA)",
           torch.bfloat16: "tensor-core (flash_attention_wgmma_kernel, "
                           "wgmma + TMA)"}
 ROUTE_LAUNCHES = {"cuda-core": 0, "tensor-core": 0}
-HEAD_DIMS = (16, 32, 64, 96, 128)  # the template instances of the source
+# the template instances of the source: a head width runs on the
+# narrowest instance at least as wide, its extra columns read as zeros
+HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
+MAX_DH = HEAD_DIMS[-1]
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/flash_attention.cu: the tensor-core kernel's query rows, keys per
-# tile, ring stages and threads (namespace tc), the CUDA-core kernel's
+# tile (64 past head width 128), ring stages and threads (namespace tc),
+# the CUDA-core kernel's
 TC_BQ, TC_BK, TC_STAGES, TC_THREADS = 128, 128, 2, 384
+TC_BK_WIDE = 64
 CC_BQ, CC_BK, CC_THREADS = 64, 64, 256
+
+
+def instance_width(dh: int) -> int:
+    """The template instance a head width runs on; raises past
+    ``MAX_DH``."""
+    if not 1 <= dh <= MAX_DH:
+        raise ValueError(f"head width {dh} not supported: the kernel takes "
+                         f"1 to {MAX_DH}")
+    return next(w for w in HEAD_DIMS if w >= dh)
 
 
 def launch_geometry(dtype: torch.dtype, B: int, Hq: int, Sq: int,
                     dh: int):
     """-> (route, grid, threads per block, dynamic shared-memory bytes) of
-    one launch; raises for a dtype or head width the source has no kernel
-    for."""
+    one launch; raises for a dtype the source has no kernel for or a head
+    width past ``MAX_DH``."""
     if dtype not in DTYPE_IDS:
         raise TypeError(f"dtype {dtype} not supported; choose from "
                         f"{list(DTYPE_IDS)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head width {dh} not supported; choose from "
-                         f"{HEAD_DIMS}")
+    DH = instance_width(dh)
     if dtype == torch.bfloat16:
+        bk = TC_BK if DH <= 128 else TC_BK_WIDE
         # Q, the K / V ring, the mbarriers, and slack for 1024-byte alignment
-        smem = (2 * TC_BQ * dh + 2 * TC_STAGES * 2 * TC_BK * dh
+        smem = (2 * TC_BQ * DH + 2 * TC_STAGES * 2 * bk * DH
                 + 8 * (1 + 2 * TC_STAGES) + 1024)
         return "tensor-core", (-(-Sq // TC_BQ), Hq, B), TC_THREADS, smem
     # Q, K, V and P as float, the padded strides of the source
-    smem = 4 * (CC_BQ * (dh + 1) + CC_BK * (dh + 1) + CC_BK * dh
+    smem = 4 * (CC_BQ * (DH + 1) + CC_BK * (DH + 1) + CC_BK * DH
                 + CC_BQ * (CC_BK + 1))
     return "cuda-core", (-(-Sq // CC_BQ), Hq, B), CC_THREADS, smem
 
@@ -66,8 +80,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: int | None = None) -> torch.Tensor:
     """Launch the kernel: q (B, Hq, Sq, dh), k/v (B, Hkv, Sk, dh) on one
     card, one dtype (float32 or bfloat16), contiguous, Hq a multiple of
-    Hkv, dh in ``HEAD_DIMS``, 0 <= kv_len <= Sk -> (B, Hq, Sq, dh) in q's
-    dtype, scores scaled by dh ** -0.5.  Raises on anything else."""
+    Hkv, 1 <= dh <= ``MAX_DH``, 0 <= kv_len <= Sk -> (B, Hq, Sq, dh) in
+    q's dtype, scores scaled by dh ** -0.5.  Raises on anything else.
+
+    The tensor-core kernel reads rows through TMA, whose row stride must
+    be a multiple of 16 bytes: a bfloat16 head width that is not a
+    multiple of 8 is staged into zero-padded copies and the output cut
+    back to dh columns."""
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda launches on CUDA tensors only")
     dev = q.device
@@ -90,7 +109,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = Sk if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= Sk:
         raise ValueError(f"kv_len {kv_len} outside [0, {Sk}]")
+    scale = dh ** -0.5  # the real width's, whatever the kernel reads
+    width = dh
     if q.dtype == torch.bfloat16:
+        if dh % 8:
+            width = dh + (-dh) % 8
+            q, k, v = (F.pad(t, (0, width - dh)) for t in (q, k, v))
         # TMA reads from 16-byte aligned addresses; a view that starts
         # elsewhere is copied (fresh allocations are aligned)
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
@@ -100,9 +124,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-            Hkv, Sq, Sk, dh, kv_len, int(causal), dh ** -0.5, DTYPE_IDS[q.dtype],
-            torch.cuda.current_stream(dev).cuda_stream)
+            Hkv, Sq, Sk, width, kv_len, int(causal), scale,
+            DTYPE_IDS[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     check(KERNEL, err, "flash_attention")
     KERNEL.launches += 1
     ROUTE_LAUNCHES[ROUTES[q.dtype].split()[0]] += 1
-    return out
+    return out[..., :dh] if width != dh else out

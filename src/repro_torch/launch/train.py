@@ -11,8 +11,19 @@ Usage:
 
 ``--device`` defaults to ``cuda`` (and fails without a card); parameters
 come from the port's seeded init (``--seed``), batches from
-``deterministic_batch_fn(0, ...)``.  One card has no mesh, so there is no
-``--production-mesh``.  Attention runs the plain chunked route, as the
+``deterministic_batch_fn(0, ...)``.
+
+The mesh, as in the reference: ``--production-mesh`` trains on the
+(16, 16) ("data", "model") mesh, which needs a process group of 256
+ranks (``launch.mesh.make_production_mesh`` raises on any other); without
+it, on ``make_host_mesh()``, (world, 1) over the caller's group.  A
+caller may hand ``main`` a mesh of its own (``main(argv, mesh=...)``, for
+ranks that share one card).  Parameters follow ``build_rules(cfg, mesh)``
+(train mode: FSDP over 'data', tensor parallel over 'model'), each rank
+drawing the whole seeded tree and keeping its shard; the batch is split
+on 'data'; the step runs under ``use_mesh(mesh)``; checkpoints hold the
+gathered tree.  A mesh of one rank lays nothing out, so a process with
+no group (or a one-rank one) trains on plain tensors.  Attention runs the plain chunked route, as the
 reference's launcher leaves ``use_pallas_attention`` off; Mamba2 and
 Jamba layers train through the SSD kernel (its gradient is the plain
 route's, ``kernels.autograd``).  ``frames`` (Whisper) and ``prefix``
@@ -37,6 +48,10 @@ from repro_torch.ckpt import CheckpointStore
 from repro_torch.configs import all_archs, get_config
 from repro_torch.data import (CoresetSelector, TokenStreamSpec,
                               deterministic_batch_fn)
+from repro_torch.launch.mesh import (distribute, distribute_tree,
+                                     make_host_mesh, make_production_mesh,
+                                     placements, use_mesh)
+from repro_torch.launch.sharding import batch_pspec, build_rules, shardings
 from repro_torch.models import Model
 from repro_torch.train import (AdamWConfig, TrainStepConfig, init_opt_state,
                                make_train_step)
@@ -45,7 +60,19 @@ from repro_torch.train.loop import LoopConfig, run_training
 HIST_BINS = 64  # width of the folded token histogram the coreset sees
 
 
-def main(argv=None):
+def _mesh_for(args, mesh, dev):
+    """The mesh the run lays out on, or ``None`` (one rank: plain
+    tensors)."""
+    import torch.distributed as dist
+
+    if args.production_mesh:
+        mesh = make_production_mesh(device=dev)
+    elif mesh is None and dist.is_initialized():
+        mesh = make_host_mesh(device=dev)
+    return mesh if mesh is not None and mesh.size() > 1 else None
+
+
+def main(argv=None, *, mesh=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=all_archs())
     ap.add_argument("--reduced", action="store_true")
@@ -62,12 +89,18 @@ def main(argv=None):
                          "per-example embeddings in the input pipeline")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the (16, 16) mesh (needs 256 ranks)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     model = Model(cfg, device=args.device)
     dev = model.device
+    mesh = _mesh_for(args, mesh, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
+    if mesh is not None:  # the shards replace the whole tree on the model
+        params = model.load(distribute_tree(params, shardings(
+            model.spec(), build_rules(cfg, mesh), mesh), mesh))
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps)
     opt_state = init_opt_state(params, opt_cfg)
     step_cfg = TrainStepConfig(num_microbatches=args.microbatches)
@@ -96,12 +129,21 @@ def main(argv=None):
             hist = F.one_hot(b["tokens"].long() % HIST_BINS,
                              HIST_BINS).float().mean(1)
             selector.update(hist)
+        if mesh is not None:
+            b = {k: distribute(v, mesh, placements(batch_pspec(v.shape, mesh),
+                                                   mesh))
+                 for k, v in b.items()}
         return b
 
     store = CheckpointStore(args.ckpt_dir)
     loop_cfg = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every)
-    params, opt_state, report = run_training(
-        train_step, params, opt_state, next_batch, store, loop_cfg)
+    with use_mesh(mesh):
+        params, opt_state, report = run_training(
+            train_step, params, opt_state, next_batch, store, loop_cfg,
+            log=print if mesh is None or mesh.get_rank() == 0
+            else lambda _: None)
+    if mesh is not None and mesh.get_rank() != 0:
+        return params, opt_state, report, selector
     print(f"[train] done: steps {report.start_step}->{report.end_step} "
           f"loss={report.last_metrics.get('loss', float('nan')):.4f} "
           f"stragglers={len(report.stragglers)}")

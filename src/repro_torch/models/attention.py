@@ -22,6 +22,7 @@ new, donated buffer).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -29,7 +30,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .config import ModelConfig
-from .layers import ParamDef, apply_norm, apply_rope, norm_spec
+from .layers import (ParamDef, _ambient_mesh, apply_norm, apply_rope,
+                     einsum, heads_local, matmul, norm_spec, shard_act)
 
 NEG = -1e30
 
@@ -93,9 +95,9 @@ def gqa_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _gqa_qkv(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -104,11 +106,64 @@ def _gqa_qkv(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
         frac = cfg.rope_frac if cfg.rope == "partial" else 1.0
         q = apply_rope(q, pos, frac=frac, theta=cfg.rope_theta)
         k = apply_rope(k, pos, frac=frac, theta=cfg.rope_theta)
+    # on a mesh each tensor gets the best layout it divides into: heads
+    # over 'model'; or, with ``attn_seq_shard`` and q heads that do not
+    # divide 'model', the query sequence over 'model' (context
+    # parallelism) and k / v gathered
+    if _seq_shard(cfg, q.shape[1]):
+        q = shard_act(q, "batch", "tp")
+        k = shard_act(k, "batch")
+        v = shard_act(v, "batch")
+    else:
+        q = shard_act(q, "batch", None, "tp")
+        k = shard_act(k, "batch", None, "tp")
+        v = shard_act(v, "batch", None, "tp")
     return q, k, v
 
 
+def _q_heads_divisible(cfg: ModelConfig) -> bool:
+    m = _ambient_mesh()
+    if m is None or "model" not in m.mesh_dim_names:
+        return True
+    return cfg.n_heads % m.size(m.mesh_dim_names.index("model")) == 0
+
+
+def _seq_shard(cfg: ModelConfig, S: int) -> bool:
+    return cfg.attn_seq_shard and not _q_heads_divisible(cfg) and S > 1
+
+
+def _attend(q, k, v, cfg: ModelConfig, causal: bool) -> torch.Tensor:
+    """The plain attention of train and prefill.  A query sequence split
+    over 'model' (``_seq_shard``) is attended rank by rank: each rank's
+    rows at their global offset against the whole k / v, whose gradient
+    is then a partial sum over 'model'."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    mesh = q.device_mesh if isinstance(q, DTensor) else None
+    if mesh is None or "model" not in mesh.mesh_dim_names or \
+            q.placements[mesh.mesh_dim_names.index("model")] != Shard(1):
+        return heads_local(functools.partial(
+            chunked_attention, causal=causal, chunk=cfg.attn_chunk), (q,),
+            (k, v))
+    mi = mesh.mesh_dim_names.index("model")
+    grad = list(k.placements)
+    grad[mi] = Partial()
+    ql = q.to_local()
+    o = chunked_attention(
+        ql, k.to_local(grad_placements=grad),
+        v.to_local(grad_placements=grad), causal=causal,
+        chunk=cfg.attn_chunk,
+        q_offset=mesh.get_local_rank("model") * ql.shape[1])
+    return DTensor.from_local(o, mesh, q.placements, run_check=False)
+
+
 def _out(p, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+    return einsum("bshk,hkd->bsd", o, p["wo"].to(o.dtype))
+
+
+def _flash(q, k, v, causal: bool) -> torch.Tensor:
+    return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal).transpose(1, 2)
 
 
 def gqa_train(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -117,10 +172,15 @@ def gqa_train(p, x: torch.Tensor, cfg: ModelConfig, *,
     pos = torch.arange(S, device=x.device)[None, :]
     q, k, v = _gqa_qkv(p, x, pos, cfg)
     if cfg.use_pallas_attention:
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal).transpose(1, 2)
+        # on a mesh the kernel runs on each rank's heads; a query
+        # sequence split over 'model' is gathered for it (the kernel has
+        # no query offset) and split again after
+        o = heads_local(functools.partial(_flash, causal=causal), (q,),
+                        (k, v))
+        if _seq_shard(cfg, S):
+            o = shard_act(o, "batch", "tp")
     else:
-        o = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        o = _attend(q, k, v, cfg, causal)
     return _out(p, o)
 
 
@@ -138,7 +198,7 @@ def gqa_prefill(p, x: torch.Tensor, cache, cfg: ModelConfig):
     q, k, v = _gqa_qkv(p, x, pos, cfg)
     cache["k"][:, :S] = k
     cache["v"][:, :S] = v
-    o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    o = _attend(q, k, v, cfg, True)
     return _out(p, o), cache
 
 
@@ -147,8 +207,9 @@ def gqa_decode(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
     q, k, v = _gqa_qkv(p, x, torch.full((1, 1), pos, device=x.device), cfg)
     cache["k"][:, pos:pos + 1] = k
     cache["v"][:, pos:pos + 1] = v
-    o = chunked_attention(q, cache["k"], cache["v"], causal=False,
-                          chunk=cfg.attn_chunk, kv_len=pos + 1)
+    o = heads_local(functools.partial(
+        chunked_attention, causal=False, chunk=cfg.attn_chunk,
+        kv_len=pos + 1), (q,), (cache["k"], cache["v"]))
     return _out(p, o), cache
 
 
@@ -172,11 +233,11 @@ def mla_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _mla_q_ckv(p, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig):
     m, dt = cfg.mla, x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], pos,
                         theta=cfg.rope_theta)
-    dkv = x @ p["w_dkv"].to(dt)  # (B, S, lora + rope)
+    dkv = matmul(x, p["w_dkv"].to(dt))  # (B, S, lora + rope)
     ckv = apply_norm(p["ckv_norm"], dkv[..., :m.kv_lora_rank], "rmsnorm")
     k_rope = apply_rope(dkv[..., None, m.kv_lora_rank:], pos,
                         theta=cfg.rope_theta)[:, :, 0]  # one shared head
@@ -189,14 +250,14 @@ def mla_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :]
     q_nope, q_rope, ckv, k_rope = _mla_q_ckv(p, x, pos, cfg)
-    k_nope = torch.einsum("bsl,lhn->bshn", ckv, p["w_uk"].to(dt))
-    v = torch.einsum("bsl,lhn->bshn", ckv, p["w_uv"].to(dt))
+    k_nope = einsum("bsl,lhn->bshn", ckv, p["w_uk"].to(dt))
+    v = einsum("bsl,lhn->bshn", ckv, p["w_uv"].to(dt))
     k_rope_h = k_rope[:, :, None, :].expand(B, S, cfg.n_heads,
                                             m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope_h], -1)
-    o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    return torch.einsum("bshv,hvd->bsd", o, p["wo"].to(dt))
+    o = _attend(q, k, v, cfg, True)
+    return einsum("bshv,hvd->bsd", o, p["wo"].to(dt))
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
@@ -228,20 +289,20 @@ def mla_decode(p, x: torch.Tensor, cache, pos: int, cfg: ModelConfig):
         p, x, torch.full((1, 1), pos, device=x.device), cfg)
     cache["ckv"][:, pos:pos + 1] = ckv
     cache["krope"][:, pos:pos + 1] = k_rope
-    q_lat = torch.einsum("bshn,lhn->bshl", q_nope, p["w_uk"].to(dt))
+    q_lat = einsum("bshn,lhn->bshl", q_nope, p["w_uk"].to(dt))
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     ckv_f = cache["ckv"].float()
-    s = (torch.einsum("bshl,btl->bhst", q_lat.float(), ckv_f)
-         + torch.einsum("bshr,btr->bhst", q_rope.float(),
-                        cache["krope"].float())) * scale
+    s = (einsum("bshl,btl->bhst", q_lat.float(), ckv_f)
+         + einsum("bshr,btr->bhst", q_rope.float(),
+                  cache["krope"].float())) * scale
     t = torch.arange(cache["ckv"].shape[1], device=x.device)
     s = torch.where((t <= pos)[None, None, None, :], s,
                     torch.tensor(NEG, device=x.device))
     w = torch.exp(s - torch.amax(s, -1, keepdim=True))
     w = w / torch.clamp(torch.sum(w, -1, keepdim=True), min=1e-30)
-    ctx = torch.einsum("bhst,btl->bshl", w, ckv_f)
-    v_ctx = torch.einsum("bshl,lhv->bshv", ctx.to(dt), p["w_uv"].to(dt))
-    return torch.einsum("bshv,hvd->bsd", v_ctx, p["wo"].to(dt)), cache
+    ctx = einsum("bhst,btl->bshl", w, ckv_f)
+    v_ctx = einsum("bshl,lhv->bshv", ctx.to(dt), p["w_uv"].to(dt))
+    return einsum("bshv,hvd->bsd", v_ctx, p["wo"].to(dt)), cache
 
 
 # ------------------------------------------------------- cross-attention
@@ -258,15 +319,14 @@ def cross_spec(cfg: ModelConfig) -> Dict[str, Any]:
 def cross_attend(p, x: torch.Tensor,
                  enc_kv: Tuple[torch.Tensor, torch.Tensor],
                  cfg: ModelConfig) -> torch.Tensor:
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    q = einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k, v = enc_kv
-    return _out(p, chunked_attention(q, k, v, causal=False,
-                                     chunk=cfg.attn_chunk))
+    return _out(p, _attend(q, k, v, cfg, False))
 
 
 def cross_encode(p, enc_out: torch.Tensor, cfg: ModelConfig):
     """The encoder-side K/V of one decoder layer."""
     dt = enc_out.dtype
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
+    k = einsum("bsd,dhk->bshk", enc_out, p["wk"].to(dt))
+    v = einsum("bsd,dhk->bshk", enc_out, p["wv"].to(dt))
     return k, v

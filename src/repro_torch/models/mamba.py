@@ -24,6 +24,7 @@ are views of the model's stacked caches) and returned.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -32,7 +33,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_chunk import ssd_chunks
 
 from .config import ModelConfig
-from .layers import ParamDef
+from .layers import (ParamDef, _grouped_slice, batch_local, heads_local,
+                     matmul, shard_act)
 
 
 def mamba_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -162,14 +164,41 @@ def _conv_causal(u: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
+def _columns(w, lo: int, hi: int):
+    """Columns [lo, hi) of a DTensor weight, split over 'model' again
+    where they divide it (slicing a split dimension gathers it)."""
+    from torch.distributed.tensor import Shard
+
+    part = w[:, lo:hi]
+    names = part.device_mesh.mesh_dim_names
+    if "model" in names:
+        mi = names.index("model")
+        if (hi - lo) % part.device_mesh.size(mi) == 0:
+            pl = list(part.placements)
+            pl[mi] = Shard(1)
+            part = part.redistribute(part.device_mesh, pl)
+    return part
+
+
 def _project(p, x: torch.Tensor, cfg: ModelConfig):
     s = cfg.ssm
     di = s.d_inner(cfg.d_model)
+    from torch.distributed.tensor import DTensor
+
     dt_ = x.dtype
-    zx = x @ p["w_zx"].to(dt_)
-    z, xin = zx[..., :di], zx[..., di:]
-    bc = x @ p["w_bc"].to(dt_)
-    dt_raw = x @ p["w_dt"].to(dt_)
+    w = p["w_zx"].to(dt_)
+    if isinstance(x, DTensor):
+        # on a mesh z and x come from the weight's two halves, each split
+        # over 'model' as zx is: zx's own split would put z on some ranks
+        # and x on others, and slicing it would gather zx twice
+        z = shard_act(matmul(x, _columns(w, 0, di)), "batch", None, "tp")
+        xin = shard_act(matmul(x, _columns(w, di, 2 * di)), "batch", None,
+                        "tp")
+    else:
+        zx = shard_act(matmul(x, w), "batch", None, "tp")
+        z, xin = zx[..., :di], zx[..., di:]
+    bc = matmul(x, p["w_bc"].to(dt_))
+    dt_raw = matmul(x, p["w_dt"].to(dt_))
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     return z, xin, bc, dt
 
@@ -192,48 +221,184 @@ def _split_heads(xc, bcc, cfg: ModelConfig, repeat: bool = True):
             torch.repeat_interleave(Cg, rep, dim=-2))
 
 
-def _gate_out(p, y_flat: torch.Tensor, z: torch.Tensor,
+def _gate_out(y_flat: torch.Tensor, z: torch.Tensor, norm_scale,
               x_dtype) -> torch.Tensor:
+    """The gated RMSNorm of the SSD output, before ``w_out``."""
     yf = y_flat.float()
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
-    yn = yf * torch.rsqrt(var + 1e-5) * p["norm_scale"]
-    gated = (yn * F.silu(z.float())).to(x_dtype)
-    return gated @ p["w_out"].to(x_dtype)
+    yn = yf * torch.rsqrt(var + 1e-5) * norm_scale
+    return (yn * F.silu(z.float())).to(x_dtype)
 
 
-def _ssd_inputs(p, x: torch.Tensor, cfg: ModelConfig):
-    """The projections, the causal conv and the SSD operands of a
-    sequence, padded to a whole number of chunks -> (z, u, xh, Xs, Adt,
-    Bg, Cg), B and C per group: the part ``mamba_train`` and
-    ``mamba_prefill`` share."""
+def _ssd_operands(xin, bc, dt, conv_w, conv_b, A_log, cfg: ModelConfig,
+                  x_dtype):
+    """The causal conv and the SSD operands of a sequence, padded to a
+    whole number of chunks -> (u, xh, Xs, Adt, Bg, Cg), B and C per
+    group."""
     s = cfg.ssm
-    S = x.shape[1]
+    S = xin.shape[1]
     di = s.d_inner(cfg.d_model)
-    z, xin, bc, dt = _project(p, x, cfg)
     u = torch.cat([xin, bc], -1)
-    conv = F.silu(_conv_causal(u, p["conv_w"].to(x.dtype),
-                               p["conv_b"].to(x.dtype)).float()).to(x.dtype)
+    conv = F.silu(_conv_causal(u, conv_w.to(x_dtype),
+                               conv_b.to(x_dtype)).float()).to(x_dtype)
     xc, bcc = conv[..., :di], conv[..., di:]
     xh, Bg, Cg = _split_heads(xc, bcc, cfg, repeat=False)
-    A = -torch.exp(p["A_log"].float())  # (nh,)
+    A = -torch.exp(A_log.float())  # (nh,)
     Adt = dt * A  # (B,S,nh)
-    Xs = xh * dt[..., None].to(x.dtype)
+    Xs = xh * dt[..., None].to(x_dtype)
     pad = (-S) % s.chunk
     if pad:
         Xs = F.pad(Xs, (0, 0, 0, 0, 0, pad))
         Adt = F.pad(Adt, (0, 0, 0, pad))
         Bg = F.pad(Bg, (0, 0, 0, 0, 0, pad))
         Cg = F.pad(Cg, (0, 0, 0, 0, 0, pad))
-    return z, u, xh, Xs, Adt.to(Xs.dtype), Bg, Cg
+    return u, xh, Xs, Adt.to(Xs.dtype), Bg, Cg
+
+
+def _conv_tail(u: torch.Tensor, cw: int) -> torch.Tensor:
+    """The last ``cw - 1`` conv inputs of a sequence, zero-padded in front
+    when it is shorter (the conv cache)."""
+    return F.pad(u, (0, 0, max(cw - 1 - u.shape[1], 0), 0))[:, -(cw - 1):]
+
+
+def _mixer(p, x: torch.Tensor, cfg: ModelConfig):
+    """The projections, the SSD and the gate of ``mamba_train`` and
+    ``mamba_prefill`` -> (out, the conv cache's tail, final state).
+
+    On a mesh whose 'model' axis divides the heads (and their groups)
+    every rank runs the mixer on its own heads (``_mixer_on_heads``);
+    otherwise the projections are sharded products, the conv and the
+    SSD operands run on each rank's batch rows (``batch_local``), the SSD
+    on each rank's heads as well (``heads_local``: the kernel takes local
+    tensors), the gate on the batch rows again."""
+    heads = _head_split(x, cfg)
+    if heads is not None:
+        return _mixer_on_heads(p, x, cfg, *heads)
+    S = x.shape[1]
+    z, xin, bc, dt = _project(p, x, cfg)
+    u, xh, Xs, Adt, Bg, Cg = batch_local(
+        lambda xin, bc, dt, w, b, a: _ssd_operands(xin, bc, dt, w, b, a,
+                                                   cfg, x.dtype),
+        (xin, bc, dt), (p["conv_w"], p["conv_b"], p["A_log"]))
+    Y, final = heads_local(
+        lambda X, Adt, B, C: ssd(X, Adt, B, C, cfg.ssm.chunk,
+                                 use_pallas=True),
+        (Xs, Adt), (Bg, Cg), out_hdims=(2, 1))
+    gated = batch_local(
+        lambda Y, xh, z, D, scale: _gate_out(
+            (Y[:, :S] + D.to(x.dtype)[:, None] * xh).flatten(-2), z, scale,
+            x.dtype),
+        (Y, xh, z), (p["D"], p["norm_scale"]))
+    tail = batch_local(lambda u: _conv_tail(u, cfg.ssm.conv_width), (u,))
+    return matmul(gated, p["w_out"].to(x.dtype)), tail, final
+
+
+def _head_split(x, cfg: ModelConfig):
+    """(mesh, heads [h0, h1), groups [g0, g1)) of this rank when ``x`` is
+    on a mesh whose 'model' axis splits the heads into whole groups (or
+    whole heads of one group), else ``None``."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    if "model" not in mesh.mesh_dim_names:
+        return None
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+    nh, g = cfg.ssm.n_heads(cfg.d_model), cfg.ssm.n_groups
+    if m == 1 or nh % m:
+        return None
+    r = mesh.get_local_rank("model")
+    h0, h1 = r * nh // m, (r + 1) * nh // m
+    groups = _grouped_slice(h0, h1, nh, g)
+    return None if groups is None else (mesh, (h0, h1), groups)
+
+
+def _mixer_on_heads(p, x, cfg: ModelConfig, mesh, heads, groups):
+    """The tensor-parallel mixer (Megatron's for Mamba): z and x are
+    column-parallel products, so each rank holds its heads' channels; the
+    conv (depthwise), the SSD kernel and the gate run on them with B / C
+    of the rank's groups; the gate's RMS sums across 'model' as a (B, S)
+    tensor; ``w_out`` is row-parallel (a partial sum).  Parameters whole
+    on a rank but read in part, and B / C, dt whole but read in part,
+    get partial gradients over 'model'."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    s = cfg.ssm
+    di, dt_ = s.d_inner(cfg.d_model), x.dtype
+    (h0, h1), (g0, g1) = heads, groups
+    c0, c1 = h0 * s.head_dim, h1 * s.head_dim
+    gn = s.n_groups * s.d_state
+    mi = mesh.mesh_dim_names.index("model")
+    x = shard_act(x, "batch")
+    w = p["w_zx"].to(dt_)
+    z = matmul(x, _columns(w, 0, di))  # this rank's channels
+    xin = matmul(x, _columns(w, di, 2 * di))
+    bc = matmul(x, p["w_bc"].to(dt_))
+    dt_raw = matmul(x, p["w_dt"].to(dt_))
+    rows = [pl if i != mi else Replicate() for i, pl in enumerate(
+        z.placements)]
+    part = [Partial() if i == mi or isinstance(pl, Shard) else Replicate()
+            for i, pl in enumerate(rows)]
+    mine = [Shard(2) if i == mi else pl for i, pl in enumerate(rows)]
+    over_model = [Partial() if i == mi else pl for i, pl in enumerate(rows)]
+    loc = [t.redistribute(mesh, mine).to_local() for t in (z, xin)]
+    loc += [t.redistribute(mesh, rows).to_local(grad_placements=over_model)
+            for t in (bc, dt_raw)]
+    loc += [p[k].redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=part) for k in ("conv_w", "conv_b", "A_log", "D",
+                                       "dt_bias", "norm_scale")]
+
+    def total(t):
+        # the sum over 'model' of a (B, S, 1) partial; each rank reads it
+        # for its own heads only, so its gradient is a partial sum too
+        return DTensor.from_local(t, mesh, over_model,
+                                  run_check=False).redistribute(
+            mesh, rows).to_local(grad_placements=over_model)
+
+    def local(z, xin, bc, dt_raw, conv_w, conv_b, A_log, D, dt_bias, scale):
+        S = xin.shape[1]
+        keep = torch.cat([torch.arange(c0, c1), torch.arange(di, di + 2 * gn)]
+                         ).to(conv_w.device)
+        u = torch.cat([xin, bc], -1)
+        conv = F.silu(_conv_causal(u, conv_w.to(dt_)[:, keep],
+                                   conv_b.to(dt_)[keep]).float()).to(dt_)
+        xc, bcc = conv[..., :c1 - c0], conv[..., c1 - c0:]
+        xh = xc.reshape(*xc.shape[:-1], h1 - h0, s.head_dim)
+        Bg = bcc[..., :gn].reshape(*bcc.shape[:-1], s.n_groups, s.d_state)
+        Cg = bcc[..., gn:].reshape(*bcc.shape[:-1], s.n_groups, s.d_state)
+        Bg, Cg = Bg[..., g0:g1, :], Cg[..., g0:g1, :]
+        dt = F.softplus(dt_raw[..., h0:h1].float() + dt_bias[h0:h1])
+        Adt = dt * -torch.exp(A_log[h0:h1].float())
+        Xs = xh * dt[..., None].to(dt_)
+        pad = (-S) % s.chunk
+        if pad:
+            Xs = F.pad(Xs, (0, 0, 0, 0, 0, pad))
+            Adt = F.pad(Adt, (0, 0, 0, pad))
+            Bg = F.pad(Bg, (0, 0, 0, 0, 0, pad))
+            Cg = F.pad(Cg, (0, 0, 0, 0, 0, pad))
+        Y, final = ssd(Xs, Adt.to(Xs.dtype), Bg, Cg, s.chunk, use_pallas=True)
+        yf = (Y[:, :S] + D[h0:h1].to(dt_)[:, None] * xh).flatten(-2).float()
+        var = total(torch.sum(yf * yf, -1, keepdim=True)) / di
+        gated = (yf * torch.rsqrt(var + 1e-5) * scale[c0:c1]
+                 * F.silu(z.float())).to(dt_)
+        return (gated, _conv_tail(xin, s.conv_width),
+                _conv_tail(bc, s.conv_width), final)
+
+    gated, xt, bt, final = local(*loc)
+    wrap = functools.partial(DTensor.from_local, device_mesh=mesh,
+                             run_check=False)
+    gated, xt = wrap(gated, placements=mine), wrap(xt, placements=mine)
+    bt = wrap(bt, placements=rows)
+    final = wrap(final, placements=[Shard(1) if i == mi else pl
+                                    for i, pl in enumerate(rows)])
+    tail = torch.cat([shard_act(xt, "batch"), bt], -1)
+    return matmul(gated, p["w_out"].to(dt_)), tail, final
 
 
 def mamba_train(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x (B,S,D) -> (B,S,D)."""
-    B_, S, d = x.shape
-    z, _, xh, Xs, Adt, Bg, Cg = _ssd_inputs(p, x, cfg)
-    Y, _ = ssd(Xs, Adt, Bg, Cg, cfg.ssm.chunk, use_pallas=True)
-    Y = Y[:, :S] + p["D"].to(x.dtype)[:, None] * xh
-    return _gate_out(p, Y.reshape(B_, S, cfg.ssm.d_inner(d)), z, x.dtype)
+    return _mixer(p, x, cfg)[0]
 
 
 def mamba_init_cache(cfg: ModelConfig, batch: int, dtype, device):
@@ -257,40 +422,44 @@ def mamba_prefill(p, x: torch.Tensor, cache, cfg: ModelConfig):
     The conv cache holds the last ``conv_width - 1`` conv inputs; a prompt
     shorter than that is zero-padded in front, as the causal conv pads
     (the JAX package slices past the start there)."""
-    B_, S, d = x.shape
-    cw = cfg.ssm.conv_width
-    z, u, xh, Xs, Adt, Bg, Cg = _ssd_inputs(p, x, cfg)
-    Y, final = ssd(Xs, Adt, Bg, Cg, cfg.ssm.chunk, use_pallas=True)
-    Y = Y[:, :S] + p["D"].to(x.dtype)[:, None] * xh
-    out = _gate_out(p, Y.reshape(B_, S, cfg.ssm.d_inner(d)), z, x.dtype)
-    tail = F.pad(u, (0, 0, max(cw - 1 - S, 0), 0))[:, -(cw - 1):]
+    out, tail, final = _mixer(p, x, cfg)
     cache["conv"].copy_(tail)
     cache["ssm"].copy_(final)
     return out, cache
 
 
-def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
-    """x (B,1,D) one-step recurrence; ``cache`` is updated in place."""
+def _decode_step(xin, bc, dt, z, conv_cache, ssm_cache, conv_w, conv_b,
+                 A_log, D, norm_scale, cfg: ModelConfig, x_dtype):
+    """One recurrence step -> (gated output, conv window, SSM state)."""
     s = cfg.ssm
-    B_, _, d = x.shape
-    di = s.d_inner(d)
-    z, xin, bc, dt = _project(p, x, cfg)  # seq dim = 1
+    di = s.d_inner(cfg.d_model)
     u = torch.cat([xin, bc], -1)  # (B,1,ch)
-    window = torch.cat([cache["conv"], u], 1)  # (B,cw,ch)
-    w = p["conv_w"].to(x.dtype)
+    window = torch.cat([conv_cache, u], 1)  # (B,cw,ch)
+    w = conv_w.to(x_dtype)
     conv = sum(window[:, i] * w[i] for i in range(s.conv_width)) \
-        + p["conv_b"].to(x.dtype)
-    conv = F.silu(conv.float()).to(x.dtype)  # (B,ch)
+        + conv_b.to(x_dtype)
+    conv = F.silu(conv.float()).to(x_dtype)  # (B,ch)
     xc, bcc = conv[..., :di], conv[..., di:]
     xh, Bh, Ch = _split_heads(xc, bcc, cfg)  # (B,nh,p), (B,nh,n)
-    A = -torch.exp(p["A_log"].float())
+    A = -torch.exp(A_log.float())
     dt1 = dt[:, 0]  # (B,nh)
     da = torch.exp(dt1 * A)  # (B,nh)
-    ssm = cache["ssm"] * da[..., None, None] + torch.einsum(
+    ssm = ssm_cache * da[..., None, None] + torch.einsum(
         "bhp,bhn->bhpn", (xh * dt1[..., None]).float(), Bh.float())
     y = torch.einsum("bhn,bhpn->bhp", Ch.float(), ssm)
-    y = y.to(x.dtype) + p["D"].to(x.dtype)[:, None] * xh
-    out = _gate_out(p, y.reshape(B_, 1, di), z, x.dtype)
-    cache["conv"].copy_(window[:, 1:])
+    y = y.to(x_dtype) + D.to(x_dtype)[:, None] * xh
+    gated = _gate_out(y.flatten(-2)[:, None], z, norm_scale, x_dtype)
+    return gated, window[:, 1:], ssm
+
+
+def mamba_decode(p, x: torch.Tensor, cache, cfg: ModelConfig):
+    """x (B,1,D) one-step recurrence; ``cache`` is updated in place (on a
+    mesh the step runs on each rank's batch rows, ``batch_local``)."""
+    z, xin, bc, dt = _project(p, x, cfg)  # seq dim = 1
+    gated, window, ssm = batch_local(
+        lambda *a: _decode_step(*a, cfg, x.dtype),
+        (xin, bc, dt, z, cache["conv"], cache["ssm"]),
+        (p["conv_w"], p["conv_b"], p["A_log"], p["D"], p["norm_scale"]))
+    cache["conv"].copy_(window)
     cache["ssm"].copy_(ssm)
-    return out, cache
+    return matmul(gated, p["w_out"].to(x.dtype)), cache

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import ParamDef
+from .layers import ParamDef, einsum, matmul, replicated, shard_act
 
 
 def moe_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -53,16 +53,16 @@ def moe_spec(cfg: ModelConfig) -> Dict[str, Any]:
 def _expert_ffn(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                 wd: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
-    g = x @ wg.to(dt)
-    u = x @ wu.to(dt)
-    return (F.silu(g.float()).to(dt) * u) @ wd.to(dt)
+    g = matmul(x, wg.to(dt))
+    u = matmul(x, wu.to(dt))
+    return matmul(F.silu(g.float()).to(dt) * u, wd.to(dt))
 
 
 def _route(p, x: torch.Tensor, cfg: ModelConfig):
     """Router: top-k (vals renormalized, idx) of the softmax over the
     experts, and the aux loss, all float32."""
     m = cfg.moe
-    logits = x.float() @ p["router"].float()
+    logits = matmul(x.float(), p["router"].float())
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.topk(probs, m.top_k, dim=-1)
     vals = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
@@ -80,13 +80,15 @@ def moe_dense(p, x: torch.Tensor, cfg: ModelConfig
     m = cfg.moe
     dt = x.dtype
     vals, idx, aux = _route(p, x, cfg)
-    comb = torch.einsum("...ke,...k->...e",
-                        F.one_hot(idx, m.n_experts).to(dt), vals.to(dt))
-    g = torch.einsum("bsd,edf->ebsf", x, p["w_gate"].to(dt))
-    u = torch.einsum("bsd,edf->ebsf", x, p["w_up"].to(dt))
+    comb = einsum("...ke,...k->...e",
+                  F.one_hot(idx, m.n_experts).to(dt), vals.to(dt))
+    g = shard_act(einsum("bsd,edf->ebsf", x, p["w_gate"].to(dt)),
+                  None, "batch", None, "tp")
+    u = shard_act(einsum("bsd,edf->ebsf", x, p["w_up"].to(dt)),
+                  None, "batch", None, "tp")
     h = F.silu(g.float()).to(dt) * u
-    ye = torch.einsum("ebsf,efd->ebsd", h, p["w_down"].to(dt))
-    y = torch.einsum("ebsd,bse->bsd", ye, comb)
+    ye = einsum("ebsf,efd->ebsd", h, p["w_down"].to(dt))
+    y = einsum("ebsd,bse->bsd", ye, comb)
     if m.n_shared:
         sh = p["shared"]
         y = y + _expert_ffn(x, sh["w_gate"], sh["w_up"], sh["w_down"])
@@ -155,5 +157,7 @@ def moe_dispatch(p, x: torch.Tensor, cfg: ModelConfig
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.moe.impl == "dispatch":
-        return moe_dispatch(p, x, cfg)
+        # on a mesh the dispatch runs whole on every rank (its capacity
+        # and drop set are those of the global token set)
+        return replicated(lambda p, x: moe_dispatch(p, x, cfg), p, x)
     return moe_dense(p, x, cfg)

@@ -42,8 +42,8 @@ from . import attention as attn
 from . import mamba as mb
 from .config import ModelConfig
 from .layers import (ParamDef, abstract_tree, apply_mlp, apply_norm,
-                     embed_lookup, embed_spec, init_tree, mlp_spec,
-                     norm_spec, stack_spec, tree_map)
+                     embed_lookup, embed_spec, init_tree, matmul, mlp_spec,
+                     norm_spec, shard_act, stack_spec, tree_map)
 from .moe import apply_moe, moe_spec
 
 
@@ -184,6 +184,7 @@ def _apply_layer(p, x: torch.Tensor, cfg: ModelConfig, i: int, *, mode: str,
     cache); the cache is updated in place, aux is the MoE FFN's
     load-balancing loss (0.0 for a dense FFN: no device op per layer)."""
     aux = 0.0
+    x = shard_act(x, "batch")  # re-anchor at every layer boundary
     h = apply_norm(p["ln1"], x, cfg.norm)
     if cfg.layer_kind(i) == "M":
         if mode == "train":
@@ -247,6 +248,57 @@ class _ParamTree(nn.Module):
                 self.add_module(k, _ParamTree(v))
             else:
                 self.register_buffer(k, v)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32.  On a mesh the vocab-
+    parallel form (Megatron's): each rank keeps its batch rows and vocab
+    columns of the logits; the row max, the row sum of exponentials and
+    the target's logit are reduced across 'model' as (B, S) tensors, and
+    the mean across the data ranks, so no rank holds a whole row of
+    probabilities."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(logits, DTensor):
+        logp = torch.log_softmax(logits.float(), -1)
+        return -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean()
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    pl = list(logits.placements)
+    vocab = [p == Shard(logits.dim() - 1) for p in pl]
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in pl]
+    pl = [Shard(logits.dim() - 1) if v else r for v, r in zip(vocab, rows)]
+    ll = logits.redistribute(mesh, pl).to_local().float()
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, rows).to_local().long()
+
+    def across_vocab(t, op="sum"):  # a (B, S) partial -> its total
+        return DTensor.from_local(
+            t, mesh, [Partial(op) if v else r for v, r in zip(vocab, rows)],
+            run_check=False).redistribute(mesh, rows).to_local()
+
+    chunk = 0
+    for i, v in enumerate(vocab):
+        if v:
+            chunk = chunk * mesh.size(i) + mesh.get_coordinate()[i]
+    lo, n = chunk * ll.shape[-1], ll.shape[-1]
+    m = across_vocab(ll.amax(-1).detach(), "max")
+    lse = torch.log(across_vocab(torch.exp(ll - m[..., None]).sum(-1))) + m
+    mine = (lab >= lo) & (lab < lo + n)
+    tgt = torch.gather(ll, -1, torch.where(mine, lab - lo, 0)[..., None])[
+        ..., 0]
+    nll = lse - across_vocab(torch.where(mine, tgt, torch.zeros_like(tgt)))
+    # the mean over every row: each rank's sum over the global count
+    total = DTensor.from_local(
+        nll.sum() / labels.numel(), mesh,
+        [Partial() if isinstance(r, Shard) else Replicate() for r in rows],
+        run_check=False)
+    return total.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 # ------------------------------------------------------------------ model
@@ -321,8 +373,8 @@ class Model(nn.Module):
         if cfg.n_prefix:
             if prefix is None:
                 raise ValueError("a stub-frontend model needs prefix embeds")
-            x = torch.cat([prefix.to(dt) @ params["prefix_proj"].to(dt), x],
-                          1)
+            x = torch.cat([matmul(prefix.to(dt), params["prefix_proj"].to(dt)),
+                           x], 1)
         return x
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -332,7 +384,7 @@ class Model(nn.Module):
             w = params["embed"].to(cfg.activation_dtype).T
         else:
             w = params["lm_head"].to(cfg.activation_dtype)
-        return x @ w
+        return shard_act(matmul(x, w), "batch", None, "tp")
 
     def _layers(self, params, x, *, mode, caches=None, pos=None,
                 enc_out=None):
@@ -377,8 +429,7 @@ class Model(nn.Module):
         labels = batch.get("labels")
         if labels is None:
             labels, logits = batch["tokens"][:, 1:], logits[:, :-1]
-        logp = torch.log_softmax(logits.float(), -1)
-        ce = -torch.gather(logp, -1, labels[..., None].long())[..., 0].mean()
+        ce = cross_entropy(logits, labels)
         w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
         return ce + w * aux, {"ce": ce, "aux": aux}
 

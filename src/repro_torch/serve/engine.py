@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import full_tensor
 from repro_torch.models import Model, init_cache
 
 
@@ -37,6 +38,8 @@ def make_decode_step(model: Model, *, sample: str = "greedy"):
     def decode_step(params, token, caches, pos, enc_out=None):
         logits, caches = model.decode_step(params, token, caches, pos,
                                            enc_out=enc_out)
+        # on a mesh the greedy pick reads the whole vocab row: gathered
+        logits = full_tensor(logits)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return nxt, logits, caches
 

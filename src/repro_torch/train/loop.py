@@ -52,9 +52,12 @@ class LoopReport:
 def _to_host(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The metrics (scalar tensors on one device) as floats, in one
     device-to-host copy."""
+    from repro_torch.launch.mesh import full_tensor
+
     if not metrics:
         return {}
-    host = torch.stack([v.float().reshape(()) for v in metrics.values()])
+    host = torch.stack([full_tensor(torch.as_tensor(v)).float().reshape(())
+                        for v in metrics.values()])
     return dict(zip(metrics, host.tolist()))
 
 

@@ -53,8 +53,9 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
     leaves = list(leaves_with_keys(params).values())
     dev = leaves[0].device if leaves else None
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+    def zeros(p):  # a DTensor parameter's moments take its placements
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format)
 
     return OptState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                     step=torch.zeros((), dtype=torch.int32, device=dev))
@@ -72,10 +73,14 @@ def lr_at(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
+    """sqrt of the sum of squares of every leaf, in float32; a DTensor
+    leaf's sum is its ranks' partial sums added across the mesh (a plain
+    scalar on every rank)."""
+    from repro_torch.launch.mesh import full_tensor
+
     total = 0
     for leaf in leaves_with_keys(tree).values():
-        total = total + torch.sum(torch.square(leaf.float()))
+        total = total + full_tensor(torch.sum(torch.square(leaf.float())))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 

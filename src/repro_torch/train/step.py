@@ -12,6 +12,11 @@ another (the reference's ``lax.scan``), so peak activation memory is one
 microbatch's; their gradients are summed in ``grad_dtype`` and divided
 by their number, their metrics averaged.  ``adamw_update`` updates the
 parameters and moments in place (``train.optim``).
+
+On a mesh (``launch.mesh.use_mesh``, parameters and batch DTensors as
+``launch.sharding`` lays them out) the same step runs on the DTensors:
+the gradients take the parameters' placements, AdamW stays elementwise
+on each rank's shards and the clip norm sums across the mesh.
 """
 from __future__ import annotations
 
@@ -31,17 +36,37 @@ class TrainStepConfig:
     grad_dtype: str = "float32"  # accumulation dtype across microbatches
 
 
-def _split_micro(batch: Dict[str, torch.Tensor], n: int
-                 ) -> Dict[str, torch.Tensor]:
-    """(B, ...) -> (n, B//n, ...) for every leaf."""
+def _split_micro(batch: Dict[str, torch.Tensor], n: int):
+    """-> the ``n`` microbatches, each a dict like ``batch``: (B, ...) ->
+    rows [i B / n, (i + 1) B / n).  A DTensor batch split over the data
+    ranks is split on each rank's own rows, so every microbatch keeps the
+    batch's placements (the same rows in another grouping: the mean
+    loss and its gradient are the same sums)."""
+    from torch.distributed.tensor import DTensor
 
     def one(x):
-        b = x.shape[0]
+        loc = x.to_local() if isinstance(x, DTensor) else x
+        b = loc.shape[0]
         if b % n:
             raise ValueError(f"batch {b} not divisible by microbatches {n}")
-        return x.reshape((n, b // n) + tuple(x.shape[1:]))
+        parts = loc.reshape((n, b // n) + tuple(loc.shape[1:])).unbind(0)
+        if isinstance(x, DTensor):
+            parts = [DTensor.from_local(p, x.device_mesh, x.placements,
+                                        run_check=False) for p in parts]
+        return parts
 
-    return tree_map(one, batch)
+    split = {k: one(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient laid out as its parameter (a partial sum
+    reduced and scattered onto the parameter's shards)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_loss_fn(model):
@@ -64,7 +89,7 @@ def make_grad_fn(model, cfg: TrainStepConfig):
             p.requires_grad_(True)
         loss, metrics = loss_fn(params, batch)
         got = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter([torch.zeros_like(p) if g is None else g
+        it = iter([torch.zeros_like(p) if g is None else _like(g, p)
                    for p, g in zip(leaves, got)])
         metrics = {k: torch.as_tensor(v).detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_map(lambda _: next(it), params)
@@ -81,11 +106,11 @@ def make_grad_fn(model, cfg: TrainStepConfig):
 
     def grad_fn(params, batch):
         micro = _split_micro(batch, n)
-        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt,
-                                             device=p.device), params)
+        acc = tree_map(lambda p: torch.zeros_like(
+            p, dtype=gdt, memory_format=torch.contiguous_format), params)
         losses, metrics = [], []
         for i in range(n):
-            loss, m, grads = vgrad(params, tree_map(lambda x: x[i], micro))
+            loss, m, grads = vgrad(params, micro[i])
             acc = tree_map(lambda a, g: a + g.to(gdt), acc, grads)
             del grads
             losses.append(loss)

@@ -370,3 +370,259 @@ def nccl_program(rank, world, cfg):
         torch.equal(merged.feats, ref.feats)) and bool(
         torch.equal(merged.fval, ref.fval)))
     return out
+
+
+# ------------------------------------------------- the model on a mesh
+def _mesh_params(model, params_np, mesh, rules_mode="train"):
+    from repro_torch.convert import model_params_from_jax
+    from repro_torch.launch.mesh import distribute_tree
+    from repro_torch.launch.sharding import build_rules, shardings
+
+    return distribute_tree(
+        model_params_from_jax(params_np, "cpu"),
+        shardings(model.spec(), build_rules(model.cfg, mesh,
+                                            mode=rules_mode), mesh), mesh)
+
+
+def _mesh_batch(batch_np, mesh):
+    from repro_torch.launch.mesh import distribute, placements
+    from repro_torch.launch.sharding import batch_pspec
+
+    return {k: distribute(torch.from_numpy(v), mesh,
+                          placements(batch_pspec(v.shape, mesh), mesh))
+            for k, v in batch_np.items()}
+
+
+def _full_leaves(tree):
+    from repro_torch.launch.mesh import full_tensor
+    from repro_torch.tree import leaves_with_keys
+
+    return {k: full_tensor(v).detach().numpy().copy()
+            for k, v in leaves_with_keys(tree).items()}
+
+
+def mesh_model_program(rank, world, cfg):
+    """The model on a ("data", "model") mesh of shape ``cfg["shape"]``:
+    per case of ``cfg["forward"]`` (a reduced arch, its config overrides,
+    JAX-initialized numpy parameters, a numpy batch) the gathered
+    ``train_logits`` and aux loss, the logits' placements, and what the
+    attention saw (each ``chunked_attention`` call's local query length
+    and offset; each flash call's local q shape); with ``cfg["train"]``
+    the gradients, one AdamW step, a run killed and resumed against an
+    uninterrupted one, the launcher on the mesh and
+    ``--production-mesh`` on this group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import full_tensor, use_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import attention as attn
+
+    mesh = init_device_mesh("cpu", tuple(cfg["shape"]),
+                            mesh_dim_names=("data", "model"))
+    seen = {"chunked": [], "flash": []}
+    plain, flash = attn.chunked_attention, attn.flash_attention
+
+    def chunked_spy(q, k, v, **kw):
+        seen["chunked"].append((q.shape[1], kw.get("q_offset", 0)))
+        return plain(q, k, v, **kw)
+
+    def flash_spy(q, k, v, **kw):
+        seen["flash"].append(tuple(q.shape))
+        return flash(q, k, v, **kw)
+
+    attn.chunked_attention, attn.flash_attention = chunked_spy, flash_spy
+    out = {"forward": {}}
+    try:
+        for name, case in cfg["forward"].items():
+            tcfg = get_config(case["arch"], reduced=True, dtype="float32",
+                              **case.get("over", {}))
+            model = Model(tcfg, device="cpu")
+            params = _mesh_params(model, case["params"], mesh)
+            batch = _mesh_batch(case["batch"], mesh)
+            seen["chunked"].clear()
+            seen["flash"].clear()
+            with use_mesh(mesh), torch.no_grad():
+                logits, aux = model.train_logits(params, batch)
+            out["forward"][name] = {
+                "logits": full_tensor(logits).numpy(),
+                "aux": float(full_tensor(aux)),
+                "placements": str(logits.placements),
+                "chunked": list(seen["chunked"]),
+                "flash": list(seen["flash"])}
+            if case.get("grad"):
+                from repro_torch.train import TrainStepConfig
+                from repro_torch.train.step import make_grad_fn
+
+                with use_mesh(mesh):
+                    grads, metrics = make_grad_fn(model, TrainStepConfig())(
+                        params, batch)
+                out["forward"][name]["grads"] = _full_leaves(grads)
+                out["forward"][name]["loss"] = float(full_tensor(
+                    metrics["loss"]))
+    finally:
+        attn.chunked_attention, attn.flash_attention = plain, flash
+    if "train" in cfg:
+        out["train"] = _mesh_train(mesh, cfg["train"])
+    return out
+
+
+def _mesh_train(mesh, t):
+    from repro_torch.ckpt import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import full_tensor, use_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import (AdamWConfig, TrainStepConfig,
+                                   init_opt_state, make_train_step)
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.train.step import make_grad_fn
+
+    tcfg = get_config(t["arch"], reduced=True, dtype="float32")
+    opt_cfg = AdamWConfig(**t["opt"])
+    res = {}
+
+    def fresh():
+        model = Model(tcfg, device="cpu")
+        return model, _mesh_params(model, t["params"], mesh)
+
+    model, params = fresh()
+    batch = _mesh_batch(t["batches"][0], mesh)
+    with use_mesh(mesh):
+        grads, metrics = make_grad_fn(model, TrainStepConfig())(params,
+                                                                batch)
+        res["grads"] = _full_leaves(grads)
+        res["loss"] = float(full_tensor(metrics["loss"]))
+        step = make_train_step(model, opt_cfg)
+        model, params = fresh()
+        params, _, m = step(params, init_opt_state(params, opt_cfg), batch)
+        res["after"] = _full_leaves(params)
+        res["grad_norm"] = float(full_tensor(m["grad_norm"]))
+
+    def run(root, stop_at=None):
+        model, params = fresh()
+        store = CheckpointStore(root)
+        calls = {"n": 0}
+
+        def stop():
+            calls["n"] += 1
+            return calls["n"] == stop_at
+
+        with use_mesh(mesh):
+            params, _, rep = run_training(
+                make_train_step(model, opt_cfg), params,
+                init_opt_state(params, opt_cfg),
+                lambda i: _mesh_batch(t["batches"][i], mesh), store,
+                LoopConfig(total_steps=len(t["batches"]), ckpt_every=100,
+                           log_every=1000),
+                preemption_signal=stop, log=lambda _: None)
+        return _full_leaves(params), rep
+
+    whole, _ = run(f"{t['dir']}/whole")
+    _, first = run(f"{t['dir']}/resumed", stop_at=2)
+    resumed, second = run(f"{t['dir']}/resumed")
+    res["resume"] = {"preempted": first.preempted,
+                     "start": second.start_step,
+                     "equal": all(np.array_equal(whole[k], resumed[k])
+                                  for k in whole)}
+    _, _, rep, _ = launcher.main(
+        ["--arch", t["arch"], "--reduced", "--steps", "2", "--batch", "4",
+         "--seq", "8", "--device", "cpu", "--ckpt-dir", f"{t['dir']}/cli"],
+        mesh=mesh)
+    res["launcher"] = (rep.end_step, rep.last_metrics.get("loss"))
+    try:
+        launcher.main(["--arch", t["arch"], "--reduced", "--steps", "1",
+                       "--device", "cpu", "--production-mesh",
+                       "--ckpt-dir", f"{t['dir']}/prod"])
+        res["production"] = None
+    except ValueError as e:
+        res["production"] = str(e)
+    return res
+
+
+# ------------------------------------------------------------ the dry-run
+def dryrun_program(rank, world, cfg):
+    """The dry-run on placeholder ranks (PyTorch's ``fake`` group), in a
+    process of its own: qwen2-1.5b at depth 1 on a (2, 2) mesh of 4
+    placeholder ranks and on one rank (per cell its FLOPs, collectives
+    and memory); ``cfg["fd"]``'s cell by ``run_cell`` and ``run_cell_fd``
+    on 256 ranks; the summarizer pod and handoff cells on 256 ranks; and
+    a program of known collectives on 4 ranks."""
+    from pathlib import Path
+
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as fc
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.hlo_stats import collective_stats
+
+    out = {"cells": {}}
+    for size, shape in ((4, (2, 2)), (1, (1, 1))):
+        dr.fake_group(size)
+        mesh = init_device_mesh("cpu", shape,
+                                mesh_dim_names=("data", "model"))
+        for cell in ("train_4k", "prefill_32k", "decode_32k"):
+            fn, args, meta = dr.build_cell("qwen2-1.5b", cell, mesh,
+                                           n_layers=1)
+            mem, cost, coll, _ = dr.measure(fn, args)
+            out["cells"][(size, cell)] = {"mem": mem, "cost": cost,
+                                          "coll": coll.as_dict()}
+        if size == 4:
+            g = mesh.get_group("model")
+
+            def known():
+                x = torch.empty(4, 8, device="meta")
+                fc.all_gather_tensor(x, 0, g)  # 128 B
+                fc.all_reduce(torch.empty(16, device="meta"), "sum", g)
+                fc.reduce_scatter_tensor(torch.empty(8, 4, device="meta"),
+                                         "sum", 0, g)  # 128 B
+                fc.all_to_all_single(torch.empty(8, device="meta"), None,
+                                     None, g)  # 32 B
+                d = DTensor.from_local(torch.empty(3, 5, device="meta"),
+                                       mesh, [Shard(0), Shard(1)])
+                d.redistribute(mesh, [Shard(0), Replicate()])  # 60 B
+                dist.all_reduce(torch.empty(2, 2, device="meta"))  # 16 B
+
+            out["known"] = collective_stats(known)[1].as_dict()
+    tmp = Path(cfg["dir"])
+    arch, shape = cfg["fd"]
+    out["production"] = dr.run_cell(arch, shape, False, tmp)
+    out["fd"] = dr.run_cell_fd(arch, shape, False, tmp)
+    out["pod"] = dr.run_summarizer_pod_cell(False, tmp)
+    out["handoff"] = dr.run_handoff_cell(False, tmp)
+    dist.destroy_process_group()
+    return out
+
+
+def host_backend_program(rank, world, work):
+    """The host-copy backend (``launch.mesh.register_host_backend``): the
+    collectives DTensor redistributes with, on a (world,) mesh, each
+    against the value it must give."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch.mesh import register_host_backend
+
+    dist.init_process_group(register_host_backend(),
+                            init_method=f"file://{work}/hoststore",
+                            rank=rank, world_size=world)
+    mesh = init_device_mesh("cpu", (world,))
+    x = torch.arange(4 * world, dtype=torch.float32).reshape(world, 4) + rank
+    out = {
+        "gather": DTensor.from_local(x[:1], mesh, [Shard(0)]).redistribute(
+            mesh, [Replicate()]).to_local(),
+        "reduce": DTensor.from_local(x, mesh, [Partial()]).redistribute(
+            mesh, [Replicate()]).to_local(),
+        "scatter": DTensor.from_local(x, mesh, [Partial()]).redistribute(
+            mesh, [Shard(0)]).to_local(),
+        "shard_to_shard": DTensor.from_local(x, mesh, [Shard(0)]).redistribute(
+            mesh, [Shard(1)]).to_local(),
+    }
+    b = x.clone()
+    dist.broadcast(b, src=0)
+    out["broadcast"] = b
+    dist.barrier()
+    return {k: v.numpy() for k, v in out.items()}

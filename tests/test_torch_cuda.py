@@ -397,10 +397,9 @@ def test_flash_attention_kernel_kv_len_and_refusals(cuda):
         got = flash_attention_cuda(q, k, v, causal=causal, kv_len=77)
         want = attention_ref(q, k, v, causal=causal, kv_len=77)
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    with pytest.raises(ValueError, match="head width"):
-        flash_attention_cuda(q[..., :48].contiguous(),
-                             k[..., :48].contiguous(),
-                             v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="head width 257 .* 1 to 256"):
+        wide = torch.zeros(2, 4, 70, 257, device=cuda)
+        flash_attention_cuda(wide, wide[:, :2], wide[:, :2])
     with pytest.raises(TypeError, match="dtype"):
         flash_attention_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="kv_len"):
@@ -883,6 +882,37 @@ def test_flash_head_width_96_matches_plain(cuda, dtype, causal):
         _assert_bf16_close(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+ANY_DH = [8, 12, 24, 40, 48, 80, 100, 112, 136, 160, 192, 200, 256]
+
+
+@pytest.mark.parametrize("dh", ANY_DH)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_any_head_width_matches_plain(cuda, dtype, dh):
+    """Every head width up to 256 launches the kernel: the narrowest
+    instance at least as wide, the columns past dh read as zeros (TMA's
+    fill in bf16, predicated loads in float32) and never stored; a bf16
+    width that is no multiple of 8 (12, 100) is staged zero-padded.  bf16
+    causal GQA 8 / 2 at S = 300; float32 ragged (Sq 70, Sk 90, kv_len
+    77, GQA 4 / 2); the scale is the real width's."""
+    from repro_torch.kernels.flash_attention import (KERNEL, attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_cuda)
+
+    dt = getattr(torch, dtype)
+    before = KERNEL.launches
+    if dt == torch.bfloat16:
+        q, k, v = _attn_inputs(cuda, 2, 8, 2, 300, 300, dh, dt, dh)
+        got = flash_attention(q, k, v, causal=True, backend="cuda")
+        _assert_bf16_close(got, attention_ref(q, k, v, causal=True))
+    else:
+        q, k, v = _attn_inputs(cuda, 2, 4, 2, 70, 90, dh, dt, dh)
+        got = flash_attention_cuda(q, k, v, causal=False, kv_len=77)
+        want = attention_ref(q, k, v, causal=False, kv_len=77)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1 and got.shape == q.shape
 
 
 def test_mamba2_layer_bf16_takes_the_tensor_core_route(cuda):

@@ -171,9 +171,53 @@ def test_flash_head_width_96_geometry():
 
 
 def test_flash_launch_geometry_refusals_are_unchanged():
+    """float16 has no kernel; head widths run from 1 to 256 (48 runs on
+    the 64-wide instance), and past 256 the message names the limit."""
     from repro_torch.kernels.flash_attention import launch_geometry
 
     with pytest.raises(TypeError, match="dtype"):
         launch_geometry(torch.float16, 1, 2, 64, 64)
-    with pytest.raises(ValueError, match="head width"):
-        launch_geometry(torch.bfloat16, 1, 2, 64, 48)
+    with pytest.raises(ValueError, match="head width 257 .* 1 to 256"):
+        launch_geometry(torch.bfloat16, 1, 2, 64, 257)
+    with pytest.raises(ValueError, match="head width 0 "):
+        launch_geometry(torch.float32, 1, 2, 64, 0)
+    assert launch_geometry(torch.bfloat16, 1, 2, 64, 48)[0] == "tensor-core"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_every_head_width_fits_shared_memory(dtype):
+    """Every head width from 1 to 256 has a geometry within the 227 KB of
+    one block: the narrowest instance at least as wide; past 128 the
+    tensor-core kernel walks 64-key tiles (Q 64 KB + a 128 KB ring at
+    256), the CUDA-core kernel 213,760 bytes at 256."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        HEAD_DIMS, SMEM_LIMIT, instance_width, launch_geometry)
+
+    for dh in range(1, 257):
+        DH = instance_width(dh)
+        assert DH >= dh and DH in HEAD_DIMS
+        assert all(w < dh for w in HEAD_DIMS if w < DH)
+        assert launch_geometry(dtype, 2, 4, 300, dh)[3] <= SMEM_LIMIT
+    big = launch_geometry(dtype, 1, 1, 128, 256)[3]
+    assert big == (2 * 128 * 256 + 2 * 2 * 2 * 64 * 256 + 40 + 1024
+                   if dtype == torch.bfloat16 else
+                   4 * (64 * 257 + 64 * 257 + 64 * 256 + 64 * 65))
+
+
+@pytest.mark.parametrize("dh", [8, 48, 80, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_route_matches_jax_at_any_head_width(dh, causal):
+    """Head widths that are no instance of the kernel (8, 48, 80) and past
+    128 (160, 256): the port's padded plain route, the route those
+    widths take on a CPU tensor, against JAX's ``attention_ref`` and its
+    Pallas kernel in interpret mode, float32, GQA 4 / 2, ragged S = 100."""
+    q, k, v = _qkv(1, 4, 2, 100, 100, dh, dh + causal)
+    got = flash_attention(*_t(q, k, v), causal=causal, block_q=64,
+                          block_k=64).numpy()
+    want = np.asarray(j_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal))
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    kern = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k),
+                              jnp.asarray(v), causal=causal, interpret=True,
+                              block_q=64, block_k=64))
+    np.testing.assert_allclose(got, kern, rtol=2e-4, atol=2e-4)
