@@ -72,19 +72,21 @@ exit and no result line:
                      CUDA-core one, from the profiler's kernel names), and
                      before it a ``flash_sass`` line counting HGMMA / HMMA
                      in the built library (none fails the run);
- 11. whisper         the slice's main path: Whisper-small at full width
-                     (seeded parameters) serving 8 requests of 1500 frames
+ 11. whisper         the slice's main path: Whisper-small at full width,
+                     its encoder and decoder cut to 4 of their 12 layers
+                     (seeded parameters), serving 8 requests of 1500 frames
                      and 16 prompt tokens through ``ServeDriver.generate``
                      (32 new tokens, greedy), the encoder's attention on
-                     the kernel (12 launches per generate), held against
+                     the kernel (one launch per encoder layer per
+                     generate), held against
                      the same run on the plain attention route: in float32
                      the tokens equal and, on three input draws, the
                      encoder output and prefill logits within 1e-4, which
                      the padded-keys fault planted in the encoder must
                      fail; in bfloat16 the logits within 5e-2 (a bound on
-                     rounding, which cannot see that fault).  Five
-                     generates per route, prefill and decode timed by CUDA
-                     events inside each (median and range); the idle share
+                     rounding, which cannot see that fault).  One timed
+                     generate per route (WHISPER_REPS), prefill and decode
+                     timed by CUDA events inside it; the idle share
                      from one profiled generate, in which all 12 bf16
                      encoder launches must be the tensor-core kernel;
  12. ssd             ``ssd_chunk_cuda`` against its plain version on the
@@ -105,11 +107,12 @@ exit and no result line:
                      grouped and the per-head bound (no PyTorch call
                      computes this function);
  13. mamba           the slice's main path: Mamba2-370m at full width
-                     (seeded parameters) serving 8 requests of 2000 prompt
-                     tokens (padded inside each layer to 8 chunks of 256)
-                     through ``ServeDriver.generate`` (32 new tokens,
-                     greedy), each layer's prefill on the SSD kernel (48
-                     launches per generate, none in decode; bf16 all on
+                     cut to 8 of its 48 layers (seeded parameters) serving
+                     8 requests of 2000 prompt tokens (padded inside each
+                     layer to 8 chunks of 256) through
+                     ``ServeDriver.generate`` (32 new tokens, greedy), each
+                     layer's prefill on the SSD kernel (one launch per
+                     layer per generate, none in decode; bf16 all on
                      the tensor-core kernel, B / C handed per group and
                      read in place), held against
                      the plain route (``ssd_chunks`` with backend
@@ -117,8 +120,9 @@ exit and no result line:
                      input draws, the prefill logits within 1e-4, which
                      the kernel route fed Adt shifted by one step must
                      fail; in bfloat16 the logits within 5e-2 (a bound on
-                     rounding).  Five generates per route, timed as in
-                     ``whisper``; the idle share from one profiled
+                     rounding).  One timed generate per route
+                     (MAMBA_REPS), timed as in ``whisper``; the idle
+                     share from one profiled
                      generate;
  14. pod_bf16        the pod step on bf16 summaries (K=100, d=256, 16
                      sessions, the rounds of ``pod_step``) against
@@ -251,7 +255,8 @@ Then this slice's phases, after ``archs``:
                      shapes of train_grad, both dtypes (bf16 on the
                      tensor-core kernel), the padded-keys and non-causal
                      faults, timed beside SDPA and the bound;
- train_qwen2         qwen2-1.5b whole (1.54e9 parameters, float32 master
+ train_qwen2         qwen2-1.5b at full width cut to 4 of its 28 layers
+                     (float32 master
                      weights, gradients and AdamW moments; bf16
                      activations, remat ``full``) through ``run_training``
                      into a ``CheckpointStore``: 6 steps of 8 x 512
@@ -289,18 +294,52 @@ timeout fails the run with every rank's traceback:
                      (CUDA tensors over gloo), the merge's ms, 100
                      ``gain_static`` launches a rank;
  pod_compress        two gloo ranks as two pods, each training
-                     mamba2-370m whole (8 x 2048 tokens, bf16, remat
-                     ``full``) on its own batches, 3 AdamW steps through
+                     mamba2-370m at full width cut to 8 of its 48 layers
+                     (8 x 2048 tokens, bf16, remat ``full``) on its own
+                     batches, 2 AdamW steps through
                      ``Compressor(mesh, "pod")``: the parameters bit for
                      bit the same on both after every step, each reduced
                      gradient within the int8 bound of the pods' mean
-                     (``_check_reduced``), 96 ``ssd_chunk`` launches a
+                     (``_check_reduced``), 16 ``ssd_chunk`` launches a
                      step a rank; ms a step, the compress window, the
                      int32 bytes a step, peak memory;
  nccl                one rank on an NCCL group: the pod (64 sessions),
                      the merge (8 batches of the stream) and the
                      compressor (reduced mamba2-370m, 2 steps) under the
                      same gates, every kernel but flash launched.
+
+Then flash at every head width to 256 (``flash_dh_any``), the model on a
+mesh of ranks sharing the card (``tp_forward``: qwen2-1.5b on (2, 2) and
+mamba2-370m on (1, 2); ``seq_shard``: phi3-mini-3.8b on (1, 3), context
+parallel; ``train_mesh``: ``launch.train`` on (1, 2), a step, a
+checkpoint, a resumed step bit-equal), each model at full width cut in
+depth (qwen2 and phi3 to 4 layers, mamba2 to 8; the ``cut`` of each
+line), and the dry-run (``dryrun``).  Each rank phase's timeout is at
+most 180 s.
+
+Then this slice's phases:
+
+ flash_wide          head widths 264, 300, 320, 384, 512 and 1024 (O's
+                     columns in ceil(dh / 256) blocks along the grid): bf16
+                     causal GQA (B = 2, 8 / 2 heads, S = 1024) and ragged
+                     float32 (S = 300) under the gates of ``flash``, the
+                     one-column-short fault, the ``_wide`` kernels seen
+                     by the profiler; timed beside the plain version,
+                     SDPA and the bound; then reduced Whisper with
+                     encoder heads of 320 through ``ServeDriver.generate``
+                     (one launch per encoder layer, prefill logits held
+                     against the plain route, both dtypes);
+ ssd_any             the SSD kernel at p = n in {8, 48, 96, 256}, chunks
+                     24, 100 and 512 (G streamed at 256 / 512), B / C in
+                     one group and in h / 4, both dtypes, under the gates
+                     and faults of ``ssd``, one launch on the dtype's
+                     route each; then reduced Mamba2 at SSM head width 48,
+                     state width 96 and chunk 24 through
+                     ``ServeDriver.generate`` on the kernel route against
+                     the plain route.
+
+The whole script is kept under 600 s on the H100 (PERF.md has each
+phase's seconds).
 """
 from __future__ import annotations
 
@@ -369,7 +408,10 @@ FLASH_DH96_CASES = [
 # tolerances of the kernel route against the plain one, and the near-tie
 # bound of a first differing token (top-2 plain-route logit gap, relative)
 WHISPER_B, WHISPER_PROMPT, WHISPER_NEW = 8, 16, 32
-WHISPER_REPS, WHISPER_DRAWS = 3, 2
+WHISPER_REPS, WHISPER_DRAWS = 1, 2
+# the encoder's and the decoder's layers served, of whisper-small's 12 each,
+# at full width (the script's time)
+WHISPER_LAYERS = 4
 WHISPER_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 TOKEN_TIE = 1e-3
 # phase ssd: (name, b, L, h, g, p, n, q, dtype, decay), in the model's
@@ -393,7 +435,8 @@ SSD_SCALED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # and dtype; input draws; logit tolerances of the kernel route against the
 # plain one
 MAMBA_B, MAMBA_PROMPT, MAMBA_NEW = 8, 2000, 32
-MAMBA_REPS, MAMBA_DRAWS = 3, 2
+MAMBA_REPS, MAMBA_DRAWS = 1, 2
+MAMBA_LAYERS = 8  # of mamba2-370m's 48, at full width (the script's time)
 MAMBA_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # phase pod_sieves: (algorithm, tenants, chunk, pipeline batch) of the
 # pods fed by serve + IngestPipeline from a seeded DriftSource; a batch
@@ -426,7 +469,7 @@ PUBSUB_FRAMES, PUBSUB_READ = 4, 16384
 # phase distributed: shards of the paper stream (P x K = 3,200 pooled
 # candidates, 3.2 MB: the data/distributed.py docstring's sizing)
 DIST_SHARDS = 32
-# phase deepseek: deepseek-v2-lite-16b at published widths and full depth
+# phase deepseek: deepseek-v2-lite-16b at published widths, cut in depth
 # (27 layers: one dense MLA layer, then 26 MLA + MoE layers); slots,
 # prompt tokens, new tokens, timed generates; the teacher-forcing check's
 # (batch, length, prefilled tokens) and its gate, rtol = atol = 3e-2
@@ -438,11 +481,11 @@ DIST_SHARDS = 32
 # reference's gate (shares 1.2-2.7 on an H100, dense models too), and it
 # moves some top-k router choices (98 of 3,328 in deepseek's, none in
 # float32); the phases print those flips
-DEEPSEEK_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW, DEEPSEEK_REPS = 8, 512, 32, 2
-# cut from 27 layers to 9 (the dense first layer and 8 MLA + MoE layers)
-# to keep the script inside its time with the mesh phases; PR 20 served
-# it whole (PERF.md)
-DEEPSEEK_LAYERS = 9
+DEEPSEEK_B, DEEPSEEK_PROMPT, DEEPSEEK_NEW, DEEPSEEK_REPS = 8, 512, 32, 1
+# cut from 27 layers to 3 (the dense first layer and 2 MLA + MoE layers)
+# to keep the script inside its time (PERF.md has the whole model's
+# numbers)
+DEEPSEEK_LAYERS = 3
 DEEPSEEK_TF = (2, 64, 32)
 TF_TOL = 3e-2
 ROUTE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -1842,12 +1885,14 @@ def _padded(q, k, v):
             pad)
 
 
-def _flash_case(torch, gen, case, control):
+def _flash_case(torch, gen, case, control, timed=True):
     """One flash case (a FLASH_CASES tuple) against ``attention_ref`` ->
     its JSON record.  ``control`` names the planted fault its check must
     fail: "padded_keys" (the kernel told to keep the padded keys),
     "non_causal" (the kernel of a causal case told to see every key) or
-    "short_column" (the kernel fed inputs one column short)."""
+    "short_column" (the kernel fed inputs one column short).  Untimed,
+    the route is read from the wrapper's route counters (one launch on
+    the dtype's route) and no time is taken."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES as \
@@ -1861,7 +1906,9 @@ def _flash_case(torch, gen, case, control):
     q = (std * torch.randn(B, Hq, S, dh, generator=gen, device=DEV)).to(dt)
     k = (std * torch.randn(B, Hkv, S, dh, generator=gen, device=DEV)).to(dt)
     v = torch.randn(B, Hkv, S, dh, generator=gen, device=DEV).to(dt)
+    routed = dict(FLASH_ROUTE_LAUNCHES)
     got = flash_attention(q, k, v, causal=causal, backend="cuda")
+    ran_once = [r for r in routed if FLASH_ROUTE_LAUNCHES[r] > routed[r]]
     want = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     e = (got.float() - want.float()).abs().max().item()
@@ -1895,6 +1942,16 @@ def _flash_case(torch, gen, case, control):
         if fault <= scaled_tol:
             fail(f"flash {name}: the check passes the {control} fault "
                  f"({fault} of the largest output, tol {scaled_tol})")
+
+    if not timed:
+        if ran_once != [ROUTES[dt].split()[0]]:
+            fail(f"flash {name}: {dtype} ran {ran_once}, expected the "
+                 f"{ROUTES[dt]} kernel alone")
+        return {"case": name, "route": ran_once[0],
+                "shape": [B, Hq, Hkv, S, dh], "causal": causal,
+                "dtype": dtype, "max_abs_err": e, "tol": tol,
+                "scaled_err": e / size, "scaled_tol": scaled_tol,
+                "control": control, "control_scaled_err": fault}
 
     def kernel():
         return flash_attention_cuda(qp, kp, vp, causal=causal, kv_len=S)
@@ -2118,7 +2175,10 @@ def phase_whisper(torch, gen, seed):
 
     kernels = (GAIN, STATIC, POD, FLASH, SSD)
     B, P, N = WHISPER_B, WHISPER_PROMPT, WHISPER_NEW
-    base = get_config("whisper-small", use_pallas_attention=True)
+    full = get_config("whisper-small", use_pallas_attention=True)
+    base = dataclasses.replace(
+        full, n_layers=WHISPER_LAYERS, encoder=dataclasses.replace(
+            full.encoder, n_layers=WHISPER_LAYERS))
     n_frames = base.encoder.n_frames
     draws = [(torch.randn(B, n_frames, base.d_model, generator=gen,
                           device=DEV),
@@ -2248,6 +2308,9 @@ def phase_whisper(torch, gen, seed):
                 "top": [{"ms": t, "count": c, "kernel": k}
                         for t, c, k in by[:12]]}
     emit("whisper", arch="whisper-small", params=n_params, batch=B,
+         cut={"layers": WHISPER_LAYERS, "of": full.n_layers,
+              "encoder_layers": WHISPER_LAYERS,
+              "encoder_of": full.encoder.n_layers},
          prompt=P, new_tokens=N, frames=n_frames, draws=WHISPER_DRAWS,
          runs=runs)
     return {"launches": launches}
@@ -2314,10 +2377,13 @@ def phase_ssd(torch, gen):
     return {"max_abs_err": max_err, **cases[0]}
 
 
-def _ssd_case(torch, gen, case):
-    """One case of SSD_CASES (or the Jamba layer's): the kernel against
-    its plain version under the gates, the planted faults, the route
-    from the profiler, the times and both bounds -> the case's line."""
+def _ssd_case(torch, gen, case, timed=True):
+    """One case of SSD_CASES (or the Jamba layer's, or SSD_ANY_CASES'):
+    the kernel against its plain version under the gates, one launch on
+    the dtype's route (the wrapper's counters), the planted faults, and,
+    when ``timed``, the route from the profiler, the times and both
+    bounds -> the case's line."""
+    from repro_torch.kernels.ssd_chunk import KERNEL as SSD
     from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES as \
         SSD_ROUTE_LAUNCHES
     from repro_torch.kernels.ssd_chunk import (ROUTES, ssd_chunk_cuda,
@@ -2328,7 +2394,15 @@ def _ssd_case(torch, gen, case):
     c = L // q
     X, Adt, B, C = _ssd_inputs(torch, gen, b, L, h, g, p, n, dtype,
                                decay)
+    launched, routed = SSD.launches, dict(SSD_ROUTE_LAUNCHES)
     Y, st = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
+    want_route = ROUTES[dt].split()[0]
+    if SSD.launches != launched + 1 or any(
+            SSD_ROUTE_LAUNCHES[r] - routed[r] != (r == want_route)
+            for r in routed):
+        fail(f"ssd {name}: {SSD.launches - launched} launches, routes "
+             f"{SSD_ROUTE_LAUNCHES} from {routed}; want one on the "
+             f"{want_route} kernel")
     Yr, sr = ssd_chunks(X, Adt, B, C, chunk=q, backend="torch")
     torch.cuda.synchronize()
     tol, scaled_tol = SSD_TOL[dtype], SSD_SCALED_TOL[dtype]
@@ -2359,6 +2433,17 @@ def _ssd_case(torch, gen, case):
     b_ms, b_by = bound(flops, nbytes, peak)
     per_head_ms, per_head_by = bound(*ssd_work(b, h, h, c, q, p, n,
                                                X.element_size()), peak)
+    out = {
+        "case": name, "shape": [b, L, h, g, p, n, q], "dtype": dtype,
+        "route": want_route, "decay": decay,
+        "y_max_abs_err": y_err, "y_scaled_err": y_scaled,
+        "state_max_abs_err": s_err, "state_scaled_err": s_scaled,
+        "tol": tol, "scaled_tol": scaled_tol,
+        **{f"control_{k}_scaled_err": v[1] for k, v in controls.items()},
+        "bound_ms": b_ms, "bound_by": b_by}
+    if not timed:
+        del X, Adt, B, C, Y, st, Yr, sr
+        return out
     seen, before = {}, dict(SSD_ROUTE_LAUNCHES)
     ms = device_ms(torch, lambda: ssd_chunk_cuda(X, Adt, B, C, chunk=q),
                    SSD_KERNELS[::-1] if dtype == "bfloat16"
@@ -2367,28 +2452,22 @@ def _ssd_case(torch, gen, case):
     if not ROUTES[dt].startswith(ran):
         fail(f"ssd {name}: {dtype} ran {sorted(seen) or ran}, expected the "
              f"{ROUTES[dt]} kernel alone")
-    out = {
-        "case": name, "shape": [b, L, h, g, p, n, q], "dtype": dtype,
-        "route": ran, "decay": decay,
+    out.update({
+        "route": ran,
         "acum_min": Adt.float().reshape(b, c, q, h).sum(2).min().item(),
-        "y_max_abs_err": y_err, "y_scaled_err": y_scaled,
         "y_share_differing": (Y != Yr).float().mean().item(),
-        "state_max_abs_err": s_err, "state_scaled_err": s_scaled,
-        "tol": tol, "scaled_tol": scaled_tol,
         "max_abs_want": Yr.float().abs().max().item(),
         **{f"control_{k}_max_abs_err": v[0] for k, v in controls.items()},
-        **{f"control_{k}_scaled_err": v[1] for k, v in controls.items()},
         **{f"control_{k}_margin": v[1] / scaled_tol
            for k, v in controls.items()},
         "ms": ms, "call_ms": timed_ms(torch, lambda: ssd_chunks(
             X, Adt, B, C, chunk=q, backend="cuda")),
         "plain_ms": timed_ms(torch, lambda: ssd_chunks(
             X, Adt, B, C, chunk=q, backend="torch")),
-        "bound_ms": b_ms, "bound_by": b_by,
         "bound_per_head_ms": per_head_ms,
         "bound_per_head_by": per_head_by, "flops": flops,
         "bytes": nbytes, "tflops": flops / ms / 1e9,
-        "tb_per_s": nbytes / ms / 1e9}
+        "tb_per_s": nbytes / ms / 1e9})
     del X, Adt, B, C, Y, st, Yr, sr
     return out
 
@@ -2472,7 +2551,8 @@ def phase_mamba(torch, gen, seed):
 
     kernels = (GAIN, STATIC, POD, FLASH, SSD)
     B, P, N = MAMBA_B, MAMBA_PROMPT, MAMBA_NEW
-    base = get_config("mamba2-370m")
+    base = dataclasses.replace(get_config("mamba2-370m"),
+                               n_layers=MAMBA_LAYERS)
     draws = [torch.randint(0, base.vocab, (B, P), generator=gen, device=DEV,
                            dtype=torch.int32) for _ in range(MAMBA_DRAWS)]
     prompts = draws[0]  # the served requests
@@ -2601,6 +2681,8 @@ def phase_mamba(torch, gen, seed):
                 "top": [{"ms": t, "count": c, "kernel": k}
                         for t, c, k in by[:12]]}
     emit("mamba", arch="mamba2-370m", params=n_params,
+         cut={"layers": MAMBA_LAYERS,
+              "of": get_config("mamba2-370m").n_layers},
          params_analytic=base.param_count(), batch=B, prompt=P,
          padded_to=-(-P // base.ssm.chunk) * base.ssm.chunk, new_tokens=N,
          draws=MAMBA_DRAWS, runs=runs)
@@ -4062,6 +4144,7 @@ GRAD_TOL = 1e-4
 # checkpoint interval, steps timed with remat off
 QWEN_B, QWEN_S, QWEN_WARMUP, QWEN_STEPS, QWEN_CKPT = 8, 512, 2, 6, 3
 QWEN_NOREMAT_STEPS = 3
+QWEN_LAYERS = 4  # of qwen2-1.5b's 28, at full width: the checkpoints' time
 # phase train_mamba: mamba2-370m whole, batch x tokens, steps
 MAMBA_TRAIN_B, MAMBA_TRAIN_S, MAMBA_TRAIN_STEPS = 8, 2048, 4
 
@@ -4299,7 +4382,8 @@ def _ms_stats(xs):
 
 
 def phase_train_qwen2(torch, gen, seed):
-    """qwen2-1.5b at full width and depth trained on one card: float32
+    """qwen2-1.5b at full width, cut to QWEN_LAYERS of its 28 layers,
+    trained on one card: float32
     parameters, gradients and AdamW moments, bf16 activations, remat
     ``full``, 8 x 512 tokens a step, through ``run_training`` into a
     ``CheckpointStore`` in a temporary directory (6 steps, a checkpoint
@@ -4320,7 +4404,8 @@ def phase_train_qwen2(torch, gen, seed):
     from repro_torch.train.loop import LoopConfig, run_training
     from repro_torch.tree import leaves_with_keys, tree_map
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"),
+                              n_layers=QWEN_LAYERS)
     model = Model(cfg, device=DEV)
     opt_cfg = AdamWConfig(warmup_steps=QWEN_WARMUP, total_steps=QWEN_STEPS)
     step = make_train_step(model, opt_cfg)
@@ -4421,6 +4506,8 @@ def phase_train_qwen2(torch, gen, seed):
         emit("train_qwen2", arch=cfg.name, params=n_params,
              batch=[QWEN_B, QWEN_S], remat=cfg.remat_policy,
              activations=cfg.dtype, param_dtype=cfg.param_dtype,
+             cut={"layers": QWEN_LAYERS,
+                  "of": get_config("qwen2-1.5b").n_layers},
              steps=QWEN_STEPS, ckpt_every=QWEN_CKPT, saved_steps=saved,
              loss=lossA, loop_s=loop_s, step_ms=ms,
              step_ms_2_6=_ms_stats(steady),
@@ -4557,12 +4644,16 @@ MERGE_RANKS = 4
 # whole at the train_mamba cell's shape on its own batches, AdamW steps
 # through Compressor(mesh, "pod")
 COMPRESS_PODS, COMPRESS_STEPS = 2, 2
+COMPRESS_LAYERS = 8  # of mamba2-370m's 48, at full width
 # the one-rank NCCL leg, at a reduced size: a pod of NCCL_SESSIONS, a
 # merge over NCCL_MERGE_BATCHES batches of the paper stream, the reduced
 # mamba2-370m config trained NCCL_STEPS steps at GRAD_SHAPE
 NCCL_SESSIONS, NCCL_MERGE_BATCHES, NCCL_STEPS = 64, 8, 2
-RANK_TIMEOUT = {"sharded_pod": 240, "sharded_merge": 240,
-                "pod_compress": 480, "nccl": 300}
+# seconds a rank group may run before it fails the run with every rank's
+# traceback: about three times its spawn-to-exit seconds on the H100 (the
+# dry-run beside it; PERF.md), 180 at most
+RANK_TIMEOUT = {"sharded_pod": 75, "sharded_merge": 90,
+                "pod_compress": 100, "nccl": 60}
 
 
 def _rank_main(rank, world, work, backend, dev, fn, cfg):
@@ -5076,7 +5167,6 @@ def _rank_pod_compress(torch, rank, world, cfg):
     the parameters against the other pods'."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
     from repro_torch.kernels.ssd_chunk import KERNEL as SSD
     from repro_torch.models import Model
@@ -5085,7 +5175,7 @@ def _rank_pod_compress(torch, rank, world, cfg):
     from repro_torch.train.compress import Compressor
     from repro_torch.tree import leaves_with_keys
 
-    mcfg = get_config(cfg["arch"], reduced=cfg["reduced"])
+    mcfg = _cut_config(cfg, reduced=cfg["reduced"])
     model = Model(mcfg, device=DEV)
     mesh = init_device_mesh(DEV, (world,), mesh_dim_names=("pod",))
     comp = _RecordedCompressor(torch, Compressor(mesh, "pod"))
@@ -5152,24 +5242,25 @@ def _ssd_a_step(cfg):
 
 
 def phase_pod_compress(torch, seed):
-    """Two ranks as two pods, each training mamba2-370m whole (8 x 2048
-    tokens, bf16, remat ``full``) on its own batches, 3 AdamW steps
-    through ``Compressor(mesh, "pod")``: the int8 payloads summed in
-    int32 over the pod axis's gloo group (staged through host memory).
-    Gates: parameters bit-equal across the pods after every step, every
-    reduced gradient within the int8 bound of the pods' mean, 96
-    ``ssd_chunk`` launches a step a rank."""
-    from repro_torch.configs import get_config
-
+    """Two ranks as two pods, each training mamba2-370m at full width cut
+    to 8 of its 48 layers (8 x 2048 tokens, bf16, remat ``full``) on its
+    own batches, 2 AdamW steps through ``Compressor(mesh, "pod")``: the
+    int8 payloads summed in int32 over the pod axis's gloo group (staged
+    through host memory).  Gates: parameters bit-equal across the pods
+    after every step, every reduced gradient within the int8 bound of
+    the pods' mean, 16 ``ssd_chunk`` launches a step a rank (the
+    forward's and the remat recompute's)."""
     cfg = {"arch": "mamba2-370m", "reduced": False, "seed": seed,
-           "steps": COMPRESS_STEPS, "shape": (MAMBA_TRAIN_B, MAMBA_TRAIN_S),
-           "ssd_a_step": _ssd_a_step(get_config("mamba2-370m"))}
+           "layers": COMPRESS_LAYERS, "steps": COMPRESS_STEPS,
+           "shape": (MAMBA_TRAIN_B, MAMBA_TRAIN_S)}
+    cfg["ssd_a_step"] = _ssd_a_step(_cut_config(cfg))
     _free(torch)
     got, secs = run_ranks(torch, "pod_compress", _rank_pod_compress,
                           COMPRESS_PODS, cfg)
     _hold_compress(got, cfg, "pod_compress")
     emit("pod_compress", arch=cfg["arch"], pods=COMPRESS_PODS,
-         batch=list(cfg["shape"]), steps=COMPRESS_STEPS, backend="gloo",
+         batch=list(cfg["shape"]), cut=_cut(cfg), steps=COMPRESS_STEPS,
+         backend="gloo",
          params=got[0]["params"],
          wire_bytes_a_step_rank=got[0]["wire_bytes_a_step"],
          loss_rank=[g["loss"] for g in got],
@@ -5285,20 +5376,22 @@ def phase_flash_dh_any(torch, gen):
     """Every head width up to 256 on both routes under the gates of
     ``flash``: the kernel fed one column short (q, k and v with their
     last column zeroed, a kernel that reads dh - 1 columns) must fail
-    each case's gate; timed beside the plain version, SDPA and the
-    bound.  Widths past 256 raise, naming the limit."""
+    each case's gate; the widest (256) timed beside the plain version,
+    SDPA and the bound, the others' route read from the wrapper's
+    counters.  A head width of 0 raises, naming the range (widths past
+    256 run: phase ``flash_wide``)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      launch_geometry)
 
-    cases = [_flash_case(torch, gen, case, "short_column")
-             for case in FLASH_ANY_CASES]
-    wide = torch.zeros(1, 2, 64, 264, device=DEV, dtype=torch.bfloat16)
+    cases = [_flash_case(torch, gen, case, "short_column",
+                         timed=case[5] == 256) for case in FLASH_ANY_CASES]
+    empty = torch.zeros(1, 2, 64, 0, device=DEV, dtype=torch.bfloat16)
     try:
-        flash_attention(wide, wide, wide, backend="cuda")
-        fail("flash_dh_any: head width 264 did not raise")
+        flash_attention(empty, empty, empty, backend="cuda")
+        fail("flash_dh_any: head width 0 did not raise")
     except ValueError as e:
-        if "256" not in str(e):
-            fail(f"flash_dh_any: the refusal does not name 256: {e}")
+        if "1 and up" not in str(e):
+            fail(f"flash_dh_any: the refusal does not name the range: {e}")
         refusal = str(e)
     geometry = {dh: launch_geometry(torch.bfloat16, 2, 8, 1024, dh)[3]
                 for dh in FLASH_ANY_DH}
@@ -5316,25 +5409,49 @@ def phase_flash_dh_any(torch, gen):
 # CUDA path crashed in the functional all-gather DTensor uses)
 MESH_BACKEND = "hostgloo"
 MESH_TOL = 1e-4  # of the largest |logit|: float32, sums split over ranks
+# Each mesh phase runs its model at full width cut in depth ("layers" of
+# the published n_layers): the collectives' bytes and seconds grow with
+# the layers, the kernels see each layer's width; every gate holds at the
+# cut depth (the launch counts follow it).
 TP_QWEN = {"arch": "qwen2-1.5b", "shape": (2, 2), "batch": (8, 512),
-           "runs": [("plain_f32", {"dtype": "float32"}),
+           "layers": 4, "runs": [("plain_f32", {"dtype": "float32"}),
                     ("kernel_f32", {"dtype": "float32",
                                     "use_pallas_attention": True}),
                     ("kernel_bf16", {"use_pallas_attention": True})]}
 TP_MAMBA = {"arch": "mamba2-370m", "shape": (1, 2), "batch": (8, 2048),
-            "runs": [("kernel_f32", {"dtype": "float32"}),
+            "layers": 8, "runs": [("kernel_f32", {"dtype": "float32"}),
                      ("kernel_bf16", {})]}
 SEQ_PHI3 = {"arch": "phi3-mini-3.8b", "shape": (1, 3), "batch": (4, 1536),
-            "runs": [("plain_f32", {"dtype": "float32",
+            "layers": 4, "runs": [("plain_f32", {"dtype": "float32",
                                     "attn_seq_shard": True})]}
 # (1, 2), not (2, 2): on (2, 2) the FSDP gathers over 'data' and the
 # checkpoints (18.6 GB gathered whole on every rank) run through host
 # copies four ways; (1, 2) keeps the tensor-parallel path and halves it
 TRAIN_MESH = {"arch": "qwen2-1.5b", "shape": (1, 2), "batch": (8, 512),
-              "steps": 2}
+              "layers": 4, "steps": 2}
 TRAIN_MESH_TOL = {"loss": 1e-2, "grad_norm": 5e-2}  # bf16 activations
-RANK_TIMEOUT.update({"tp_qwen2": 300, "tp_mamba": 240, "seq_shard": 300,
-                     "train_mesh": 480})
+RANK_TIMEOUT.update({"tp_qwen2": 125, "tp_mamba": 95, "seq_shard": 70,
+                     "train_mesh": 125})
+
+
+def _cut_config(cfg, **over):
+    """The phase's model, cut to ``cfg["layers"]`` of its layers where
+    the phase names a cut (the NCCL leg's reduced model names none)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    mcfg = get_config(cfg["arch"], **over)
+    if "layers" not in cfg:
+        return mcfg
+    return dataclasses.replace(mcfg, n_layers=cfg["layers"])
+
+
+def _cut(cfg):
+    """The depth cut an emit line names."""
+    from repro_torch.configs import get_config
+
+    return {"layers": cfg["layers"], "of": get_config(cfg["arch"]).n_layers}
 
 
 def _mesh_of(torch, shape):
@@ -5356,7 +5473,6 @@ def _rank_mesh_forward(torch, rank, world, cfg):
     mesh under ``use_mesh`` with the launch counters zeroed just before
     and read just after; rank 0 first runs the one-process forward of
     the same tree and holds the gathered logits against it."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import KERNEL as FLASH
     from repro_torch.kernels.ssd_chunk import KERNEL as SSD
     from repro_torch.launch.hlo_stats import CollectiveCounter
@@ -5369,7 +5485,7 @@ def _rank_mesh_forward(torch, rank, world, cfg):
     mesh = _mesh_of(torch, cfg["shape"])
     out = {}
     for name, over in cfg["runs"]:
-        mcfg = get_config(cfg["arch"], **over)
+        mcfg = _cut_config(cfg, **over)
         model = Model(mcfg, device=DEV)
         params = model.init(torch.Generator(device=DEV).manual_seed(
             cfg["seed"]))
@@ -5447,33 +5563,32 @@ def _mesh_record(got, cfg):
 
 
 def phase_tp_forward(torch, seed):
-    """The model on a mesh of ranks sharing the card: qwen2-1.5b whole on
-    (2, 2), 8 x 512 tokens, on the plain attention route and under
-    ``use_pallas_attention`` (flash on each rank's 6 query and 1 kv
-    heads: 28 launches a rank); mamba2-370m whole on (1, 2), 8 x 2048
-    tokens, ``ssd_chunk`` on each rank's 16 heads (48 launches a rank).
+    """The model on a mesh of ranks sharing the card: qwen2-1.5b at full
+    width cut to 4 of its 28 layers on (2, 2), 8 x 512 tokens, on the
+    plain attention route and under ``use_pallas_attention`` (flash on
+    each rank's 6 query and 1 kv heads: one launch a layer a rank);
+    mamba2-370m cut to 8 of 48 layers on (1, 2), 8 x 2048 tokens,
+    ``ssd_chunk`` on each rank's 16 heads (one launch a layer a rank).
     Gates: float32 logits within 1e-4 of the largest one-process logit,
     the launches on every rank; bf16 printed."""
-    from repro_torch.configs import get_config
-
     _free(torch)
     q = dict(TP_QWEN, seed=seed)
     got_q, secs_q = run_ranks(torch, "tp_qwen2", _rank_mesh_forward,
                               4, q, backend=MESH_BACKEND)
-    n_attn = get_config(q["arch"]).n_layers
     _hold_mesh(got_q, q, "tp_forward qwen2", lambda name: {
-        "flash_attention": n_attn if "kernel" in name else 0})
+        "flash_attention": q["layers"] if "kernel" in name else 0})
     m = dict(TP_MAMBA, seed=seed)
     got_m, secs_m = run_ranks(torch, "tp_mamba", _rank_mesh_forward, 2, m,
                               backend=MESH_BACKEND)
-    n_ssd = get_config(m["arch"]).n_layers
     _hold_mesh(got_m, m, "tp_forward mamba2", lambda name: {
-        "ssd_chunk": n_ssd})
+        "ssd_chunk": m["layers"]})
     emit("tp_forward", backend=MESH_BACKEND,
          qwen2={"mesh": list(q["shape"]), "batch": list(q["batch"]),
-                "runs": _mesh_record(got_q, q), "spawn_to_exit_s": secs_q},
+                "cut": _cut(q), "runs": _mesh_record(got_q, q),
+                "spawn_to_exit_s": secs_q},
          mamba2={"mesh": list(m["shape"]), "batch": list(m["batch"]),
-                 "runs": _mesh_record(got_m, m), "spawn_to_exit_s": secs_m},
+                 "cut": _cut(m), "runs": _mesh_record(got_m, m),
+                 "spawn_to_exit_s": secs_m},
          tol=MESH_TOL)
     return {"flash_attention": sum(g[name]["launches"]["flash_attention"]
                                    for g in got_q for name, _ in q["runs"]),
@@ -5482,23 +5597,21 @@ def phase_tp_forward(torch, seed):
 
 
 def phase_seq_shard(torch, seed):
-    """Context parallelism: phi3-mini-3.8b whole (32 query heads of
-    width 96) on (1, 3), where 32 does not divide 3, so attention splits
-    the query sequence over 'model' (4 x 1536 tokens, 1536 = 3 x 512):
-    the float32 logits against the one-process forward.  (Under
-    ``use_pallas_attention`` the query sequence is gathered for the
-    kernel and split again: tests/test_torch_mesh_model.py.)"""
-    from repro_torch.configs import get_config
-
+    """Context parallelism: phi3-mini-3.8b at full width (32 query heads
+    of width 96) cut to 4 of its 32 layers on (1, 3), where 32 does not
+    divide 3, so attention splits the query sequence over 'model' (4 x
+    1536 tokens, 1536 = 3 x 512): the float32 logits against the
+    one-process forward.  (Under ``use_pallas_attention`` the query
+    sequence is gathered for the kernel and split again:
+    tests/test_torch_mesh_model.py.)"""
     _free(torch)
     c = dict(SEQ_PHI3, seed=seed)
     got, secs = run_ranks(torch, "seq_shard", _rank_mesh_forward, 3, c,
                           backend=MESH_BACKEND)
-    n_attn = get_config(c["arch"]).n_layers
     _hold_mesh(got, c, "seq_shard", lambda name: {
-        "flash_attention": n_attn if "kernel" in name else 0})
+        "flash_attention": c["layers"] if "kernel" in name else 0})
     emit("seq_shard", backend=MESH_BACKEND, mesh=list(c["shape"]),
-         batch=list(c["batch"]), runs=_mesh_record(got, c),
+         batch=list(c["batch"]), cut=_cut(c), runs=_mesh_record(got, c),
          spawn_to_exit_s=secs, tol=MESH_TOL)
     return {"flash_attention": sum(g[name]["launches"]["flash_attention"]
                                    for g in got for name, _ in c["runs"])}
@@ -5508,7 +5621,6 @@ def _rank_train_mesh(torch, rank, world, cfg):
     """``launch.train.main`` on the mesh: one step and a checkpoint, then
     a second run resuming from it for the second step; an uninterrupted
     run of the same two steps (the launcher's own pieces) beside it."""
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
     from repro_torch.launch import train as launcher
     from repro_torch.launch.hlo_stats import CollectiveCounter
@@ -5523,9 +5635,9 @@ def _rank_train_mesh(torch, rank, world, cfg):
 
     mesh = _mesh_of(torch, cfg["shape"])
     B, S = cfg["batch"]
-    argv = ["--arch", cfg["arch"], "--batch", str(B), "--seq", str(S),
-            "--ckpt-dir", cfg["dir"], "--ckpt-every", "100", "--seed",
-            str(cfg["seed"])]
+    argv = ["--arch", cfg["arch"], "--layers", str(cfg["layers"]),
+            "--batch", str(B), "--seq", str(S), "--ckpt-dir", cfg["dir"],
+            "--ckpt-every", "100", "--seed", str(cfg["seed"])]
     out = {}
     t0 = time.perf_counter()
     _, _, first, _ = launcher.main(argv + ["--steps", "1"], mesh=mesh)
@@ -5542,7 +5654,7 @@ def _rank_train_mesh(torch, rank, world, cfg):
     del resumed
     _free(torch)
     # the uninterrupted run: the launcher's init, layout, batches and step
-    mcfg = get_config(cfg["arch"])
+    mcfg = _cut_config(cfg)
     model = Model(mcfg, device=DEV)
     params = model.load(distribute_tree(
         model.init(torch.Generator(device=DEV).manual_seed(cfg["seed"])),
@@ -5578,13 +5690,12 @@ def _rank_train_mesh(torch, rank, world, cfg):
 def _one_process_step(torch, cfg):
     """The first step of ``TRAIN_MESH`` on one process: (loss, grad
     norm), the launcher's init and batch."""
-    from repro_torch.configs import get_config
     from repro_torch.data import TokenStreamSpec, deterministic_batch_fn
     from repro_torch.models import Model
     from repro_torch.train import (AdamWConfig, init_opt_state,
                                    make_train_step)
 
-    mcfg = get_config(cfg["arch"])
+    mcfg = _cut_config(cfg)
     model = Model(mcfg, device=DEV)
     params = model.init(torch.Generator(device=DEV).manual_seed(cfg["seed"]))
     opt_cfg = AdamWConfig(total_steps=cfg["steps"])
@@ -5598,8 +5709,9 @@ def _one_process_step(torch, cfg):
 
 def phase_train_mesh(torch, seed):
     """Training on the mesh: ``launch.train.main(argv, mesh=...)`` on a
-    (1, 2) mesh of ranks sharing the card, qwen2-1.5b whole (8 x 512
-    tokens, remat ``full``): one step and a checkpoint (the gathered
+    (1, 2) mesh of ranks sharing the card, qwen2-1.5b at full width cut
+    to 4 of its 28 layers (``--layers``; 8 x 512 tokens, remat
+    ``full``), the one-process step too: one step and a checkpoint (the gathered
     tree, written by rank 0), then a run that resumes from it for the
     second step.  Gates: the resumed parameters bit-equal on every rank
     to an uninterrupted two-step run; the first step's loss and global
@@ -5629,7 +5741,7 @@ def phase_train_mesh(torch, seed):
             fail(f"train_mesh: {k} off the one-process step by {e} "
                  f"(bound {TRAIN_MESH_TOL[k]})")
     emit("train_mesh", arch=cfg["arch"], mesh=list(cfg["shape"]),
-         batch=list(cfg["batch"]), steps=cfg["steps"],
+         batch=list(cfg["batch"]), cut=_cut(cfg), steps=cfg["steps"],
          backend=MESH_BACKEND, resumed_bit_equal=True,
          loss=got[0]["loss"], one_process_loss=loss1,
          grad_norm=got[0]["grad_norm"], one_process_grad_norm=gnorm1,
@@ -5642,40 +5754,52 @@ def phase_train_mesh(torch, seed):
 
 
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k"), ("paper-summarizer", None))
+# the dry-run's processes run on the CPU alone (placeholder ranks, the
+# meta device, the pod cell's program on the host): they start before the
+# scale-out phases and run beside them, DRYRUN_THREADS threads each
+DRYRUN_THREADS = 2
 
 
-def phase_dryrun(torch):
-    """``python -m repro_torch.launch.dryrun`` in a process of its own
-    (PyTorch's fake process group of 256 placeholder ranks, under the
-    card's PyTorch) for qwen2-1.5b ``train_4k`` and the summarizer pod
-    cell on the single-pod mesh; a cell that is not ok fails the run."""
+def start_dryrun():
+    """Start ``python -m repro_torch.launch.dryrun`` in a process of its
+    own for each of DRYRUN_CELLS -> (the output directory, the runs) for
+    ``phase_dryrun``."""
     import tempfile
 
-    cells = {}
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    with tempfile.TemporaryDirectory() as out:
-        runs = []  # the cells' processes run side by side
-        for arch, shape in DRYRUN_CELLS:
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--mesh", "single", "--out", out]
-            if shape:
-                cmd += ["--shape", shape]
-            runs.append((arch, time.perf_counter(), subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True, env=env)))
-        secs = {}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS=str(DRYRUN_THREADS),
+               MKL_NUM_THREADS=str(DRYRUN_THREADS))
+    out = tempfile.TemporaryDirectory()
+    runs = []  # the cells' processes run side by side
+    for arch, shape in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--mesh", "single", "--out", out.name]
+        if shape:
+            cmd += ["--shape", shape]
+        runs.append((arch, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env)))
+    return out, runs
+
+
+def phase_dryrun(torch, started):
+    """The processes of ``start_dryrun`` (PyTorch's fake process group of
+    256 placeholder ranks, under the card's PyTorch) for qwen2-1.5b
+    ``train_4k`` and the summarizer pod cell on the single-pod mesh,
+    waited for and read; a cell that is not ok fails the run."""
+    out, runs = started
+    cells, secs = {}, {}
+    with out:
         for arch, t0, proc in runs:
             try:
                 stdout, stderr = proc.communicate(timeout=600)
             except subprocess.TimeoutExpired:
-                for _, _, p in runs:
-                    p.kill()
                 fail(f"dryrun {arch}: still running after 600 s")
             secs[arch] = time.perf_counter() - t0
             if proc.returncode:
                 fail(f"dryrun {arch}: exit {proc.returncode}\n"
                      f"{stdout[-3000:]}\n{stderr[-3000:]}")
-        for p in sorted(Path(out).glob("*.json")):
+        for p in sorted(Path(out.name).glob("*.json")):
             cell = json.loads(p.read_text())
             if not cell["ok"]:
                 fail(f"dryrun {cell['cell']}: {cell.get('error')}")
@@ -5684,12 +5808,219 @@ def phase_dryrun(torch):
             cells[cell["cell"]] = dict(cell, process_s=secs[arch])
     train = cells["qwen2-1.5b__train_4k__pod256"]
     pod = cells["paper-summarizer__pod256"]
-    emit("dryrun", torch=torch.__version__,
+    emit("dryrun", torch=torch.__version__, threads=DRYRUN_THREADS,
+         beside=["sharded_pod", "sharded_merge", "pod_compress", "nccl",
+                 "flash_dh_any", "tp_forward", "seq_shard", "train_mesh"],
          train_4k={k: train[k] for k in ("memory_analysis", "cost_analysis",
                                           "collectives", "roofline",
                                           "run_s", "process_s")},
          pod256={k: pod[k] for k in ("pod_ingest", "pod_ingest_prerouted",
                                       "merge", "process_s")})
+
+
+# ------------------------- this slice: flash past head width 256, the SSD
+# kernel at every head width, state width and chunk
+FLASH_WIDE_DH = (264, 300, 320, 384, 512, 1024)
+FLASH_WIDE_CASES = (
+    [(f"dh{dh}_causal_gqa_bf16", 2, 8, 2, 1024, dh, True, "bfloat16", 0.5)
+     for dh in FLASH_WIDE_DH]
+    + [(f"dh{dh}_ragged_f32", 2, 4, 2, 300, dh, False, "float32", 0.5)
+       for dh in FLASH_WIDE_DH])
+# the main path past 256: reduced Whisper with encoder heads of this
+# width (four heads, d_model 64), its frames and its requests
+WIDE_HEAD, WIDE_FRAMES, WIDE_B, WIDE_PROMPT, WIDE_NEW = 320, 300, 4, 8, 8
+
+
+def phase_flash_wide(torch, gen, seed):
+    """Head widths past 256 (O's columns in ceil(dh / 256) blocks along
+    the grid, S summed over 64-column slices of Q and K) on both routes
+    under the gates of ``flash``: every case within FLASH_TOL and
+    FLASH_SCALED_TOL, the kernel fed one column short must fail it, the
+    profiler sees the ``_wide`` kernel of the dtype's route alone; timed
+    beside the plain version, SDPA and the bound.  Then the main path:
+    a reduced Whisper whose encoder heads are 320 wide serving through
+    ``ServeDriver.generate``, one flash launch per encoder layer, its
+    prefill logits on the kernel route against the plain route in
+    float32 and bf16."""
+    cases = [_flash_case(torch, gen, case, "short_column")
+             for case in FLASH_WIDE_CASES]
+    for c in cases:
+        if c["kernels_seen"] and not all("_wide" in k
+                                         for k in c["kernels_seen"]):
+            fail(f"flash_wide {c['case']}: ran {c['kernels_seen']}, not "
+                 "the wide kernel")
+    serve = _serve_wide_whisper(torch, gen, seed)
+    emit("flash_wide", cases=cases, serve=serve,
+         max_abs_err=max(c["max_abs_err"] for c in cases),
+         library="torch.nn.functional.scaled_dot_product_attention")
+    top = next(c for c in cases if c["case"] == "dh320_causal_gqa_bf16")
+    return {**top, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "launches": serve["launches"]}
+
+
+def _serve_wide_whisper(torch, gen, seed):
+    """Reduced whisper-small with encoder heads of WIDE_HEAD on the flash
+    kernel: per dtype a warm generate, then one with every count set to
+    0 just before (the encoder's layers launch flash once each, on the
+    dtype's route), and prefill logits against the plain attention
+    route -> the record; its ``launches`` sums the counted generates."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES, ROUTES
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeDriver
+
+    base = get_config("whisper-small", reduced=True)
+    base = dataclasses.replace(
+        base, head_dim=WIDE_HEAD, use_pallas_attention=True,
+        encoder=dataclasses.replace(base.encoder, n_frames=WIDE_FRAMES))
+    B, P, N = WIDE_B, WIDE_PROMPT, WIDE_NEW
+    params = Model(base, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(seed))
+    frames = torch.randn(B, WIDE_FRAMES, base.d_model, generator=gen,
+                         device=DEV)
+    prompts = torch.randint(0, base.vocab, (B, P), generator=gen,
+                            device=DEV, dtype=torch.int32)
+    max_seq = P + N + 8
+    batch = {"tokens": prompts, "frames": frames}
+    out, total = {}, 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = Model(cfg, device=DEV)
+        model.load(params)
+        plain = Model(dataclasses.replace(cfg, use_pallas_attention=False),
+                      device=DEV)
+        plain.load(params)
+        driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
+        fe = {"frames": frames}
+        driver.generate(params, prompts, N, frontend=fe)  # warms
+        routed = dict(ROUTE_LAUNCHES)
+        tokens, secs, ln = _counted(torch, _all_kernels(), lambda: (
+            driver.generate(params, prompts, N, frontend=fe)))
+        routes = {r: ROUTE_LAUNCHES[r] - routed[r] for r in ROUTE_LAUNCHES}
+        _check_tokens(torch, tokens, prompts, cfg.vocab, f"flash_wide "
+                      f"whisper {dtype}")
+        want_route = ROUTES[getattr(torch, dtype)].split()[0]
+        if (ln["flash_attention"] != cfg.encoder.n_layers
+                or routes[want_route] != cfg.encoder.n_layers):
+            fail(f"flash_wide whisper {dtype}: launches {ln}, routes "
+                 f"{routes}; want {cfg.encoder.n_layers} on the "
+                 f"{want_route} kernel")
+        got = _prefill_logits(torch, model, params, batch, max_seq)
+        want = _prefill_logits(torch, plain, params, batch, max_seq)
+        err = (got - want).abs().max().item()
+        if err > ROUTE_TOL[dtype]:
+            fail(f"flash_wide whisper {dtype}: prefill logits off the "
+                 f"plain route by {err} (tol {ROUTE_TOL[dtype]})")
+        total += ln["flash_attention"]
+        out[dtype] = {"launches": ln, "routes": routes, "generate_s": secs,
+                      "prefill_logits_max_abs_err": err,
+                      "tol": ROUTE_TOL[dtype]}
+        del model, plain, driver
+    _free(torch)
+    return {"arch": base.name, "head_dim": WIDE_HEAD,
+            "encoder_layers": base.encoder.n_layers, "frames": WIDE_FRAMES,
+            "batch": B, "prompt": P, "new_tokens": N, "launches": total,
+            **out}
+
+
+# phase ssd_any: (name, b, L, h, g, p, n, q, dtype, decay) over both
+# dtypes, p = n in SSD_ANY_WIDTHS, the chunks of SSD_ANY_CHUNKS (four
+# chunks of 24 and 100, two of 512), B / C in one group and in h / 4;
+# timed at g = 1
+SSD_ANY_WIDTHS = (8, 48, 96, 256)
+SSD_ANY_CHUNKS = ((24, 4), (100, 4), (512, 2))
+SSD_ANY_CASES = [
+    (f"p{w}_n{w}_q{q}_g{g}_{dt}", 2, q * c, 8, g, w, w, q, dt, 1.0)
+    for dt in ("bfloat16", "float32") for w in SSD_ANY_WIDTHS
+    for q, c in SSD_ANY_CHUNKS for g in (1, 2)]
+SSD_ANY_ROW = "p256_n256_q512_g1_bfloat16"  # the kernels line's case
+# the main path at those shapes: reduced Mamba2 with SSM heads of 48,
+# state width 96 and chunk 24 (d_model 96: four heads), its requests
+ANY_MAMBA_SSM = {"head_dim": 48, "d_state": 96, "chunk": 24}
+ANY_MAMBA_D, ANY_MAMBA_B, ANY_MAMBA_PROMPT, ANY_MAMBA_NEW = 96, 4, 60, 8
+
+
+def phase_ssd_any(torch, gen, seed):
+    """The SSD kernel at head and state widths that are no instance
+    (8, 48, 96) and at 256, at chunks that are no multiple of 16 (24, 100)
+    and past 256 (512: G streamed at width 256), B / C in one group and in
+    h / 4, in both dtypes: each case within SSD_TOL and SSD_SCALED_TOL,
+    one launch on the dtype's route, the plain version without the
+    diagonal (and in bf16 the kernel fed a shifted Adt) failing the
+    check; the g = 1 cases timed beside the plain version and the bound.
+    Then the main path: a reduced Mamba2 at SSM head width 48, state
+    width 96 and chunk 24 through ``ServeDriver.generate`` on the kernel
+    route, held against the plain route."""
+    cases = [_ssd_case(torch, gen, case, timed=case[4] == 1)
+             for case in SSD_ANY_CASES]
+    serve = _serve_any_mamba(torch, gen, seed)
+    max_err = max(max(c["y_max_abs_err"], c["state_max_abs_err"])
+                  for c in cases)
+    emit("ssd_any", cases=cases, serve=serve, max_abs_err=max_err,
+         library=None)
+    top = next(c for c in cases if c["case"] == SSD_ANY_ROW)
+    return {**top, "max_abs_err": max_err, "launches": serve["launches"]}
+
+
+def _serve_any_mamba(torch, gen, seed):
+    """Reduced mamba2-370m at ANY_MAMBA_SSM's widths and chunk (prompts
+    padded to whole chunks of 24): the SSD route handed B / C in one
+    group, one launch per layer per generate (bf16: all on the
+    tensor-core kernel) in a generate with every count set to 0 just
+    before; prefill logits of the kernel route against the plain SSD
+    route in float32 and bf16, float32 tokens under the near-tie rule ->
+    the record."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeDriver
+
+    base = get_config("mamba2-370m", reduced=True)
+    cfg = dataclasses.replace(base, d_model=ANY_MAMBA_D,
+                              ssm=dataclasses.replace(base.ssm,
+                                                      **ANY_MAMBA_SSM))
+    B, P, N = ANY_MAMBA_B, ANY_MAMBA_PROMPT, ANY_MAMBA_NEW
+    model = Model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+    prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    max_seq = P + N + 8
+    driver = ServeDriver(model=model, max_seq=max_seq, batch=B)
+    calls = []
+    with _SsdRoute(_recording_ssd(calls)):
+        out = driver.generate(params, prompts, N)  # warms
+    _check_tokens(torch, out, prompts, cfg.vocab, "ssd_any mamba2")
+    if len(calls) != cfg.n_layers or any(
+            c["groups"] != cfg.ssm.n_groups for c in calls):
+        fail(f"ssd_any mamba2: the SSD route was handed {calls}; expected "
+             f"{cfg.n_layers} calls with B / C in {cfg.ssm.n_groups} group")
+    routed = dict(ROUTE_LAUNCHES)
+    tokens, secs, ln = _counted(torch, _all_kernels(), lambda: (
+        driver.generate(params, prompts, N)))
+    routes = {r: ROUTE_LAUNCHES[r] - routed[r] for r in ROUTE_LAUNCHES}
+    if ln["ssd_chunk"] != cfg.n_layers or (
+            routes["tensor-core"] != cfg.n_layers):
+        fail(f"ssd_any mamba2: launches {ln}, routes {routes}; expected "
+             f"{cfg.n_layers} ssd_chunk on the tensor-core kernel")
+    logits = _routes_vs(torch, model, model, params, prompts, max_seq,
+                        "ssd_any mamba2 kernel route against the plain "
+                        "SSD route", ref_route=_SsdRoute(_plain_ssd))
+    f32 = _with_dtype(model, params, "float32")
+    tok = _tokens_vs(torch, f32, f32, params, prompts, N, max_seq,
+                     "ssd_any mamba2 float32",
+                     ref_route=_SsdRoute(_plain_ssd))
+    del model, params, driver, f32
+    _free(torch)
+    return {"arch": cfg.name, "d_model": cfg.d_model, **ANY_MAMBA_SSM,
+            "heads": cfg.ssm.n_heads(cfg.d_model), "layers": cfg.n_layers,
+            "batch": B, "prompt": P, "new_tokens": N, "launches":
+            ln["ssd_chunk"], "routes": routes, "generate_s": secs,
+            "in_place": [c["in_place"] for c in calls], **logits,
+            "float32_tokens": tok}
 
 
 def main(argv=None):
@@ -5769,18 +6100,31 @@ def main(argv=None):
     flash16 = timed("flash_dh16", phase_flash_dh16, torch, gen)
     timed("train_qwen2", phase_train_qwen2, torch, gen, args.seed)
     tmamba = timed("train_mamba", phase_train_mamba, torch, gen, args.seed)
-    # this slice: the scale-out path, ranks spawned on the one card
-    spod = timed("sharded_pod", phase_sharded_pod, torch, args.seed)
-    smerge = timed("sharded_merge", phase_sharded_merge, torch, paper)
-    scomp = timed("pod_compress", phase_pod_compress, torch, args.seed)
-    nccl = timed("nccl", phase_nccl, torch, args.seed, paper)
-    # the last slice: flash at every head width up to 256, the model on a
-    # mesh (tensor and context parallelism, training), the dry-run
-    flash_any = timed("flash_dh_any", phase_flash_dh_any, torch, gen)
-    tp = timed("tp_forward", phase_tp_forward, torch, args.seed)
-    cp = timed("seq_shard", phase_seq_shard, torch, args.seed)
-    timed("train_mesh", phase_train_mesh, torch, args.seed)
-    timed("dryrun", phase_dryrun, torch)
+    # this slice: the scale-out path, ranks spawned on the one card; the
+    # dry-run's CPU processes run beside it (read in phase dryrun)
+    dry = start_dryrun()
+    try:
+        spod = timed("sharded_pod", phase_sharded_pod, torch, args.seed)
+        smerge = timed("sharded_merge", phase_sharded_merge, torch, paper)
+        scomp = timed("pod_compress", phase_pod_compress, torch, args.seed)
+        nccl = timed("nccl", phase_nccl, torch, args.seed, paper)
+        # the last slice: flash at every head width up to 256, the model
+        # on a mesh (tensor and context parallelism, training), the
+        # dry-run
+        flash_any = timed("flash_dh_any", phase_flash_dh_any, torch, gen)
+        tp = timed("tp_forward", phase_tp_forward, torch, args.seed)
+        cp = timed("seq_shard", phase_seq_shard, torch, args.seed)
+        timed("train_mesh", phase_train_mesh, torch, args.seed)
+        timed("dryrun", phase_dryrun, torch, dry)
+    finally:  # a failed phase leaves no dry-run process behind
+        for _, _, proc in dry[1]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # this slice: flash past head width 256, the SSD kernel at every head
+    # width, state width and chunk
+    wide = timed("flash_wide", phase_flash_wide, torch, gen, args.seed)
+    anyssd = timed("ssd_any", phase_ssd_any, torch, gen, args.seed)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -5870,6 +6214,28 @@ def main(argv=None):
          "max_abs_err": archs["max_abs_err"],
          "ms": archs["ms"], "plain_ms": archs["plain_ms"],
          "bound_ms": archs["bound_ms"], "bound_by": archs["bound_by"],
+         "library_ms": None},
+        # the same kernel past head width 256 (dh 320, bf16 causal GQA,
+        # O's columns in two blocks of 160); its launches: the reduced
+        # Whisper with encoder heads of 320, in both dtypes
+        {"name": "flash_attention_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+         "launches": wide["launches"],
+         "max_abs_err": wide["max_abs_err"],
+         "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+         "bound_ms": wide["bound_ms"], "bound_by": wide["bound_by"],
+         "library_ms": wide["library_ms"]},
+        # the same kernel at any head width, state width and chunk (p = n
+        # = 256 at chunk 512, bf16: G streamed); its launches: the reduced
+        # Mamba2 at head width 48, state width 96 and chunk 24
+        {"name": "ssd_chunk_any_shape", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
+         "launches": anyssd["launches"],
+         "max_abs_err": anyssd["max_abs_err"],
+         "ms": anyssd["ms"], "plain_ms": anyssd["plain_ms"],
+         "bound_ms": anyssd["bound_ms"], "bound_by": anyssd["bound_by"],
          "library_ms": None},
     ]
     for k in kernels:

@@ -24,6 +24,11 @@
 //   has no FP32 input, and TF32 (10-bit mantissa) would break the float32
 //   gates of 2e-4 / 1e-4.
 //
+// Each takes head widths up to MAX_DH = 256 on template instances; past
+// it, its ``_wide`` variant splits O's columns over the grid (see
+// flash_attention_kernel_wide and tc::flash_attention_wgmma_kernel_wide),
+// so any width runs, as the TPU kernel's (block, dh) tiles take any dh.
+//
 // Bound on this card (chip_smoke.py, flash_work): 4 B Hq dh FLOP per live
 // (query, key) pair and one read of q, k, v and one write of o.  At the
 // Whisper-small encoder shape (B = 8, Hq = 12, S = 1500, dh = 64, bf16)
@@ -119,6 +124,16 @@ inline int instance_width(int dh) {
   for (int w : widths)
     if (dh >= 1 && dh <= w) return w;
   return 0;
+}
+// Past MAX_DH, O's columns split into ncb = ceil(dh / 256) blocks, each
+// on the instance of its share: dh 320 -> 2 x 160, 512 -> 2 x 256, 1024
+// -> 4 x 256.  (ncb - 1) 256 < dh, so every block holds a column of dh.
+inline int column_blocks(int dh) {
+  return dh <= MAX_DH ? 1 : (dh + MAX_DH - 1) / MAX_DH;
+}
+inline int block_width(int dh) {
+  const int ncb = column_blocks(dh);
+  return instance_width((dh + ncb - 1) / ncb);
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -307,6 +322,173 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS
+}
+
+// Head widths past MAX_DH: Q, K, V and P as float need 262,912 bytes at
+// dh 320, over the 232,448 a block may have.  So, as the tensor-core
+// kernel does, a block owns one column block of O, OW <= 256 wide
+// (blockIdx.z = b * ncb + its block): it sums S over the full dh from Q
+// and K slices of SC columns staged in turn, then stages V's OW columns
+// and accumulates O's.  Thread (ty, tx) owns rows ty + 16 i and O columns
+// col0 + tx + 16 c (c < OW / 16).  Q is staged again for every key tile.
+constexpr int SC = 64;  // columns of a Q / K slice
+
+template <int OW>
+constexpr int wide_smem_floats() {
+  return BQ * (SC + 1) + BK * (SC + 1) + BK * OW + BQ * (BK + 1);
+}
+
+template <typename T, int OW>
+__global__ void __launch_bounds__(NT)
+flash_attention_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            int Hq, int Hkv, int Sq, int Sk, int dh,
+                            int kv_len, int causal, float scale, int ncb) {
+  constexpr int LDQ = SC + 1, LDK = SC + 1, LDV = OW, LDP = BK + 1;
+  constexpr int CD = OW / TX;  // output columns per thread
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + BQ * LDQ;
+  float* Vs = Ks + BK * LDK;
+  float* Ps = Vs + BK * LDV;
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * TX + tx;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y, b = blockIdx.z / ncb;
+  const int col0 = (blockIdx.z % ncb) * OW;
+  const int hk = h / (Hq / Hkv);
+  const T* qb = q + (size_t)(b * Hq + h) * Sq * dh;
+  const T* kb = k + (size_t)(b * Hkv + hk) * Sk * dh;
+  const T* vb = v + (size_t)(b * Hkv + hk) * Sk * dh;
+  T* ob = o + (size_t)(b * Hq + h) * Sq * dh;
+
+  float m[RQ], l[RQ], acc[RQ][CD];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  }
+
+  int nk = (Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK;
+    float s[RQ][RK];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int jj = 0; jj < RK; ++jj) s[i][jj] = 0.f;
+    for (int c0 = 0; c0 < dh; c0 += SC) {
+      __syncthreads();  // the previous slice (or tile) is consumed
+      for (int e = tid; e < BQ * SC; e += NT) {
+        const int r = e / SC, c = e % SC;
+        Qs[r * LDQ + c] = q0 + r < Sq && c0 + c < dh
+                              ? to_f(qb[(size_t)(q0 + r) * dh + c0 + c]) : 0.f;
+        Ks[r * LDK + c] = k0 + r < Sk && c0 + c < dh
+                              ? to_f(kb[(size_t)(k0 + r) * dh + c0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < SC; ++c) {
+        float qv[RQ], kv[RK];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty + TY * i) * LDQ + c];
+#pragma unroll
+        for (int jj = 0; jj < RK; ++jj) kv[jj] = Ks[(tx + TX * jj) * LDK + c];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int jj = 0; jj < RK; ++jj)
+            s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int qi = q0 + ty + TY * i;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int jj = 0; jj < RK; ++jj) {
+        const int kj = k0 + tx + TX * jj;
+        const bool keep = kj < kv_len && (!causal || qi >= kj);
+        s[i][jj] = keep ? s[i][jj] * scale : NEG_INF;
+        mx = fmaxf(mx, s[i][jj]);
+      }
+#pragma unroll
+      for (int off = TX / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_cur = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_cur);
+      float rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < RK; ++jj) {
+        const float p = expf(s[i][jj] - m_cur);
+        rs += p;
+        Ps[(ty + TY * i) * LDP + tx + TX * jj] = to_f(from_f<T>(p));
+      }
+#pragma unroll
+      for (int off = TX / 2; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = alpha * l[i] + rs;
+      m[i] = m_cur;
+#pragma unroll
+      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
+    }
+    // V's columns [col0, col0 + OW) of this tile (the previous tile's
+    // readers of Vs passed this tile's first barrier)
+    for (int e = tid; e < BK * OW; e += NT) {
+      const int r = e / OW, c = e % OW;
+      Vs[r * LDV + c] = k0 + r < Sk && col0 + c < dh
+                            ? to_f(vb[(size_t)(k0 + r) * dh + col0 + c]) : 0.f;
+    }
+    __syncthreads();  // P and V complete
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[RQ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty + TY * i) * LDP + kk];
+#pragma unroll
+      for (int c = 0; c < CD; ++c) {
+        const float vv = Vs[kk * LDV + tx + TX * c];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int r = q0 + ty + TY * i;
+    if (r >= Sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < CD; ++c) {
+      const int col = col0 + tx + TX * c;
+      if (col < dh) ob[(size_t)r * dh + col] = from_f<T>(acc[i][c] / den);
+    }
+  }
+}
+
+template <typename T, int OW>
+int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
+                int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len,
+                int causal, float scale, int ncb, cudaStream_t stream) {
+  if (dh > ncb * OW) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)wide_smem_floats<OW>();
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_kernel_wide<T, OW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B * ncb), block(TX, TY);
+  flash_attention_kernel_wide<T, OW><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, dh,
+      kv_len, causal, scale, ncb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -680,6 +862,115 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The online softmax of one tile of S (a consumer warpgroup's 64 rows x
+// BK keys, in wgmma's accumulator layout; this thread holds rows r0 and
+// r0 + 8): masks, the running max and sum, p = exp(s - m) in base 2 with
+// the scale folded in, alpha[] = the factor that rescales O; then P
+// rounded to bf16 (p.astype(v.dtype)) as wgmma's A fragments of O += P V:
+// k16 step kk holds key columns 16 kk .. 16 kk + 15.  Only the tile that
+// holds kv_len (or Sk) and, when causal, the tiles that cross the
+// warpgroup's diagonal (its first row wg_row0) need the masks; the others
+// take the scale inside the exponent's FFMA.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(
+    float (&sacc)[BK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    uint32_t (&pa)[BK / 16][4], int k0, int r0, int wg_row0, int quad,
+    int Sk, int kv_len, int causal, float scale_log2) {
+  const bool masked =
+      k0 + BK > kv_len || (causal && k0 + BK - 1 > wg_row0);
+  const float mul = masked ? 1.f : scale_log2;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qi = r0 + 8 * hh;
+    float mx = -INFINITY;
+    if (masked) {
+#pragma unroll
+      for (int g = 0; g < BK / 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + 8 * g + 2 * quad + e;
+          const bool keep = kj < kv_len && (!causal || qi >= kj);
+          float& x = sacc[4 * g + 2 * hh + e];
+          // keys past Sk (the tile's tail, zero-filled by TMA) do not
+          // exist: -inf; masked keys that exist: MASKED, as the
+          // reference, so a row with every key masked averages them
+          x = keep ? x * scale_log2 : (kj < Sk ? MASKED : -INFINITY);
+          mx = fmaxf(mx, x);
+        }
+    } else {
+#pragma unroll
+      for (int g = 0; g < BK / 8; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          mx = fmaxf(mx, sacc[4 * g + 2 * hh + e]);
+      mx *= scale_log2;  // scale > 0: the max of the scaled scores
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[hh], mx);
+    alpha[hh] = ex2(m[hh] - m_new);
+    float rs = 0.f;
+#pragma unroll
+    for (int g = 0; g < BK / 8; ++g)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sacc[4 * g + 2 * hh + e];
+        x = ex2(fmaf(x, mul, -m_new));
+        rs += x;  // the row sum takes the unrounded p
+      }
+    l[hh] = alpha[hh] * l[hh] + rs;  // this lane's share of the row
+    m[hh] = m_new;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void rescale(float (&oacc)[W / 2],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int g = 0; g < W / 8; ++g)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) oacc[4 * g + 2 * hh + e] *= alpha[hh];
+}
+
+// out = acc / max(l, 1e-30) in bf16, the row sum over its 4 lanes, for
+// O's columns [col0, col0 + W) of rows r0 and r0 + 8.  Rows are dh wide (a
+// multiple of 8): columns at or past dh and rows at or past Sq are not
+// stored.
+template <int W>
+__device__ __forceinline__ void store_o(const float (&oacc)[W / 2],
+                                        const float (&l)[2],
+                                        __nv_bfloat16* __restrict__ o,
+                                        int bhq, int Sq, int dh, int r0,
+                                        int quad, int col0) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float den = fmaxf(lt, 1e-30f);
+    const int qi = r0 + 8 * hh;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* orow = o + ((size_t)bhq * Sq + qi) * dh;
+#pragma unroll
+    for (int g = 0; g < W / 8; ++g) {
+      const int col = col0 + 8 * g + 2 * quad;
+      if (col >= dh) continue;
+      __nv_bfloat162 v = __floats2bfloat162_rn(
+          oacc[4 * g + 2 * hh] / den, oacc[4 * g + 2 * hh + 1] / den);
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) = v;
+    }
+  }
+}
+
 template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
@@ -781,74 +1072,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       wg_wait0();
       fence_regs(sacc);
 
-      // masks, running max, p = exp(s - m) (base 2, scale folded in).
-      // Only the tile that holds kv_len (or Sk) and, when causal, the
-      // tiles that cross this warpgroup's diagonal need the masks; the
-      // others take the scale inside the exponent's FFMA.
-      const int k0 = j * BK;
-      const bool masked = k0 + BK > kv_len ||
-                          (causal && k0 + BK - 1 > q0 + cw * WG_ROWS);
-      const float mul = masked ? 1.f : scale_log2;
       float alpha[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int qi = r0 + 8 * hh;
-        float mx = -INFINITY;
-        if (masked) {
-#pragma unroll
-          for (int g = 0; g < BK / 8; ++g)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int kj = k0 + 8 * g + 2 * quad + e;
-              const bool keep = kj < kv_len && (!causal || qi >= kj);
-              float& x = sacc[4 * g + 2 * hh + e];
-              // keys past Sk (the tile's tail, zero-filled by TMA) do not
-              // exist: -inf; masked keys that exist: MASKED, as the
-              // reference, so a row with every key masked averages them
-              x = keep ? x * scale_log2 : (kj < Sk ? MASKED : -INFINITY);
-              mx = fmaxf(mx, x);
-            }
-        } else {
-#pragma unroll
-          for (int g = 0; g < BK / 8; ++g)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              mx = fmaxf(mx, sacc[4 * g + 2 * hh + e]);
-          mx *= scale_log2;  // scale > 0: the max of the scaled scores
-        }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[hh], mx);
-        alpha[hh] = ex2(m[hh] - m_new);
-        float rs = 0.f;
-#pragma unroll
-        for (int g = 0; g < BK / 8; ++g)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = sacc[4 * g + 2 * hh + e];
-            x = ex2(fmaf(x, mul, -m_new));
-            rs += x;  // the row sum takes the unrounded p
-          }
-        l[hh] = alpha[hh] * l[hh] + rs;  // this lane's share of the row
-        m[hh] = m_new;
-      }
-#pragma unroll
-      for (int g = 0; g < DH / 8; ++g)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) oacc[4 * g + 2 * hh + e] *= alpha[hh];
-
-      // P in bf16 (p.astype(v.dtype)), as wgmma's A fragments: k16 step
-      // kk holds key columns 16 kk .. 16 kk + 15 of rows r0 and r0 + 8
       uint32_t pa[BK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sacc[8 * kk + 0], sacc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-      }
+      softmax_tile<BK>(sacc, m, l, alpha, pa, j * BK, r0, q0 + cw * WG_ROWS,
+                       quad, Sk, kv_len, causal, scale_log2);
+      rescale<DH>(oacc, alpha);
 
       // O += P V: V (keys x dh) is MN-major for this product
       fence_regs(oacc);
@@ -864,25 +1092,172 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       mbar_arrive(bar_empty + 8 * s);  // this stage's K / V are consumed
     }
 
-    // out = acc / max(l, 1e-30) in bf16; the row sum over its 4 lanes
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float lt = l[hh];
-      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-      const float den = fmaxf(lt, 1e-30f);
-      const int qi = r0 + 8 * hh;
-      if (qi >= Sq) continue;
-      // rows are dh wide (a multiple of 8); columns past dh are not stored
-      __nv_bfloat16* orow = o + ((size_t)bhq * Sq + qi) * dh;
-#pragma unroll
-      for (int g = 0; g < DH / 8; ++g) {
-        if (8 * g + 2 * quad >= dh) continue;
-        __nv_bfloat162 v = __floats2bfloat162_rn(
-            oacc[4 * g + 2 * hh] / den, oacc[4 * g + 2 * hh + 1] / den);
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * g + 2 * quad) = v;
+    store_o<DH>(oacc, l, o, bhq, Sq, dh, r0, quad, 0);
+  }
+}
+
+// ---- head widths past 256: O's columns split over the grid
+//
+// At dh 320 Q and a K / V ring of 64-key tiles need 245,760 bytes, over
+// the 232,448 a block may have; O would need 160 floats a consumer thread,
+// and wgmma's N stops at 256.  So a block owns one column block of O, OW
+// <= 256 wide (blockIdx.z = b * ncb + its block): it computes S = Q K^T
+// over the full dh, streaming Q and K in 64-column slices (one 128-byte
+// swizzle row each) through a ring of WSTAGES stages and summing S slice by
+// slice, then O[:, col0 : col0 + OW] += P V[:, col0 : col0 + OW] with the
+// m64n{OW} product of the narrower kernel, V's column blocks in a ring of
+// two.  Q is read again for every key tile (from L2), and each of the ncb
+// blocks of a query tile recomputes S: at dh 512, two blocks of 256, the
+// Q K^T products double.  A simple kernel first; its times are in PERF.md.
+constexpr int WBK = 64;      // keys per tile
+constexpr int WSC = 64;      // columns of a Q / K slice
+constexpr int WSTAGES = 4;   // Q / K slice ring
+constexpr int WVSTAGES = 2;  // V ring
+
+template <int OW>
+struct WideGeo {
+  using V = Geo<OW>;  // V's column blocks: OW's layout, 64-key tiles
+  static_assert(V::BK == WBK, "wide column blocks are past 128");
+  static constexpr int QS_BYTES = BQ * WSC * 2;
+  static constexpr int KS_BYTES = WBK * WSC * 2;
+  static constexpr int SLICE_BYTES = QS_BYTES + KS_BYTES;
+  static constexpr int VCB_BYTES = WBK * V::SW;  // one column block of V
+  static constexpr int V_BYTES = WBK * OW * 2;
+  static constexpr int TILES = WSTAGES * SLICE_BYTES + WVSTAGES * V_BYTES;
+  static constexpr int BARS = 2 * WSTAGES + 2 * WVSTAGES;
+  static constexpr int SMEM = TILES + 8 * BARS + 1024;  // + align
+};
+
+template <int OW>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_wgmma_kernel_wide(const __grid_constant__ CUtensorMap tmq,
+                                  const __grid_constant__ CUtensorMap tmk,
+                                  const __grid_constant__ CUtensorMap tmv,
+                                  __nv_bfloat16* __restrict__ o, int Hq,
+                                  int Hkv, int Sq, int Sk, int dh,
+                                  int kv_len, int causal, float scale_log2,
+                                  int ncb) {
+  using W = WideGeo<OW>;
+  using V = typename W::V;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sl_ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // slices
+  const uint32_t sv_ = sl_ + WSTAGES * W::SLICE_BYTES;         // V ring
+  const uint32_t bar_sf = sl_ + W::TILES;          // slice full
+  const uint32_t bar_se = bar_sf + 8 * WSTAGES;    // slice empty
+  const uint32_t bar_vf = bar_se + 8 * WSTAGES;    // V full
+  const uint32_t bar_ve = bar_vf + 8 * WVSTAGES;   // V empty
+
+  const int nq = gridDim.x;
+  const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int q0 = qt * BQ;
+  const int h = blockIdx.y, b = blockIdx.z / ncb;
+  const int col0 = (blockIdx.z % ncb) * OW;  // this block's O columns
+  const int bhq = b * Hq + h;
+  const int bhk = b * Hkv + h / (Hq / Hkv);
+  const int nsl = (dh + WSC - 1) / WSC;
+  int nk = (Sk + WBK - 1) / WBK;
+  if (causal) nk = min(nk, (q0 + BQ - 1) / WBK + 1);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(bar_sf + 8 * s, 1);
+      mbar_init(bar_se + 8 * s, 2 * 128);
+    }
+    for (int s = 0; s < WVSTAGES; ++s) {
+      mbar_init(bar_vf + 8 * s, 1);
+      mbar_init(bar_ve + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      // V's column blocks that hold a column of dh: the others are never
+      // loaded (their products land in columns that are not stored)
+      const int nvb = min(V::NCB, (dh - col0 + V::CB - 1) / V::CB);
+      int it = 0;
+      for (int j = 0; j < nk; ++j) {
+        for (int c = 0; c < nsl; ++c, ++it) {
+          const int s = it % WSTAGES;
+          if (it >= WSTAGES)
+            mbar_wait(bar_se + 8 * s, ((it / WSTAGES) - 1) & 1);
+          const uint32_t full = bar_sf + 8 * s;
+          const uint32_t dst = sl_ + s * W::SLICE_BYTES;
+          mbar_expect_tx(full, W::SLICE_BYTES);
+          tma_load(dst, &tmq, c * WSC, q0, bhq, full);
+          tma_load(dst + W::QS_BYTES, &tmk, c * WSC, j * WBK, bhk, full);
+        }
+        const int sv = j % WVSTAGES;
+        if (j >= WVSTAGES)
+          mbar_wait(bar_ve + 8 * sv, ((j / WVSTAGES) - 1) & 1);
+        const uint32_t full = bar_vf + 8 * sv;
+        mbar_expect_tx(full, nvb * W::VCB_BYTES);
+        for (int cb = 0; cb < nvb; ++cb)
+          tma_load(sv_ + sv * W::V_BYTES + cb * W::VCB_BYTES, &tmv,
+                   col0 + cb * V::CB, j * WBK, bhk, full);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int quad = lane % 4;
+    const int r0 = q0 + cw * WG_ROWS + warp * 16 + lane / 4;
+
+    float oacc[OW / 2];
+#pragma unroll
+    for (int i = 0; i < OW / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    int it = 0;
+    for (int j = 0; j < nk; ++j) {
+      // S = Q K^T over every slice of dh: 64 x WBK in f32, in registers
+      float sacc[WBK / 2];
+      for (int c = 0; c < nsl; ++c, ++it) {
+        const int s = it % WSTAGES;
+        mbar_wait(bar_sf + 8 * s, (it / WSTAGES) & 1);
+        const uint32_t qb = sl_ + s * W::SLICE_BYTES + cw * WG_ROWS * 128;
+        const uint32_t kb = sl_ + s * W::SLICE_BYTES + W::QS_BYTES;
+        fence_regs(sacc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < WSC / 16; ++kk)
+          wgmma_ss_n64(sacc, desc(qb + kk * 32, 16, 1024, 1),
+                       desc(kb + kk * 32, 16, 1024, 1), c > 0 || kk > 0);
+        wg_commit();
+        wg_wait0();
+        fence_regs(sacc);
+        mbar_arrive(bar_se + 8 * s);  // this slice is consumed
+      }
+
+      float alpha[2];
+      uint32_t pa[WBK / 16][4];
+      softmax_tile<WBK>(sacc, m, l, alpha, pa, j * WBK, r0,
+                        q0 + cw * WG_ROWS, quad, Sk, kv_len, causal,
+                        scale_log2);
+      rescale<OW>(oacc, alpha);
+
+      // O[:, col0 : col0 + OW] += P V[:, col0 : col0 + OW]
+      const int sv = j % WVSTAGES;
+      mbar_wait(bar_vf + 8 * sv, (j / WVSTAGES) & 1);
+      const uint32_t v_base = sv_ + sv * W::V_BYTES;
+      fence_regs(oacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WBK / 16; ++kk)
+        wgmma_pv<OW>(oacc, pa[kk],
+                     desc(v_base + kk * 16 * V::SW, WBK * V::SW, 8 * V::SW,
+                          V::LAYOUT));
+      wg_commit();
+      wg_wait0();
+      fence_regs(oacc);
+      mbar_arrive(bar_ve + 8 * sv);  // this V tile is consumed
+    }
+
+    store_o<OW>(oacc, l, o, bhq, Sq, dh, r0, quad, col0);
   }
 }
 
@@ -965,20 +1340,67 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaGetLastError();
 }
 
+// dh > MAX_DH: ncb column blocks of O, each on the OW-wide instance.  Q
+// and K are read through maps of 64-column boxes (the slices), V through
+// OW's column blocks.
+template <int OW>
+int launch_wide(const void* q, const void* k, const void* v, void* o,
+                int B, int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len,
+                int causal, float scale, int ncb, cudaStream_t stream) {
+  using W = WideGeo<OW>;
+  if (dh % 8 || dh > ncb * OW) return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16)
+      return (int)cudaErrorMisalignedAddress;
+  if (Sk <= 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!encode<WSC>(&mq, q, B * Hq, Sq, dh, BQ) ||
+      !encode<WSC>(&mk, k, B * Hkv, Sk, dh, WBK) ||
+      !encode<OW>(&mv, v, B * Hkv, Sk, dh, WBK))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel_wide<OW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B * ncb);
+  flash_attention_wgmma_kernel_wide<OW><<<grid, THREADS, W::SMEM, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, dh,
+      kv_len, causal, scale * 1.4426950408889634f, ncb);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tc
 
 // dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
 // kernel; q, k, v, o 16-byte aligned, dh a multiple of 8).  q (B, Hq, Sq,
 // dh), k / v (B, Hkv, Sk, dh), o like q, all contiguous; Hq a multiple of
-// Hkv; 1 <= dh <= MAX_DH.
+// Hkv; dh >= 1 (past MAX_DH, column_blocks(dh) blocks of O along grid z:
+// B * column_blocks(dh) <= 65535).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int dh,
                                       int kv_len, int causal, float scale,
                                       int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (Hkv <= 0 || Hq % Hkv != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
+  const int ncb = column_blocks(dh);
+  if ((long long)B * ncb > 65535 || Hq > 65535)
+    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ncb > 1) {
+#define WIDE_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, ncb, s
+    switch (dtype * 1000 + block_width(dh)) {
+      case 160: return launch_wide<float, 160>(WIDE_ARGS);
+      case 192: return launch_wide<float, 192>(WIDE_ARGS);
+      case 256: return launch_wide<float, 256>(WIDE_ARGS);
+      case 1160: return tc::launch_wide<160>(WIDE_ARGS);
+      case 1192: return tc::launch_wide<192>(WIDE_ARGS);
+      case 1256: return tc::launch_wide<256>(WIDE_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef WIDE_ARGS
+  }
   switch (dtype) {
     case 0: return launch_dh<float>(dh, q, k, v, o, B, Hq, Hkv, Sq, Sk,
                                     kv_len, causal, scale, s);

@@ -14,11 +14,17 @@
 // Above the diagonal acum_i - acum_j reaches +180 within one 256-step
 // chunk under fast decay, and exp of it is inf: the select keeps it out of
 // S (a mask times inf would be NaN).  acum is summed in float64 by a warp
-// scan and rounded once to float32: sums of up to 256 float32 terms are
-// then exact whatever the order, so the kernel and the plain version
-// (``chunk_cumsum``) see the same acum, bit for bit; at |acum| ~ 200 one
-// float32 ulp (1.5e-5) would otherwise carry into every near-diagonal
-// decay.
+// scan and rounded once to float32: a float64 sum of q float32 terms is
+// exact whatever the order while their magnitudes span less than
+// 2^(30 - log2 q) (2^22 at q = 256, 2^18 at 4,096), so the kernel and the
+// plain version (``chunk_cumsum``) see the same acum, bit for bit; at
+// |acum| ~ 200 one float32 ulp (1.5e-5) would otherwise carry into every
+// near-diagonal decay.
+//
+// Any head width p and state width n from 1 to 256 and any chunk q from 1
+// to MAX_CHUNK runs, as the TPU kernel takes each tile whole: X's width is
+// a template instance (16 .. 256) with zero columns past p, n a runtime
+// width, and rows past q (the last tile's) read zeros.
 //
 // Two kernels, chosen by the input's type (never one for the other), as
 // flash_attention.cu chooses:
@@ -49,34 +55,47 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-constexpr int QMAX = 256;  // longest chunk
+constexpr int MAX_CHUNK = 4096;  // longest chunk (kernel.py: MAX_CHUNK)
+constexpr int MAX_WIDTH = 256;   // widest p and n
 
-// acum[0, q) of one chunk by one warp (lane = its lane): each lane sums 8
-// consecutive terms adt[t * stride] in float64, a shuffle scan adds the
-// lanes before it.  The caller synchronises.
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// acum[0, qa) of one chunk by one warp (lane = its lane), in segments of
+// 256 steps: each lane sums 8 consecutive terms adt[t * stride] in
+// float64, a shuffle scan adds the lanes before it, and the segment's
+// total carries into the next.  Steps at or past q add 0 (the padding of
+// a chunk that is not a multiple of the tiles: acum there is acum[q - 1],
+// so a padded key's decay is finite and its zero B and X keep it out of Y
+// and the state).  The caller synchronises.
 template <typename T>
 __device__ void chunk_cumsum(const T* __restrict__ adt, long long stride,
-                             int q, float* acum, int lane) {
-  constexpr int PER = QMAX / 32;
-  double part[PER], run = 0.0;
+                             int q, int qa, float* acum, int lane) {
+  constexpr int SEG = 256, PER = SEG / 32;
+  double carry = 0.0;
+  for (int base = 0; base < qa; base += SEG) {
+    double part[PER], run = 0.0;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int t = lane * PER + i;
-    run += t < q ? (double)to_f(adt[t * stride]) : 0.0;
-    part[i] = run;
-  }
-  double incl = run;
+    for (int i = 0; i < PER; ++i) {
+      const int t = base + lane * PER + i;
+      run += t < q ? (double)to_f(adt[t * stride]) : 0.0;
+      part[i] = run;
+    }
+    double incl = run;
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double y = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += y;
-  }
-  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) excl = 0.0;
+    for (int off = 1; off < 32; off <<= 1) {
+      const double y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) excl = 0.0;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int t = lane * PER + i;
-    if (t < q) acum[t] = (float)(excl + part[i]);
+    for (int i = 0; i < PER; ++i) {
+      const int t = base + lane * PER + i;
+      if (t < qa) acum[t] = (float)(carry + (excl + part[i]));
+    }
+    carry += __shfl_sync(0xffffffffu, incl, 31);
   }
 }
 
@@ -95,10 +114,11 @@ __device__ void chunk_cumsum(const T* __restrict__ adt, long long stride,
 //   * blockIdx.x == 0: the chunk's end-state, in passes of 64 state rows;
 //     thread (ty, tx) owns rows ty + 16 a, columns tx + 16 c.
 // B and C come per group, (b g, c, q, n); head hd reads group hd / (h / g).
-// Rows and keys past q are loaded as zeros and never written, so any q up
-// to 256 works (the wrapper takes multiples of 16).  It sits near the
-// 67 TFLOP/s FP32 peak at best (eight shared-memory loads per sixteen
-// FMAs).
+// Rows and keys past q are loaded as zeros and never written, so any q
+// works, up to what shared memory holds, and any n up to 256 (state rows
+// in passes of 64); X's width is an instance P, the wrapper zero-padding
+// a narrower p.  It sits near the 67 TFLOP/s FP32 peak at best (eight
+// shared-memory loads per sixteen FMAs).
 constexpr int QT = 64;           // query rows per block
 constexpr int KT = 64;           // keys per B / X tile
 constexpr int NS = 64;           // state rows per pass of the state block
@@ -109,13 +129,14 @@ constexpr int RK = KT / TX;      // keys per thread
 constexpr int RS = NS / TY;      // state rows per thread
 constexpr int LDS = KT + 1;      // row stride of the score tile
 
-// Shared memory (floats): acum (QMAX), a B tile (KT x max(n, NS) + 1),
-// an X tile (KT x P), the C rows (QT x n + 1) and the score tile
-// (QT x KT + 1).  The odd row strides keep the column walks free of bank
-// conflicts.
+// Shared memory (floats): acum (q), a B tile (KT x max(n, NS) + 1), an X
+// tile (KT x P), the C rows (QT x n + 1) and the score tile (QT x KT + 1).
+// The odd row strides keep the column walks free of bank conflicts.  At p
+// = n = 256 it is 4 (q + 53,440) bytes: q = 4,096 fits the 232,448 a
+// block may have (MAX_CHUNK), 4,673 would not.
 __host__ __device__ inline int ldb(int n) { return (n > NS ? n : NS) + 1; }
-__host__ __device__ inline int smem_floats(int n, int P) {
-  return QMAX + KT * ldb(n) + KT * P + QT * (n + 1) + QT * LDS;
+__host__ __device__ inline int smem_floats(int q, int n, int P) {
+  return q + KT * ldb(n) + KT * P + QT * (n + 1) + QT * LDS;
 }
 
 // rows [r0, r0 + KT) of a (q, w) tile into dst (row stride ld), as float,
@@ -266,7 +287,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ adt,
                  int h, int g) {
   extern __shared__ float smem[];
   float* acum = smem;
-  float* Bs = acum + QMAX;
+  float* Bs = acum + q;
   float* Xs = Bs + KT * ldb(n);
   float* Cs = Xs + KT * P;
   float* Ss = Cs + QT * (n + 1);
@@ -285,7 +306,7 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ adt,
   bm += gtile * q * n;
   cm += gtile * q * n;
 
-  if (tid < 32) chunk_cumsum(adt, 1, q, acum, tid);
+  if (tid < 32) chunk_cumsum(adt, 1, q, q, acum, tid);
   __syncthreads();
   if (blockIdx.x == 0) {
     end_state<P>(x, bm, st + tile * n * P, acum, Bs, Xs, q, n, tx, ty, tid);
@@ -300,7 +321,7 @@ template <int P>
 int launch(const void* x, const void* adt, const void* bm, const void* cm,
            void* y, void* st, int BH, int c, int q, int n, int h, int g,
            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)smem_floats(n, P);
+  const size_t smem = sizeof(float) * (size_t)smem_floats(q, n, P);
   cudaError_t e = cudaFuncSetAttribute(
       ssd_chunk_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -366,6 +387,15 @@ int launch(const void* x, const void* adt, const void* bm, const void* cm,
 // Shared memory at that shape: acum 8 KB, G 64 KB, staging 34 KB (the C
 // rows and a B tile, then the X ring of three 9 KB stages).
 //
+// Chunks past what G's parked fragments fit (16 KB per 64 keys beside the
+// staging area: p = n = 256 at q = 512, every width at 1,024) stream G
+// instead (STREAM): the query block keeps its C rows and forms G for each
+// 16-key step from them and that key tile's B rows, which ride in the X
+// ring (two stages of an X tile and a B tile); the state blocks read B
+// from the ring too.  G is then formed once per head, not once per block;
+// the wrapper (kernels/ssd_chunk/kernel.py: mma_layout) picks the mode and
+// the heads per block that fit.
+//
 // What bounds it now: not the bytes (211 MB would take 0.063 ms) nor the
 // tensor cores, but the instructions around each 16-key step (the G
 // reload, eight exponentials, the three-way splits) and the MMAs' chains,
@@ -383,7 +413,8 @@ constexpr int QT = 64;     // query rows of a query block, 16 per warp
 constexpr int KT = 64;     // keys of one X (and B) tile
 constexpr int SR = 64;     // state rows of a state block, 16 per warp
 constexpr int HB_MAX = 8;  // heads per block at most
-constexpr int RING = 3;    // stages of the X ring
+constexpr int RING = 3;    // stages of the X ring (G parked)
+constexpr int STREAM_RING = 2;  // stages of the X + B ring (G streamed)
 // bf16 terms of S (query blocks) and of B exp(.) (state blocks)
 constexpr int S_TERMS = 3, B_TERMS = 2;
 constexpr int PAD = 8;     // bf16 of padding per shared row: rows 16 bytes
@@ -401,6 +432,8 @@ struct Args {
   long long sbb, sbl, sbg;
   long long scb, scl, scg;
   int c, q, n, h, g, hb, nq;
+  int p;   // X's columns, a multiple of 8 up to the instance P (zeros past)
+  int qa;  // q rounded up to KT: acum's row
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -480,45 +513,77 @@ __device__ __forceinline__ float fast_exp(float x) {
   return fmaf(y, e * 0.6931471805599453f, y);
 }
 
-// rows [r0, r0 + R) x columns [c0, c0 + w) of a row-major bf16 matrix
-// (row stride ld) -> shared rows of stride lds; rows at or past rmax are
-// zero-filled.  w is a multiple of 8; all addresses 16-byte aligned.
+// rows [r0, r0 + R) x columns [0, wz) of a row-major bf16 matrix (row
+// stride ld) -> shared rows of stride lds; rows at or past rmax and
+// columns at or past w read as zeros (cp.async with no source bytes).  w
+// and wz are multiples of 8; all addresses 16-byte aligned.
 __device__ __forceinline__ void load_rows(bf16* dst, int lds,
                                           const bf16* src, long long ld,
-                                          int r0, int R, int rmax, int w) {
-  const int cpr = w / 8;
+                                          int r0, int R, int rmax, int w,
+                                          int wz) {
+  const int cpr = wz / 8;
   for (int e = threadIdx.x; e < R * cpr; e += THREADS) {
     const int r = e / cpr, cc = 8 * (e % cpr);
-    const bool in = r0 + r < rmax;
+    const bool in = r0 + r < rmax && cc < w;
     cp16(dst + r * lds + cc, in ? src + (r0 + r) * ld + cc : src, in);
   }
 }
 
-// Dynamic shared-memory bytes (kernels/ssd_chunk/kernel.py: mma_smem_bytes)
+// Dynamic shared-memory bytes (kernels/ssd_chunk/kernel.py:
+// mma_smem_bytes).  Both modes first hold acum, hb rows of qa = q rounded
+// up to KT floats.
+//   parked:   G's fragments (16 KB per 64 keys; the state blocks' B rows
+//             share them), then the staging area: the C rows and a B
+//             tile, or the X ring, whichever is larger;
+//   streamed: the query block's C rows, then a ring of STREAM_RING stages,
+//             each an X tile and a B tile (keys x the state block's 64
+//             columns, or x n).
+__host__ __device__ inline int acum_bytes(int q, int hb) {
+  return hb * round_up(q, KT) * 4;
+}
 __host__ __device__ inline int g_bytes(int q) {
   return ((q + KT - 1) / KT) * 8 * THREADS * 16;
 }
 __host__ __device__ inline int stage_bytes(int n, int P) {
-  const int gb = (QT + KT) * (n + PAD) * 2;    // C rows, one B tile
-  const int ring = RING * KT * (P + PAD) * 2;  // the X ring
+  const int gb = (QT + KT) * (round_up(n, 16) + PAD) * 2;  // C rows, B tile
+  const int ring = RING * KT * (P + PAD) * 2;               // the X ring
   return gb > ring ? gb : ring;
 }
-__host__ __device__ inline int smem_bytes(int q, int n, int P) {
-  return HB_MAX * QMAX * 4 + g_bytes(q) + stage_bytes(n, P);
+__host__ __device__ inline int b_cols(int n) {  // a streamed B tile's
+  return round_up(n, 16) > SR ? round_up(n, 16) : SR;
+}
+__host__ __device__ inline int slot_elems(int n, int P, bool stream) {
+  return KT * (P + PAD) + (stream ? KT * (b_cols(n) + PAD) : 0);
+}
+__host__ __device__ inline int smem_bytes(int q, int n, int P, int hb,
+                                          bool stream) {
+  if (stream)
+    return acum_bytes(q, hb) + QT * (round_up(n, 16) + PAD) * 2 +
+           STREAM_RING * slot_elems(n, P, true) * 2;
+  return acum_bytes(q, hb) + g_bytes(q) + stage_bytes(n, P);
 }
 
-template <int P>
-__global__ void __launch_bounds__(THREADS)
+// (THREADS, 1): with the minimum of one block per SM named, ptxas keeps
+// the registers the products want (the Mamba2-370m instance P = 64 with
+// G parked: 114, no spill; without it 96 and a spill, 4-5 % slower on
+// the H100)
+template <int P, bool STREAM>
+__global__ void __launch_bounds__(THREADS, 1)
 ssd_chunk_mma_kernel(const Args A) {
   constexpr int LDX = P + PAD;
+  constexpr int NRING = STREAM ? STREAM_RING : RING;
   extern __shared__ __align__(16) uint8_t smem[];
-  float* acum = reinterpret_cast<float*>(smem);  // HB_MAX x QMAX
-  float4* Gs = reinterpret_cast<float4*>(smem + HB_MAX * QMAX * 4);
-  bf16* Bst = reinterpret_cast<bf16*>(Gs);  // the state blocks' B
-  bf16* stage = reinterpret_cast<bf16*>(smem + HB_MAX * QMAX * 4 +
-                                        g_bytes(A.q));
+  const int q = A.q, n = A.n, h = A.h, qa = A.qa;
+  const int n16 = round_up(n, 16);
+  float* acum = reinterpret_cast<float*>(smem);  // hb x qa
+  uint8_t* const after = smem + acum_bytes(q, A.hb);
+  float4* Gs = reinterpret_cast<float4*>(after);  // parked: G
+  bf16* Bst = reinterpret_cast<bf16*>(after);     // parked: state blocks' B
+  bf16* Cres = reinterpret_cast<bf16*>(after);    // streamed: the C rows
+  bf16* stage = reinterpret_cast<bf16*>(
+      after + (STREAM ? QT * (n16 + PAD) * 2 : g_bytes(q)));
+  const int slot = slot_elems(n, P, STREAM);
 
-  const int q = A.q, n = A.n, h = A.h;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row / column lane
   const int bi = blockIdx.z / A.c, ci = blockIdx.z % A.c;
@@ -527,7 +592,7 @@ ssd_chunk_mma_kernel(const Args A) {
 
   for (int hh = warp; hh < A.hb; hh += WARPS)
     chunk_cumsum(A.adt + bi * A.sab + t0 * A.sal + (h0 + hh) * A.sah, A.sal,
-                 q, acum + hh * QMAX, lane);
+                 q, qa, acum + hh * qa, lane);
 
   const bool query = (int)blockIdx.x < A.nq;
   // query block: rows [r0, r0 + QT), keys [0, kend); state block: state
@@ -538,21 +603,32 @@ ssd_chunk_mma_kernel(const Args A) {
   const int kend = query ? min(q, r0 + QT) : q;
   const int nkt = (kend + KT - 1) / KT;
   // this warp's first row (query) or state row, and the last key it needs
+  // (rows and keys past q are zeros: a warp past q idles, and a warp whose
+  // rows straddle q computes its padded rows but never writes them)
   const int wrow = (query ? r0 : s0) + 16 * warp;
   const bool active = query ? wrow < q : 16 * warp < sw;
   const int wlast = query ? wrow + 15 : q - 1;
+  const int LDC = n16 + PAD;
+  // a streamed B tile's row stride: n columns (query) or the state
+  // block's 64
+  const int ldbt = (query ? n16 : SR) + PAD;
 
   const bf16* bsrc = A.bm + bi * A.sbb + t0 * A.sbl + grp * A.sbg;
-  if (query) {
+  const bf16* csrc = A.cm + bi * A.scb + t0 * A.scl + grp * A.scg;
+  if (STREAM) {
+    // ---- the C rows stay; G is formed per 16-key step below
+    if (query) {
+      load_rows(Cres, LDC, csrc, A.scl, r0, QT, q, n, n16);
+      cp_commit();
+    }
+  } else if (query) {
     // ---- G = C B^T, once for the HB heads, parked in Gs
-    const int LDC = n + PAD;
     bf16* Cs = stage;
     bf16* Bs = stage + QT * LDC;
-    load_rows(Cs, LDC, A.cm + bi * A.scb + t0 * A.scl + grp * A.scg, A.scl,
-              r0, QT, q, n);
+    load_rows(Cs, LDC, csrc, A.scl, r0, QT, q, n, n16);
     for (int kt = 0; kt < nkt; ++kt) {
       __syncthreads();  // the previous B tile is consumed
-      load_rows(Bs, LDC, bsrc, A.sbl, kt * KT, KT, q, n);
+      load_rows(Bs, LDC, bsrc, A.sbl, kt * KT, KT, q, n, n16);
       cp_commit();
       cp_wait<0>();
       __syncthreads();
@@ -562,7 +638,7 @@ ssd_chunk_mma_kernel(const Args A) {
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) gacc[j][e] = 0.f;
-      for (int ks = 0; ks < n; ks += 16) {
+      for (int ks = 0; ks < n16; ks += 16) {
         uint32_t a[4];
         ldsm_x4(a, Cs + (16 * warp + (lane % 8) + 8 * ((lane / 8) & 1)) *
                             LDC + ks + 8 * (lane / 16));
@@ -581,38 +657,48 @@ ssd_chunk_mma_kernel(const Args A) {
             make_float4(gacc[j][0], gacc[j][1], gacc[j][2], gacc[j][3]);
     }
   } else {
-    // ---- the state block's B rows: every key, state columns [s0, s0+sw)
-    load_rows(Bst, SR + PAD, bsrc + s0, A.sbl, 0, q, q, sw);
+    // ---- the state block's B rows: every key (zeros from q up to the
+    // last 16-key step), state columns [s0, s0 + sw) and zeros to 16
+    load_rows(Bst, SR + PAD, bsrc + s0, A.sbl, 0, round_up(q, 16), q, sw,
+              round_up(sw, 16));
     cp_commit();
   }
   __syncthreads();  // G parked (query); the staging area is free
 
-  // ---- the heads: X tiles of (head, key tile) through a RING-stage
-  // ring, one step per (head, key tile), two ahead of the products
+  // ---- the heads: X tiles of (head, key tile) through an NRING-stage
+  // ring (streamed: with the tile's B rows), one step per (head, key
+  // tile), NRING - 1 ahead of the products
   const int steps = A.hb * nkt;
   auto issue = [&](int s) {
     const int hh = s / nkt, kt = s % nkt;
-    load_rows(stage + (s % RING) * KT * LDX, LDX,
-              A.x + bi * A.sxb + t0 * A.sxl + (h0 + hh) * A.sxh, A.sxl,
-              kt * KT, KT, q, P);
+    bf16* dst = stage + (s % NRING) * slot;
+    load_rows(dst, LDX, A.x + bi * A.sxb + t0 * A.sxl + (h0 + hh) * A.sxh,
+              A.sxl, kt * KT, KT, q, A.p, P);
+    if (STREAM) {
+      if (query)
+        load_rows(dst + KT * LDX, ldbt, bsrc, A.sbl, kt * KT, KT, q, n, n16);
+      else
+        load_rows(dst + KT * LDX, ldbt, bsrc + s0, A.sbl, kt * KT, KT, q, sw,
+                  round_up(sw, 16));
+    }
     cp_commit();
   };
-  issue(0);
-  if (steps > 1) issue(1);
+  for (int s = 0; s < NRING - 1 && s < steps; ++s) issue(s);
   float acc[P / 8][4];
   for (int s = 0; s < steps; ++s) {
     const int hh = s / nkt, kt = s % nkt;
-    if (s + 2 < steps) {  // its slot was consumed at step s - 1
-      issue(s + 2);
-      cp_wait<2>();
-    } else if (s + 1 < steps) {
+    if (s + NRING - 1 < steps) {  // its slot was consumed at step s - 1
+      issue(s + NRING - 1);
+      cp_wait<NRING - 1>();
+    } else if (NRING > 2 && s + 1 < steps) {
       cp_wait<1>();
     } else {
       cp_wait<0>();
     }
     __syncthreads();
-    const bf16* Xs = stage + (s % RING) * KT * LDX;
-    const float* ac = acum + hh * QMAX;
+    const bf16* Xs = stage + (s % NRING) * slot;
+    const bf16* Bt = Xs + KT * LDX;  // streamed: this tile's B rows
+    const float* ac = acum + hh * qa;
     if (kt == 0) {
 #pragma unroll
       for (int j = 0; j < P / 8; ++j)
@@ -635,8 +721,25 @@ ssd_chunk_mma_kernel(const Args A) {
         if (query) {
           // S = select(i >= j, G exp(acum_i - acum_j), 0): G's n8 tiles
           // 2 kk and 2 kk + 1 are the A fragment of keys kb .. kb + 15
-          const float4 ga = Gs[(kt * 8 + 2 * kk) * THREADS + tid];
-          const float4 gb = Gs[(kt * 8 + 2 * kk + 1) * THREADS + tid];
+          float4 ga, gb;
+          if (STREAM) {  // G of these 16 keys, from C and the B tile
+            float g2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+            for (int ks = 0; ks < n16; ks += 16) {
+              uint32_t a[4], b[4];
+              ldsm_x4(a, Cres + (16 * warp + (lane % 8) +
+                                 8 * ((lane / 8) & 1)) * LDC +
+                             ks + 8 * (lane / 16));
+              ldsm_x4(b, Bt + (16 * kk + (lane % 8) + 8 * (lane / 16)) *
+                                  ldbt + ks + 8 * ((lane / 8) & 1));
+              mma16816(g2[0], a, b[0], b[1]);
+              mma16816(g2[1], a, b[2], b[3]);
+            }
+            ga = make_float4(g2[0][0], g2[0][1], g2[0][2], g2[0][3]);
+            gb = make_float4(g2[1][0], g2[1][1], g2[1][2], g2[1][3]);
+          } else {
+            ga = Gs[(kt * 8 + 2 * kk) * THREADS + tid];
+            gb = Gs[(kt * 8 + 2 * kk + 1) * THREADS + tid];
+          }
           const float e0 = ac[k0], e1 = ac[k0 + 1], e2 = ac[k2],
                       e3 = ac[k2 + 1];
           split3(ra >= k0 ? ga.x * fast_exp(aa - e0) : 0.f,
@@ -652,9 +755,13 @@ ssd_chunk_mma_kernel(const Args A) {
           // ldmatrix.trans (registers 0 / 1 hold keys k0, k0 + 1, 2 / 3
           // keys k2, k2 + 1), scaled per key
           uint32_t a[4];
-          ldsm_x4_t(a, Bst + (kb + (lane % 8) + 8 * (lane / 16)) *
-                                 (SR + PAD) + 16 * warp +
-                             8 * ((lane / 8) & 1));
+          if (STREAM)
+            ldsm_x4_t(a, Bt + (16 * kk + (lane % 8) + 8 * (lane / 16)) *
+                                  ldbt + 16 * warp + 8 * ((lane / 8) & 1));
+          else
+            ldsm_x4_t(a, Bst + (kb + (lane % 8) + 8 * (lane / 16)) *
+                                   (SR + PAD) + 16 * warp +
+                               8 * ((lane / 8) & 1));
           const float d0 = fast_exp(last - ac[k0]);
           const float d1 = fast_exp(last - ac[k0 + 1]);
           const float d2 = fast_exp(last - ac[k2]);
@@ -685,27 +792,38 @@ ssd_chunk_mma_kernel(const Args A) {
       }
       if (kt == nkt - 1) {  // this head's last key tile: write out
         const int hd = h0 + hh;
+        // X's real columns (A.p, a multiple of 8) and rows (q) only
         if (query) {
-          bf16* yb = A.y + (((long long)bi * A.c * q + t0 + ra) * h + hd) * P;
-          const long long down = 8LL * h * P;  // row rb = ra + 8
+          bf16* yb =
+              A.y + (((long long)bi * A.c * q + t0 + ra) * h + hd) * A.p;
+          const long long down = 8LL * h * A.p;  // row rb = ra + 8
 #pragma unroll
           for (int j = 0; j < P / 8; ++j) {
             const int col = 8 * j + 2 * tq;
-            *reinterpret_cast<__nv_bfloat162*>(yb + col) =
-                __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-            *reinterpret_cast<__nv_bfloat162*>(yb + down + col) =
-                __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+            if (col >= A.p) continue;
+            if (ra < q)
+              *reinterpret_cast<__nv_bfloat162*>(yb + col) =
+                  __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+            if (rb < q)
+              *reinterpret_cast<__nv_bfloat162*>(yb + down + col) =
+                  __floats2bfloat162_rn(acc[j][2], acc[j][3]);
           }
         } else {
-          float* sb = A.st + (((long long)bi * A.c + ci) * h + hd) * P * n;
+          float* sb =
+              A.st + (((long long)bi * A.c + ci) * h + hd) * A.p * n;
           const int sa = s0 + 16 * warp + gq;  // state rows sa, sa + 8
 #pragma unroll
           for (int j = 0; j < P / 8; ++j) {
             const int col = 8 * j + 2 * tq;
-            sb[(long long)col * n + sa] = acc[j][0];
-            sb[(long long)(col + 1) * n + sa] = acc[j][1];
-            sb[(long long)col * n + sa + 8] = acc[j][2];
-            sb[(long long)(col + 1) * n + sa + 8] = acc[j][3];
+            if (col >= A.p) continue;
+            if (sa < n) {
+              sb[(long long)col * n + sa] = acc[j][0];
+              sb[(long long)(col + 1) * n + sa] = acc[j][1];
+            }
+            if (sa + 8 < n) {
+              sb[(long long)col * n + sa + 8] = acc[j][2];
+              sb[(long long)(col + 1) * n + sa + 8] = acc[j][3];
+            }
           }
         }
       }
@@ -714,35 +832,36 @@ ssd_chunk_mma_kernel(const Args A) {
   }
 }
 
-template <int P>
+template <int P, bool STREAM>
 int launch(const Args& a, int b, cudaStream_t stream) {
-  const int smem = smem_bytes(a.q, a.n, P);
+  const int smem = smem_bytes(a.q, a.n, P, a.hb, STREAM);
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_chunk_mma_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      ssd_chunk_mma_kernel<P, STREAM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.nq + (a.n + SR - 1) / SR, a.h / a.hb, b * a.c);
-  ssd_chunk_mma_kernel<P><<<grid, THREADS, smem, stream>>>(a);
+  ssd_chunk_mma_kernel<P, STREAM><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_mode(const Args& a, int b, bool stream, cudaStream_t s) {
+  return stream ? launch<P, true>(a, b, s) : launch<P, false>(a, b, s);
 }
 
 }  // namespace mma
 
-namespace {
-
-bool width_ok(int w) { return w == 16 || w == 32 || w == 64 || w == 128; }
-
-}  // namespace
-
 // float32, the CUDA-core kernel: x (BH, c, q, p), adt (BH, c, q), bm / cm
 // (b g, c, q, n) with BH = b h, y like x, st (BH, c, n, p) float32, all
-// contiguous; q <= 256, p and n in {16, 32, 64, 128}, h % g == 0.
+// contiguous; 1 <= q <= MAX_CHUNK, p in {16, 32, 64, 128, 256} (the
+// wrapper zero-pads a narrower X), 1 <= n <= MAX_WIDTH, h % g == 0.
 extern "C" int ssd_chunk_launch(const void* x, const void* adt,
                                 const void* bm, const void* cm, void* y,
                                 void* st, int BH, int c, int q, int p, int n,
                                 int h, int g, void* stream) {
   if (BH <= 0 || c <= 0 || q <= 0) return 0;
-  if (q > QMAX || !width_ok(n) || h <= 0 || g <= 0 || h % g || BH % h)
+  if (q > MAX_CHUNK || n < 1 || n > MAX_WIDTH || h <= 0 || g <= 0 ||
+      h % g || BH % h)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SSD_ARGS x, adt, bm, cm, y, st, BH, c, q, n, h, g, s
@@ -751,6 +870,7 @@ extern "C" int ssd_chunk_launch(const void* x, const void* adt,
     case 32: return launch<32>(SSD_ARGS);
     case 64: return launch<64>(SSD_ARGS);
     case 128: return launch<128>(SSD_ARGS);
+    case 256: return launch<256>(SSD_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef SSD_ARGS
@@ -759,18 +879,22 @@ extern "C" int ssd_chunk_launch(const void* x, const void* adt,
 // bfloat16, the tensor-core kernel, in the model's layout: x (b, L, h, p),
 // adt (b, L, h), bm / cm (b, L, g, n) by their strides (in elements; the
 // last axis of x, bm, cm contiguous, rows and bases 16-byte aligned); y
-// (b, L, h, p) and st (b, c, h, p, n) float32 contiguous; L = c q, q a
-// multiple of 16 up to 256, p and n in {16, 32, 64, 128}, h % g == 0, hb
-// heads per block dividing h / g, at most 8.
+// (b, L, h, p) and st (b, c, h, p, n) float32 contiguous; L = c q, 1 <= q
+// <= MAX_CHUNK, p and n multiples of 8 up to MAX_WIDTH (p runs on the
+// narrowest instance of 16, 32, 64, 128, 256 at least as wide), h % g ==
+// 0, hb heads per block dividing h / g, at most 8; stream: G formed per
+// key step instead of parked (the wrapper's choice, where parked G does
+// not fit).
 extern "C" int ssd_chunk_mma_launch(
     const void* x, const void* adt, const void* bm, const void* cm, void* y,
     void* st, int b, int c, int q, int p, int n, int h, int g, int hb,
-    long long sxb, long long sxl, long long sxh, long long sab,
+    int stream_g, long long sxb, long long sxl, long long sxh, long long sab,
     long long sal, long long sah, long long sbb, long long sbl,
     long long sbg, long long scb, long long scl, long long scg,
     void* stream) {
   if (b <= 0 || c <= 0 || q <= 0 || h <= 0) return 0;
-  if (q > QMAX || q % 16 || !width_ok(n) || g <= 0 || h % g || hb <= 0 ||
+  if (q > MAX_CHUNK || p < 8 || p > MAX_WIDTH || p % 8 || n < 8 ||
+      n > MAX_WIDTH || n % 8 || g <= 0 || h % g || hb <= 0 ||
       hb > mma::HB_MAX || (h / g) % hb)
     return (int)cudaErrorInvalidValue;
   mma::Args a{static_cast<const __nv_bfloat16*>(x),
@@ -779,15 +903,15 @@ extern "C" int ssd_chunk_mma_launch(
               static_cast<const __nv_bfloat16*>(cm),
               static_cast<__nv_bfloat16*>(y), static_cast<float*>(st),
               sxb, sxl, sxh, sab, sal, sah, sbb, sbl, sbg, scb, scl, scg,
-              c, q, n, h, g, hb, (q + mma::QT - 1) / mma::QT};
+              c, q, n, h, g, hb, (q + mma::QT - 1) / mma::QT, p,
+              round_up(q, mma::KT)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 16: return mma::launch<16>(a, b, s);
-    case 32: return mma::launch<32>(a, b, s);
-    case 64: return mma::launch<64>(a, b, s);
-    case 128: return mma::launch<128>(a, b, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const bool sg = stream_g != 0;
+  if (p <= 16) return mma::launch_mode<16>(a, b, sg, s);
+  if (p <= 32) return mma::launch_mode<32>(a, b, sg, s);
+  if (p <= 64) return mma::launch_mode<64>(a, b, sg, s);
+  if (p <= 128) return mma::launch_mode<128>(a, b, sg, s);
+  return mma::launch_mode<256>(a, b, sg, s);
 }
 
 extern "C" const char* error_string(int e) {

@@ -26,16 +26,19 @@ KERNEL = CudaKernel("flash_attention", "flash_attention.cu", {
                                _I, _F, _I, _P),
 })
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
-# the kernel each dtype takes (csrc/flash_attention.cu); neither stands in
-# for the other
+# the kernel each dtype takes (csrc/flash_attention.cu; past MAX_DH its
+# ``_wide`` variant); neither stands in for the other
 ROUTES = {torch.float32: "cuda-core (flash_attention_kernel, FP32 FMA)",
           torch.bfloat16: "tensor-core (flash_attention_wgmma_kernel, "
                           "wgmma + TMA)"}
 ROUTE_LAUNCHES = {"cuda-core": 0, "tensor-core": 0}
-# the template instances of the source: a head width runs on the
-# narrowest instance at least as wide, its extra columns read as zeros
+# the template instances of the source: a head width up to MAX_DH runs on
+# the narrowest instance at least as wide, its extra columns read as zeros;
+# past MAX_DH, O's columns split into ceil(dh / MAX_DH) blocks along grid
+# z, each on the instance of its share (``column_blocks``)
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
 MAX_DH = HEAD_DIMS[-1]
+MAX_GRID = 65535  # grid axes y and z
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/flash_attention.cu: the tensor-core kernel's query rows, keys per
 # tile (64 past head width 128), ring stages and threads (namespace tc),
@@ -43,36 +46,61 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 TC_BQ, TC_BK, TC_STAGES, TC_THREADS = 128, 128, 2, 384
 TC_BK_WIDE = 64
 CC_BQ, CC_BK, CC_THREADS = 64, 64, 256
+# past MAX_DH (both kernels): columns of a Q / K slice; the tensor-core
+# kernel's slice and V ring stages
+WIDE_SLICE, TC_WIDE_STAGES, TC_WIDE_V_STAGES = 64, 4, 2
+
+
+def column_blocks(dh: int) -> tuple[int, int]:
+    """-> (blocks of O's columns, the instance each runs on): one block
+    up to ``MAX_DH``, past it ceil(dh / 256) blocks of the instance of
+    ceil(dh / blocks) columns (dh 320: 2 x 160; 1024: 4 x 256)."""
+    if dh < 1:
+        raise ValueError(f"head width {dh} not supported: the kernel takes "
+                         "1 and up")
+    n = -(-dh // MAX_DH)
+    return n, next(w for w in HEAD_DIMS if w >= -(-dh // n))
 
 
 def instance_width(dh: int) -> int:
-    """The template instance a head width runs on; raises past
-    ``MAX_DH``."""
-    if not 1 <= dh <= MAX_DH:
-        raise ValueError(f"head width {dh} not supported: the kernel takes "
-                         f"1 to {MAX_DH}")
-    return next(w for w in HEAD_DIMS if w >= dh)
+    """The template instance a head width runs on (past ``MAX_DH``: the
+    instance of each column block); raises below 1."""
+    return column_blocks(dh)[1]
 
 
 def launch_geometry(dtype: torch.dtype, B: int, Hq: int, Sq: int,
                     dh: int):
     """-> (route, grid, threads per block, dynamic shared-memory bytes) of
-    one launch; raises for a dtype the source has no kernel for or a head
-    width past ``MAX_DH``."""
+    one launch; raises for a dtype the source has no kernel for, a head
+    width below 1 or a grid past ``MAX_GRID`` (heads, or batch x column
+    blocks)."""
     if dtype not in DTYPE_IDS:
         raise TypeError(f"dtype {dtype} not supported; choose from "
                         f"{list(DTYPE_IDS)}")
-    DH = instance_width(dh)
+    ncb, DH = column_blocks(dh)
+    if Hq > MAX_GRID or B * ncb > MAX_GRID:
+        raise ValueError(f"{Hq} heads or {B} x {ncb} column blocks of head "
+                         f"width {dh} exceed the grid's {MAX_GRID}")
     if dtype == torch.bfloat16:
-        bk = TC_BK if DH <= 128 else TC_BK_WIDE
-        # Q, the K / V ring, the mbarriers, and slack for 1024-byte alignment
-        smem = (2 * TC_BQ * DH + 2 * TC_STAGES * 2 * bk * DH
-                + 8 * (1 + 2 * TC_STAGES) + 1024)
-        return "tensor-core", (-(-Sq // TC_BQ), Hq, B), TC_THREADS, smem
-    # Q, K, V and P as float, the padded strides of the source
-    smem = 4 * (CC_BQ * (DH + 1) + CC_BK * (DH + 1) + CC_BK * DH
-                + CC_BQ * (CC_BK + 1))
-    return "cuda-core", (-(-Sq // CC_BQ), Hq, B), CC_THREADS, smem
+        grid = (-(-Sq // TC_BQ), Hq, B * ncb)
+        bars = 8 * (1 + 2 * TC_STAGES)
+        if ncb > 1:  # Q / K slice ring, V ring of OW columns, barriers
+            tiles = (TC_WIDE_STAGES * 2 * (TC_BQ + TC_BK_WIDE) * WIDE_SLICE
+                     + TC_WIDE_V_STAGES * 2 * TC_BK_WIDE * DH)
+            bars = 8 * 2 * (TC_WIDE_STAGES + TC_WIDE_V_STAGES)
+        else:  # Q, the K / V ring
+            bk = TC_BK if DH <= 128 else TC_BK_WIDE
+            tiles = 2 * TC_BQ * DH + 2 * TC_STAGES * 2 * bk * DH
+        # and slack for 1024-byte alignment
+        return "tensor-core", grid, TC_THREADS, tiles + bars + 1024
+    grid = (-(-Sq // CC_BQ), Hq, B * ncb)
+    if ncb > 1:  # Q and K slices, V's OW columns and P as float
+        smem = 4 * (CC_BQ * (WIDE_SLICE + 1) + CC_BK * (WIDE_SLICE + 1)
+                    + CC_BK * DH + CC_BQ * (CC_BK + 1))
+    else:  # Q, K, V and P as float, the padded strides of the source
+        smem = 4 * (CC_BQ * (DH + 1) + CC_BK * (DH + 1) + CC_BK * DH
+                    + CC_BQ * (CC_BK + 1))
+    return "cuda-core", grid, CC_THREADS, smem
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,8 +108,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: int | None = None) -> torch.Tensor:
     """Launch the kernel: q (B, Hq, Sq, dh), k/v (B, Hkv, Sk, dh) on one
     card, one dtype (float32 or bfloat16), contiguous, Hq a multiple of
-    Hkv, 1 <= dh <= ``MAX_DH``, 0 <= kv_len <= Sk -> (B, Hq, Sq, dh) in
-    q's dtype, scores scaled by dh ** -0.5.  Raises on anything else.
+    Hkv, dh >= 1, 0 <= kv_len <= Sk -> (B, Hq, Sq, dh) in q's dtype,
+    scores scaled by dh ** -0.5; past ``MAX_DH`` the launch splits O's
+    columns over the grid (``column_blocks``).  Raises on anything else,
+    and on a grid past ``MAX_GRID``.
 
     The tensor-core kernel reads rows through TMA, whose row stride must
     be a multiple of 16 bytes: a bfloat16 head width that is not a
@@ -101,7 +131,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != (B, Hkv, Sk, dh):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(B, Hkv, Sk, dh)}")
-    launch_geometry(q.dtype, B, Hq, Sq, dh)  # refuses dtype, head width
+    launch_geometry(q.dtype, B, Hq, Sq, dh)  # refuses dtype, width, grid
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -9,12 +9,16 @@ end-states come from the same launch), and counts its launches in
 bfloat16 runs on the tensor cores and reads the model's tensors in place,
 B and C once per group; float32 runs on the CUDA cores over tiles the
 wrapper copies.  ``ROUTE_LAUNCHES`` counts the launches of each route.
+Every head width p and state width n from 1 to 256 and every chunk from 1
+to 4,096 run (``P_INSTANCES``, ``MAX_CHUNK``), as the TPU kernel takes
+each tile whole.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaKernel, check
 
@@ -24,9 +28,9 @@ KERNEL = CudaKernel("ssd_chunk", "ssd_chunk.cu", {
     # X, Adt, B, C, Y, states, BH, c, q, p, n, h, g, stream
     "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P),
-    # X, Adt, B, C, Y, states, b, c, q, p, n, h, g, hb, the strides of X,
-    # Adt, B and C (batch, step, head or group), stream
-    "ssd_chunk_mma_launch": (_P, _P, _P, _P, _P, _P) + (_I,) * 8
+    # X, Adt, B, C, Y, states, b, c, q, p, n, h, g, hb, stream G, the
+    # strides of X, Adt, B and C (batch, step, head or group), stream
+    "ssd_chunk_mma_launch": (_P, _P, _P, _P, _P, _P) + (_I,) * 9
                             + (_L,) * 12 + (_P,),
 })
 # the kernel each dtype takes (csrc/ssd_chunk.cu); neither stands in for
@@ -35,15 +39,35 @@ ROUTES = {torch.float32: "cuda-core (ssd_chunk_kernel, FP32 FMA)",
           torch.bfloat16: "tensor-core (ssd_chunk_mma_kernel, mma.sync "
                           "m16n8k16)"}
 ROUTE_LAUNCHES = {"cuda-core": 0, "tensor-core": 0}
-WIDTHS = (16, 32, 64, 128)  # head widths p and state widths n it takes
-MAX_CHUNK = 256  # q: a multiple of 16 up to this
+# X's width p runs on the narrowest instance at least as wide, its extra
+# columns zeros; B and C's width n is a runtime value (the tensor-core
+# kernel rounds it up to 16 with zero columns)
+P_INSTANCES = (16, 32, 64, 128, 256)
+MAX_WIDTH = 256  # p and n: 1 to this
+# the chunk q: any from 1 to this that divides L.  The CUDA-core kernel
+# keeps acum (q floats) beside its tiles in shared memory: at p = n = 256
+# that is 4 (q + 53,440) bytes, within the block's 232,448 up to q =
+# 4,672; the tensor-core kernel streams G past what it can park
+MAX_CHUNK = 4096
 MAX_GRID = 65535  # grid axes y and z
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/ssd_chunk.cu, namespace mma: threads, query rows and keys per tile,
 # state rows per block, heads per block at most, bf16 padding per row,
-# stages of the X ring
+# stages of the X ring (G parked) and of the X + B ring (G streamed)
 MMA_THREADS, MMA_QT, MMA_KT, MMA_SR, MMA_HB, MMA_PAD = 128, 64, 64, 64, 8, 8
-MMA_RING = 3
+MMA_RING, MMA_STREAM_RING = 3, 2
+# the CUDA-core kernel's query rows, keys and state rows per tile
+CC_QT, CC_KT, CC_NS = 64, 64, 64
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def p_instance(p: int) -> int:
+    """The template instance X's width p runs on (its extra columns
+    zeros)."""
+    return next(w for w in P_INSTANCES if w >= p)
 
 
 def heads_per_block(h: int, g: int) -> int:
@@ -52,15 +76,44 @@ def heads_per_block(h: int, g: int) -> int:
     return next(hb for hb in (8, 4, 2, 1) if (h // g) % hb == 0)
 
 
-def mma_smem_bytes(q: int, n: int, p: int) -> int:
+def cc_smem_bytes(q: int, n: int, p: int) -> int:
+    """Dynamic shared memory of the CUDA-core kernel (``smem_floats``):
+    acum, a B tile, an X tile, the C rows and the score tile, as float."""
+    return 4 * (q + CC_KT * (max(n, CC_NS) + 1) + CC_KT * p_instance(p)
+                + CC_QT * (n + 1) + CC_QT * (CC_KT + 1))
+
+
+def mma_smem_bytes(q: int, n: int, p: int, hb: int = MMA_HB,
+                   stream: bool = False) -> int:
     """Dynamic shared memory of the tensor-core kernel (``smem_bytes`` of
-    namespace mma): acum of 8 heads, G's parked fragments (16 KB per 64
-    keys), and the staging area (C rows and a B tile, or the X ring,
-    whichever is larger)."""
+    namespace mma): acum of hb heads (q rounded up to 64 floats each),
+    then, G parked, its fragments (16 KB per 64 keys) and the staging
+    area (C rows and a B tile, or the X ring, whichever is larger); G
+    streamed, the C rows and a two-stage ring of an X and a B tile."""
+    P, n16 = p_instance(p), _up(n, 16)
+    acum = hb * _up(q, MMA_KT) * 4
+    if stream:
+        slot = MMA_KT * (P + MMA_PAD) + MMA_KT * (max(n16, MMA_SR) + MMA_PAD)
+        return acum + MMA_QT * (n16 + MMA_PAD) * 2 + MMA_STREAM_RING * slot * 2
     g_bytes = -(-q // MMA_KT) * 8 * MMA_THREADS * 16
-    stage = max((MMA_QT + MMA_KT) * (n + MMA_PAD) * 2,
-                MMA_RING * MMA_KT * (p + MMA_PAD) * 2)
-    return MMA_HB * MAX_CHUNK * 4 + g_bytes + stage
+    stage = max((MMA_QT + MMA_KT) * (n16 + MMA_PAD) * 2,
+                MMA_RING * MMA_KT * (P + MMA_PAD) * 2)
+    return acum + g_bytes + stage
+
+
+def mma_layout(h: int, g: int, q: int, p: int, n: int) -> tuple[int, bool]:
+    """-> (heads per block, G streamed) of the tensor-core kernel: G
+    parked with the most heads a block can walk (at most
+    ``heads_per_block``), else streamed; raises when neither fits."""
+    hbs = [hb for hb in (8, 4, 2, 1)
+           if hb <= heads_per_block(h, g) and (h // g) % hb == 0]
+    for stream in (False, True):
+        for hb in hbs:
+            if mma_smem_bytes(q, n, p, hb, stream) <= SMEM_LIMIT:
+                return hb, stream
+    raise ValueError(f"chunk {q} at p = {p}, n = {n}: "
+                     f"{mma_smem_bytes(q, n, p, 1, True)} bytes of shared "
+                     f"memory, over the {SMEM_LIMIT} a block may have")
 
 
 def mma_geometry(b: int, L: int, h: int, g: int, q: int, p: int, n: int):
@@ -68,9 +121,9 @@ def mma_geometry(b: int, L: int, h: int, g: int, q: int, p: int, n: int):
     block) of one tensor-core launch: query tiles of 64 rows and state
     blocks of 64 state rows along x, head blocks along y, (batch, chunk)
     along z."""
-    hb = heads_per_block(h, g)
+    hb, stream = mma_layout(h, g, q, p, n)
     grid = (-(-q // MMA_QT) + -(-n // MMA_SR), h // hb, b * (L // q))
-    return grid, MMA_THREADS, mma_smem_bytes(q, n, p), hb
+    return grid, MMA_THREADS, mma_smem_bytes(q, n, p, hb, stream), hb
 
 
 def reads_in_place(t: torch.Tensor) -> bool:
@@ -87,14 +140,19 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor, *, chunk: int):
     """Launch the kernel on the model's layout: X (b, L, h, p), Adt
     (b, L, h), B/C (b, L, g, n) with h % g == 0 (head hd reads group
-    hd // (h // g)), on one card, one dtype (float32 or bfloat16), L a
-    multiple of ``chunk``, chunk a multiple of 16 up to 256, p and n in
-    ``WIDTHS`` -> (Y (b, L, h, p) in X's dtype, states (b, c, h, p, n)
-    float32), c = L // chunk.  Raises on anything else.
+    hd // (h // g)), on one card, one dtype (float32 or bfloat16), p and n
+    from 1 to ``MAX_WIDTH``, a chunk from 1 to ``MAX_CHUNK`` that divides
+    L -> (Y (b, L, h, p) in X's dtype, states (b, c, h, p, n) float32),
+    c = L // chunk.  Raises on anything else.
 
     bfloat16 reads the tensors by their strides (a view whose rows do not
-    start on 16 bytes is copied first); float32 copies them to the CUDA-
-    core kernel's tiles (b h, c, q, x), B and C per group."""
+    start on 16 bytes is copied first; a width that is not a multiple of
+    8 is zero-padded to one, and Y and the states come back as views of
+    the padded results); float32 copies them to the CUDA-core kernel's
+    tiles (b h, c, q, x), B and C per group, X zero-padded to its
+    instance.  Widths below an instance, and chunks that are no multiple
+    of the tiles, read zeros past their edge: exact, since padded keys
+    carry zero B and X and padded rows are never written."""
     if not X.is_cuda:
         raise ValueError("ssd_chunk_cuda launches on CUDA tensors only")
     if X.dim() != 4 or Adt.dim() != 3 or B.dim() != 4 or C.dim() != 4:
@@ -113,13 +171,12 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     if X.dtype not in ROUTES:
         raise TypeError(f"dtype {X.dtype} not supported; choose from "
                         f"{list(ROUTES)}")
-    if p not in WIDTHS or n not in WIDTHS:
-        raise ValueError(f"head width {p} / state width {n} not supported; "
-                         f"choose from {WIDTHS}")
+    if not (1 <= p <= MAX_WIDTH and 1 <= n <= MAX_WIDTH):
+        raise ValueError(f"head width {p} / state width {n} not supported: "
+                         f"1 to {MAX_WIDTH}")
     q = int(chunk)
-    if q % 16 or not 16 <= q <= MAX_CHUNK:
-        raise ValueError(f"chunk {q} not supported: a multiple of 16 up to "
-                         f"{MAX_CHUNK}")
+    if not 1 <= q <= MAX_CHUNK:
+        raise ValueError(f"chunk {q} not supported: 1 to {MAX_CHUNK}")
     if L % q:
         raise ValueError(f"sequence length {L} is not a multiple of the "
                          f"chunk {q}")
@@ -134,43 +191,50 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
         return (torch.empty_like(X, memory_format=torch.contiguous_format),
                 torch.empty((b, c, h, p, n), dtype=torch.float32,
                             device=dev))
-    lib = KERNEL.get()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if X.dtype == torch.bfloat16:
+        pw, nw = _up(p, 8), _up(n, 8)  # 16-byte rows for cp.async
+        hb, stream_g = mma_layout(h, g, q, pw, nw)
+        if pw != p:
+            X = F.pad(X, (0, pw - p))
+        if nw != n:
+            B, C = F.pad(B, (0, nw - n)), F.pad(C, (0, nw - n))
         X, B, C = (t if reads_in_place(t) else
                    t.clone(memory_format=torch.contiguous_format)
                    for t in (X, B, C))
-        Y = torch.empty((b, L, h, p), dtype=X.dtype, device=dev)
-        st = torch.empty((b, c, h, p, n), dtype=torch.float32, device=dev)
-        _, _, smem, hb = mma_geometry(b, L, h, g, q, p, n)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"chunk {q}: {smem} bytes of shared memory, "
-                             f"over the {SMEM_LIMIT} a block may have")
+        Y = torch.empty((b, L, h, pw), dtype=X.dtype, device=dev)
+        st = torch.empty((b, c, h, pw, nw), dtype=torch.float32, device=dev)
+        lib = KERNEL.get()
         with torch.cuda.device(dev):
             err = lib.ssd_chunk_mma_launch(
                 X.data_ptr(), Adt.data_ptr(), B.data_ptr(), C.data_ptr(),
-                Y.data_ptr(), st.data_ptr(), b, c, q, p, n, h, g, hb,
-                *X.stride()[:3], *Adt.stride(), *B.stride()[:3],
-                *C.stride()[:3], stream)
+                Y.data_ptr(), st.data_ptr(), b, c, q, pw, nw, h, g, hb,
+                int(stream_g), *X.stride()[:3], *Adt.stride(),
+                *B.stride()[:3], *C.stride()[:3], stream)
         check(KERNEL, err, "ssd_chunk")
         KERNEL.launches += 1
         ROUTE_LAUNCHES["tensor-core"] += 1
-        return Y, st
+        return Y[..., :p], st[..., :p, :n]
 
-    def tiles(t):  # (b, L, k, x) -> (b, k, c, q, x), contiguous
-        return t.reshape(b, c, q, t.shape[2], -1).permute(
-            0, 3, 1, 2, 4).contiguous()
+    P = p_instance(p)  # within MAX_CHUNK, cc_smem_bytes fits SMEM_LIMIT
 
-    Xc, Bc, Cc = tiles(X), tiles(B), tiles(C)
+    def tiles(t, width=None):  # (b, L, k, x) -> (b, k, c, q, x), contiguous
+        t = t.reshape(b, c, q, t.shape[2], -1).permute(0, 3, 1, 2, 4)
+        if width is not None and width != t.shape[-1]:
+            return F.pad(t, (0, width - t.shape[-1]))
+        return t.contiguous()
+
+    Xc, Bc, Cc = tiles(X, P), tiles(B), tiles(C)
     Ac = Adt.reshape(b, c, q, h).permute(0, 3, 1, 2).contiguous()
     Yc = torch.empty_like(Xc)
-    st = torch.empty((b, h, c, n, p), dtype=torch.float32, device=dev)
+    st = torch.empty((b, h, c, n, P), dtype=torch.float32, device=dev)
+    lib = KERNEL.get()
     with torch.cuda.device(dev):
         err = lib.ssd_chunk_launch(
             Xc.data_ptr(), Ac.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-            Yc.data_ptr(), st.data_ptr(), b * h, c, q, p, n, h, g, stream)
+            Yc.data_ptr(), st.data_ptr(), b * h, c, q, P, n, h, g, stream)
     check(KERNEL, err, "ssd_chunk")
     KERNEL.launches += 1
     ROUTE_LAUNCHES["cuda-core"] += 1
-    return (Yc.permute(0, 2, 3, 1, 4).reshape(b, L, h, p),
-            st.permute(0, 2, 1, 4, 3))
+    return (Yc[..., :p].permute(0, 2, 3, 1, 4).reshape(b, L, h, p),
+            st[..., :p].permute(0, 2, 1, 4, 3))

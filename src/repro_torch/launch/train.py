@@ -9,6 +9,9 @@ Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --steps 6 --batch 8 --seq 512 --ckpt-every 3
 
+``--layers N`` keeps the first N layers at the config's widths (a depth
+cut, as ``chip_smoke.py``'s mesh phases train qwen2-1.5b at 4 of 28).
+
 ``--device`` defaults to ``cuda`` (and fails without a card); parameters
 come from the port's seeded init (``--seed``), batches from
 ``deterministic_batch_fn(0, ...)``.
@@ -38,6 +41,7 @@ kept on purpose: at d_model = 64, the reduced configs, the two agree).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
@@ -91,9 +95,14 @@ def main(argv=None, *, mesh=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--production-mesh", action="store_true",
                     help="the (16, 16) mesh (needs 256 ranks)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="keep the first N layers at the config's widths "
+                         "(0: every layer)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = Model(cfg, device=args.device)
     dev = model.device
     mesh = _mesh_for(args, mesh, dev)

@@ -397,9 +397,19 @@ def test_flash_attention_kernel_kv_len_and_refusals(cuda):
         got = flash_attention_cuda(q, k, v, causal=causal, kv_len=77)
         want = attention_ref(q, k, v, causal=causal, kv_len=77)
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    with pytest.raises(ValueError, match="head width 257 .* 1 to 256"):
-        wide = torch.zeros(2, 4, 70, 257, device=cuda)
-        flash_attention_cuda(wide, wide[:, :2], wide[:, :2])
+    # past 256 the head width runs (O's columns split over the grid);
+    # what is left to refuse: a width below 1 and a grid past 65,535
+    wide = torch.randn(2, 4, 70, 257, generator=g, device=cuda)
+    kv = wide[:, :2].contiguous()
+    got = flash_attention_cuda(wide, kv, kv, kv_len=70)
+    torch.testing.assert_close(got, attention_ref(wide, kv, kv), rtol=2e-4,
+                               atol=2e-4)
+    with pytest.raises(ValueError, match="head width 0 "):
+        empty = torch.zeros(2, 4, 70, 0, device=cuda)
+        flash_attention_cuda(empty, empty[:, :2], empty[:, :2])
+    with pytest.raises(ValueError, match="grid's 65535"):
+        tall = torch.zeros(32768, 1, 1, 264, device=cuda)
+        flash_attention_cuda(tall, tall, tall)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="kv_len"):
@@ -581,13 +591,27 @@ def test_ssd_chunk_kernel_refusals(cuda):
         ssd_chunk_cuda(X.half(), Adt.half(), B.half(), C.half(), chunk=32)
     with pytest.raises(ValueError, match="Adt"):
         ssd_chunk_cuda(X, Adt.bfloat16(), B, C, chunk=32)
-    with pytest.raises(ValueError, match="width"):
-        ssd_chunk_cuda(torch.cat([X, X[..., :8]], -1), Adt, B, C, chunk=32)
-    with pytest.raises(ValueError, match="chunk"):
+    # widths 1 to 256 run (X 24 wide and a chunk of 272 included); past
+    # 256, a chunk that does not divide L and one past 4,096 raise
+    with pytest.raises(ValueError, match="width 257 .* 1 to 256"):
+        ssd_chunk_cuda(torch.cat([X] * 17, -1)[..., :257], Adt, B, C,
+                       chunk=32)
+    with pytest.raises(ValueError, match="width 257 .* 1 to 256"):
+        ssd_chunk_cuda(X, Adt, *(torch.cat([t] * 17, -1)[..., :257]
+                                 for t in (B, C)), chunk=32)
+    with pytest.raises(ValueError, match="not a multiple of the chunk 24"):
         ssd_chunk_cuda(X, Adt, B, C, chunk=24)
-    with pytest.raises(ValueError, match="chunk"):
-        ssd_chunk_cuda(*_ssd_inputs(cuda, 1, 1, 1, 272, 16, 16, "float32"),
-                       chunk=272)
+    with pytest.raises(ValueError, match="chunk 8192 not supported: 1 to "
+                                         "4096"):
+        ssd_chunk_cuda(*_ssd_inputs(cuda, 1, 1, 1, 8192, 16, 16,
+                                    "float32"), chunk=8192)
+    with pytest.raises(ValueError, match="chunk 0 "):
+        ssd_chunk_cuda(X, Adt, B, C, chunk=0)
+    for t in (ssd_chunk_cuda(torch.cat([X, X[..., :8]], -1), Adt, B, C,
+                             chunk=32),
+              ssd_chunk_cuda(*_ssd_inputs(cuda, 1, 1, 1, 272, 16, 16,
+                                          "float32"), chunk=272)):
+        assert all(torch.isfinite(x).all() for x in t)
     with pytest.raises(ValueError, match="group"):
         ssd_chunk_cuda(*_ssd_inputs(cuda, 1, 3, 1, 32, 16, 16, "float32",
                                     g=2), chunk=32)
@@ -1515,3 +1539,91 @@ def test_one_rank_nccl_collectives_compressor_and_merge(cuda, tmp_path):
                           backend="nccl")[0]
     assert out == {"gather": True, "reduce": True, "compress": True,
                    "merge": True}
+
+
+WIDE_DH = [257, 264, 300, 320, 384, 500, 512, 1024]
+
+
+@pytest.mark.parametrize("dh", WIDE_DH)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_wide_head_width_matches_plain(cuda, dtype, dh):
+    """Head widths past 256: O's columns split into ceil(dh / 256) blocks
+    along the grid, each block summing S over the full dh from 64-column
+    slices of Q and K (bf16: the ``_wide`` tensor-core kernel, TMA and
+    wgmma; float32: the ``_wide`` CUDA-core kernel); the route counters
+    move by one launch.  bf16 causal GQA 8 / 2 at S = 300 through the
+    wrapper (500 is staged zero-padded to 504), float32 ragged (Sq 70, Sk
+    90, kv_len 77)."""
+    from repro_torch.kernels.flash_attention import (KERNEL, ROUTE_LAUNCHES,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_cuda)
+
+    dt = getattr(torch, dtype)
+    route = "tensor-core" if dt == torch.bfloat16 else "cuda-core"
+    before, routed = KERNEL.launches, ROUTE_LAUNCHES[route]
+    if dt == torch.bfloat16:
+        q, k, v = _attn_inputs(cuda, 2, 8, 2, 300, 300, dh, dt, dh)
+        got = flash_attention(q, k, v, causal=True, backend="cuda")
+        _assert_bf16_close(got, attention_ref(q, k, v, causal=True))
+    else:
+        q, k, v = _attn_inputs(cuda, 2, 4, 2, 70, 90, dh, dt, dh)
+        got = flash_attention_cuda(q, k, v, causal=False, kv_len=77)
+        want = attention_ref(q, k, v, causal=False, kv_len=77)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1 and got.shape == q.shape
+    assert ROUTE_LAUNCHES[route] == routed + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_wide_causal_and_short_column(cuda, dtype):
+    """dh 320 causal on both routes at S = 1024 (several query and key
+    tiles, a block of O on each side of column 160), and the kernel fed
+    one column short must fail the bf16 / float32 gate."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+
+    dt = getattr(torch, dtype)
+    q, k, v = _attn_inputs(cuda, 1, 4, 2, 1024, 1024, 320, dt, 11)
+    want = attention_ref(q, k, v, causal=True)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    short = flash_attention_cuda(*(torch.cat([t[..., :-1], torch.zeros_like(
+        t[..., -1:])], -1) for t in (q, k, v)), causal=True)
+    scaled = 1e-2 if dt == torch.bfloat16 else 1e-4
+    size = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= scaled * size
+    assert (short.float() - want.float()).abs().max().item() > scaled * size
+
+
+ANY_SSD = [  # (p, n, q, g of 4 heads)
+    (8, 8, 24, 1), (48, 48, 24, 4), (96, 96, 100, 1), (256, 256, 24, 1),
+    (8, 256, 100, 4), (256, 8, 100, 1), (48, 96, 512, 1), (96, 48, 512, 4),
+    (256, 256, 512, 1), (8, 8, 1024, 1), (5, 13, 7, 1), (200, 1, 1, 4),
+    (1, 120, 300, 1)]
+
+
+@pytest.mark.parametrize("p,n,q,g", ANY_SSD)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_any_width_and_chunk_matches_plain(cuda, dtype, p, n, q, g):
+    """Widths that are no instance (p on the next of 16 .. 256 with zero
+    columns, n rounded up to 16 with zero columns; widths that are no
+    multiple of 8 staged zero-padded), chunks that are no multiple of 16
+    (the last tile's rows past q read zeros) and past 256 (G streamed at
+    p = n = 256, q = 512 and at q = 1024), B / C per group: one launch on
+    the dtype's route, against the plain version."""
+    from repro_torch.kernels.ssd_chunk import (KERNEL, ROUTE_LAUNCHES,
+                                               ssd_chunk_cuda, ssd_chunks)
+
+    X, Adt, B, C = _ssd_inputs(cuda, 2, 4, 2, q, p, n, dtype, 1.0,
+                               p + n + q, g=g)
+    route = "tensor-core" if dtype == "bfloat16" else "cuda-core"
+    before, routed = KERNEL.launches, ROUTE_LAUNCHES[route]
+    Y, st = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
+    torch.cuda.synchronize()
+    assert KERNEL.launches == before + 1
+    assert ROUTE_LAUNCHES[route] == routed + 1
+    assert Y.shape == X.shape and st.shape == (2, 2, 4, p, n)
+    assert torch.isfinite(Y.float()).all() and torch.isfinite(st).all()
+    _assert_ssd_close((Y, st), ssd_chunks(X, Adt, B, C, chunk=q,
+                                          backend="torch"), dtype)

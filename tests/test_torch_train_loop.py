@@ -390,6 +390,28 @@ def test_train_launcher_end_to_end(tmp_path, capsys):
     assert CheckpointStore(tmp_path).committed_steps() == [2, 3]
 
 
+def test_train_launcher_cuts_layers(tmp_path):
+    """``--layers N`` trains the config's first N layers at its widths:
+    the trained tree of a one-layer cut of the reduced qwen2 has the
+    leaves, and the shapes, of a model built from the cut config."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+
+    params, _, rep, _ = train.main([
+        "--arch", "qwen2-1.5b", "--reduced", "--layers", "1", "--steps",
+        "1", "--batch", "2", "--seq", "16", "--ckpt-dir", str(tmp_path),
+        "--device", "cpu"])
+    cut = dataclasses.replace(get_config("qwen2-1.5b", reduced=True),
+                              n_layers=1)
+    want = Model(cut, device="cpu").init(torch.Generator().manual_seed(0))
+    assert rep.end_step == 1 and np.isfinite(rep.last_metrics["loss"])
+    assert ({k: tuple(v.shape) for k, v in leaves_with_keys(params).items()}
+            == {k: tuple(v.shape)
+                for k, v in leaves_with_keys(want).items()})
+    assert get_config("qwen2-1.5b", reduced=True).n_layers > 1
+
+
 def test_train_launcher_coreset_matches_jax_at_width_64():
     """At d_model = 64 (the reduced configs) the port's 64-wide histogram
     coreset selects what the JAX package's selector selects on the same
