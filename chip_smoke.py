@@ -338,6 +338,29 @@ Then this slice's phases:
                      ``ServeDriver.generate`` on the kernel route against
                      the plain route.
 
+Then this slice's phase:
+
+ grid_wide           both kernels past a grid axis of 65,535 (their tiles
+                     on ``build.flat_grid``'s launch grid) and SSD past
+                     width 256 (the ``_wide`` kernels), under the gates and
+                     faults of ``ssd`` / ``flash``, one launch each on the
+                     dtype's route: SSD at b = 2,048, 32 heads, L = chunk
+                     = 16, p 64, n 128 in both dtypes (b h = 65,536; bf16
+                     is fault 1's shape) and Jamba's layer at b = 256 (256
+                     heads in 8 groups, L = chunk = 64, bf16); flash at B
+                     = 65,536 (dh 64) and 16,384 (dh 1,024: four column
+                     blocks), one head, S = 16, both dtypes, causal and
+                     full; SSD at p = n = 320 and 512 (chunks 64 and 256)
+                     and p 512 / n 128, B / C in one group and in h / 4,
+                     both dtypes, timed at g = 1; then a mamba2-370m bf16
+                     prefill of 2,048 prompts of 256 tokens at full width,
+                     4 of 48 layers (one SSD launch a layer, tensor-core
+                     route), its ms and peak memory, logits and final SSM
+                     states against the plain SSD route in slices of 256
+                     prompts; and a reduced Mamba2 with SSM heads of 320
+                     (state 288, chunk 32) served on the ``_wide`` kernel
+                     against the plain route.
+
 The whole script is kept under 600 s on the H100 (PERF.md has each
 phase's seconds).
 """
@@ -5964,11 +5987,12 @@ def phase_ssd_any(torch, gen, seed):
     return {**top, "max_abs_err": max_err, "launches": serve["launches"]}
 
 
-def _serve_any_mamba(torch, gen, seed):
-    """Reduced mamba2-370m at ANY_MAMBA_SSM's widths and chunk (prompts
-    padded to whole chunks of 24): the SSD route handed B / C in one
-    group, one launch per layer per generate (bf16: all on the
-    tensor-core kernel) in a generate with every count set to 0 just
+def _serve_any_mamba(torch, gen, seed, *, d_model=ANY_MAMBA_D,
+                     ssm=ANY_MAMBA_SSM, what="ssd_any mamba2"):
+    """Reduced mamba2-370m at ``ssm``'s widths and chunk (ANY_MAMBA_SSM's
+    by default; prompts padded to whole chunks): the SSD route handed
+    B / C in one group, one launch per layer per generate (bf16: all on
+    the tensor-core kernel) in a generate with every count set to 0 just
     before; prefill logits of the kernel route against the plain SSD
     route in float32 and bf16, float32 tokens under the near-tie rule ->
     the record."""
@@ -5980,9 +6004,8 @@ def _serve_any_mamba(torch, gen, seed):
     from repro_torch.serve import ServeDriver
 
     base = get_config("mamba2-370m", reduced=True)
-    cfg = dataclasses.replace(base, d_model=ANY_MAMBA_D,
-                              ssm=dataclasses.replace(base.ssm,
-                                                      **ANY_MAMBA_SSM))
+    cfg = dataclasses.replace(base, d_model=d_model,
+                              ssm=dataclasses.replace(base.ssm, **ssm))
     B, P, N = ANY_MAMBA_B, ANY_MAMBA_PROMPT, ANY_MAMBA_NEW
     model = Model(cfg, device=DEV)
     params = model.init(torch.Generator(device=DEV).manual_seed(seed))
@@ -5993,10 +6016,10 @@ def _serve_any_mamba(torch, gen, seed):
     calls = []
     with _SsdRoute(_recording_ssd(calls)):
         out = driver.generate(params, prompts, N)  # warms
-    _check_tokens(torch, out, prompts, cfg.vocab, "ssd_any mamba2")
+    _check_tokens(torch, out, prompts, cfg.vocab, what)
     if len(calls) != cfg.n_layers or any(
             c["groups"] != cfg.ssm.n_groups for c in calls):
-        fail(f"ssd_any mamba2: the SSD route was handed {calls}; expected "
+        fail(f"{what}: the SSD route was handed {calls}; expected "
              f"{cfg.n_layers} calls with B / C in {cfg.ssm.n_groups} group")
     routed = dict(ROUTE_LAUNCHES)
     tokens, secs, ln = _counted(torch, _all_kernels(), lambda: (
@@ -6004,23 +6027,182 @@ def _serve_any_mamba(torch, gen, seed):
     routes = {r: ROUTE_LAUNCHES[r] - routed[r] for r in ROUTE_LAUNCHES}
     if ln["ssd_chunk"] != cfg.n_layers or (
             routes["tensor-core"] != cfg.n_layers):
-        fail(f"ssd_any mamba2: launches {ln}, routes {routes}; expected "
+        fail(f"{what}: launches {ln}, routes {routes}; expected "
              f"{cfg.n_layers} ssd_chunk on the tensor-core kernel")
     logits = _routes_vs(torch, model, model, params, prompts, max_seq,
-                        "ssd_any mamba2 kernel route against the plain "
-                        "SSD route", ref_route=_SsdRoute(_plain_ssd))
+                        f"{what} kernel route against the plain SSD route",
+                        ref_route=_SsdRoute(_plain_ssd))
     f32 = _with_dtype(model, params, "float32")
     tok = _tokens_vs(torch, f32, f32, params, prompts, N, max_seq,
-                     "ssd_any mamba2 float32",
-                     ref_route=_SsdRoute(_plain_ssd))
+                     f"{what} float32", ref_route=_SsdRoute(_plain_ssd))
     del model, params, driver, f32
     _free(torch)
-    return {"arch": cfg.name, "d_model": cfg.d_model, **ANY_MAMBA_SSM,
+    return {"arch": cfg.name, "d_model": cfg.d_model, **ssm,
             "heads": cfg.ssm.n_heads(cfg.d_model), "layers": cfg.n_layers,
             "batch": B, "prompt": P, "new_tokens": N, "launches":
             ln["ssd_chunk"], "routes": routes, "generate_s": secs,
             "in_place": [c["in_place"] for c in calls], **logits,
             "float32_tokens": tok}
+
+
+# ---------------- this slice: grids past 65,535 and SSD widths past 256
+# phase grid_wide.  SSD (name, b, L, h, g, p, n, q, dtype, decay): b h =
+# 65,536 (mamba2-370m's 32 heads at batch 2,048, fault 1 in bf16; the
+# float32 launch's (batch, head) axis), Jamba's layer at batch 256 (256
+# heads in 8 groups); timed: the two mamba2 cases
+GRID_SSD_CASES = [
+    ("mamba2_b2048_bf16", 2048, 16, 32, 1, 64, 128, 16, "bfloat16", 1.0),
+    ("mamba2_b2048_f32", 2048, 16, 32, 1, 64, 128, 16, "float32", 1.0),
+    ("jamba_b256_g8_bf16", 256, 64, 256, 8, 64, 128, 64, "bfloat16", 1.0),
+]
+GRID_SSD_TIMED = ("mamba2_b2048_bf16", "mamba2_b2048_f32")
+# flash (FLASH_CASES' tuple): B x column blocks of 65,536, one head,
+# S = 16, both dtypes, causal and full; timed: the bf16 causal ones
+GRID_FLASH_CASES = [
+    (f"b{B}_dh{dh}_{'causal' if causal else 'full'}_{dt}", B, 1, 1, 16, dh,
+     causal, dt, 0.5)
+    for B, dh in ((65536, 64), (16384, 1024))
+    for dt in ("bfloat16", "float32") for causal in (True, False)]
+GRID_FLASH_TIMED = ("b65536_dh64_causal_bfloat16",
+                    "b16384_dh1024_causal_bfloat16")
+# SSD past width 256: p = n = 320 and 512 at chunks 64 and 256, and p 512
+# with n 128 at chunk 64; b = 2, 8 heads, two chunks, B / C in one group
+# and in h / 4, both dtypes; timed at g = 1
+WIDE_SSD_CASES = [
+    (f"p{p}_n{n}_q{q}_g{g}_{dt}", 2, 2 * q, 8, g, p, n, q, dt, 1.0)
+    for dt in ("bfloat16", "float32")
+    for p, n, q in ((320, 320, 64), (320, 320, 256), (512, 512, 64),
+                    (512, 512, 256), (512, 128, 64))
+    for g in (1, 2)]
+WIDE_SSD_ROW = "p512_n512_q256_g1_bfloat16"  # the kernels line's case
+# the main path past 256: reduced Mamba2 with SSM heads of 320, a state
+# of 288 and chunk 32 (d_model 320: two heads)
+WIDE_MAMBA_D, WIDE_MAMBA_SSM = 320, {"head_dim": 320, "d_state": 288,
+                                     "chunk": 32}
+# the main path past 65,535: a mamba2-370m bf16 prefill of 2,048 prompts
+# of 256 tokens at full width, 4 of its 48 layers, held against the
+# plain SSD route in slices of 256 prompts
+PREFILL_B, PREFILL_S, PREFILL_LAYERS, PREFILL_SLICE = 2048, 256, 4, 256
+
+
+def phase_grid_wide(torch, gen, seed):
+    """The SSD and flash kernels past a grid axis of 65,535 and the SSD
+    kernel past width 256 (the ``_wide`` kernels), each case under the
+    gates and faults of ``ssd`` / ``flash`` with one launch on its
+    dtype's route; a few timed beside the plain version and the bound.
+    Then two main paths: the mamba2-370m prefill of PREFILL_B prompts on
+    the kernel route (fault 1: b h = 65,536 in bf16) against the plain
+    route in slices, and a reduced Mamba2 at SSM head width 320 served
+    through ``ServeDriver.generate`` on the ``_wide`` kernel."""
+    ssd = [_ssd_case(torch, gen, case, timed=case[0] in GRID_SSD_TIMED)
+           for case in GRID_SSD_CASES]
+    _free(torch)
+    flash = [_flash_case(torch, gen, case, "short_column",
+                         timed=case[0] in GRID_FLASH_TIMED)
+             for case in GRID_FLASH_CASES]
+    _free(torch)
+    wide = [_ssd_case(torch, gen, case, timed=case[4] == 1)
+            for case in WIDE_SSD_CASES]
+    prefill = _prefill_batch(torch, gen, seed)
+    serve = _serve_any_mamba(torch, gen, seed, d_model=WIDE_MAMBA_D,
+                             ssm=WIDE_MAMBA_SSM, what="grid_wide mamba2")
+    cases = ssd + wide
+    max_err = max(max(c["y_max_abs_err"], c["state_max_abs_err"])
+                  for c in cases)
+    emit("grid_wide", ssd=ssd, flash=flash, ssd_wide=wide, prefill=prefill,
+         serve=serve, max_abs_err=max_err,
+         flash_max_abs_err=max(c["max_abs_err"] for c in flash),
+         library="torch.nn.functional.scaled_dot_product_attention "
+                 "(flash); none (SSD)")
+    return {"grid": {**ssd[0], "max_abs_err": max(
+                max(c["y_max_abs_err"], c["state_max_abs_err"])
+                for c in ssd), "launches": prefill["launches"]},
+            "wide": {**next(c for c in wide if c["case"] == WIDE_SSD_ROW),
+                     "max_abs_err": max(
+                         max(c["y_max_abs_err"], c["state_max_abs_err"])
+                         for c in wide), "launches": serve["launches"]}}
+
+
+def _prefill_batch(torch, gen, seed):
+    """mamba2-370m at full width cut to PREFILL_LAYERS of its layers, bf16:
+    a prefill of PREFILL_B prompts of PREFILL_S tokens with every count
+    set to 0 just before (one SSD launch a layer, on the tensor-core
+    kernel: b h = 65,536), timed by CUDA events with its peak memory;
+    its last logits and final SSM states against the same prompts on the
+    plain SSD route in slices of PREFILL_SLICE prompts (the plain
+    version's float32 G of the whole batch would not fit), logits within
+    MAMBA_TOL and the states within MAMBA_TOL of their largest -> the
+    record."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_chunk import ROUTE_LAUNCHES
+    from repro_torch.models import Model, init_cache
+    from repro_torch.serve import make_prefill_step
+
+    full = get_config("mamba2-370m")
+    cfg = dataclasses.replace(full, n_layers=PREFILL_LAYERS)
+    model = Model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(seed))
+    B, S = PREFILL_B, PREFILL_S
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEV,
+                            dtype=torch.int32)
+    step = make_prefill_step(model)
+
+    def prefill(rows):
+        caches = init_cache(cfg, rows.shape[0], S, device=DEV)
+        with torch.inference_mode():
+            logits = step(params, {"tokens": rows}, caches)[0]
+        return logits, caches["blocks"]["l0"]["ssm"]
+
+    prefill(prompts[:8])  # warms
+    routed = dict(ROUTE_LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def run():
+        start.record()
+        out = prefill(prompts)
+        end.record()
+        return out
+
+    (logits, states), secs, ln = _counted(torch, _all_kernels(), run)
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    routes = {r: ROUTE_LAUNCHES[r] - routed[r] for r in ROUTE_LAUNCHES}
+    if ln["ssd_chunk"] != cfg.n_layers or routes["tensor-core"] != (
+            cfg.n_layers) or any(v for k, v in ln.items()
+                                 if k != "ssd_chunk"):
+        fail(f"grid_wide prefill: launches {ln}, routes {routes}; expected "
+             f"{cfg.n_layers} ssd_chunk on the tensor-core kernel")
+    if not (torch.isfinite(logits).all() and torch.isfinite(states).all()):
+        fail("grid_wide prefill: non-finite logits or states")
+    l_err = s_err = s_size = 0.0
+    with _SsdRoute(_plain_ssd):
+        for r0 in range(0, B, PREFILL_SLICE):
+            rl, rs = prefill(prompts[r0:r0 + PREFILL_SLICE])
+            sl = slice(r0, r0 + PREFILL_SLICE)
+            l_err = max(l_err, (logits[sl].float() - rl.float()).abs()
+                        .max().item())
+            s_err = max(s_err, (states[:, sl].float() - rs.float()).abs()
+                        .max().item())
+            s_size = max(s_size, rs.float().abs().max().item())
+            del rl, rs
+    tol = MAMBA_TOL["bfloat16"]
+    if l_err > tol or s_err > tol * max(1.0, s_size):
+        fail(f"grid_wide prefill: logits off the plain route by {l_err}, "
+             f"states by {s_err} of {s_size} (tol {tol})")
+    del model, params, logits, states
+    _free(torch)
+    return {"arch": cfg.name, "dtype": cfg.dtype,
+            "cut": {"layers": PREFILL_LAYERS, "of": full.n_layers},
+            "batch": B, "prompt": S, "ssd_heads": cfg.ssm.n_heads(
+                cfg.d_model), "launches": ln["ssd_chunk"], "routes": routes,
+            "prefill_ms": ms, "host_s": secs, "peak_mem_gib": peak / 2 ** 30,
+            "plain_slices": -(-B // PREFILL_SLICE),
+            "logits_max_abs_err": l_err, "states_max_abs_err": s_err,
+            "states_max_abs": s_size, "tol": tol}
 
 
 def main(argv=None):
@@ -6125,6 +6307,8 @@ def main(argv=None):
     # width, state width and chunk
     wide = timed("flash_wide", phase_flash_wide, torch, gen, args.seed)
     anyssd = timed("ssd_any", phase_ssd_any, torch, gen, args.seed)
+    # this slice: grids past 65,535 (both kernels), SSD past width 256
+    gw = timed("grid_wide", phase_grid_wide, torch, gen, args.seed)
     emit("seconds", total=sum(seconds.values()), **seconds)
 
     kernels = [
@@ -6237,6 +6421,27 @@ def main(argv=None):
          "ms": anyssd["ms"], "plain_ms": anyssd["plain_ms"],
          "bound_ms": anyssd["bound_ms"], "bound_by": anyssd["bound_by"],
          "library_ms": None},
+        # the same kernel past a grid axis of 65,535 (b = 2,048, 32 heads,
+        # L = chunk = 16, bf16: fault 1's shape); its launches: the
+        # mamba2-370m prefill of 2,048 prompts (4 of 48 layers)
+        {"name": "ssd_chunk_grid", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
+         "launches": gw["grid"]["launches"],
+         "max_abs_err": gw["grid"]["max_abs_err"],
+         "ms": gw["grid"]["ms"], "plain_ms": gw["grid"]["plain_ms"],
+         "bound_ms": gw["grid"]["bound_ms"],
+         "bound_by": gw["grid"]["bound_by"], "library_ms": None},
+        # the _wide kernel (p = n = 512 at chunk 256, bf16); its launches:
+        # the reduced Mamba2 with SSM heads of 320 served
+        {"name": "ssd_chunk_wide", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
+         "launches": gw["wide"]["launches"],
+         "max_abs_err": gw["wide"]["max_abs_err"],
+         "ms": gw["wide"]["ms"], "plain_ms": gw["wide"]["plain_ms"],
+         "bound_ms": gw["wide"]["bound_ms"],
+         "bound_by": gw["wide"]["bound_by"], "library_ms": None},
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms") + (

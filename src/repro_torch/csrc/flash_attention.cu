@@ -35,8 +35,9 @@
 // that is 55 GFLOP against 74 MB: 0.056 ms at the bf16 tensor-core peak,
 // operations-bound.
 //
-// The tensor-core kernel (FA3's design in its simple form).  Grid
-// (ceil(Sq / 128), Hq, B), heaviest query tile first when causal; a block
+// The tensor-core kernel (FA3's design in its simple form).  Tiles
+// (ceil(Sq / 128), Hq, B) on grid.cuh's flat grid, heaviest query tile
+// first when causal; a block
 // of three warpgroups owns 128 query rows of one (batch, query head).
 // Warpgroup 0 is the producer: after giving up registers (setmaxnreg) one
 // thread loads the Q tile once and then K and V tiles of 128 keys by TMA
@@ -91,13 +92,16 @@
 #include <cmath>
 #include <cstdint>
 
+#include "grid.cuh"
+
 namespace {
 
 // ======================================================================
 // float32: the CUDA-core kernel
 // ======================================================================
-// Grid: (ceil(Sq / BQ), Hq, B), one block of 16 x 16 threads per
-// (batch, query head, BQ = 64 query rows).  The block keeps its Q tile in
+// Tiles (ceil(Sq / BQ), Hq, B) laid onto the launch grid by grid.cuh's
+// flat_grid, one block of 16 x 16 threads per (batch, query head, BQ = 64
+// query rows).  The block keeps its Q tile in
 // shared memory and walks the kv tiles of BK = 64 keys, staging K and V in
 // shared memory as float.  When causal, the kv tiles strictly above the
 // diagonal of the block are not visited.  Thread (ty, tx) owns query rows
@@ -156,7 +160,7 @@ __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Hq,
                        int Hkv, int Sq, int Sk, int dh, int kv_len,
-                       int causal, float scale) {
+                       int causal, float scale, int B) {
   constexpr int LDQ = DH + 1, LDK = DH + 1, LDV = DH, LDP = BK + 1;
   constexpr int CD = DH / TX;  // output columns per thread
   extern __shared__ float smem[];
@@ -167,15 +171,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TX + tx;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  int qt, h;
+  long long b;
+  if (!flat_tile((Sq + BQ - 1) / BQ, Hq, B, qt, h, b)) return;
+  const int q0 = qt * BQ;
   const int hk = h / (Hq / Hkv);
   // rows are dh wide in memory; columns dh .. DH - 1 of the instance
   // read as zeros and are never stored
-  const T* qb = q + (size_t)(b * Hq + h) * Sq * dh;
-  const T* kb = k + (size_t)(b * Hkv + hk) * Sk * dh;
-  const T* vb = v + (size_t)(b * Hkv + hk) * Sk * dh;
-  T* ob = o + (size_t)(b * Hq + h) * Sq * dh;
+  const T* qb = q + ((size_t)b * Hq + h) * Sq * dh;
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * dh;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * dh;
+  T* ob = o + ((size_t)b * Hq + h) * Sq * dh;
 
   for (int e = tid; e < BQ * DH; e += NT) {
     const int r = e / DH, c = e % DH;
@@ -296,11 +302,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       flash_attention_kernel<T, DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B), block(TX, TY);
-  flash_attention_kernel<T, DH><<<grid, block, smem, stream>>>(
+  dim3 grid;
+  if (!flat_grid((long long)((Sq + BQ - 1) / BQ) * Hq * B, &grid))
+    return (int)cudaErrorInvalidConfiguration;
+  flash_attention_kernel<T, DH><<<grid, dim3(TX, TY), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, dh,
-      kv_len, causal, scale);
+      kv_len, causal, scale, B);
   return (int)cudaGetLastError();
 }
 
@@ -327,7 +335,7 @@ int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 // Head widths past MAX_DH: Q, K, V and P as float need 262,912 bytes at
 // dh 320, over the 232,448 a block may have.  So, as the tensor-core
 // kernel does, a block owns one column block of O, OW <= 256 wide
-// (blockIdx.z = b * ncb + its block): it sums S over the full dh from Q
+// (tile z = b * ncb + its block): it sums S over the full dh from Q
 // and K slices of SC columns staged in turn, then stages V's OW columns
 // and accumulates O's.  Thread (ty, tx) owns rows ty + 16 i and O columns
 // col0 + tx + 16 c (c < OW / 16).  Q is staged again for every key tile.
@@ -343,7 +351,8 @@ __global__ void __launch_bounds__(NT)
 flash_attention_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
                             int Hq, int Hkv, int Sq, int Sk, int dh,
-                            int kv_len, int causal, float scale, int ncb) {
+                            int kv_len, int causal, float scale, int ncb,
+                            int B) {
   constexpr int LDQ = SC + 1, LDK = SC + 1, LDV = OW, LDP = BK + 1;
   constexpr int CD = OW / TX;  // output columns per thread
   extern __shared__ float smem[];
@@ -354,14 +363,20 @@ flash_attention_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TX + tx;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z / ncb;
-  const int col0 = (blockIdx.z % ncb) * OW;
+  int qt, h;
+  long long z;
+  if (!flat_tile((Sq + BQ - 1) / BQ, Hq, (long long)B * ncb, qt, h, z))
+    return;
+  const int q0 = qt * BQ;
+  long long b;
+  int cb;
+  divmod(z, ncb, b, cb);
+  const int col0 = cb * OW;
   const int hk = h / (Hq / Hkv);
-  const T* qb = q + (size_t)(b * Hq + h) * Sq * dh;
-  const T* kb = k + (size_t)(b * Hkv + hk) * Sk * dh;
-  const T* vb = v + (size_t)(b * Hkv + hk) * Sk * dh;
-  T* ob = o + (size_t)(b * Hq + h) * Sq * dh;
+  const T* qb = q + ((size_t)b * Hq + h) * Sq * dh;
+  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * dh;
+  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * dh;
+  T* ob = o + ((size_t)b * Hq + h) * Sq * dh;
 
   float m[RQ], l[RQ], acc[RQ][CD];
 #pragma unroll
@@ -483,11 +498,13 @@ int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
       flash_attention_kernel_wide<T, OW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B * ncb), block(TX, TY);
-  flash_attention_kernel_wide<T, OW><<<grid, block, smem, stream>>>(
+  dim3 grid;
+  if (!flat_grid((long long)((Sq + BQ - 1) / BQ) * Hq * B * ncb, &grid))
+    return (int)cudaErrorInvalidConfiguration;
+  flash_attention_kernel_wide<T, OW><<<grid, dim3(TX, TY), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, dh,
-      kv_len, causal, scale, ncb);
+      kv_len, causal, scale, ncb, B);
   return (int)cudaGetLastError();
 }
 
@@ -978,7 +995,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                              const __grid_constant__ CUtensorMap tmv,
                              __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
                              int Sq, int Sk, int dh, int kv_len, int causal,
-                             float scale_log2) {
+                             float scale_log2, int B) {
   using G = Geo<DH>;
   constexpr int BK = G::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -991,12 +1008,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   const uint32_t bar_full = bar_q + 8;                // STAGES barriers
   const uint32_t bar_empty = bar_full + 8 * STAGES;   // STAGES barriers
 
-  const int nq = gridDim.x;
-  const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int nq = (Sq + BQ - 1) / BQ;
+  int xt, h;
+  long long b;
+  if (!flat_tile(nq, Hq, B, xt, h, b)) return;
+  const int qt = causal ? nq - 1 - xt : xt;
   const int q0 = qt * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int bhq = b * Hq + h;
-  const int bhk = b * Hkv + h / (Hq / Hkv);
+  // TMA coordinates are 32-bit: the wrapper keeps B Hq below 2^31
+  const int bhq = (int)b * Hq + h;
+  const int bhk = (int)b * Hkv + h / (Hq / Hkv);
   int nk = (Sk + BK - 1) / BK;
   // causal: only the tiles whose first key is at or before the block's
   // last query
@@ -1101,7 +1121,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
 // At dh 320 Q and a K / V ring of 64-key tiles need 245,760 bytes, over
 // the 232,448 a block may have; O would need 160 floats a consumer thread,
 // and wgmma's N stops at 256.  So a block owns one column block of O, OW
-// <= 256 wide (blockIdx.z = b * ncb + its block): it computes S = Q K^T
+// <= 256 wide (tile z = b * ncb + its block): it computes S = Q K^T
 // over the full dh, streaming Q and K in 64-column slices (one 128-byte
 // swizzle row each) through a ring of WSTAGES stages and summing S slice by
 // slice, then O[:, col0 : col0 + OW] += P V[:, col0 : col0 + OW] with the
@@ -1136,7 +1156,7 @@ flash_attention_wgmma_kernel_wide(const __grid_constant__ CUtensorMap tmq,
                                   __nv_bfloat16* __restrict__ o, int Hq,
                                   int Hkv, int Sq, int Sk, int dh,
                                   int kv_len, int causal, float scale_log2,
-                                  int ncb) {
+                                  int ncb, int B) {
   using W = WideGeo<OW>;
   using V = typename W::V;
   extern __shared__ uint8_t smem_raw[];
@@ -1147,11 +1167,17 @@ flash_attention_wgmma_kernel_wide(const __grid_constant__ CUtensorMap tmq,
   const uint32_t bar_vf = bar_se + 8 * WSTAGES;    // V full
   const uint32_t bar_ve = bar_vf + 8 * WVSTAGES;   // V empty
 
-  const int nq = gridDim.x;
-  const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int nq = (Sq + BQ - 1) / BQ;
+  int xt, h;
+  long long z;
+  if (!flat_tile(nq, Hq, (long long)B * ncb, xt, h, z)) return;
+  const int qt = causal ? nq - 1 - xt : xt;
   const int q0 = qt * BQ;
-  const int h = blockIdx.y, b = blockIdx.z / ncb;
-  const int col0 = (blockIdx.z % ncb) * OW;  // this block's O columns
+  long long bz;
+  int cb;
+  divmod(z, ncb, bz, cb);
+  const int b = (int)bz;
+  const int col0 = cb * OW;  // this block's O columns
   const int bhq = b * Hq + h;
   const int bhk = b * Hkv + h / (Hq / Hkv);
   const int nsl = (dh + WSC - 1) / WSC;
@@ -1333,10 +1359,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       flash_attention_wgmma_kernel<DH>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  dim3 grid;
+  if (!flat_grid((long long)((Sq + BQ - 1) / BQ) * Hq * B, &grid))
+    return (int)cudaErrorInvalidConfiguration;
   flash_attention_wgmma_kernel<DH><<<grid, THREADS, G::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, dh,
-      kv_len, causal, scale * 1.4426950408889634f);
+      kv_len, causal, scale * 1.4426950408889634f, B);
   return (int)cudaGetLastError();
 }
 
@@ -1363,10 +1391,12 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
       flash_attention_wgmma_kernel_wide<OW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B * ncb);
+  dim3 grid;
+  if (!flat_grid((long long)((Sq + BQ - 1) / BQ) * Hq * B * ncb, &grid))
+    return (int)cudaErrorInvalidConfiguration;
   flash_attention_wgmma_kernel_wide<OW><<<grid, THREADS, W::SMEM, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Sq, Sk, dh,
-      kv_len, causal, scale * 1.4426950408889634f, ncb);
+      kv_len, causal, scale * 1.4426950408889634f, ncb, B);
   return (int)cudaGetLastError();
 }
 
@@ -1375,8 +1405,9 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 // dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
 // kernel; q, k, v, o 16-byte aligned, dh a multiple of 8).  q (B, Hq, Sq,
 // dh), k / v (B, Hkv, Sk, dh), o like q, all contiguous; Hq a multiple of
-// Hkv; dh >= 1 (past MAX_DH, column_blocks(dh) blocks of O along grid z:
-// B * column_blocks(dh) <= 65535).
+// Hkv; dh >= 1 (past MAX_DH, column_blocks(dh) blocks of O along tile
+// z); the tiles on grid.cuh's flat grid, so no axis stops at 65,535;
+// bfloat16: B Hq below 2^31 (TMA's 32-bit coordinates).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int dh,
@@ -1385,7 +1416,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
   const int ncb = column_blocks(dh);
-  if ((long long)B * ncb > 65535 || Hq > 65535)
+  if (dtype == 1 && (long long)B * Hq > 2147483647LL)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ncb > 1) {

@@ -21,10 +21,15 @@
 // |acum| ~ 200 one float32 ulp (1.5e-5) would otherwise carry into every
 // near-diagonal decay.
 //
-// Any head width p and state width n from 1 to 256 and any chunk q from 1
-// to MAX_CHUNK runs, as the TPU kernel takes each tile whole: X's width is
-// a template instance (16 .. 256) with zero columns past p, n a runtime
-// width, and rows past q (the last tile's) read zeros.
+// Any head width p, any state width n and any chunk q from 1 to MAX_CHUNK
+// runs, as the TPU kernel takes each tile whole: up to 256, X's width is a
+// template instance (16 .. 256) with zero columns past p, n a runtime
+// width, and rows past q (the last tile's) read zeros; past 256 (p or n)
+// the _wide kernels split Y's and the states' p columns into ceil(p / 256)
+// blocks, each on the instance of its share, and sum C B^T over 64-column
+// slices of n, as flash_attention.cu's _wide kernels split O.  Every
+// kernel numbers its tiles on grid.cuh's flat grid, so no batch, head or
+// chunk count stops at 65,535.
 //
 // Two kernels, chosen by the input's type (never one for the other), as
 // flash_attention.cu chooses:
@@ -48,6 +53,8 @@
 
 #include <cstdint>
 
+#include "grid.cuh"
+
 namespace {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -56,7 +63,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 
 constexpr int MAX_CHUNK = 4096;  // longest chunk (kernel.py: MAX_CHUNK)
-constexpr int MAX_WIDTH = 256;   // widest p and n
+constexpr int MAX_P = 256;       // widest instance; past it, the _wide kernels
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -102,22 +109,22 @@ __device__ void chunk_cumsum(const T* __restrict__ adt, long long stride,
 // ======================================================================
 // float32: the CUDA-core kernel
 // ======================================================================
-// Grid (1 + ceil(q / QT), c, b * h); blocks of 16 x 16 threads.  Every
-// block first scans its chunk's acum into shared memory.
-//   * blockIdx.x >= 1: query tile (QT = 64 rows, the heaviest first).  The
+// Tiles (1 + ceil(q / QT), c, b * h) on the flat grid; blocks of 16 x 16
+// threads.  Every block first scans its chunk's acum into shared memory.
+//   * tile x >= 1: query tile (QT = 64 rows, the heaviest first).  The
 //     block keeps its C rows in shared memory and walks the B / X tiles
 //     of KT = 64 keys at and below its diagonal, staging them as float.
 //     Thread (ty, tx) computes the scores of rows ty + 16 i against keys
 //     tx + 16 j (i, j < 4), writes S = (C B^T) * L to shared memory, and
 //     accumulates Y for rows ty + 16 i, columns tx + 16 c (c < p / 16) in
 //     registers.
-//   * blockIdx.x == 0: the chunk's end-state, in passes of 64 state rows;
+//   * tile x == 0: the chunk's end-state, in passes of 64 state rows;
 //     thread (ty, tx) owns rows ty + 16 a, columns tx + 16 c.
 // B and C come per group, (b g, c, q, n); head hd reads group hd / (h / g).
 // Rows and keys past q are loaded as zeros and never written, so any q
 // works, up to what shared memory holds, and any n up to 256 (state rows
 // in passes of 64); X's width is an instance P, the wrapper zero-padding
-// a narrower p.  It sits near the 67 TFLOP/s FP32 peak at best (eight
+// a narrower p.  Past 256, ssd_chunk_kernel_wide below.  It sits near the 67 TFLOP/s FP32 peak at best (eight
 // shared-memory loads per sixteen FMAs).
 constexpr int QT = 64;           // query rows per block
 constexpr int KT = 64;           // keys per B / X tile
@@ -139,14 +146,86 @@ __host__ __device__ inline int smem_floats(int q, int n, int P) {
   return q + KT * ldb(n) + KT * P + QT * (n + 1) + QT * LDS;
 }
 
-// rows [r0, r0 + KT) of a (q, w) tile into dst (row stride ld), as float,
-// zeros past q
-__device__ __forceinline__ void stage(const float* __restrict__ src, int r0,
-                                      int q, int w, float* dst, int ld,
-                                      int tid) {
+// rows [r0, r0 + KT) x columns [0, w) of a (q, lds) tile into dst (row
+// stride ld), as float, zeros past q
+__device__ __forceinline__ void stage(const float* __restrict__ src, int lds,
+                                      int r0, int q, int w, float* dst,
+                                      int ld, int tid) {
   for (int e = tid; e < KT * w; e += NT) {
     const int r = e / w, c = e % w;
-    dst[r * ld + c] = r0 + r < q ? src[(size_t)(r0 + r) * w + c] : 0.f;
+    dst[r * ld + c] = r0 + r < q ? src[(size_t)(r0 + r) * lds + c] : 0.f;
+  }
+}
+
+// s (rows ty + 16 i, keys tx + 16 j) += C B^T over w columns of the C
+// rows and the B tile in shared memory (row strides ldc, ldb)
+__device__ __forceinline__ void add_cb(float (&s)[RQ][RK], const float* Cs,
+                                       int ldc, const float* Bs, int ldb,
+                                       int w, int tx, int ty) {
+#pragma unroll 8
+  for (int c = 0; c < w; ++c) {
+    float cv[RQ], bv[RK];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) cv[i] = Cs[(ty + TY * i) * ldc + c];
+#pragma unroll
+    for (int j = 0; j < RK; ++j) bv[j] = Bs[(tx + TX * j) * ldb + c];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+#pragma unroll
+      for (int j = 0; j < RK; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
+  }
+}
+
+// the score tile: S = s exp(acum_row - acum_key) at and below the
+// diagonal, 0 above it and past q (rows q0 + ty + 16 i, keys k0 + tx + 16 j)
+__device__ __forceinline__ void store_scores(const float (&s)[RQ][RK],
+                                             const float* acum, float* Ss,
+                                             int q, int q0, int k0, int tx,
+                                             int ty) {
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + ty + TY * i;
+#pragma unroll
+    for (int j = 0; j < RK; ++j) {
+      const int key = k0 + tx + TX * j;
+      float v = 0.f;
+      if (row < q && key <= row) v = s[i][j] * expf(acum[row] - acum[key]);
+      Ss[(ty + TY * i) * LDS + tx + TX * j] = v;
+    }
+  }
+}
+
+// acc (rows ty + 16 i, columns tx + 16 c) += S X over the tile's KT keys
+template <int P>
+__device__ __forceinline__ void add_sx(float (&acc)[RQ][P / TX],
+                                       const float* Ss, const float* Xs,
+                                       int tx, int ty) {
+#pragma unroll 4
+  for (int kk = 0; kk < KT; ++kk) {
+    float sv[RQ];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) sv[i] = Ss[(ty + TY * i) * LDS + kk];
+#pragma unroll
+    for (int c = 0; c < P / TX; ++c) {
+      const float xv = Xs[kk * P + tx + TX * c];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(sv[i], xv, acc[i][c]);
+    }
+  }
+}
+
+// Y's rows q0 + ty + 16 i below q (row stride ld), columns tx + 16 c
+template <int P>
+__device__ __forceinline__ void store_y(const float (&acc)[RQ][P / TX],
+                                        float* __restrict__ y, int ld, int q,
+                                        int q0, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= q) continue;
+#pragma unroll
+    for (int c = 0; c < P / TX; ++c)
+      y[(size_t)row * ld + tx + TX * c] = acc[i][c];
   }
 }
 
@@ -157,83 +236,35 @@ __device__ void query_tile(const float* __restrict__ x,
                            float* __restrict__ y, const float* acum,
                            float* Bs, float* Xs, float* Cs, float* Ss, int q,
                            int n, int q0, int tx, int ty, int tid) {
-  constexpr int CP = P / TX;  // output columns per thread
   const int LDB = ldb(n), LDC = n + 1;
   for (int e = tid; e < QT * n; e += NT) {
     const int r = e / n, c = e % n;
     Cs[r * LDC + c] = q0 + r < q ? cm[(size_t)(q0 + r) * n + c] : 0.f;
   }
-  float acc[RQ][CP];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int c = 0; c < CP; ++c) acc[i][c] = 0.f;
+  float acc[RQ][P / TX] = {};
 
   const int kend = min(q, q0 + QT);  // keys at or below the last row
   for (int k0 = 0; k0 < kend; k0 += KT) {
     __syncthreads();  // the previous tile's B, X and S are consumed
-    stage(bm, k0, q, n, Bs, LDB, tid);
-    stage(x, k0, q, P, Xs, P, tid);
+    stage(bm, n, k0, q, n, Bs, LDB, tid);
+    stage(x, P, k0, q, P, Xs, P, tid);
     __syncthreads();
-
-    float s[RQ][RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < n; ++c) {
-      float cv[RQ], bv[RK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) cv[i] = Cs[(ty + TY * i) * LDC + c];
-#pragma unroll
-      for (int j = 0; j < RK; ++j) bv[j] = Bs[(tx + TX * j) * LDB + c];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < RK; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int row = q0 + ty + TY * i;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int key = k0 + tx + TX * j;
-        float v = 0.f;
-        if (row < q && key <= row) v = s[i][j] * expf(acum[row] - acum[key]);
-        Ss[(ty + TY * i) * LDS + tx + TX * j] = v;
-      }
-    }
+    float s[RQ][RK] = {};
+    add_cb(s, Cs, LDC, Bs, LDB, n, tx, ty);
+    store_scores(s, acum, Ss, q, q0, k0, tx, ty);
     __syncthreads();  // S complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < KT; ++kk) {
-      float sv[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) sv[i] = Ss[(ty + TY * i) * LDS + kk];
-#pragma unroll
-      for (int c = 0; c < CP; ++c) {
-        const float xv = Xs[kk * P + tx + TX * c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(sv[i], xv, acc[i][c]);
-      }
-    }
+    add_sx<P>(acc, Ss, Xs, tx, ty);
   }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty + TY * i;
-    if (row >= q) continue;
-#pragma unroll
-    for (int c = 0; c < CP; ++c) y[(size_t)row * P + tx + TX * c] = acc[i][c];
-  }
+  store_y<P>(acc, y, P, q, q0, tx, ty);
 }
 
+// the (n, P) end-state; X's rows and the state's are ldx floats apart
 template <int P>
 __device__ void end_state(const float* __restrict__ x,
                           const float* __restrict__ bm,
                           float* __restrict__ st, const float* acum,
-                          float* Bs, float* Xs, int q, int n, int tx, int ty,
-                          int tid) {
+                          float* Bs, float* Xs, int q, int n, int ldx,
+                          int tx, int ty, int tid) {
   constexpr int CP = P / TX;
   constexpr int LDD = NS + 1;
   const float last = acum[q - 1];
@@ -253,7 +284,7 @@ __device__ void end_state(const float* __restrict__ x,
             ? bm[(size_t)t * n + n0 + c] * expf(last - acum[t])
             : 0.f;
       }
-      stage(x, k0, q, P, Xs, P, tid);
+      stage(x, ldx, k0, q, P, Xs, P, tid);
       __syncthreads();
 #pragma unroll 4
       for (int kk = 0; kk < KT; ++kk) {
@@ -274,7 +305,7 @@ __device__ void end_state(const float* __restrict__ x,
       if (r >= n) continue;
 #pragma unroll
       for (int c = 0; c < CP; ++c)
-        st[(size_t)r * P + tx + TX * c] = acc[a][c];
+        st[(size_t)r * ldx + tx + TX * c] = acc[a][c];
     }
   }
 }
@@ -284,7 +315,7 @@ __global__ void __launch_bounds__(NT)
 ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ adt,
                  const float* __restrict__ bm, const float* __restrict__ cm,
                  float* __restrict__ y, float* __restrict__ st, int q, int n,
-                 int h, int g) {
+                 int h, int g, int c, int BH) {
   extern __shared__ float smem[];
   float* acum = smem;
   float* Bs = acum + q;
@@ -297,10 +328,15 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ adt,
   // the (batch * head, chunk) tile; X, Adt, Y and the states are (b h, c,
   // q, x) contiguous, B and C (b g, c, q, n): head hd reads group
   // hd / (h / g)
-  const size_t tile = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const int bi = blockIdx.z / h, hd = blockIdx.z % h;
-  const size_t gtile =
-      ((size_t)bi * g + hd / (h / g)) * gridDim.y + blockIdx.y;
+  const int nx = 1 + (q + QT - 1) / QT;
+  int xt, ci;
+  long long bh;
+  if (!flat_tile(nx, c, BH, xt, ci, bh)) return;
+  const size_t tile = (size_t)bh * c + ci;
+  long long bi;
+  int hd;
+  divmod(bh, h, bi, hd);
+  const size_t gtile = ((size_t)bi * g + hd / (h / g)) * c + ci;
   x += tile * q * P;
   adt += tile * q;
   bm += gtile * q * n;
@@ -308,10 +344,11 @@ ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ adt,
 
   if (tid < 32) chunk_cumsum(adt, 1, q, q, acum, tid);
   __syncthreads();
-  if (blockIdx.x == 0) {
-    end_state<P>(x, bm, st + tile * n * P, acum, Bs, Xs, q, n, tx, ty, tid);
+  if (xt == 0) {
+    end_state<P>(x, bm, st + tile * n * P, acum, Bs, Xs, q, n, P, tx, ty,
+                 tid);
   } else {
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * QT;
+    const int q0 = (nx - 1 - xt) * QT;
     query_tile<P>(x, bm, cm, y + tile * q * P, acum, Bs, Xs, Cs, Ss, q, n,
                   q0, tx, ty, tid);
   }
@@ -326,11 +363,120 @@ int launch(const void* x, const void* adt, const void* bm, const void* cm,
       ssd_chunk_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(1 + (q + QT - 1) / QT, c, BH), block(TX, TY);
-  ssd_chunk_kernel<P><<<grid, block, smem, stream>>>(
+  dim3 grid;
+  if (!flat_grid((long long)(1 + (q + QT - 1) / QT) * c * BH, &grid))
+    return (int)cudaErrorInvalidConfiguration;
+  ssd_chunk_kernel<P><<<grid, dim3(TX, TY), smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(adt),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
-      static_cast<float*>(y), static_cast<float*>(st), q, n, h, g);
+      static_cast<float*>(y), static_cast<float*>(st), q, n, h, g, c, BH);
+  return (int)cudaGetLastError();
+}
+
+// Widths past 256 (p or n).  The tiles (b h, c, q, x) as above, but X, Y
+// and the states are PX = ncb OW columns wide, ncb = ceil(p / 256) blocks
+// of the instance OW of p's share: a block owns one column block (tiles
+// (ncb (1 + nq), c, b h): tile x = its block x (1 + nq) + the state block
+// or a query tile).  A query block sums S = C B^T over 64-column slices
+// of its C rows and the key tile's B rows, staged in turn (C again for
+// every key tile, so neither is ever whole in shared memory), then stages
+// the key tile's OW columns of X; the state block walks n in passes of 64
+// as above.  Each of the ncb blocks of a query tile recomputes S: a
+// simple kernel first, its times in PERF.md.
+constexpr int LDN = NS + 1;  // row stride of a C or B slice
+
+__host__ __device__ inline int wide_smem_floats(int q, int OW) {
+  return q + KT * LDN + KT * OW + QT * LDN + QT * LDS;
+}
+
+template <int OW>
+__device__ void query_tile_wide(const float* __restrict__ x,
+                                const float* __restrict__ bm,
+                                const float* __restrict__ cm,
+                                float* __restrict__ y, const float* acum,
+                                float* Bs, float* Xs, float* Cs, float* Ss,
+                                int q, int n, int q0, int ldx, int tx, int ty,
+                                int tid) {
+  float acc[RQ][OW / TX] = {};
+  const int kend = min(q, q0 + QT);  // keys at or below the last row
+  for (int k0 = 0; k0 < kend; k0 += KT) {
+    float s[RQ][RK] = {};
+    for (int n0 = 0; n0 < n; n0 += NS) {
+      const int w = min(NS, n - n0);
+      __syncthreads();  // the previous slices, X and S are consumed
+      stage(cm + n0, n, q0, q, w, Cs, LDN, tid);  // QT == KT rows
+      stage(bm + n0, n, k0, q, w, Bs, LDN, tid);
+      __syncthreads();
+      add_cb(s, Cs, LDN, Bs, LDN, w, tx, ty);
+    }
+    store_scores(s, acum, Ss, q, q0, k0, tx, ty);
+    stage(x, ldx, k0, q, OW, Xs, OW, tid);
+    __syncthreads();  // S and the X tile complete
+    add_sx<OW>(acc, Ss, Xs, tx, ty);
+  }
+  store_y<OW>(acc, y, ldx, q, q0, tx, ty);
+}
+
+template <int OW>
+__global__ void __launch_bounds__(NT)
+ssd_chunk_kernel_wide(const float* __restrict__ x,
+                      const float* __restrict__ adt,
+                      const float* __restrict__ bm,
+                      const float* __restrict__ cm, float* __restrict__ y,
+                      float* __restrict__ st, int q, int n, int h, int g,
+                      int c, int BH, int ncb) {
+  extern __shared__ float smem[];
+  float* acum = smem;
+  float* Bs = acum + q;
+  float* Xs = Bs + KT * LDN;
+  float* Cs = Xs + KT * OW;
+  float* Ss = Cs + QT * LDN;
+
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * TX + tx;
+  const int nx = 1 + (q + QT - 1) / QT, PX = ncb * OW;
+  int xt, ci;
+  long long bh;
+  if (!flat_tile(ncb * nx, c, BH, xt, ci, bh)) return;
+  const int xb = xt % nx, col0 = (xt / nx) * OW;
+  const size_t tile = (size_t)bh * c + ci;
+  long long bi;
+  int hd;
+  divmod(bh, h, bi, hd);
+  const size_t gtile = ((size_t)bi * g + hd / (h / g)) * c + ci;
+  x += tile * q * PX + col0;
+  adt += tile * q;
+  bm += gtile * q * n;
+  cm += gtile * q * n;
+
+  if (tid < 32) chunk_cumsum(adt, 1, q, q, acum, tid);
+  __syncthreads();
+  if (xb == 0) {
+    end_state<OW>(x, bm, st + tile * n * PX + col0, acum, Bs, Xs, q, n, PX,
+                  tx, ty, tid);
+  } else {
+    query_tile_wide<OW>(x, bm, cm, y + tile * q * PX + col0, acum, Bs, Xs,
+                        Cs, Ss, q, n, (nx - 1 - xb) * QT, PX, tx, ty, tid);
+  }
+}
+
+template <int OW>
+int launch_wide(const void* x, const void* adt, const void* bm,
+                const void* cm, void* y, void* st, int BH, int c, int q,
+                int n, int h, int g, int ncb, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)wide_smem_floats(q, OW);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_chunk_kernel_wide<OW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid;
+  if (!flat_grid((long long)ncb * (1 + (q + QT - 1) / QT) * c * BH, &grid))
+    return (int)cudaErrorInvalidConfiguration;
+  ssd_chunk_kernel_wide<OW><<<grid, dim3(TX, TY), smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(adt),
+      static_cast<const float*>(bm), static_cast<const float*>(cm),
+      static_cast<float*>(y), static_cast<float*>(st), q, n, h, g, c, BH,
+      ncb);
   return (int)cudaGetLastError();
 }
 
@@ -344,11 +490,12 @@ int launch(const void* x, const void* adt, const void* bm, const void* cm,
 // group of h / g heads, and writes Y (b, L, h, p) and the states (b, c, h,
 // p, n) that models.mamba.ssd consumes.
 //
-// Grid (ceil(q / 64) + ceil(n / 64), h / HB, b * c); blocks of four warps.
+// Tiles (ceil(q / 64) + ceil(n / 64), h / HB, b * c) on the flat grid;
+// blocks of four warps.
 // A block serves HB heads of one group in one (batch, chunk); every block
 // first scans acum of its HB heads into shared memory (warp w: heads w,
 // w + 4, ...).
-//   * blockIdx.x < ceil(q / 64): a query tile of 64 rows (heaviest first),
+//   * tile x < ceil(q / 64): a query tile of 64 rows (heaviest first),
 //     16 rows per warp.  First G = C B^T for its rows against every key at
 //     or below its diagonal, once for all HB heads (C and B in shared
 //     memory by cp.async; ldmatrix fragments; G's accumulators parked in
@@ -431,9 +578,10 @@ struct Args {
   long long sab, sal, sah;
   long long sbb, sbl, sbg;
   long long scb, scl, scg;
-  int c, q, n, h, g, hb, nq;
-  int p;   // X's columns, a multiple of 8 up to the instance P (zeros past)
-  int qa;  // q rounded up to KT: acum's row
+  int b, c, q, n, h, g, hb, nq;
+  int p;    // X's columns, a multiple of 8 up to the instance P (zeros past)
+  int qa;   // q rounded up to KT: acum's row
+  int ncb;  // column blocks of p (the _wide kernel; 1 otherwise)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -529,6 +677,105 @@ __device__ __forceinline__ void load_rows(bf16* dst, int lds,
   }
 }
 
+// S's A fragment of keys k0, k0 + 1, k2 = k0 + 8, k2 + 1 for rows ra and
+// rb = ra + 8 (acum aa, ab) as three bf16 terms: select(i >= j, G
+// exp(acum_i - acum_j), 0); ga and gb are G's two n8 tiles of the keys
+__device__ __forceinline__ void s_terms(float4 ga, float4 gb, const float* ac,
+                                        int ra, int rb, float aa, float ab,
+                                        int k0, uint32_t (&a3)[4][3]) {
+  const int k2 = k0 + 8;
+  const float e0 = ac[k0], e1 = ac[k0 + 1], e2 = ac[k2], e3 = ac[k2 + 1];
+  split3(ra >= k0 ? ga.x * fast_exp(aa - e0) : 0.f,
+         ra >= k0 + 1 ? ga.y * fast_exp(aa - e1) : 0.f, a3[0]);
+  split3(rb >= k0 ? ga.z * fast_exp(ab - e0) : 0.f,
+         rb >= k0 + 1 ? ga.w * fast_exp(ab - e1) : 0.f, a3[1]);
+  split3(ra >= k2 ? gb.x * fast_exp(aa - e2) : 0.f,
+         ra >= k2 + 1 ? gb.y * fast_exp(aa - e3) : 0.f, a3[2]);
+  split3(rb >= k2 ? gb.z * fast_exp(ab - e2) : 0.f,
+         rb >= k2 + 1 ? gb.w * fast_exp(ab - e3) : 0.f, a3[3]);
+}
+
+// A = (B d)^T, d = exp(acum_{q-1} - acum), as bf16 terms: a is B^T's
+// fragment by ldmatrix.trans (registers 0 / 1 hold keys k0, k0 + 1, 2 / 3
+// keys k0 + 8, k0 + 9), scaled per key
+__device__ __forceinline__ void state_terms(const uint32_t (&a)[4],
+                                            const float* ac, float last,
+                                            int k0, uint32_t (&a3)[4][3]) {
+  const float d0 = fast_exp(last - ac[k0]);
+  const float d1 = fast_exp(last - ac[k0 + 1]);
+  const float d2 = fast_exp(last - ac[k0 + 8]);
+  const float d3 = fast_exp(last - ac[k0 + 9]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float2 v = unpack(a[r]);
+    if (r < 2) split3(v.x * d0, v.y * d1, a3[r]);
+    else split3(v.x * d2, v.y * d3, a3[r]);
+  }
+}
+
+// acc += A X over keys 16 kk .. 16 kk + 15 of an X tile (row stride ldx),
+// two n8 tiles of columns per ldmatrix.trans, the small terms first
+template <int P>
+__device__ __forceinline__ void mul_x(float (&acc)[P / 8][4],
+                                      const uint32_t (&a3)[4][3], int terms,
+                                      const bf16* Xs, int ldx, int kk,
+                                      int lane) {
+#pragma unroll
+  for (int pj = 0; pj < P / 16; ++pj) {
+    uint32_t b[4];
+    ldsm_x4_t(b, Xs + (16 * kk + (lane % 8) + 8 * ((lane / 8) & 1)) * ldx +
+                     16 * pj + 8 * (lane / 16));
+#pragma unroll
+    for (int term = 2; term >= 0; --term) {
+      if (term >= terms) continue;
+      const uint32_t a[4] = {a3[0][term], a3[1][term], a3[2][term],
+                             a3[3][term]};
+      mma16816(acc[2 * pj], a, b[0], b[1]);
+      mma16816(acc[2 * pj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Y's rows ra (yb) and ra + 8 (yb + down), where below q (in_a, in_b),
+// columns 8 j + 2 tq below pc, in bf16
+template <int P>
+__device__ __forceinline__ void store_y(const float (&acc)[P / 8][4],
+                                        bf16* yb, long long down, bool in_a,
+                                        bool in_b, int pc, int tq) {
+#pragma unroll
+  for (int j = 0; j < P / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    if (col >= pc) continue;
+    if (in_a)
+      *reinterpret_cast<__nv_bfloat162*>(yb + col) =
+          __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+    if (in_b)
+      *reinterpret_cast<__nv_bfloat162*>(yb + down + col) =
+          __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+  }
+}
+
+// the (p, n) end-state's state rows sa and sa + 8 below n, columns
+// 8 j + 2 tq below pc (sb: column 0, row stride n)
+template <int P>
+__device__ __forceinline__ void store_state(const float (&acc)[P / 8][4],
+                                            float* sb, int n, int sa, int pc,
+                                            int tq) {
+#pragma unroll
+  for (int j = 0; j < P / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    if (col >= pc) continue;
+    if (sa < n) {
+      sb[(long long)col * n + sa] = acc[j][0];
+      sb[(long long)(col + 1) * n + sa] = acc[j][1];
+    }
+    if (sa + 8 < n) {
+      sb[(long long)col * n + sa + 8] = acc[j][2];
+      sb[(long long)(col + 1) * n + sa + 8] = acc[j][3];
+    }
+  }
+}
+
 // Dynamic shared-memory bytes (kernels/ssd_chunk/kernel.py:
 // mma_smem_bytes).  Both modes first hold acum, hb rows of qa = q rounded
 // up to KT floats.
@@ -586,19 +833,27 @@ ssd_chunk_mma_kernel(const Args A) {
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gq = lane / 4, tq = lane % 4;  // fragment row / column lane
-  const int bi = blockIdx.z / A.c, ci = blockIdx.z % A.c;
-  const int h0 = blockIdx.y * A.hb, grp = h0 / (h / A.g);
+  int xt, hbk;
+  long long z;
+  if (!flat_tile(A.nq + (n + SR - 1) / SR, h / A.hb, (long long)A.b * A.c,
+                 xt, hbk, z))
+    return;
+  long long bz;
+  int ci;
+  divmod(z, A.c, bz, ci);
+  const int bi = (int)bz;
+  const int h0 = hbk * A.hb, grp = h0 / (h / A.g);
   const long long t0 = (long long)ci * q;  // the chunk's first step
 
   for (int hh = warp; hh < A.hb; hh += WARPS)
     chunk_cumsum(A.adt + bi * A.sab + t0 * A.sal + (h0 + hh) * A.sah, A.sal,
                  q, qa, acum + hh * qa, lane);
 
-  const bool query = (int)blockIdx.x < A.nq;
+  const bool query = xt < A.nq;
   // query block: rows [r0, r0 + QT), keys [0, kend); state block: state
   // rows [s0, s0 + min(SR, n - s0)), every key
-  const int r0 = query ? (A.nq - 1 - blockIdx.x) * QT : 0;
-  const int s0 = query ? 0 : (blockIdx.x - A.nq) * SR;
+  const int r0 = query ? (A.nq - 1 - xt) * QT : 0;
+  const int s0 = query ? 0 : (xt - A.nq) * SR;
   const int sw = query ? 0 : min(SR, n - s0);
   const int kend = query ? min(q, r0 + QT) : q;
   const int nkt = (kend + KT - 1) / KT;
@@ -716,7 +971,7 @@ ssd_chunk_mma_kernel(const Args A) {
       for (int kk = 0; kk < KT / 16; ++kk) {
         if (kk >= ksteps) break;
         const int kb = kt * KT + 16 * kk;
-        const int k0 = kb + 2 * tq, k2 = k0 + 8;  // keys k0, k0+1, k2, k2+1
+        const int k0 = kb + 2 * tq;  // keys k0, k0 + 1, k0 + 8, k0 + 9
         uint32_t a3[4][3];  // A fragment as three bf16 terms
         if (query) {
           // S = select(i >= j, G exp(acum_i - acum_j), 0): G's n8 tiles
@@ -740,21 +995,9 @@ ssd_chunk_mma_kernel(const Args A) {
             ga = Gs[(kt * 8 + 2 * kk) * THREADS + tid];
             gb = Gs[(kt * 8 + 2 * kk + 1) * THREADS + tid];
           }
-          const float e0 = ac[k0], e1 = ac[k0 + 1], e2 = ac[k2],
-                      e3 = ac[k2 + 1];
-          split3(ra >= k0 ? ga.x * fast_exp(aa - e0) : 0.f,
-                 ra >= k0 + 1 ? ga.y * fast_exp(aa - e1) : 0.f, a3[0]);
-          split3(rb >= k0 ? ga.z * fast_exp(ab - e0) : 0.f,
-                 rb >= k0 + 1 ? ga.w * fast_exp(ab - e1) : 0.f, a3[1]);
-          split3(ra >= k2 ? gb.x * fast_exp(aa - e2) : 0.f,
-                 ra >= k2 + 1 ? gb.y * fast_exp(aa - e3) : 0.f, a3[2]);
-          split3(rb >= k2 ? gb.z * fast_exp(ab - e2) : 0.f,
-                 rb >= k2 + 1 ? gb.w * fast_exp(ab - e3) : 0.f, a3[3]);
+          s_terms(ga, gb, ac, ra, rb, aa, ab, k0, a3);
         } else {
-          // A = (B d)^T, d = exp(acum_{q-1} - acum): B^T's fragment by
-          // ldmatrix.trans (registers 0 / 1 hold keys k0, k0 + 1, 2 / 3
-          // keys k2, k2 + 1), scaled per key
-          uint32_t a[4];
+          uint32_t a[4];  // B^T's fragment, scaled per key below
           if (STREAM)
             ldsm_x4_t(a, Bt + (16 * kk + (lane % 8) + 8 * (lane / 16)) *
                                   ldbt + 16 * warp + 8 * ((lane / 8) & 1));
@@ -762,70 +1005,24 @@ ssd_chunk_mma_kernel(const Args A) {
             ldsm_x4_t(a, Bst + (kb + (lane % 8) + 8 * (lane / 16)) *
                                    (SR + PAD) + 16 * warp +
                                8 * ((lane / 8) & 1));
-          const float d0 = fast_exp(last - ac[k0]);
-          const float d1 = fast_exp(last - ac[k0 + 1]);
-          const float d2 = fast_exp(last - ac[k2]);
-          const float d3 = fast_exp(last - ac[k2 + 1]);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float2 v = unpack(a[r]);
-            if (r < 2) split3(v.x * d0, v.y * d1, a3[r]);
-            else split3(v.x * d2, v.y * d3, a3[r]);
-          }
+          state_terms(a, ac, last, k0, a3);
         }
-        // times X (keys kb .. kb + 15 of this tile), two n8 tiles of
-        // columns per ldmatrix.trans
-#pragma unroll
-        for (int pj = 0; pj < P / 16; ++pj) {
-          uint32_t b[4];
-          ldsm_x4_t(b, Xs + (16 * kk + (lane % 8) + 8 * ((lane / 8) & 1)) *
-                                LDX + 16 * pj + 8 * (lane / 16));
-#pragma unroll
-          for (int term = 2; term >= 0; --term) {  // the small terms first
-            if (term >= (query ? S_TERMS : B_TERMS)) continue;
-            const uint32_t a[4] = {a3[0][term], a3[1][term], a3[2][term],
-                                   a3[3][term]};
-            mma16816(acc[2 * pj], a, b[0], b[1]);
-            mma16816(acc[2 * pj + 1], a, b[2], b[3]);
-          }
-        }
+        // times X (keys kb .. kb + 15 of this tile)
+        mul_x<P>(acc, a3, query ? S_TERMS : B_TERMS, Xs, LDX, kk, lane);
       }
       if (kt == nkt - 1) {  // this head's last key tile: write out
         const int hd = h0 + hh;
         // X's real columns (A.p, a multiple of 8) and rows (q) only
-        if (query) {
-          bf16* yb =
-              A.y + (((long long)bi * A.c * q + t0 + ra) * h + hd) * A.p;
-          const long long down = 8LL * h * A.p;  // row rb = ra + 8
-#pragma unroll
-          for (int j = 0; j < P / 8; ++j) {
-            const int col = 8 * j + 2 * tq;
-            if (col >= A.p) continue;
-            if (ra < q)
-              *reinterpret_cast<__nv_bfloat162*>(yb + col) =
-                  __floats2bfloat162_rn(acc[j][0], acc[j][1]);
-            if (rb < q)
-              *reinterpret_cast<__nv_bfloat162*>(yb + down + col) =
-                  __floats2bfloat162_rn(acc[j][2], acc[j][3]);
-          }
-        } else {
-          float* sb =
-              A.st + (((long long)bi * A.c + ci) * h + hd) * A.p * n;
-          const int sa = s0 + 16 * warp + gq;  // state rows sa, sa + 8
-#pragma unroll
-          for (int j = 0; j < P / 8; ++j) {
-            const int col = 8 * j + 2 * tq;
-            if (col >= A.p) continue;
-            if (sa < n) {
-              sb[(long long)col * n + sa] = acc[j][0];
-              sb[(long long)(col + 1) * n + sa] = acc[j][1];
-            }
-            if (sa + 8 < n) {
-              sb[(long long)col * n + sa + 8] = acc[j][2];
-              sb[(long long)(col + 1) * n + sa + 8] = acc[j][3];
-            }
-          }
-        }
+        if (query)
+          store_y<P>(acc,
+                     A.y + (((long long)bi * A.c * q + t0 + ra) * h + hd) *
+                               A.p,
+                     8LL * h * A.p, ra < q, rb < q, A.p, tq);
+        else
+          store_state<P>(acc,
+                         A.st + (((long long)bi * A.c + ci) * h + hd) *
+                                    A.p * n,
+                         n, s0 + 16 * warp + gq, A.p, tq);
       }
     }
     __syncthreads();  // this stage is consumed before it is refilled
@@ -833,37 +1030,226 @@ ssd_chunk_mma_kernel(const Args A) {
 }
 
 template <int P, bool STREAM>
-int launch(const Args& a, int b, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream) {
   const int smem = smem_bytes(a.q, a.n, P, a.hb, STREAM);
   cudaError_t e = cudaFuncSetAttribute(
       ssd_chunk_mma_kernel<P, STREAM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.nq + (a.n + SR - 1) / SR, a.h / a.hb, b * a.c);
+  dim3 grid;
+  if (!flat_grid((long long)(a.nq + (a.n + SR - 1) / SR) * (a.h / a.hb) *
+                     a.b * a.c,
+                 &grid))
+    return (int)cudaErrorInvalidConfiguration;
   ssd_chunk_mma_kernel<P, STREAM><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int P>
-int launch_mode(const Args& a, int b, bool stream, cudaStream_t s) {
-  return stream ? launch<P, true>(a, b, s) : launch<P, false>(a, b, s);
+int launch_mode(const Args& a, bool stream, cudaStream_t s) {
+  return stream ? launch<P, true>(a, s) : launch<P, false>(a, s);
+}
+
+// Widths past 256 (p or n): ssd_chunk_mma_kernel_wide.  One head a block
+// (hb = 1), tiles (ncb (nq + ns), h, b c): a block owns one column block
+// of OW <= 256 of Y's and the states' p columns (ncb = ceil(p / 256), each
+// on the instance of its share; tile x = its block x (nq + ns) + its query
+// tile or state block).  For each key tile a query block forms G = C B^T
+// of its rows in registers (each warp its 16 rows x 64 keys), summed over
+// 64-column slices of C and B staged in turn by cp.async, so neither is
+// ever whole in shared memory; then S = select(i >= j, G exp(.), 0), split
+// into three bf16 terms as above, times the key tile's OW columns of X.
+// A state block stages the key tile's B rows at its 64 state columns
+// beside X.  The loads are synchronous (no ring) and G is formed once per
+// head, key tile and column block: a simple kernel first, its times in
+// PERF.md.  Shared memory: acum, a C slice, a B slice (or tile) and an X
+// tile, 68,608 bytes at q = 4,096 and OW = 256.
+__host__ __device__ inline int wide_smem_bytes(int q, int OW) {
+  return acum_bytes(q, 1) + (QT + KT) * (SR + PAD) * 2 + KT * (OW + PAD) * 2;
+}
+
+template <int OW>
+__global__ void __launch_bounds__(THREADS, 1)
+ssd_chunk_mma_kernel_wide(const Args A) {
+  constexpr int LDX = OW + PAD, LDS = SR + PAD;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int q = A.q, n = A.n, h = A.h, qa = A.qa;
+  float* acum = reinterpret_cast<float*>(smem);  // qa floats
+  bf16* Cs = reinterpret_cast<bf16*>(smem + acum_bytes(q, 1));  // QT x LDS
+  bf16* Bs = Cs + QT * LDS;                                     // KT x LDS
+  bf16* Xs = Bs + KT * LDS;                                     // KT x LDX
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row / column lane
+  const int nxt = A.nq + (n + SR - 1) / SR;
+  int xt, hd;
+  long long z;
+  if (!flat_tile(A.ncb * nxt, h, (long long)A.b * A.c, xt, hd, z)) return;
+  const int xb = xt % nxt, col0 = (xt / nxt) * OW;
+  const int pc = min(OW, A.p - col0);  // this block's columns of X
+  long long bz;
+  int ci;
+  divmod(z, A.c, bz, ci);
+  const int bi = (int)bz;
+  const int grp = hd / (h / A.g);
+  const long long t0 = (long long)ci * q;  // the chunk's first step
+
+  if (warp == 0)
+    chunk_cumsum(A.adt + bi * A.sab + t0 * A.sal + hd * A.sah, A.sal, q, qa,
+                 acum, lane);
+
+  const bool query = xb < A.nq;
+  const int r0 = query ? (A.nq - 1 - xb) * QT : 0;
+  const int s0 = query ? 0 : (xb - A.nq) * SR;
+  const int sw = query ? 0 : min(SR, n - s0);
+  const int kend = query ? min(q, r0 + QT) : q;
+  const int nkt = (kend + KT - 1) / KT;
+  const int wrow = (query ? r0 : s0) + 16 * warp;
+  const bool active = query ? wrow < q : 16 * warp < sw;
+  const int wlast = query ? wrow + 15 : q - 1;
+  const int ra = wrow + gq, rb = ra + 8;  // rows of the fragments
+
+  const bf16* bsrc = A.bm + bi * A.sbb + t0 * A.sbl + grp * A.sbg;
+  const bf16* csrc = A.cm + bi * A.scb + t0 * A.scl + grp * A.scg;
+  const bf16* xsrc = A.x + bi * A.sxb + t0 * A.sxl + hd * A.sxh + col0;
+  __syncthreads();  // acum
+
+  float acc[OW / 8][4];
+#pragma unroll
+  for (int j = 0; j < OW / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    // ---- query: G of this key tile over n in 64-column slices
+    float gacc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gacc[j][e] = 0.f;
+    if (query) {
+      for (int n0 = 0; n0 < n; n0 += SR) {
+        const int w = min(SR, n - n0);
+        __syncthreads();  // the previous slices and X tile are consumed
+        load_rows(Cs, LDS, csrc + n0, A.scl, r0, QT, q, w, SR);
+        load_rows(Bs, LDS, bsrc + n0, A.sbl, kt * KT, KT, q, w, SR);
+        cp_commit();
+        cp_wait<0>();
+        __syncthreads();
+        if (!active || kt * KT > wlast) continue;
+        for (int ks = 0; ks < w; ks += 16) {
+          uint32_t a[4];
+          ldsm_x4(a, Cs + (16 * warp + (lane % 8) + 8 * ((lane / 8) & 1)) *
+                              LDS + ks + 8 * (lane / 16));
+#pragma unroll
+          for (int jp = 0; jp < 4; ++jp) {
+            uint32_t b[4];
+            ldsm_x4(b, Bs + (16 * jp + (lane % 8) + 8 * (lane / 16)) * LDS +
+                           ks + 8 * ((lane / 8) & 1));
+            mma16816(gacc[2 * jp], a, b[0], b[1]);
+            mma16816(gacc[2 * jp + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    // ---- the key tile's X columns (state: and its B rows)
+    __syncthreads();
+    load_rows(Xs, LDX, xsrc, A.sxl, kt * KT, KT, q, pc, OW);
+    if (!query)
+      load_rows(Bs, LDS, bsrc + s0, A.sbl, kt * KT, KT, q, sw, SR);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+    if (!active) continue;
+    const float aa = query ? acum[ra] : 0.f, ab = query ? acum[rb] : 0.f;
+    const float last = acum[q - 1];
+    const int ksteps =
+        wlast < kt * KT ? 0 : min(KT / 16, (wlast - kt * KT) / 16 + 1);
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      if (kk >= ksteps) break;
+      const int k0 = kt * KT + 16 * kk + 2 * tq;  // keys k0, k0 + 1, +8, +9
+      uint32_t a3[4][3];
+      if (query) {
+        s_terms(make_float4(gacc[2 * kk][0], gacc[2 * kk][1],
+                            gacc[2 * kk][2], gacc[2 * kk][3]),
+                make_float4(gacc[2 * kk + 1][0], gacc[2 * kk + 1][1],
+                            gacc[2 * kk + 1][2], gacc[2 * kk + 1][3]),
+                acum, ra, rb, aa, ab, k0, a3);
+      } else {
+        uint32_t a[4];
+        ldsm_x4_t(a, Bs + (16 * kk + (lane % 8) + 8 * (lane / 16)) * LDS +
+                         16 * warp + 8 * ((lane / 8) & 1));
+        state_terms(a, acum, last, k0, a3);
+      }
+      mul_x<OW>(acc, a3, query ? S_TERMS : B_TERMS, Xs, LDX, kk, lane);
+    }
+  }
+  if (!active) return;
+  // this block's columns of Y (rows < q) or of the states (rows < n)
+  if (query)
+    store_y<OW>(acc,
+                A.y + (((long long)bi * A.c * q + t0 + ra) * h + hd) * A.p +
+                    col0,
+                8LL * h * A.p, ra < q, rb < q, pc, tq);
+  else
+    store_state<OW>(acc,
+                    A.st + (((long long)bi * A.c + ci) * h + hd) * A.p * n +
+                        (long long)col0 * n,
+                    n, s0 + 16 * warp + gq, pc, tq);
+}
+
+template <int OW>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  const int smem = wide_smem_bytes(a.q, OW);
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_chunk_mma_kernel_wide<OW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid;
+  if (!flat_grid((long long)a.ncb * (a.nq + (a.n + SR - 1) / SR) * a.h *
+                     a.b * a.c,
+                 &grid))
+    return (int)cudaErrorInvalidConfiguration;
+  ssd_chunk_mma_kernel_wide<OW><<<grid, THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace mma
 
+// the instance a share of w columns runs on (16, 32, 64, 128, 256)
+inline int p_instance(int w) {
+  return w <= 16 ? 16 : w <= 32 ? 32 : w <= 64 ? 64 : w <= 128 ? 128 : 256;
+}
+
 // float32, the CUDA-core kernel: x (BH, c, q, p), adt (BH, c, q), bm / cm
 // (b g, c, q, n) with BH = b h, y like x, st (BH, c, n, p) float32, all
-// contiguous; 1 <= q <= MAX_CHUNK, p in {16, 32, 64, 128, 256} (the
-// wrapper zero-pads a narrower X), 1 <= n <= MAX_WIDTH, h % g == 0.
+// contiguous; 1 <= q <= MAX_CHUNK, n >= 1, h % g == 0.  Up to MAX_P (p and
+// n): p in {16, 32, 64, 128, 256} (the wrapper zero-pads a narrower X),
+// ncb = 1; past it the _wide kernel, p = ncb OW with OW an instance.
 extern "C" int ssd_chunk_launch(const void* x, const void* adt,
                                 const void* bm, const void* cm, void* y,
                                 void* st, int BH, int c, int q, int p, int n,
-                                int h, int g, void* stream) {
+                                int h, int g, int ncb, void* stream) {
   if (BH <= 0 || c <= 0 || q <= 0) return 0;
-  if (q > MAX_CHUNK || n < 1 || n > MAX_WIDTH || h <= 0 || g <= 0 ||
-      h % g || BH % h)
+  if (q > MAX_CHUNK || n < 1 || h <= 0 || g <= 0 || h % g || BH % h ||
+      ncb < 1 || p % ncb)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p > MAX_P || n > MAX_P) {
+    const int ow = p / ncb;
+    if (ow != p_instance(ow)) return (int)cudaErrorInvalidValue;
+#define WIDE_ARGS x, adt, bm, cm, y, st, BH, c, q, n, h, g, ncb, s
+    switch (ow) {
+      case 16: return launch_wide<16>(WIDE_ARGS);
+      case 32: return launch_wide<32>(WIDE_ARGS);
+      case 64: return launch_wide<64>(WIDE_ARGS);
+      case 128: return launch_wide<128>(WIDE_ARGS);
+      case 256: return launch_wide<256>(WIDE_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef WIDE_ARGS
+  }
+  if (ncb != 1) return (int)cudaErrorInvalidValue;
 #define SSD_ARGS x, adt, bm, cm, y, st, BH, c, q, n, h, g, s
   switch (p) {
     case 16: return launch<16>(SSD_ARGS);
@@ -880,11 +1266,12 @@ extern "C" int ssd_chunk_launch(const void* x, const void* adt,
 // adt (b, L, h), bm / cm (b, L, g, n) by their strides (in elements; the
 // last axis of x, bm, cm contiguous, rows and bases 16-byte aligned); y
 // (b, L, h, p) and st (b, c, h, p, n) float32 contiguous; L = c q, 1 <= q
-// <= MAX_CHUNK, p and n multiples of 8 up to MAX_WIDTH (p runs on the
-// narrowest instance of 16, 32, 64, 128, 256 at least as wide), h % g ==
-// 0, hb heads per block dividing h / g, at most 8; stream: G formed per
-// key step instead of parked (the wrapper's choice, where parked G does
-// not fit).
+// <= MAX_CHUNK, p and n multiples of 8, h % g == 0, hb heads per block
+// dividing h / g, at most 8; stream: G formed per key step instead of
+// parked (the wrapper's choice, where parked G does not fit).  Up to
+// MAX_P, p runs on the narrowest instance of 16, 32, 64, 128, 256 at least
+// as wide; past it (p or n) the _wide kernel, hb = 1, p in ceil(p / 256)
+// column blocks, each on the instance of its share.
 extern "C" int ssd_chunk_mma_launch(
     const void* x, const void* adt, const void* bm, const void* cm, void* y,
     void* st, int b, int c, int q, int p, int n, int h, int g, int hb,
@@ -893,25 +1280,36 @@ extern "C" int ssd_chunk_mma_launch(
     long long sbg, long long scb, long long scl, long long scg,
     void* stream) {
   if (b <= 0 || c <= 0 || q <= 0 || h <= 0) return 0;
-  if (q > MAX_CHUNK || p < 8 || p > MAX_WIDTH || p % 8 || n < 8 ||
-      n > MAX_WIDTH || n % 8 || g <= 0 || h % g || hb <= 0 ||
-      hb > mma::HB_MAX || (h / g) % hb)
+  if (q > MAX_CHUNK || p < 8 || p % 8 || n < 8 || n % 8 || g <= 0 ||
+      h % g || hb <= 0 || hb > mma::HB_MAX || (h / g) % hb)
     return (int)cudaErrorInvalidValue;
+  const bool wide = p > MAX_P || n > MAX_P;
+  if (wide && hb != 1) return (int)cudaErrorInvalidValue;
+  const int ncb = p > MAX_P ? (p + MAX_P - 1) / MAX_P : 1;
   mma::Args a{static_cast<const __nv_bfloat16*>(x),
               static_cast<const __nv_bfloat16*>(adt),
               static_cast<const __nv_bfloat16*>(bm),
               static_cast<const __nv_bfloat16*>(cm),
               static_cast<__nv_bfloat16*>(y), static_cast<float*>(st),
               sxb, sxl, sxh, sab, sal, sah, sbb, sbl, sbg, scb, scl, scg,
-              c, q, n, h, g, hb, (q + mma::QT - 1) / mma::QT, p,
-              round_up(q, mma::KT)};
+              b, c, q, n, h, g, hb, (q + mma::QT - 1) / mma::QT, p,
+              round_up(q, mma::KT), ncb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    switch (p_instance((p + ncb - 1) / ncb)) {
+      case 16: return mma::launch_wide<16>(a, s);
+      case 32: return mma::launch_wide<32>(a, s);
+      case 64: return mma::launch_wide<64>(a, s);
+      case 128: return mma::launch_wide<128>(a, s);
+      default: return mma::launch_wide<256>(a, s);
+    }
+  }
   const bool sg = stream_g != 0;
-  if (p <= 16) return mma::launch_mode<16>(a, b, sg, s);
-  if (p <= 32) return mma::launch_mode<32>(a, b, sg, s);
-  if (p <= 64) return mma::launch_mode<64>(a, b, sg, s);
-  if (p <= 128) return mma::launch_mode<128>(a, b, sg, s);
-  return mma::launch_mode<256>(a, b, sg, s);
+  if (p <= 16) return mma::launch_mode<16>(a, sg, s);
+  if (p <= 32) return mma::launch_mode<32>(a, sg, s);
+  if (p <= 64) return mma::launch_mode<64>(a, sg, s);
+  if (p <= 128) return mma::launch_mode<128>(a, sg, s);
+  return mma::launch_mode<256>(a, sg, s);
 }
 
 extern "C" const char* error_string(int e) {

@@ -17,6 +17,9 @@ Each ``nvcc`` run that builds a library is a stall of its caller, as a
 compile is: it is counted in ``kernel_build_total`` and its seconds in
 ``kernel_build_seconds`` (labelled by source) in the default metrics
 registry (``repro_torch.obs``); a library found built counts nothing.
+
+``flat_grid`` and ``tile_of`` mirror ``csrc/grid.cuh``: how the flash and
+SSD kernels lay a tile grid of any size onto a launch grid.
 """
 from __future__ import annotations
 
@@ -36,6 +39,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+# grid x takes 2**31 - 1 blocks, y 65,535 (csrc/grid.cuh: FLAT_X, FLAT_Y)
+GRID_X, GRID_Y = 2 ** 31 - 1, 65535
+
+
+def flat_grid(tiles: Sequence[int]) -> tuple:
+    """The launch grid (X, Y, 1) of a tile grid (nx, ny, nz) numbered x
+    fastest (``csrc/grid.cuh``): Y = ceil(total / (2**31 - 1)) rows of
+    X = ceil(total / Y) blocks; the fewer than Y blocks past the last
+    tile exit at once.  Raises past 2**31 - 1 rows of 65,535 tiles."""
+    total = 1
+    for t in tiles:
+        total *= int(t)
+    if total <= 0:
+        raise ValueError(f"tile grid {tuple(tiles)} is empty")
+    y = -(-total // GRID_X)
+    if y > GRID_Y:
+        raise ValueError(f"{total} tiles exceed the {GRID_X} x {GRID_Y} "
+                         "blocks of a launch grid")
+    return -(-total // y), y, 1
+
+
+def tile_of(bx, by, grid: Sequence[int], tiles: Sequence[int]):
+    """The tile (x, y, z) that block (bx, by) of ``grid`` takes, and
+    whether it is one (``flat_tile`` of ``csrc/grid.cuh``; numpy arrays
+    of blocks work too)."""
+    nx, ny, nz = tiles
+    t = bx + grid[0] * by
+    r = t // nx
+    return (t - r * nx, r % ny, r // ny), r // ny < nz
 
 
 def nvcc_path() -> str:

@@ -6,7 +6,8 @@ flash_attention_pallas``.  ``flash_attention_cuda`` launches on PyTorch's
 current stream and counts its launches in ``KERNEL.launches``.  The input's
 dtype picks the kernel (``ROUTES``): bfloat16 runs on the tensor cores
 (wgmma, TMA), float32 on the CUDA cores.  ``ROUTE_LAUNCHES`` counts the
-launches of each route.
+launches of each route.  The tiles lie on ``build.flat_grid``'s launch
+grid, so no batch, head or query-tile count stops at 65,535.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import CudaKernel, check
+from repro_torch.kernels.build import CudaKernel, check, flat_grid
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -34,11 +35,13 @@ ROUTES = {torch.float32: "cuda-core (flash_attention_kernel, FP32 FMA)",
 ROUTE_LAUNCHES = {"cuda-core": 0, "tensor-core": 0}
 # the template instances of the source: a head width up to MAX_DH runs on
 # the narrowest instance at least as wide, its extra columns read as zeros;
-# past MAX_DH, O's columns split into ceil(dh / MAX_DH) blocks along grid
+# past MAX_DH, O's columns split into ceil(dh / MAX_DH) blocks along tile
 # z, each on the instance of its share (``column_blocks``)
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
 MAX_DH = HEAD_DIMS[-1]
-MAX_GRID = 65535  # grid axes y and z
+# the tensor-core kernel's TMA maps address (batch, head) rows by a
+# 32-bit coordinate
+MAX_ROWS = 2 ** 31 - 1
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/flash_attention.cu: the tensor-core kernel's query rows, keys per
 # tile (64 past head width 128), ring stages and threads (namespace tc),
@@ -70,37 +73,43 @@ def instance_width(dh: int) -> int:
 
 def launch_geometry(dtype: torch.dtype, B: int, Hq: int, Sq: int,
                     dh: int):
-    """-> (route, grid, threads per block, dynamic shared-memory bytes) of
-    one launch; raises for a dtype the source has no kernel for, a head
-    width below 1 or a grid past ``MAX_GRID`` (heads, or batch x column
-    blocks)."""
+    """-> (route, tiles, threads per block, dynamic shared-memory bytes)
+    of one launch.  ``tiles`` is the tile grid (query tiles, heads, batch
+    x column blocks), numbered x fastest (heaviest query tile first when
+    causal); ``flat_grid(tiles)`` is the launch grid, grid x up to
+    2**31 - 1 blocks.  Raises for a dtype the source has no kernel for, a
+    head width below 1, and in bfloat16 for more than ``MAX_ROWS`` (batch,
+    head) rows."""
     if dtype not in DTYPE_IDS:
         raise TypeError(f"dtype {dtype} not supported; choose from "
                         f"{list(DTYPE_IDS)}")
     ncb, DH = column_blocks(dh)
-    if Hq > MAX_GRID or B * ncb > MAX_GRID:
-        raise ValueError(f"{Hq} heads or {B} x {ncb} column blocks of head "
-                         f"width {dh} exceed the grid's {MAX_GRID}")
+    if dtype == torch.bfloat16 and B * Hq > MAX_ROWS:
+        raise ValueError(f"{B} x {Hq} (batch, head) rows exceed the "
+                         f"{MAX_ROWS} a TMA coordinate addresses")
     if dtype == torch.bfloat16:
-        grid = (-(-Sq // TC_BQ), Hq, B * ncb)
+        tiles = (-(-Sq // TC_BQ), Hq, B * ncb)
         bars = 8 * (1 + 2 * TC_STAGES)
         if ncb > 1:  # Q / K slice ring, V ring of OW columns, barriers
-            tiles = (TC_WIDE_STAGES * 2 * (TC_BQ + TC_BK_WIDE) * WIDE_SLICE
-                     + TC_WIDE_V_STAGES * 2 * TC_BK_WIDE * DH)
+            tile_bytes = (TC_WIDE_STAGES * 2 * (TC_BQ + TC_BK_WIDE)
+                          * WIDE_SLICE
+                          + TC_WIDE_V_STAGES * 2 * TC_BK_WIDE * DH)
             bars = 8 * 2 * (TC_WIDE_STAGES + TC_WIDE_V_STAGES)
         else:  # Q, the K / V ring
             bk = TC_BK if DH <= 128 else TC_BK_WIDE
-            tiles = 2 * TC_BQ * DH + 2 * TC_STAGES * 2 * bk * DH
+            tile_bytes = 2 * TC_BQ * DH + 2 * TC_STAGES * 2 * bk * DH
+        flat_grid(tiles)  # raises past what a launch grid holds
         # and slack for 1024-byte alignment
-        return "tensor-core", grid, TC_THREADS, tiles + bars + 1024
-    grid = (-(-Sq // CC_BQ), Hq, B * ncb)
+        return "tensor-core", tiles, TC_THREADS, tile_bytes + bars + 1024
+    tiles = (-(-Sq // CC_BQ), Hq, B * ncb)
     if ncb > 1:  # Q and K slices, V's OW columns and P as float
         smem = 4 * (CC_BQ * (WIDE_SLICE + 1) + CC_BK * (WIDE_SLICE + 1)
                     + CC_BK * DH + CC_BQ * (CC_BK + 1))
     else:  # Q, K, V and P as float, the padded strides of the source
         smem = 4 * (CC_BQ * (DH + 1) + CC_BK * (DH + 1) + CC_BK * DH
                     + CC_BQ * (CC_BK + 1))
-    return "cuda-core", grid, CC_THREADS, smem
+    flat_grid(tiles)
+    return "cuda-core", tiles, CC_THREADS, smem
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,8 +119,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     card, one dtype (float32 or bfloat16), contiguous, Hq a multiple of
     Hkv, dh >= 1, 0 <= kv_len <= Sk -> (B, Hq, Sq, dh) in q's dtype,
     scores scaled by dh ** -0.5; past ``MAX_DH`` the launch splits O's
-    columns over the grid (``column_blocks``).  Raises on anything else,
-    and on a grid past ``MAX_GRID``.
+    columns over the grid (``column_blocks``).  Any batch and head count
+    runs (``launch_geometry``; bfloat16 up to ``MAX_ROWS`` (batch, head)
+    rows).  Raises on anything else.
 
     The tensor-core kernel reads rows through TMA, whose row stride must
     be a multiple of 16 bytes: a bfloat16 head width that is not a
@@ -131,7 +141,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(t.shape) != (B, Hkv, Sk, dh):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{(B, Hkv, Sk, dh)}")
-    launch_geometry(q.dtype, B, Hq, Sq, dh)  # refuses dtype, width, grid
+    launch_geometry(q.dtype, B, Hq, Sq, dh)  # refuses dtype, width, rows
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads do not group over {Hkv} kv heads")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

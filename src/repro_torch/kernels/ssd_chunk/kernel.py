@@ -9,9 +9,13 @@ end-states come from the same launch), and counts its launches in
 bfloat16 runs on the tensor cores and reads the model's tensors in place,
 B and C once per group; float32 runs on the CUDA cores over tiles the
 wrapper copies.  ``ROUTE_LAUNCHES`` counts the launches of each route.
-Every head width p and state width n from 1 to 256 and every chunk from 1
-to 4,096 run (``P_INSTANCES``, ``MAX_CHUNK``), as the TPU kernel takes
-each tile whole.
+Every head width p and state width n from 1 up and every chunk from 1 to
+4,096 run (``P_INSTANCES``, ``MAX_CHUNK``), as the TPU kernel takes each
+tile whole: past ``MAX_P`` (p or n) on the ``_wide`` kernels, Y's and the
+states' p columns in ``columns(p)`` blocks and C B^T summed over 64-column
+slices of n.  Each route's tiles lie on ``build.flat_grid``'s launch grid
+(``cc_geometry``, ``mma_geometry``), so no batch, head or chunk count
+stops at 65,535.
 """
 from __future__ import annotations
 
@@ -20,14 +24,13 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import CudaKernel, check
+from repro_torch.kernels.build import CudaKernel, check, flat_grid
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 KERNEL = CudaKernel("ssd_chunk", "ssd_chunk.cu", {
-    # X, Adt, B, C, Y, states, BH, c, q, p, n, h, g, stream
-    "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _P),
+    # X, Adt, B, C, Y, states, BH, c, q, p, n, h, g, column blocks, stream
+    "ssd_chunk_launch": (_P, _P, _P, _P, _P, _P) + (_I,) * 8 + (_P,),
     # X, Adt, B, C, Y, states, b, c, q, p, n, h, g, hb, stream G, the
     # strides of X, Adt, B and C (batch, step, head or group), stream
     "ssd_chunk_mma_launch": (_P, _P, _P, _P, _P, _P) + (_I,) * 9
@@ -41,23 +44,24 @@ ROUTES = {torch.float32: "cuda-core (ssd_chunk_kernel, FP32 FMA)",
 ROUTE_LAUNCHES = {"cuda-core": 0, "tensor-core": 0}
 # X's width p runs on the narrowest instance at least as wide, its extra
 # columns zeros; B and C's width n is a runtime value (the tensor-core
-# kernel rounds it up to 16 with zero columns)
+# kernel rounds it up to 16 with zero columns).  Past MAX_P (p or n) the
+# _wide kernels: p in ceil(p / 256) column blocks (``columns``), n in
+# 64-column slices
 P_INSTANCES = (16, 32, 64, 128, 256)
-MAX_WIDTH = 256  # p and n: 1 to this
+MAX_P = P_INSTANCES[-1]
 # the chunk q: any from 1 to this that divides L.  The CUDA-core kernel
 # keeps acum (q floats) beside its tiles in shared memory: at p = n = 256
 # that is 4 (q + 53,440) bytes, within the block's 232,448 up to q =
 # 4,672; the tensor-core kernel streams G past what it can park
 MAX_CHUNK = 4096
-MAX_GRID = 65535  # grid axes y and z
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/ssd_chunk.cu, namespace mma: threads, query rows and keys per tile,
 # state rows per block, heads per block at most, bf16 padding per row,
 # stages of the X ring (G parked) and of the X + B ring (G streamed)
 MMA_THREADS, MMA_QT, MMA_KT, MMA_SR, MMA_HB, MMA_PAD = 128, 64, 64, 64, 8, 8
 MMA_RING, MMA_STREAM_RING = 3, 2
-# the CUDA-core kernel's query rows, keys and state rows per tile
-CC_QT, CC_KT, CC_NS = 64, 64, 64
+# the CUDA-core kernel's query rows, keys and state rows per tile, threads
+CC_QT, CC_KT, CC_NS, CC_THREADS = 64, 64, 64, 256
 
 
 def _up(x: int, m: int) -> int:
@@ -70,6 +74,21 @@ def p_instance(p: int) -> int:
     return next(w for w in P_INSTANCES if w >= p)
 
 
+def columns(p: int) -> tuple[int, int]:
+    """-> (blocks of Y's and the states' p columns, the instance each runs
+    on): one block up to ``MAX_P``; past it ceil(p / 256) blocks of the
+    instance of ceil(p / blocks) columns (p 320: 2 x 256; 1024: 4 x
+    256)."""
+    n = -(-p // MAX_P)
+    return n, p_instance(-(-p // n))
+
+
+def is_wide(p: int, n: int) -> bool:
+    """Whether (p, n) runs on the ``_wide`` kernels: either past
+    ``MAX_P``."""
+    return p > MAX_P or n > MAX_P
+
+
 def heads_per_block(h: int, g: int) -> int:
     """The heads one block of the tensor-core kernel walks: the largest
     of 8, 4, 2, 1 that divides the heads of a group."""
@@ -78,7 +97,12 @@ def heads_per_block(h: int, g: int) -> int:
 
 def cc_smem_bytes(q: int, n: int, p: int) -> int:
     """Dynamic shared memory of the CUDA-core kernel (``smem_floats``):
-    acum, a B tile, an X tile, the C rows and the score tile, as float."""
+    acum, a B tile, an X tile, the C rows and the score tile, as float;
+    past ``MAX_P`` (``wide_smem_floats``) a B slice of 64 columns, the X
+    tile's column block, a C slice and the score tile."""
+    if is_wide(p, n):
+        return 4 * (q + CC_KT * (CC_NS + 1) + CC_KT * columns(p)[1]
+                    + CC_QT * (CC_NS + 1) + CC_QT * (CC_KT + 1))
     return 4 * (q + CC_KT * (max(n, CC_NS) + 1) + CC_KT * p_instance(p)
                 + CC_QT * (n + 1) + CC_QT * (CC_KT + 1))
 
@@ -89,9 +113,14 @@ def mma_smem_bytes(q: int, n: int, p: int, hb: int = MMA_HB,
     namespace mma): acum of hb heads (q rounded up to 64 floats each),
     then, G parked, its fragments (16 KB per 64 keys) and the staging
     area (C rows and a B tile, or the X ring, whichever is larger); G
-    streamed, the C rows and a two-stage ring of an X and a B tile."""
-    P, n16 = p_instance(p), _up(n, 16)
+    streamed, the C rows and a two-stage ring of an X and a B tile.  Past
+    ``MAX_P`` (``wide_smem_bytes``, one head a block): acum, a C and a B
+    slice of 64 columns and the X tile's column block."""
     acum = hb * _up(q, MMA_KT) * 4
+    if is_wide(p, n):
+        return (acum + (MMA_QT + MMA_KT) * (MMA_SR + MMA_PAD) * 2
+                + MMA_KT * (columns(p)[1] + MMA_PAD) * 2)
+    P, n16 = p_instance(p), _up(n, 16)
     if stream:
         slot = MMA_KT * (P + MMA_PAD) + MMA_KT * (max(n16, MMA_SR) + MMA_PAD)
         return acum + MMA_QT * (n16 + MMA_PAD) * 2 + MMA_STREAM_RING * slot * 2
@@ -104,7 +133,11 @@ def mma_smem_bytes(q: int, n: int, p: int, hb: int = MMA_HB,
 def mma_layout(h: int, g: int, q: int, p: int, n: int) -> tuple[int, bool]:
     """-> (heads per block, G streamed) of the tensor-core kernel: G
     parked with the most heads a block can walk (at most
-    ``heads_per_block``), else streamed; raises when neither fits."""
+    ``heads_per_block``), else streamed; raises when neither fits.  Past
+    ``MAX_P`` (p or n) the ``_wide`` kernel: one head a block, G formed
+    per key tile, (1, True)."""
+    if is_wide(p, n):
+        return 1, True
     hbs = [hb for hb in (8, 4, 2, 1)
            if hb <= heads_per_block(h, g) and (h // g) % hb == 0]
     for stream in (False, True):
@@ -117,13 +150,35 @@ def mma_layout(h: int, g: int, q: int, p: int, n: int) -> tuple[int, bool]:
 
 
 def mma_geometry(b: int, L: int, h: int, g: int, q: int, p: int, n: int):
-    """-> (grid, threads per block, dynamic shared-memory bytes, heads per
-    block) of one tensor-core launch: query tiles of 64 rows and state
-    blocks of 64 state rows along x, head blocks along y, (batch, chunk)
-    along z."""
+    """-> (tiles, threads per block, dynamic shared-memory bytes, heads
+    per block) of one tensor-core launch (p and n as launched: multiples
+    of 8).  The tiles, numbered x fastest: query tiles of 64 rows
+    (heaviest first) and state blocks of 64 state rows along x (past
+    ``MAX_P``, times the column blocks of ``columns(p)``), head blocks
+    along y, (batch, chunk) along z; ``flat_grid(tiles)`` is the launch
+    grid, grid x up to 2**31 - 1 blocks, so no axis stops at 65,535."""
     hb, stream = mma_layout(h, g, q, p, n)
-    grid = (-(-q // MMA_QT) + -(-n // MMA_SR), h // hb, b * (L // q))
-    return grid, MMA_THREADS, mma_smem_bytes(q, n, p, hb, stream), hb
+    x = -(-q // MMA_QT) + -(-n // MMA_SR)
+    if is_wide(p, n):
+        x *= columns(p)[0]
+    tiles = (x, h // hb, b * (L // q))
+    flat_grid(tiles)  # raises past what a launch grid holds
+    return tiles, MMA_THREADS, mma_smem_bytes(q, n, p, hb, stream), hb
+
+
+def cc_geometry(b: int, L: int, h: int, g: int, q: int, p: int, n: int):
+    """-> (tiles, threads per block, dynamic shared-memory bytes) of one
+    CUDA-core launch.  The tiles, numbered x fastest: the end-state block
+    and the query tiles of 64 rows (heaviest first) along x (past
+    ``MAX_P``, times the column blocks of ``columns(p)``), chunks along y,
+    (batch, head) along z; ``flat_grid(tiles)`` is the launch grid, so no
+    axis stops at 65,535."""
+    x = 1 + -(-q // CC_QT)
+    if is_wide(p, n):
+        x *= columns(p)[0]
+    tiles = (x, L // q, b * h)
+    flat_grid(tiles)
+    return tiles, CC_THREADS, cc_smem_bytes(q, n, p)
 
 
 def reads_in_place(t: torch.Tensor) -> bool:
@@ -141,18 +196,20 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     """Launch the kernel on the model's layout: X (b, L, h, p), Adt
     (b, L, h), B/C (b, L, g, n) with h % g == 0 (head hd reads group
     hd // (h // g)), on one card, one dtype (float32 or bfloat16), p and n
-    from 1 to ``MAX_WIDTH``, a chunk from 1 to ``MAX_CHUNK`` that divides
-    L -> (Y (b, L, h, p) in X's dtype, states (b, c, h, p, n) float32),
-    c = L // chunk.  Raises on anything else.
+    from 1 up, a chunk from 1 to ``MAX_CHUNK`` that divides L -> (Y (b, L,
+    h, p) in X's dtype, states (b, c, h, p, n) float32), c = L // chunk;
+    any b, h and c (each route's own ``*_geometry``).  Raises on anything
+    else.
 
     bfloat16 reads the tensors by their strides (a view whose rows do not
     start on 16 bytes is copied first; a width that is not a multiple of
     8 is zero-padded to one, and Y and the states come back as views of
     the padded results); float32 copies them to the CUDA-core kernel's
     tiles (b h, c, q, x), B and C per group, X zero-padded to its
-    instance.  Widths below an instance, and chunks that are no multiple
-    of the tiles, read zeros past their edge: exact, since padded keys
-    carry zero B and X and padded rows are never written."""
+    instance (past ``MAX_P``, to its column blocks of ``columns(p)``).
+    Widths below an instance, and chunks that are no multiple of the
+    tiles, read zeros past their edge: exact, since padded keys carry zero
+    B and X and padded rows are never written."""
     if not X.is_cuda:
         raise ValueError("ssd_chunk_cuda launches on CUDA tensors only")
     if X.dim() != 4 or Adt.dim() != 3 or B.dim() != 4 or C.dim() != 4:
@@ -171,9 +228,9 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     if X.dtype not in ROUTES:
         raise TypeError(f"dtype {X.dtype} not supported; choose from "
                         f"{list(ROUTES)}")
-    if not (1 <= p <= MAX_WIDTH and 1 <= n <= MAX_WIDTH):
+    if p < 1 or n < 1:
         raise ValueError(f"head width {p} / state width {n} not supported: "
-                         f"1 to {MAX_WIDTH}")
+                         "1 and up")
     q = int(chunk)
     if not 1 <= q <= MAX_CHUNK:
         raise ValueError(f"chunk {q} not supported: 1 to {MAX_CHUNK}")
@@ -183,9 +240,6 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     if g == 0 or h % g:
         raise ValueError(f"{h} heads do not group over {g} B/C groups")
     c = L // q
-    if b * h > MAX_GRID or b * c > MAX_GRID or c > MAX_GRID:
-        raise ValueError(f"{b} x {h} heads or {b} x {c} chunks exceed the "
-                         f"grid's {MAX_GRID}")
     dev = X.device
     if X.numel() == 0:
         return (torch.empty_like(X, memory_format=torch.contiguous_format),
@@ -195,6 +249,7 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     if X.dtype == torch.bfloat16:
         pw, nw = _up(p, 8), _up(n, 8)  # 16-byte rows for cp.async
         hb, stream_g = mma_layout(h, g, q, pw, nw)
+        mma_geometry(b, L, h, g, q, pw, nw)
         if pw != p:
             X = F.pad(X, (0, pw - p))
         if nw != n:
@@ -216,7 +271,9 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
         ROUTE_LAUNCHES["tensor-core"] += 1
         return Y[..., :p], st[..., :p, :n]
 
-    P = p_instance(p)  # within MAX_CHUNK, cc_smem_bytes fits SMEM_LIMIT
+    cc_geometry(b, L, h, g, q, p, n)
+    ncb, ow = columns(p)  # within MAX_CHUNK, cc_smem_bytes fits SMEM_LIMIT
+    P = ncb * ow
 
     def tiles(t, width=None):  # (b, L, k, x) -> (b, k, c, q, x), contiguous
         t = t.reshape(b, c, q, t.shape[2], -1).permute(0, 3, 1, 2, 4)
@@ -232,7 +289,8 @@ def ssd_chunk_cuda(X: torch.Tensor, Adt: torch.Tensor, B: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.ssd_chunk_launch(
             Xc.data_ptr(), Ac.data_ptr(), Bc.data_ptr(), Cc.data_ptr(),
-            Yc.data_ptr(), st.data_ptr(), b * h, c, q, P, n, h, g, stream)
+            Yc.data_ptr(), st.data_ptr(), b * h, c, q, P, n, h, g, ncb,
+            stream)
     check(KERNEL, err, "ssd_chunk")
     KERNEL.launches += 1
     ROUTE_LAUNCHES["cuda-core"] += 1

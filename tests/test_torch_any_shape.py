@@ -283,3 +283,74 @@ def test_reduced_mamba2_any_shape_generates_like_jax(monkeypatch):
         tp, torch.from_numpy(prompts), n_new)
     np.testing.assert_array_equal(got.numpy(), want)
     assert calls == [((4, 48), 96, 24)] * jcfg.n_layers
+
+
+# --------------------------------------- SSD past width 256 (the _wide route)
+@pytest.mark.parametrize("p,n", [(320, 320), (512, 512), (512, 128)])
+def test_ssd_plain_matches_jax_kernel_past_256(p, n):
+    """``ssd_plain`` (the route the _wide kernels are held against on the
+    card, and the port's route for a CPU tensor) against JAX's Pallas
+    kernel in interpret mode and the float64 formula past width 256:
+    b = 1, 2 heads in one group, L = 128, chunk 64, float32, within 1e-5
+    of the output's scale."""
+    from repro_torch.kernels.ssd_chunk.ops import ssd_plain
+
+    b, h, L, chunk = 1, 2, 128, 64
+    rng = np.random.default_rng(p + n)
+    X = rng.standard_normal((b, L, h, p)).astype(np.float32)
+    Adt = -np.logaddexp(0.0, rng.standard_normal((b, L, h))).astype(
+        np.float32)
+    Bg = rng.standard_normal((b, L, 1, n)).astype(np.float32)
+    Cg = rng.standard_normal((b, L, 1, n)).astype(np.float32)
+    Y, st = ssd_plain(*(torch.from_numpy(a) for a in (X, Adt, Bg, Cg)),
+                      chunk=chunk)
+    assert tuple(st.shape) == (b, L // chunk, h, p, n)
+    Bh, Ch = np.repeat(Bg, h, 2), np.repeat(Cg, h, 2)
+    wants = [_ssd_f64(X, Adt, Bh, Ch, chunk), jchunks(
+        *(jnp.asarray(a) for a in (X, Adt, Bh, Ch)), chunk=chunk,
+        use_pallas=True, interpret=True)]
+    for Yw, sw in wants:
+        for got, want in ((Y, Yw), (st, sw)):
+            want = np.asarray(want, np.float32)
+            scale = max(1.0, float(np.abs(want).max()))
+            np.testing.assert_allclose(got.numpy() / scale, want / scale,
+                                       rtol=SSD_TOL["float32"],
+                                       atol=SSD_TOL["float32"])
+
+
+def test_reduced_mamba2_at_head_width_320_matches_jax():
+    """A reduced Mamba2 whose SSM heads are 320 wide with a state of 288
+    (d_model 320: two heads, chunk 32), float32: the port's prefill (on a
+    CPU tensor the kernel route's plain version; on the card the _wide
+    kernels) against JAX's with its layers' ``ssd`` on the Pallas kernel
+    in interpret mode, the last logits and every layer's SSM state within
+    1e-4 of their scale."""
+    jcfg = jget("mamba2-370m", reduced=True)
+    jcfg = dataclasses.replace(
+        jcfg, dtype="float32", d_model=320,
+        ssm=dataclasses.replace(jcfg.ssm, head_dim=320, d_state=288,
+                                chunk=32))
+    jm, jp, tm, tp = model_pair(jcfg)
+    B, P = 2, 64
+    prompts = np.random.default_rng(23).integers(
+        0, jcfg.vocab, (B, P)).astype(np.int32)
+    route = functools.partial(jmamba.ssd, use_pallas=True, interpret=True)
+    saved, jmamba.ssd = jmamba.ssd, route
+    try:
+        jl, jc, _ = jm.prefill(jp, {"tokens": jnp.asarray(prompts)},
+                               jinit_cache(jcfg, B, P + 8, jnp.float32))
+    finally:
+        jmamba.ssd = saved
+    from repro_torch.models import init_cache
+
+    with torch.inference_mode():
+        tl, tc, _ = tm.prefill(tp, {"tokens": torch.from_numpy(prompts)},
+                               init_cache(tm.cfg, B, P + 8, device="cpu"))
+    # the layers' SSM states, stacked: (layers, B, heads, p, n)
+    pairs = [(tl, jl), (tc["blocks"]["l0"]["ssm"], jc["blocks"]["l0"]["ssm"])]
+    assert tuple(pairs[1][0].shape) == (jcfg.n_layers, B, 2, 320, 288)
+    for got, want in pairs:
+        want = np.asarray(want, np.float32)
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy() / scale, want / scale,
+                                   rtol=SCAN_TOL, atol=SCAN_TOL)

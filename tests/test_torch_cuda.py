@@ -397,8 +397,9 @@ def test_flash_attention_kernel_kv_len_and_refusals(cuda):
         got = flash_attention_cuda(q, k, v, causal=causal, kv_len=77)
         want = attention_ref(q, k, v, causal=causal, kv_len=77)
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
-    # past 256 the head width runs (O's columns split over the grid);
-    # what is left to refuse: a width below 1 and a grid past 65,535
+    # past 256 the head width runs (O's columns split over the grid), and
+    # past 65,535 batch x column blocks (the tiles on a flat grid); what is
+    # left to refuse: a width below 1
     wide = torch.randn(2, 4, 70, 257, generator=g, device=cuda)
     kv = wide[:, :2].contiguous()
     got = flash_attention_cuda(wide, kv, kv, kv_len=70)
@@ -407,9 +408,10 @@ def test_flash_attention_kernel_kv_len_and_refusals(cuda):
     with pytest.raises(ValueError, match="head width 0 "):
         empty = torch.zeros(2, 4, 70, 0, device=cuda)
         flash_attention_cuda(empty, empty[:, :2], empty[:, :2])
-    with pytest.raises(ValueError, match="grid's 65535"):
-        tall = torch.zeros(32768, 1, 1, 264, device=cuda)
-        flash_attention_cuda(tall, tall, tall)
+    tall = torch.randn(32768, 1, 1, 264, generator=g, device=cuda)
+    torch.testing.assert_close(flash_attention_cuda(tall, tall, tall),
+                               attention_ref(tall, tall, tall), rtol=2e-4,
+                               atol=2e-4)
     with pytest.raises(TypeError, match="dtype"):
         flash_attention_cuda(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="kv_len"):
@@ -484,16 +486,51 @@ def _ssd_inputs(cuda, b, h, c, q, p, n, dtype, decay=1.0, seed=0, g=None):
     return [t.to(dt) for t in (X, Adt, B, C)]
 
 
-def _assert_ssd_close(got, want, dtype):
+def _assert_ssd_close(got, want, dtype, exact=None):
     """tests/test_ssd_kernel.py's elementwise rtol = atol (2e-2 bf16, 1e-5
     float32) and chip_smoke.py's bound on the largest output (1e-2 bf16,
-    1e-5 float32)."""
+    1e-5 float32).
+
+    ``exact`` (float64 results of the same formula, ``_ssd_f64``) replaces
+    the elementwise float32 gate for state widths past 256: there the
+    plain version itself misses float64 by more than 1e-5 (up to 1e-4 at
+    n = 520, q = 16, where its product runs in another summation order
+    than the kernel's), so the kernel is held to its largest error
+    against float64 being at most twice the plain version's, beside the
+    bound on the largest output."""
     tol, scaled = (2e-2, 1e-2) if dtype == "bfloat16" else (1e-5, 1e-5)
-    for a, b in zip(got, want):
+    for i, (a, b) in enumerate(zip(got, want)):
         assert a.shape == b.shape
-        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+        if exact is None:
+            torch.testing.assert_close(a.float(), b.float(), rtol=tol,
+                                       atol=tol)
+        else:
+            e = exact[i]
+            mine = (a.double() - e).abs().max().item()
+            plain = (b.double() - e).abs().max().item()
+            assert mine <= 2 * plain, (mine, plain)
         err = (a.float() - b.float()).abs().max().item()
         assert err <= scaled * b.float().abs().max().item()
+
+
+def _ssd_f64(X, Adt, B, C, q):
+    """Y (b, L, h, p) and the states (b, c, h, p, n) of the intra-chunk
+    formula (``ssd_chunk_ref``'s) in float64, B / C per group."""
+    b, L, h, p = X.shape
+    g, c = B.shape[2], L // q
+    Xc, Bc, Cc = (t.double().reshape(b, c, q, t.shape[2], -1)
+                  for t in (X, B, C))
+    Bc, Cc = (t.repeat_interleave(h // g, 3) for t in (Bc, Cc))
+    acum = torch.cumsum(Adt.double().reshape(b, c, q, h), 2)
+    tri = torch.ones(q, q, dtype=torch.bool, device=X.device).tril()
+    Lm = torch.exp(torch.where(tri[None, None, :, :, None],
+                               acum[:, :, :, None] - acum[:, :, None],
+                               float("-inf")))
+    S = torch.einsum("bcihn,bcjhn->bcijh", Cc, Bc) * Lm
+    Y = torch.einsum("bcijh,bcjhp->bcihp", S, Xc).reshape(b, L, h, p)
+    decay = torch.exp(acum[:, :, -1:] - acum)
+    st = torch.einsum("bcjhn,bcjh,bcjhp->bchpn", Bc, decay, Xc)
+    return Y, st
 
 
 @pytest.mark.parametrize("decay", [1.0, 0.01])
@@ -591,14 +628,20 @@ def test_ssd_chunk_kernel_refusals(cuda):
         ssd_chunk_cuda(X.half(), Adt.half(), B.half(), C.half(), chunk=32)
     with pytest.raises(ValueError, match="Adt"):
         ssd_chunk_cuda(X, Adt.bfloat16(), B, C, chunk=32)
-    # widths 1 to 256 run (X 24 wide and a chunk of 272 included); past
-    # 256, a chunk that does not divide L and one past 4,096 raise
-    with pytest.raises(ValueError, match="width 257 .* 1 to 256"):
-        ssd_chunk_cuda(torch.cat([X] * 17, -1)[..., :257], Adt, B, C,
-                       chunk=32)
-    with pytest.raises(ValueError, match="width 257 .* 1 to 256"):
-        ssd_chunk_cuda(X, Adt, *(torch.cat([t] * 17, -1)[..., :257]
-                                 for t in (B, C)), chunk=32)
+    # every width from 1 up runs (X 24 wide, a chunk of 272, and p or n of
+    # 257 on the _wide kernel included); a width below 1, a chunk that
+    # does not divide L and one past 4,096 raise
+    from repro_torch.kernels.ssd_chunk import ssd_chunks
+
+    for args in ((torch.cat([X] * 17, -1)[..., :257], Adt, B, C),
+                 (X, Adt, *(torch.cat([t] * 17, -1)[..., :257]
+                            for t in (B, C)))):
+        _assert_ssd_close(ssd_chunk_cuda(*args, chunk=32),
+                          ssd_chunks(*args, chunk=32, backend="torch"),
+                          "float32", exact=_ssd_f64(*args, 32)
+                          if args[2].shape[-1] > 256 else None)
+    with pytest.raises(ValueError, match="width 0 .* 1 and up"):
+        ssd_chunk_cuda(X[..., :0], Adt, B, C, chunk=32)
     with pytest.raises(ValueError, match="not a multiple of the chunk 24"):
         ssd_chunk_cuda(X, Adt, B, C, chunk=24)
     with pytest.raises(ValueError, match="chunk 8192 not supported: 1 to "
@@ -1600,7 +1643,12 @@ ANY_SSD = [  # (p, n, q, g of 4 heads)
     (8, 8, 24, 1), (48, 48, 24, 4), (96, 96, 100, 1), (256, 256, 24, 1),
     (8, 256, 100, 4), (256, 8, 100, 1), (48, 96, 512, 1), (96, 48, 512, 4),
     (256, 256, 512, 1), (8, 8, 1024, 1), (5, 13, 7, 1), (200, 1, 1, 4),
-    (1, 120, 300, 1)]
+    (1, 120, 300, 1),
+    # past 256: the _wide kernels (p in column blocks, n in 64-column
+    # slices)
+    (320, 320, 64, 1), (320, 320, 256, 4), (512, 512, 64, 4),
+    (512, 512, 256, 1), (512, 128, 100, 1), (257, 300, 24, 4),
+    (40, 520, 16, 1), (1024, 1024, 64, 1)]
 
 
 @pytest.mark.parametrize("p,n,q,g", ANY_SSD)
@@ -1610,8 +1658,9 @@ def test_ssd_any_width_and_chunk_matches_plain(cuda, dtype, p, n, q, g):
     columns, n rounded up to 16 with zero columns; widths that are no
     multiple of 8 staged zero-padded), chunks that are no multiple of 16
     (the last tile's rows past q read zeros) and past 256 (G streamed at
-    p = n = 256, q = 512 and at q = 1024), B / C per group: one launch on
-    the dtype's route, against the plain version."""
+    p = n = 256, q = 512 and at q = 1024), widths past 256 (the _wide
+    kernels), B / C per group: one launch on the dtype's route, against
+    the plain version."""
     from repro_torch.kernels.ssd_chunk import (KERNEL, ROUTE_LAUNCHES,
                                                ssd_chunk_cuda, ssd_chunks)
 
@@ -1625,5 +1674,47 @@ def test_ssd_any_width_and_chunk_matches_plain(cuda, dtype, p, n, q, g):
     assert ROUTE_LAUNCHES[route] == routed + 1
     assert Y.shape == X.shape and st.shape == (2, 2, 4, p, n)
     assert torch.isfinite(Y.float()).all() and torch.isfinite(st).all()
+    exact = (_ssd_f64(X, Adt, B, C, q) if dtype == "float32" and n > 256
+             else None)
     _assert_ssd_close((Y, st), ssd_chunks(X, Adt, B, C, chunk=q,
-                                          backend="torch"), dtype)
+                                          backend="torch"), dtype, exact)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_past_a_grid_axis_of_65535_matches_plain(cuda, dtype):
+    """b h = 65,536 (mamba2-370m's 32 heads at batch 2,048, L = chunk =
+    16, p 64, n 128): the float32 launch's (batch, head) axis and the
+    bf16 one's (batch, chunk) axis lie on the flat grid; one launch on the
+    dtype's route, within the gates of the plain version."""
+    from repro_torch.kernels.ssd_chunk import (KERNEL, ROUTE_LAUNCHES,
+                                               ssd_chunk_cuda)
+    from repro_torch.kernels.ssd_chunk.ops import ssd_plain
+
+    X, Adt, B, C = _ssd_inputs(cuda, 2048, 32, 1, 16, 64, 128, dtype, g=1)
+    route = "tensor-core" if dtype == "bfloat16" else "cuda-core"
+    before, routed = KERNEL.launches, ROUTE_LAUNCHES[route]
+    got = ssd_chunk_cuda(X, Adt, B, C, chunk=16)
+    torch.cuda.synchronize()
+    assert (KERNEL.launches, ROUTE_LAUNCHES[route]) == (before + 1,
+                                                        routed + 1)
+    _assert_ssd_close(got, ssd_plain(X, Adt, B, C, chunk=16), dtype)
+
+
+@pytest.mark.parametrize("dh", [64, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_past_a_grid_axis_of_65535_matches_plain(cuda, dtype, causal,
+                                                        dh):
+    """B x column blocks of 65,536 (B = 65,536 at dh 64; 16,384 at dh
+    1,024, four blocks), one head, S = 16: the tiles on the flat grid,
+    within the flash gates of ``attention_ref``."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_cuda)
+
+    B = 65536 if dh == 64 else 16384
+    q, k, v = _attn_inputs(cuda, B, 1, 1, 16, 16, dh, getattr(torch, dtype),
+                           dh)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

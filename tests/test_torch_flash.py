@@ -173,19 +173,26 @@ def test_flash_head_width_96_geometry():
 def test_flash_launch_geometry_refusals_are_unchanged():
     """float16 has no kernel; every head width from 1 up runs (48 on the
     64-wide instance; 257 as two column blocks of O on the 160-wide one),
-    so what is left to refuse is a width below 1 and a grid past 65,535
-    (batch x column blocks, or heads), each message naming the limit."""
+    and every batch and head count: the tiles lie on ``flat_grid``'s
+    launch grid, so 32,768 x 2 column blocks and 65,536 heads, which the
+    grid's 65,535 refused before, run.  What is left to refuse is a width
+    below 1 and, in bf16, more (batch, head) rows than a TMA coordinate
+    addresses, each message naming the limit."""
+    from repro_torch.kernels.build import flat_grid
     from repro_torch.kernels.flash_attention import launch_geometry
 
     with pytest.raises(TypeError, match="dtype"):
         launch_geometry(torch.float16, 1, 2, 64, 64)
     with pytest.raises(ValueError, match="head width 0 .* 1 and up"):
         launch_geometry(torch.float32, 1, 2, 64, 0)
-    with pytest.raises(ValueError, match="32768 x 2 column blocks .* "
-                                         "grid's 65535"):
-        launch_geometry(torch.bfloat16, 32768, 2, 64, 257)
-    with pytest.raises(ValueError, match="grid's 65535"):
-        launch_geometry(torch.float32, 1, 65536, 64, 64)
+    with pytest.raises(ValueError,
+                       match="1073741824 x 2 .* 2147483647 a TMA"):
+        launch_geometry(torch.bfloat16, 2 ** 30, 2, 64, 64)
+    tiles = launch_geometry(torch.bfloat16, 32768, 2, 64, 257)[1]
+    assert tiles == (1, 2, 65536) and flat_grid(tiles) == (131072, 1, 1)
+    tiles = launch_geometry(torch.float32, 1, 65536, 64, 64)[1]
+    assert tiles == (1, 65536, 1) and flat_grid(tiles) == (65536, 1, 1)
+    assert launch_geometry(torch.float32, 2 ** 30, 2, 64, 64)[1][2] == 2 ** 30
     assert launch_geometry(torch.bfloat16, 1, 2, 64, 48)[0] == "tensor-core"
     assert launch_geometry(torch.bfloat16, 1, 2, 64, 257)[1] == (1, 2, 2)
     assert launch_geometry(torch.bfloat16, 32767, 2, 64, 257)[1][2] == 65534
