@@ -62,11 +62,14 @@ exit and no result line:
                      S=1500 padded to 1536, dh=64, bf16, full) with near
                      uniform and with near one-hot attention, causal GQA
                      at qwen2-1.5b's attention shape (12 q / 2 kv heads,
-                     dh=128, S=2048, bf16) and a ragged float32 case
-                     (S=100); within 2e-4 (f32) / 2e-2 (bf16), and within
-                     1e-4 (f32) / 1e-2 (bf16) of the largest output; the
-                     kernel told to keep the padded keys must fail that
-                     check; timed beside the plain version and
+                     dh=128, S=2048, bf16, and float32: the shape the
+                     float32 mesh forward gives each rank) and a ragged
+                     float32 case (S=100); within 2e-4 (f32) / 2e-2
+                     (bf16), and within 1e-4 (f32) / 1e-2 (bf16) of the
+                     largest output; the kernel told to keep the padded
+                     keys (and, in the float32 qwen2 case, to see every
+                     key) must fail that check; timed beside the plain
+                     version and
                      ``scaled_dot_product_attention``; the route each
                      dtype ran (bf16: the tensor-core kernel, f32: the
                      CUDA-core one, from the profiler's kernel names), and
@@ -294,13 +297,13 @@ timeout fails the run with every rank's traceback:
                      (CUDA tensors over gloo), the merge's ms, 100
                      ``gain_static`` launches a rank;
  pod_compress        two gloo ranks as two pods, each training
-                     mamba2-370m at full width cut to 8 of its 48 layers
+                     mamba2-370m at full width cut to 4 of its 48 layers
                      (8 x 2048 tokens, bf16, remat ``full``) on its own
                      batches, 2 AdamW steps through
                      ``Compressor(mesh, "pod")``: the parameters bit for
                      bit the same on both after every step, each reduced
                      gradient within the int8 bound of the pods' mean
-                     (``_check_reduced``), 16 ``ssd_chunk`` launches a
+                     (``_check_reduced``), 8 ``ssd_chunk`` launches a
                      step a rank; ms a step, the compress window, the
                      int32 bytes a step, peak memory;
  nccl                one rank on an NCCL group: the pod (64 sessions),
@@ -313,17 +316,18 @@ mesh of ranks sharing the card (``tp_forward``: qwen2-1.5b on (2, 2) and
 mamba2-370m on (1, 2); ``seq_shard``: phi3-mini-3.8b on (1, 3), context
 parallel; ``train_mesh``: ``launch.train`` on (1, 2), a step, a
 checkpoint, a resumed step bit-equal), each model at full width cut in
-depth (qwen2 and phi3 to 4 layers, mamba2 to 8; the ``cut`` of each
+depth (qwen2 and phi3 to 2 layers, mamba2 to 4; the ``cut`` of each
 line), and the dry-run (``dryrun``).  Each rank phase's timeout is at
 most 180 s.
 
 Then this slice's phases:
 
- flash_wide          head widths 264, 300, 320, 384, 512 and 1024 (O's
-                     columns in ceil(dh / 256) blocks along the grid): bf16
-                     causal GQA (B = 2, 8 / 2 heads, S = 1024) and ragged
-                     float32 (S = 300) under the gates of ``flash``, the
-                     one-column-short fault, the ``_wide`` kernels seen
+ flash_wide          head widths 264, 300, 320, 384, 512 and 1024: bf16
+                     causal GQA (B = 2, 8 / 2 heads, S = 1024; O's columns
+                     in ceil(dh / 256) blocks along the grid, the ``_wide``
+                     kernel) and ragged float32 (S = 300; one block holds
+                     every width to 1,024) under the gates of ``flash``,
+                     the one-column-short fault, the dtype's kernel seen
                      by the profiler; timed beside the plain version,
                      SDPA and the bound; then reduced Whisper with
                      encoder heads of 320 through ``ServeDriver.generate``
@@ -360,6 +364,12 @@ Then this slice's phase:
                      prompts; and a reduced Mamba2 with SSM heads of 320
                      (state 288, chunk 32) served on the ``_wide`` kernel
                      against the plain route.
+
+The float32 routes of flash and SSD (FP32 on the CUDA cores) are timed
+on their own too: ``flash`` at qwen2-1.5b's causal GQA shape,
+``flash_dh_any`` at every float32 width, and the kernels line gives them
+rows of their own (``flash_attention_f32``, ``ssd_chunk_f32``) beside
+the other twelve.
 
 The whole script is kept under 600 s on the H100 (PERF.md has each
 phase's seconds).
@@ -411,7 +421,11 @@ FLASH_CASES = [
     ("whisper_encoder_peaked", 8, 12, 12, 1500, 64, False, "bfloat16", 2.0),
     ("qwen2_causal_gqa", 1, 12, 2, 2048, 128, True, "bfloat16", 0.5),
     ("ragged_f32", 2, 4, 2, 100, 64, True, "float32", 0.5),
+    # qwen2-1.5b's attention in float32: the shape tp_forward's float32
+    # run gives the CUDA-core kernel on each rank
+    ("qwen2_causal_gqa_f32", 1, 12, 2, 2048, 128, True, "float32", 0.5),
 ]
+FLASH_F32_ROW = "qwen2_causal_gqa_f32"  # the kernels line's float32 case
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}  # tests/test_kernels.py
 # and against the output's own size, max|got - want| / max|want| (one bf16
 # ulp is at most 2^-7 = 7.8e-3 of a value)
@@ -452,6 +466,7 @@ SSD_CASES = [
 ]
 # elementwise rtol = atol, tests/test_ssd_kernel.py:35; and max|got -
 # want| / max|want| (one bf16 ulp is at most 2^-7 = 7.8e-3 of a value)
+SSD_F32_ROW = "mamba2_prefill_slow_f32"  # the kernels line's float32 case
 SSD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SSD_SCALED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # phase mamba: slots, prompt tokens, new tokens; timed generates per route
@@ -2028,13 +2043,15 @@ def phase_flash(torch, gen):
     if not (sass["HGMMA"] or sass["HMMA"]):
         fail(f"flash: no tensor-core instruction in the SASS ({sass})")
     cases = [_flash_case(torch, gen, case, "padded_keys"
-                         if case[0] == FLASH_CONTROL else None)
+                         if case[0] == FLASH_CONTROL else "non_causal"
+                         if case[0] == FLASH_F32_ROW else None)
              for case in FLASH_CASES]
     max_err = max(c["max_abs_err"] for c in cases)
     emit("flash", cases=cases, max_abs_err=max_err,
          routes={str(k).replace("torch.", ""): v for k, v in ROUTES.items()},
          library="torch.nn.functional.scaled_dot_product_attention")
-    return {"max_abs_err": max_err, **cases[0]}
+    return {"max_abs_err": max_err, **cases[0],
+            "f32": next(c for c in cases if c["case"] == FLASH_F32_ROW)}
 
 
 def phase_flash_dh96(torch, gen):
@@ -2397,7 +2414,8 @@ def phase_ssd(torch, gen):
                   for c in cases)
     emit("ssd", cases=cases, max_abs_err=max_err, library=None,
          routes={str(k).replace("torch.", ""): v for k, v in ROUTES.items()})
-    return {"max_abs_err": max_err, **cases[0]}
+    return {"max_abs_err": max_err, **cases[0],
+            "f32": next(c for c in cases if c["case"] == SSD_F32_ROW)}
 
 
 def _ssd_case(torch, gen, case, timed=True):
@@ -4346,9 +4364,12 @@ def phase_train_grad(torch, gen, seed):
              f"step, expected {want} (a forward and, under remat, a "
              "recompute per layer)")
     worst = max(r["dtypes"]["float32"]["max_scaled_grad_err"] for r in cases)
+    f32 = {k: sum(r["dtypes"]["float32"]["launches"][k] for r in cases)
+           for k in launches}
     emit("train_grad", cases=cases, tol=GRAD_TOL, launches=launches,
-         max_scaled_grad_err=worst)
-    return {"launches": launches, "max_scaled_grad_err": worst}
+         float32_launches=f32, max_scaled_grad_err=worst)
+    return {"launches": launches, "float32_launches": f32,
+            "max_scaled_grad_err": worst}
 
 
 def _step_events(torch, step, events, metrics):
@@ -4667,7 +4688,7 @@ MERGE_RANKS = 4
 # whole at the train_mamba cell's shape on its own batches, AdamW steps
 # through Compressor(mesh, "pod")
 COMPRESS_PODS, COMPRESS_STEPS = 2, 2
-COMPRESS_LAYERS = 8  # of mamba2-370m's 48, at full width
+COMPRESS_LAYERS = 4  # of mamba2-370m's 48, at full width
 # the one-rank NCCL leg, at a reduced size: a pod of NCCL_SESSIONS, a
 # merge over NCCL_MERGE_BATCHES batches of the paper stream, the reduced
 # mamba2-370m config trained NCCL_STEPS steps at GRAD_SHAPE
@@ -5266,12 +5287,12 @@ def _ssd_a_step(cfg):
 
 def phase_pod_compress(torch, seed):
     """Two ranks as two pods, each training mamba2-370m at full width cut
-    to 8 of its 48 layers (8 x 2048 tokens, bf16, remat ``full``) on its
+    to 4 of its 48 layers (8 x 2048 tokens, bf16, remat ``full``) on its
     own batches, 2 AdamW steps through ``Compressor(mesh, "pod")``: the
     int8 payloads summed in int32 over the pod axis's gloo group (staged
     through host memory).  Gates: parameters bit-equal across the pods
     after every step, every reduced gradient within the int8 bound of
-    the pods' mean, 16 ``ssd_chunk`` launches a step a rank (the
+    the pods' mean, 8 ``ssd_chunk`` launches a step a rank (the
     forward's and the remat recompute's)."""
     cfg = {"arch": "mamba2-370m", "reduced": False, "seed": seed,
            "layers": COMPRESS_LAYERS, "steps": COMPRESS_STEPS,
@@ -5399,15 +5420,16 @@ def phase_flash_dh_any(torch, gen):
     """Every head width up to 256 on both routes under the gates of
     ``flash``: the kernel fed one column short (q, k and v with their
     last column zeroed, a kernel that reads dh - 1 columns) must fail
-    each case's gate; the widest (256) timed beside the plain version,
-    SDPA and the bound, the others' route read from the wrapper's
-    counters.  A head width of 0 raises, naming the range (widths past
+    each case's gate; the widest (256) and every float32 case timed
+    beside the plain version, SDPA and the bound, the others' route read
+    from the wrapper's counters.  A head width of 0 raises, naming the range (widths past
     256 run: phase ``flash_wide``)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      launch_geometry)
 
     cases = [_flash_case(torch, gen, case, "short_column",
-                         timed=case[5] == 256) for case in FLASH_ANY_CASES]
+                         timed=case[5] == 256 or case[7] == "float32")
+             for case in FLASH_ANY_CASES]
     empty = torch.zeros(1, 2, 64, 0, device=DEV, dtype=torch.bfloat16)
     try:
         flash_attention(empty, empty, empty, backend="cuda")
@@ -5437,21 +5459,21 @@ MESH_TOL = 1e-4  # of the largest |logit|: float32, sums split over ranks
 # the layers, the kernels see each layer's width; every gate holds at the
 # cut depth (the launch counts follow it).
 TP_QWEN = {"arch": "qwen2-1.5b", "shape": (2, 2), "batch": (8, 512),
-           "layers": 4, "runs": [("plain_f32", {"dtype": "float32"}),
+           "layers": 2, "runs": [("plain_f32", {"dtype": "float32"}),
                     ("kernel_f32", {"dtype": "float32",
                                     "use_pallas_attention": True}),
                     ("kernel_bf16", {"use_pallas_attention": True})]}
 TP_MAMBA = {"arch": "mamba2-370m", "shape": (1, 2), "batch": (8, 2048),
-            "layers": 8, "runs": [("kernel_f32", {"dtype": "float32"}),
+            "layers": 4, "runs": [("kernel_f32", {"dtype": "float32"}),
                      ("kernel_bf16", {})]}
 SEQ_PHI3 = {"arch": "phi3-mini-3.8b", "shape": (1, 3), "batch": (4, 1536),
-            "layers": 4, "runs": [("plain_f32", {"dtype": "float32",
+            "layers": 2, "runs": [("plain_f32", {"dtype": "float32",
                                     "attn_seq_shard": True})]}
 # (1, 2), not (2, 2): on (2, 2) the FSDP gathers over 'data' and the
 # checkpoints (18.6 GB gathered whole on every rank) run through host
 # copies four ways; (1, 2) keeps the tensor-parallel path and halves it
 TRAIN_MESH = {"arch": "qwen2-1.5b", "shape": (1, 2), "batch": (8, 512),
-              "layers": 4, "steps": 2}
+              "layers": 2, "steps": 2}
 TRAIN_MESH_TOL = {"loss": 1e-2, "grad_norm": 5e-2}  # bf16 activations
 RANK_TIMEOUT.update({"tp_qwen2": 125, "tp_mamba": 95, "seq_shard": 70,
                      "train_mesh": 125})
@@ -5587,10 +5609,10 @@ def _mesh_record(got, cfg):
 
 def phase_tp_forward(torch, seed):
     """The model on a mesh of ranks sharing the card: qwen2-1.5b at full
-    width cut to 4 of its 28 layers on (2, 2), 8 x 512 tokens, on the
+    width cut to 2 of its 28 layers on (2, 2), 8 x 512 tokens, on the
     plain attention route and under ``use_pallas_attention`` (flash on
     each rank's 6 query and 1 kv heads: one launch a layer a rank);
-    mamba2-370m cut to 8 of 48 layers on (1, 2), 8 x 2048 tokens,
+    mamba2-370m cut to 4 of 48 layers on (1, 2), 8 x 2048 tokens,
     ``ssd_chunk`` on each rank's 16 heads (one launch a layer a rank).
     Gates: float32 logits within 1e-4 of the largest one-process logit,
     the launches on every rank; bf16 printed."""
@@ -5616,12 +5638,18 @@ def phase_tp_forward(torch, seed):
     return {"flash_attention": sum(g[name]["launches"]["flash_attention"]
                                    for g in got_q for name, _ in q["runs"]),
             "ssd_chunk": sum(g[name]["launches"]["ssd_chunk"]
-                             for g in got_m for name, _ in m["runs"])}
+                             for g in got_m for name, _ in m["runs"]),
+            # the float32 runs' (the CUDA-core kernels)
+            "float32": {"flash_attention": sum(
+                g["kernel_f32"]["launches"]["flash_attention"]
+                for g in got_q),
+                "ssd_chunk": sum(g["kernel_f32"]["launches"]["ssd_chunk"]
+                                 for g in got_m)}}
 
 
 def phase_seq_shard(torch, seed):
     """Context parallelism: phi3-mini-3.8b at full width (32 query heads
-    of width 96) cut to 4 of its 32 layers on (1, 3), where 32 does not
+    of width 96) cut to 2 of its 32 layers on (1, 3), where 32 does not
     divide 3, so attention splits the query sequence over 'model' (4 x
     1536 tokens, 1536 = 3 x 512): the float32 logits against the
     one-process forward.  (Under ``use_pallas_attention`` the query
@@ -5733,7 +5761,7 @@ def _one_process_step(torch, cfg):
 def phase_train_mesh(torch, seed):
     """Training on the mesh: ``launch.train.main(argv, mesh=...)`` on a
     (1, 2) mesh of ranks sharing the card, qwen2-1.5b at full width cut
-    to 4 of its 28 layers (``--layers``; 8 x 512 tokens, remat
+    to 2 of its 28 layers (``--layers``; 8 x 512 tokens, remat
     ``full``), the one-process step too: one step and a checkpoint (the gathered
     tree, written by rank 0), then a run that resumes from it for the
     second step.  Gates: the resumed parameters bit-equal on every rank
@@ -5855,30 +5883,37 @@ WIDE_HEAD, WIDE_FRAMES, WIDE_B, WIDE_PROMPT, WIDE_NEW = 320, 300, 4, 8, 8
 
 
 def phase_flash_wide(torch, gen, seed):
-    """Head widths past 256 (O's columns in ceil(dh / 256) blocks along
-    the grid, S summed over 64-column slices of Q and K) on both routes
-    under the gates of ``flash``: every case within FLASH_TOL and
+    """Head widths past 256 on both routes under the gates of ``flash``
+    (bf16: O's columns in ceil(dh / 256) blocks along the grid, S summed
+    over 64-column slices of Q and K; float32: every width to 1,024 in
+    one block, S once per key tile): every case within FLASH_TOL and
     FLASH_SCALED_TOL, the kernel fed one column short must fail it, the
-    profiler sees the ``_wide`` kernel of the dtype's route alone; timed
+    profiler sees the dtype's kernel alone (bf16's ``_wide``); timed
     beside the plain version, SDPA and the bound.  Then the main path:
     a reduced Whisper whose encoder heads are 320 wide serving through
     ``ServeDriver.generate``, one flash launch per encoder layer, its
     prefill logits on the kernel route against the plain route in
     float32 and bf16."""
+    from repro_torch.kernels.flash_attention.kernel import CC_MAX_DH
+
     cases = [_flash_case(torch, gen, case, "short_column")
              for case in FLASH_WIDE_CASES]
     for c in cases:
-        if c["kernels_seen"] and not all("_wide" in k
+        # bf16 splits O's columns past 256; float32 holds them in one
+        # block up to CC_MAX_DH (1,024)
+        wide = c["dtype"] == "bfloat16" or c["shape"][4] > CC_MAX_DH
+        if c["kernels_seen"] and not all(("_wide" in k) == wide
                                          for k in c["kernels_seen"]):
             fail(f"flash_wide {c['case']}: ran {c['kernels_seen']}, not "
-                 "the wide kernel")
+                 f"the {'wide' if wide else 'one-block'} kernel")
     serve = _serve_wide_whisper(torch, gen, seed)
     emit("flash_wide", cases=cases, serve=serve,
          max_abs_err=max(c["max_abs_err"] for c in cases),
          library="torch.nn.functional.scaled_dot_product_attention")
     top = next(c for c in cases if c["case"] == "dh320_causal_gqa_bf16")
     return {**top, "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "launches": serve["launches"]}
+            "launches": serve["launches"],
+            "launches_f32": serve["float32"]["launches"]["flash_attention"]}
 
 
 def _serve_wide_whisper(torch, gen, seed):
@@ -6442,6 +6477,36 @@ def main(argv=None):
          "ms": gw["wide"]["ms"], "plain_ms": gw["wide"]["plain_ms"],
          "bound_ms": gw["wide"]["bound_ms"],
          "bound_by": gw["wide"]["bound_by"], "library_ms": None},
+        # the float32 routes of the two kernels (FP32 on the CUDA cores,
+        # redesigned in this slice): flash at qwen2-1.5b's causal GQA shape
+        # (the float32 mesh forward's per-rank shape), timed beside SDPA;
+        # its launches: the float32 runs of tp_forward, flash_wide's
+        # Whisper and train_grad
+        {"name": "flash_attention_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:81",
+         "launches": (tp["float32"]["flash_attention"]
+                      + wide["launches_f32"]
+                      + tgrad["float32_launches"]["flash_attention"]),
+         "max_abs_err": max(flash["max_abs_err"], flash_any["max_abs_err"],
+                            wide["max_abs_err"]),
+         "ms": flash["f32"]["ms"], "plain_ms": flash["f32"]["plain_ms"],
+         "bound_ms": flash["f32"]["bound_ms"],
+         "bound_by": flash["f32"]["bound_by"],
+         "library_ms": flash["f32"]["library_ms"]},
+        # SSD at the Mamba2-370m prefill in float32 (slow decay); its
+        # launches: the float32 runs of train_grad (Mamba2-370m whole: 96
+        # a step) and tp_forward
+        {"name": "ssd_chunk_f32", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk/kernel.py:58",
+         "launches": (tgrad["float32_launches"]["ssd_chunk"]
+                      + tp["float32"]["ssd_chunk"]),
+         "max_abs_err": max(ssd["f32"]["y_max_abs_err"],
+                            ssd["f32"]["state_max_abs_err"]),
+         "ms": ssd["f32"]["ms"], "plain_ms": ssd["f32"]["plain_ms"],
+         "bound_ms": ssd["f32"]["bound_ms"],
+         "bound_by": ssd["f32"]["bound_by"], "library_ms": None},
     ]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms") + (

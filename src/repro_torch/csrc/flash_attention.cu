@@ -19,15 +19,15 @@
 // Two kernels, chosen by the input's type (never one for the other):
 //
 // * bfloat16 -> flash_attention_wgmma_kernel, on the tensor cores (namespace
-//   tc below);
-// * float32 -> flash_attention_kernel, FP32 FMAs on the CUDA cores.  wgmma
-//   has no FP32 input, and TF32 (10-bit mantissa) would break the float32
-//   gates of 2e-4 / 1e-4.
+//   tc below); head widths up to MAX_DH = 256 on template instances, past
+//   it flash_attention_wgmma_kernel_wide splits O's columns over the grid;
+// * float32 -> flash_attention_kernel, FP32 FMAs on the CUDA cores
+//   (namespace cc below); head widths up to 1,024 whole in one block,
+//   past it flash_attention_kernel_wide splits O's columns over the grid.
+//   wgmma has no FP32 input, and TF32 (10-bit mantissa) would break the
+//   float32 gates of 2e-4 / 1e-4.
 //
-// Each takes head widths up to MAX_DH = 256 on template instances; past
-// it, its ``_wide`` variant splits O's columns over the grid (see
-// flash_attention_kernel_wide and tc::flash_attention_wgmma_kernel_wide),
-// so any width runs, as the TPU kernel's (block, dh) tiles take any dh.
+// So any width runs, as the TPU kernel's (block, dh) tiles take any dh.
 //
 // Bound on this card (chip_smoke.py, flash_work): 4 B Hq dh FLOP per live
 // (query, key) pair and one read of q, k, v and one write of o.  At the
@@ -97,31 +97,512 @@
 namespace {
 
 // ======================================================================
-// float32: the CUDA-core kernel
+// float32: the CUDA-core kernel (namespace cc)
 // ======================================================================
-// Tiles (ceil(Sq / BQ), Hq, B) laid onto the launch grid by grid.cuh's
-// flat_grid, one block of 16 x 16 threads per (batch, query head, BQ = 64
-// query rows).  The block keeps its Q tile in
-// shared memory and walks the kv tiles of BK = 64 keys, staging K and V in
-// shared memory as float.  When causal, the kv tiles strictly above the
-// diagonal of the block are not visited.  Thread (ty, tx) owns query rows
-// ty + 16 i (i < 4): its running max, sum and the output columns
-// tx + 16 c (c < dh / 16) live in registers; it computes the scores of
-// those rows against keys tx + 16 j (j < 4), and a row's max and sum are
-// reduced over the 16 lanes of its half-warp with shuffles.  Rows and keys
-// past Sq / Sk are loaded as zeros; keys past kv_len are masked, rows past
-// Sq are not written, so any Sq, Sk works.  It sits at best near the
-// 67 TFLOP/s FP32 peak, eight shared-memory loads per sixteen FMAs.
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // keys per kv tile
-constexpr int TX = 16, TY = 16;  // threads: tx over keys / columns, ty rows
-constexpr int NT = TX * TY;
-constexpr int RQ = BQ / TY;      // query rows per thread
-constexpr int RK = BK / TX;      // keys per thread
-constexpr float NEG_INF = -1e30f;
+// Tiles (ceil(Sq / BQ), Hq, B ncb) on grid.cuh's flat grid, heaviest query
+// tile first when causal; one block of 256 threads per (batch, query
+// head, BQ query rows, column block).  A head width dh runs on the
+// narrowest instance DH at least as wide (cc::instance_width: 16, 32, 64,
+// 128, 256, 512, 1024), its extra columns zeros; past MAX_DH_CC = 1024
+// O's columns split into ncb = ceil(dh / 1024) blocks along tile z, each
+// on the instance of its share.  BQ = 64 query rows up to DH 128, 32 at
+// 256, 16 past it, so that O (BQ x DH) is 16-64 floats a thread, and the
+// grid has more blocks where the work per row is large (B = 2, 4 heads,
+// S = 300 padded to 384: 192 blocks at dh 1024, not 48).
+//
+// Per tile of BK = 64 keys the block forms S = Q K^T once, whatever DH:
+//   * S: every thread owns a 4 x 8 register tile (rows rg + BQ/4 i, keys
+//     kl + 8 j); the 256 threads are SPLIT = 128 / BQ groups that each sum
+//     their share of every depth chunk, read as float4 (twelve 16-byte
+//     loads per 128 FMAs); the partial tiles meet in shared memory, where
+//     the softmax threads (256 / BQ a row, a row's max and sum reduced by
+//     shuffles) add them, mask, scale and write P (float, the input type:
+//     rounding P to it is the identity) over the first partial tile.
+//   * O += P V: thread (tr, tc) owns OR rows tr + BQ/OR i (OR the most of
+//     16, 8, 4, 2, 1 that tiles DH in float4 columns: 16 x 4 floats at DH
+//     1024, 8 x 4 at 128-512) and the 4 columns 4 tc.  Tall tiles keep
+//     P V off the shared-memory port: a warp's P float4 is one broadcast
+//     row, and each V float4 (consecutive threads, consecutive 16 bytes:
+//     no bank conflict) feeds OR rows.  A warp whose columns all lie past
+//     dh skips P V.
+// Q is staged once (BQ x DH) where O's columns are the whole row; in the
+// _wide kernel (column blocks) its depth slices ride with K's.  K streams
+// in chunks of DS depth columns (64 keys x up to 128 columns) and V in
+// chunks of VK keys x DH columns, one sequence of chunks through a ring of
+// STAGES slots filled by cp.async (16-byte copies where dh is a multiple of
+// 4 and the rows start on 16 bytes, each thread one column of every RS-th
+// row; 4-byte copies otherwise), so the next chunks load while this one
+// is multiplied; one barrier a chunk.  Row strides of 4 (mod 32) floats
+// keep the 4-row and 8-key float4 reads of a quarter-warp on distinct
+// banks.  Rows past Sq and keys past Sk read as zeros; keys at or past Sk
+// get -inf (they do not exist), keys at or past kv_len (and, when causal,
+// after the query) -1e30; tiles wholly past kv_len (kv_len > 0) or above
+// the diagonal are not visited, which changes nothing: their weights are
+// exp(-1e30 - m) = 0.
+//
+// What bounds it (the H100; tools/kernel_variants.py drops one piece at a
+// time, tools/fma_patterns.cu times the loops alone): not the FMA loops
+// (their patterns run at 81-89 % of the 67 TFLOP/s FP32 peak alone; TF32
+// would break the float32 gates of 2e-4 / 1e-4) but the shared-memory
+// port, which the chunks' fills share with the loads that feed the FMAs:
+// at 16 query rows a block every K and V byte staged serves 16 rows, and
+// without the fills dh 1,024 ran a third faster.  TMA for V (the same
+// bytes written), a bulk copy a row by one warp and a split of the kv
+// tiles over more blocks were tried and not kept: none was faster.
+// Shared memory (Geo::FLOATS): Q, the ring, the partial tiles and two rows
+// of statistics, 57-204 KB, one block an SM.
+namespace cc {
 
-// The template instances, shared by both kernels: a head width dh runs
-// on the narrowest instance at least dh wide (0 past MAX_DH).
+constexpr int NT = 256;       // threads a block
+constexpr int BK = 64;        // keys per kv tile
+constexpr int STAGES = 3;     // chunks in the ring
+constexpr int LDR = BK + 8;   // row stride of a partial S (and P) tile
+constexpr float MASKED = -1e30f;
+constexpr int MAX_DH_CC = 1024;  // widest head one block holds
+
+// the narrowest instance at least dh wide (0 past MAX_DH_CC)
+inline int instance_width(int dh) {
+  constexpr int widths[] = {16, 32, 64, 128, 256, 512, 1024};
+  for (int w : widths)
+    if (dh >= 1 && dh <= w) return w;
+  return 0;
+}
+inline int column_blocks(int dh) {
+  return dh <= MAX_DH_CC ? 1 : (dh + MAX_DH_CC - 1) / MAX_DH_CC;
+}
+
+// rows of O a thread: the most of 16, 8, 4, 2, 1 (at most BQ) whose
+// column threads tile DH in float4 groups.  Tall tiles keep P V off the
+// shared-memory port: a thread's V float4 feeds OR rows, and a warp's P
+// reads are one broadcast row
+constexpr int pick_or(int dh, int bq) {
+  for (int r = 16; r > 1; r /= 2)
+    if (r <= bq && dh % (4 * (NT * r / bq)) == 0) return r;
+  return 1;
+}
+
+template <int DH, bool QRES>
+struct Geo {
+  static constexpr int BQ = DH <= 128 ? 64 : DH <= 256 ? 32 : 16;
+  static constexpr int SPLIT = 128 / BQ;   // depth groups of S
+  static constexpr int RG = BQ / 4;        // row groups of S
+  static constexpr int DS = DH <= 128 ? DH : 128;
+  static constexpr int DSS = DS / SPLIT;   // depth of a group in a chunk
+  static constexpr int LDK = DS + 4;       // K (and streamed Q) chunk rows
+  static constexpr int LDQ = QRES ? DH + 4 : LDK;
+  static constexpr int KCH = (BK + (QRES ? 0 : BQ)) * LDK;
+  static constexpr int VK = BK * DH <= BK * LDK       ? 64
+                            : 32 * DH <= BK * LDK     ? 32
+                            : 16 * DH <= BK * LDK     ? 16
+                                                      : 8;
+  static constexpr int NVC = BK / VK;      // V chunks a tile
+  static constexpr int SLOT = KCH > VK * DH ? KCH : VK * DH;
+  static constexpr int OR = pick_or(DH, BQ);
+  static constexpr int RT = BQ / OR;       // row threads of O
+  static constexpr int NTC = NT / RT;      // column threads of O
+  static constexpr int TPR = NT / BQ;      // softmax threads a row
+  static constexpr int EPT = BK / TPR;     // keys a softmax thread
+  static constexpr int FLOATS = (QRES ? BQ * LDQ : 0) + STAGES * SLOT +
+                                SPLIT * BQ * LDR + 2 * BQ;
+  static_assert(DSS % 4 == 0 && 4 * NTC == DH, "one float4 of O's columns a thread");
+  static_assert(EPT % 4 == 0 && TPR <= 32 && VK % 4 == 0, "tiling");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+// rows [r0, r0 + R) x columns [c0, c0 + W) of a row-major matrix (row
+// stride ld) into dst (row stride ldd), asynchronously; rows at or past
+// rlim and columns at or past clim read as zeros.  vec: 16-byte copies
+// (ld, c0, clim and the base multiples of 4 floats, the base on 16 bytes)
+template <int R, int W>
+__device__ __forceinline__ void stage(float* dst, int ldd,
+                                      const float* __restrict__ src,
+                                      size_t ld, int r0, int rlim, int c0,
+                                      int clim, bool vec, int tid) {
+  if (vec) {
+    // a thread copies column c of rows r, r + RS, ... (fixed per thread)
+    constexpr int C4 = W / 4, RS = NT / C4;
+    static_assert(NT % C4 == 0, "a row of 16-byte copies per thread set");
+    const int r = tid / C4, c = 4 * (tid % C4);
+    const bool cin = c0 + c < clim;
+    const float* s = src + (size_t)(r0 + r) * ld + c0 + c;
+    float* d = dst + r * ldd + c;
+#pragma unroll
+    for (int k = 0; k < (R + RS - 1) / RS; ++k) {
+      if (R % RS != 0 && r + k * RS >= R) break;
+      const bool in = cin && r0 + r + k * RS < rlim;
+      cp_async16(d + k * RS * ldd, in ? s + (size_t)k * RS * ld : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = tid; e < R * W; e += NT) {
+      const int r = e / W, c = e % W;
+      const bool in = r0 + r < rlim && c0 + c < clim;
+      cp_async4(dst + r * ldd + c,
+                in ? src + (size_t)(r0 + r) * ld + c0 + c : src, in ? 4 : 0);
+    }
+  }
+}
+
+// One block's work: QRES, Q staged once (ncb == 1); otherwise Q's depth
+// slices ride in the K chunks and O is column block z % ncb.
+template <int DH, bool QRES>
+__device__ __forceinline__ void attend(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
+    int Sq, int Sk, int dh, int kv_len, int causal, float scale,
+    long long Bz, int ncb, int vec) {
+  using G = Geo<DH, QRES>;
+  constexpr int BQ = G::BQ, RG = G::RG, DS = G::DS, DSS = G::DSS;
+  constexpr int LDK = G::LDK, LDQ = G::LDQ, VK = G::VK, SLOT = G::SLOT;
+  constexpr int OR = G::OR, RT = G::RT, NTC = G::NTC;
+  constexpr int TPR = G::TPR, EPT = G::EPT;
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // BQ x LDQ (QRES)
+  float* ring = Qs + (QRES ? BQ * LDQ : 0);      // STAGES x SLOT
+  float* red = ring + STAGES * SLOT;             // SPLIT x BQ x LDR; P
+  float* ralpha = red + G::SPLIT * BQ * LDR;     // BQ
+  float* rl = ralpha + BQ;                       // BQ
+
+  const int tid = threadIdx.x;
+  const int nqt = (Sq + BQ - 1) / BQ;
+  int qt, h;
+  long long z;
+  if (!flat_tile(nqt, Hq, Bz, qt, h, z)) return;
+  if (causal) qt = nqt - 1 - qt;  // the heaviest query tile first
+  long long b;
+  int cb;
+  divmod(z, ncb, b, cb);
+  const int q0 = qt * BQ, col0 = cb * DH;
+  const int hk = h / (Hq / Hkv);
+  const float* qb = q + ((size_t)b * Hq + h) * Sq * dh;
+  const float* kb = k + ((size_t)b * Hkv + hk) * Sk * dh;
+  const float* vb = v + ((size_t)b * Hkv + hk) * Sk * dh;
+  float* ob = o + ((size_t)b * Hq + h) * Sq * dh;
+
+  // the kv tiles visited: not wholly past kv_len, nor above the diagonal
+  int nk = (Sk + BK - 1) / BK;
+  if (kv_len > 0) nk = min(nk, (kv_len + BK - 1) / BK);
+  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  const int nkc = (dh + DS - 1) / DS;  // K chunks a tile, then NVC V chunks
+  const int cpt = nkc + G::NVC;
+  const int total = nk * cpt;
+
+  auto fetch = [&](int i) {  // chunk i of the sequence into its slot
+    if (i < total) {
+      const int j = i / cpt, r = i - j * cpt;
+      float* slot = ring + (i % STAGES) * SLOT;
+      if (r < nkc) {
+        stage<BK, DS>(slot, LDK, kb, dh, j * BK, Sk, r * DS, dh, vec, tid);
+        if constexpr (!QRES)
+          stage<BQ, DS>(slot + BK * LDK, LDK, qb, dh, q0, Sq, r * DS, dh,
+                        vec, tid);
+      } else {
+        stage<VK, DH>(slot, DH, vb, dh, j * BK + (r - nkc) * VK, Sk, col0,
+                      dh, vec, tid);
+      }
+    }
+    cp_async_commit();
+  };
+  if constexpr (QRES) stage<BQ, DH>(Qs, LDQ, qb, dh, q0, Sq, 0, dh, vec, tid);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) fetch(i);
+
+  // S: depth group sg, row group rg, key lane kl
+  const int sg = tid / (2 * BQ), rg = (tid % (2 * BQ)) / 8, kl = tid % 8;
+  // softmax: row sr, keys seg EPT .. seg EPT + EPT - 1
+  const int sr = tid / TPR, seg = tid % TPR;
+  // O: rows tr + RT i, columns 4 (tc + NTC g)
+  const int tr = tid / NTC, tc = tid % NTC;
+  // a warp whose columns all lie past dh skips P V (they are never
+  // stored)
+  const bool pv_live =
+      col0 + 4 * (NTC >= 32 ? tc - tid % 32 : 0) < dh;
+  float m_run = MASKED, l_run = 0.f;  // row sr's running max and sum
+  float acc[OR][4];
+#pragma unroll
+  for (int a = 0; a < OR; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+
+  int i = 0;  // the chunk consumed next
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK;
+    float s[4][8];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[a][c] = 0.f;
+    for (int c = 0; c < nkc; ++c, ++i) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // chunk i landed; slot i - 1 is free
+      fetch(i + STAGES - 1);
+      const float* Ks = ring + (i % STAGES) * SLOT;
+      const float* Qc = QRES ? Qs + c * DS : Ks + BK * LDK;
+#pragma unroll
+      for (int dd = 0; dd < DSS; dd += 4) {
+        const int d = sg * DSS + dd;
+        float4 qv[4], kv[8];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) qv[a] = ld4(Qc + (rg + RG * a) * LDQ + d);
+#pragma unroll
+        for (int b8 = 0; b8 < 8; ++b8) kv[b8] = ld4(Ks + (kl + 8 * b8) * LDK + d);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b8 = 0; b8 < 8; ++b8) {
+            s[a][b8] = fmaf(qv[a].x, kv[b8].x, s[a][b8]);
+            s[a][b8] = fmaf(qv[a].y, kv[b8].y, s[a][b8]);
+            s[a][b8] = fmaf(qv[a].z, kv[b8].z, s[a][b8]);
+            s[a][b8] = fmaf(qv[a].w, kv[b8].w, s[a][b8]);
+          }
+      }
+    }
+    {  // this group's partial S
+      float* R = red + sg * BQ * LDR;
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b8 = 0; b8 < 8; ++b8)
+          R[(rg + RG * a) * LDR + kl + 8 * b8] = s[a][b8];
+    }
+    __syncthreads();  // partial tiles complete
+
+    {  // softmax of row sr over keys k0 + seg EPT ..
+      const int key0 = seg * EPT;
+      float sv[EPT];
+#pragma unroll
+      for (int e = 0; e < EPT; e += 4) {
+        float4 t = ld4(red + sr * LDR + key0 + e);
+#pragma unroll
+        for (int p = 1; p < G::SPLIT; ++p) {
+          const float4 u = ld4(red + (p * BQ + sr) * LDR + key0 + e);
+          t.x += u.x;
+          t.y += u.y;
+          t.z += u.z;
+          t.w += u.w;
+        }
+        sv[e] = t.x;
+        sv[e + 1] = t.y;
+        sv[e + 2] = t.z;
+        sv[e + 3] = t.w;
+      }
+      const int qi = q0 + sr;
+      float mx = MASKED;
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        const int kj = k0 + key0 + e;
+        const bool keep = kj < kv_len && (!causal || qi >= kj);
+        sv[e] = kj >= Sk ? -INFINITY : keep ? sv[e] * scale : MASKED;
+        mx = fmaxf(mx, sv[e]);
+      }
+      // a row's TPR threads are neighbouring lanes of one warp
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_cur = fmaxf(m_run, mx);
+      const float alpha = expf(m_run - m_cur);
+      float rs = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) {
+        sv[e] = expf(sv[e] - m_cur);
+        rs += sv[e];
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l_run = alpha * l_run + rs;
+      m_run = m_cur;
+#pragma unroll
+      for (int e = 0; e < EPT; e += 4)
+        *reinterpret_cast<float4*>(red + sr * LDR + key0 + e) =
+            make_float4(sv[e], sv[e + 1], sv[e + 2], sv[e + 3]);
+      if (seg == 0) ralpha[sr] = alpha;
+    }
+    __syncthreads();  // P and the rows' alpha complete
+
+#pragma unroll
+    for (int a = 0; a < OR; ++a) {
+      const float al = ralpha[tr + RT * a];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][e] *= al;
+    }
+    for (int vc = 0; vc < G::NVC; ++vc, ++i) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      fetch(i + STAGES - 1);
+      if (!pv_live) continue;  // warp-uniform
+      const float* Vs = ring + (i % STAGES) * SLOT + 4 * tc;
+      const float* Pc = red + vc * VK;
+#pragma unroll 2
+      for (int kk = 0; kk < VK; kk += 4) {
+        float4 pv[OR], vv[4];
+#pragma unroll
+        for (int a = 0; a < OR; ++a) pv[a] = ld4(Pc + (tr + RT * a) * LDR + kk);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) vv[u] = ld4(Vs + (kk + u) * DH);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int a = 0; a < OR; ++a) {
+            const float pu = comp(pv[a], u);
+            acc[a][0] = fmaf(pu, vv[u].x, acc[a][0]);
+            acc[a][1] = fmaf(pu, vv[u].y, acc[a][1]);
+            acc[a][2] = fmaf(pu, vv[u].z, acc[a][2]);
+            acc[a][3] = fmaf(pu, vv[u].w, acc[a][3]);
+          }
+      }
+    }
+  }
+
+  cp_async_wait<0>();  // no copy in flight past the last chunk
+  if (seg == 0) rl[sr] = l_run;
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < OR; ++a) {
+    const int r = tr + RT * a;
+    if (q0 + r >= Sq) continue;
+    const float den = fmaxf(rl[r], 1e-30f);
+    float* orow = ob + (size_t)(q0 + r) * dh;
+    const int col = col0 + 4 * tc;
+    if (col >= dh) continue;
+    const float4 w = make_float4(acc[a][0] / den, acc[a][1] / den,
+                                 acc[a][2] / den, acc[a][3] / den);
+    if (vec) {
+      *reinterpret_cast<float4*>(orow + col) = w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col + e < dh) orow[col + e] = comp(w, e);
+    }
+  }
+}
+
+}  // namespace cc
+
+// O's columns whole in one block, Q staged once
+template <int DH>
+__global__ void __launch_bounds__(cc::NT, 1)
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len,
+                       int causal, float scale, long long B, int vec) {
+  cc::attend<DH, true>(q, k, v, o, Hq, Hkv, Sq, Sk, dh, kv_len, causal,
+                       scale, B, 1, vec);
+}
+
+// past cc::MAX_DH_CC: O in ncb column blocks along tile z
+template <int DH>
+__global__ void __launch_bounds__(cc::NT, 1)
+flash_attention_kernel_wide(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, int Hq, int Hkv, int Sq,
+                            int Sk, int dh, int kv_len, int causal,
+                            float scale, long long Bz, int ncb, int vec) {
+  cc::attend<DH, false>(q, k, v, o, Hq, Hkv, Sq, Sk, dh, kv_len, causal,
+                        scale, Bz, ncb, vec);
+}
+
+namespace cc {
+
+template <int DH, bool QRES>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len, int causal,
+           float scale, int ncb, cudaStream_t stream) {
+  using G = Geo<DH, QRES>;
+  if (dh > ncb * DH) return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(float) * G::FLOATS;
+  cudaError_t e;
+  if constexpr (QRES)
+    e = cudaFuncSetAttribute(flash_attention_kernel<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  else
+    e = cudaFuncSetAttribute(flash_attention_kernel_wide<DH>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid;
+  const long long Bz = (long long)B * ncb;
+  if (!flat_grid((long long)((Sq + G::BQ - 1) / G::BQ) * Hq * Bz, &grid))
+    return (int)cudaErrorInvalidConfiguration;
+  // 16-byte copies and stores: rows a multiple of 4 floats, bases aligned
+  bool vec = dh % 4 == 0;
+  const void* ptrs[4] = {q, k, v, o};
+  for (const void* p : ptrs)
+    vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  if constexpr (QRES)
+    flash_attention_kernel<DH><<<grid, NT, smem, stream>>>(
+        qf, kf, vf, of, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, Bz,
+        (int)vec);
+  else
+    flash_attention_kernel_wide<DH><<<grid, NT, smem, stream>>>(
+        qf, kf, vf, of, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, Bz, ncb,
+        (int)vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_dh(const void* q, const void* k, const void* v, void* o, int B,
+              int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len,
+              int causal, float scale, cudaStream_t s) {
+#define CC_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale
+  const int ncb = column_blocks(dh);
+  if (ncb > 1) {  // the column blocks' share, on instance 1024
+    switch (instance_width((dh + ncb - 1) / ncb)) {
+      case 1024: return launch<1024, false>(CC_ARGS, ncb, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+#define CC_ONE 1, s
+  switch (instance_width(dh)) {
+    case 16: return launch<16, true>(CC_ARGS, CC_ONE);
+    case 32: return launch<32, true>(CC_ARGS, CC_ONE);
+    case 64: return launch<64, true>(CC_ARGS, CC_ONE);
+    case 128: return launch<128, true>(CC_ARGS, CC_ONE);
+    case 256: return launch<256, true>(CC_ARGS, CC_ONE);
+    case 512: return launch<512, true>(CC_ARGS, CC_ONE);
+    case 1024: return launch<1024, true>(CC_ARGS, CC_ONE);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CC_ONE
+#undef CC_ARGS
+}
+
+}  // namespace cc
+
+// The tensor-core kernel's template instances: a head width dh runs on
+// the narrowest instance at least dh wide (0 past MAX_DH).
 constexpr int MAX_DH = 256;
 inline int instance_width(int dh) {
   constexpr int widths[] = {16, 32, 64, 96, 128, 160, 192, 256};
@@ -138,374 +619,6 @@ inline int column_blocks(int dh) {
 inline int block_width(int dh) {
   const int ncb = column_blocks(dh);
   return instance_width((dh + ncb - 1) / ncb);
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// Shared memory (floats): Q (BQ x DH+1), K (BK x DH+1), V (BK x DH) and
-// P (BQ x BK+1).  The padded rows keep the column walks of the score loop
-// free of bank conflicts.
-template <int DH>
-constexpr int smem_floats() {
-  return BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1);
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
-                       int Hkv, int Sq, int Sk, int dh, int kv_len,
-                       int causal, float scale, int B) {
-  constexpr int LDQ = DH + 1, LDK = DH + 1, LDV = DH, LDP = BK + 1;
-  constexpr int CD = DH / TX;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LDQ;
-  float* Vs = Ks + BK * LDK;
-  float* Ps = Vs + BK * LDV;
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  int qt, h;
-  long long b;
-  if (!flat_tile((Sq + BQ - 1) / BQ, Hq, B, qt, h, b)) return;
-  const int q0 = qt * BQ;
-  const int hk = h / (Hq / Hkv);
-  // rows are dh wide in memory; columns dh .. DH - 1 of the instance
-  // read as zeros and are never stored
-  const T* qb = q + ((size_t)b * Hq + h) * Sq * dh;
-  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * dh;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * dh;
-  T* ob = o + ((size_t)b * Hq + h) * Sq * dh;
-
-  for (int e = tid; e < BQ * DH; e += NT) {
-    const int r = e / DH, c = e % DH;
-    Qs[r * LDQ + c] = q0 + r < Sq && c < dh
-                          ? to_f(qb[(size_t)(q0 + r) * dh + c]) : 0.f;
-  }
-
-  float m[RQ], l[RQ], acc[RQ][CD];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  int nk = (Sk + BK - 1) / BK;
-  // causal: only the tiles whose first key is at or before the block's
-  // last query
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int e = tid; e < BK * DH; e += NT) {
-      const int r = e / DH, c = e % DH;
-      const bool in = k0 + r < Sk && c < dh;
-      const size_t g = (size_t)(k0 + r) * dh + c;
-      Ks[r * LDK + c] = in ? to_f(kb[g]) : 0.f;
-      Vs[r * LDV + c] = in ? to_f(vb[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RQ][RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int jj = 0; jj < RK; ++jj) s[i][jj] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      float qv[RQ], kv[RK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty + TY * i) * LDQ + c];
-#pragma unroll
-      for (int jj = 0; jj < RK; ++jj) kv[jj] = Ks[(tx + TX * jj) * LDK + c];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int jj = 0; jj < RK; ++jj)
-          s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qi = q0 + ty + TY * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < RK; ++jj) {
-        const int kj = k0 + tx + TX * jj;
-        const bool keep = kj < kv_len && (!causal || qi >= kj);
-        s[i][jj] = keep ? s[i][jj] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-      // the row's 16 threads are the lanes of one half-warp
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_cur = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_cur);
-      float rs = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < RK; ++jj) {
-        const float p = expf(s[i][jj] - m_cur);
-        rs += p;
-        Ps[(ty + TY * i) * LDP + tx + TX * jj] = to_f(from_f<T>(p));
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_cur;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();  // P complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty + TY * i) * LDP + kk];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const float vv = Vs[kk * LDV + tx + TX * c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty + TY * i;
-    if (r >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CD; ++c)
-      if (tx + TX * c < dh)
-        ob[(size_t)r * dh + tx + TX * c] = from_f<T>(acc[i][c] / den);
-  }
-}
-
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len, int causal,
-           float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)smem_floats<DH>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid;
-  if (!flat_grid((long long)((Sq + BQ - 1) / BQ) * Hq * B, &grid))
-    return (int)cudaErrorInvalidConfiguration;
-  flash_attention_kernel<T, DH><<<grid, dim3(TX, TY), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, dh,
-      kv_len, causal, scale, B);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_dh(int dh, const void* q, const void* k, const void* v, void* o,
-              int B, int Hq, int Hkv, int Sq, int Sk, int kv_len, int causal,
-              float scale, cudaStream_t s) {
-#define FLASH_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, s
-  // the instance: the narrowest at least dh wide (instance_width)
-  switch (instance_width(dh)) {
-    case 16: return launch<T, 16>(FLASH_ARGS);
-    case 32: return launch<T, 32>(FLASH_ARGS);
-    case 64: return launch<T, 64>(FLASH_ARGS);
-    case 96: return launch<T, 96>(FLASH_ARGS);
-    case 128: return launch<T, 128>(FLASH_ARGS);
-    case 160: return launch<T, 160>(FLASH_ARGS);
-    case 192: return launch<T, 192>(FLASH_ARGS);
-    case 256: return launch<T, 256>(FLASH_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef FLASH_ARGS
-}
-
-// Head widths past MAX_DH: Q, K, V and P as float need 262,912 bytes at
-// dh 320, over the 232,448 a block may have.  So, as the tensor-core
-// kernel does, a block owns one column block of O, OW <= 256 wide
-// (tile z = b * ncb + its block): it sums S over the full dh from Q
-// and K slices of SC columns staged in turn, then stages V's OW columns
-// and accumulates O's.  Thread (ty, tx) owns rows ty + 16 i and O columns
-// col0 + tx + 16 c (c < OW / 16).  Q is staged again for every key tile.
-constexpr int SC = 64;  // columns of a Q / K slice
-
-template <int OW>
-constexpr int wide_smem_floats() {
-  return BQ * (SC + 1) + BK * (SC + 1) + BK * OW + BQ * (BK + 1);
-}
-
-template <typename T, int OW>
-__global__ void __launch_bounds__(NT)
-flash_attention_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, T* __restrict__ o,
-                            int Hq, int Hkv, int Sq, int Sk, int dh,
-                            int kv_len, int causal, float scale, int ncb,
-                            int B) {
-  constexpr int LDQ = SC + 1, LDK = SC + 1, LDV = OW, LDP = BK + 1;
-  constexpr int CD = OW / TX;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LDQ;
-  float* Vs = Ks + BK * LDK;
-  float* Ps = Vs + BK * LDV;
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  int qt, h;
-  long long z;
-  if (!flat_tile((Sq + BQ - 1) / BQ, Hq, (long long)B * ncb, qt, h, z))
-    return;
-  const int q0 = qt * BQ;
-  long long b;
-  int cb;
-  divmod(z, ncb, b, cb);
-  const int col0 = cb * OW;
-  const int hk = h / (Hq / Hkv);
-  const T* qb = q + ((size_t)b * Hq + h) * Sq * dh;
-  const T* kb = k + ((size_t)b * Hkv + hk) * Sk * dh;
-  const T* vb = v + ((size_t)b * Hkv + hk) * Sk * dh;
-  T* ob = o + ((size_t)b * Hq + h) * Sq * dh;
-
-  float m[RQ], l[RQ], acc[RQ][CD];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
-  }
-
-  int nk = (Sk + BK - 1) / BK;
-  if (causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
-  for (int j = 0; j < nk; ++j) {
-    const int k0 = j * BK;
-    float s[RQ][RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int jj = 0; jj < RK; ++jj) s[i][jj] = 0.f;
-    for (int c0 = 0; c0 < dh; c0 += SC) {
-      __syncthreads();  // the previous slice (or tile) is consumed
-      for (int e = tid; e < BQ * SC; e += NT) {
-        const int r = e / SC, c = e % SC;
-        Qs[r * LDQ + c] = q0 + r < Sq && c0 + c < dh
-                              ? to_f(qb[(size_t)(q0 + r) * dh + c0 + c]) : 0.f;
-        Ks[r * LDK + c] = k0 + r < Sk && c0 + c < dh
-                              ? to_f(kb[(size_t)(k0 + r) * dh + c0 + c]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < SC; ++c) {
-        float qv[RQ], kv[RK];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) qv[i] = Qs[(ty + TY * i) * LDQ + c];
-#pragma unroll
-        for (int jj = 0; jj < RK; ++jj) kv[jj] = Ks[(tx + TX * jj) * LDK + c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i)
-#pragma unroll
-          for (int jj = 0; jj < RK; ++jj)
-            s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qi = q0 + ty + TY * i;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int jj = 0; jj < RK; ++jj) {
-        const int kj = k0 + tx + TX * jj;
-        const bool keep = kj < kv_len && (!causal || qi >= kj);
-        s[i][jj] = keep ? s[i][jj] * scale : NEG_INF;
-        mx = fmaxf(mx, s[i][jj]);
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_cur = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_cur);
-      float rs = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < RK; ++jj) {
-        const float p = expf(s[i][jj] - m_cur);
-        rs += p;
-        Ps[(ty + TY * i) * LDP + tx + TX * jj] = to_f(from_f<T>(p));
-      }
-#pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_cur;
-#pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
-    }
-    // V's columns [col0, col0 + OW) of this tile (the previous tile's
-    // readers of Vs passed this tile's first barrier)
-    for (int e = tid; e < BK * OW; e += NT) {
-      const int r = e / OW, c = e % OW;
-      Vs[r * LDV + c] = k0 + r < Sk && col0 + c < dh
-                            ? to_f(vb[(size_t)(k0 + r) * dh + col0 + c]) : 0.f;
-    }
-    __syncthreads();  // P and V complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) pv[i] = Ps[(ty + TY * i) * LDP + kk];
-#pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        const float vv = Vs[kk * LDV + tx + TX * c];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty + TY * i;
-    if (r >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      const int col = col0 + tx + TX * c;
-      if (col < dh) ob[(size_t)r * dh + col] = from_f<T>(acc[i][c] / den);
-    }
-  }
-}
-
-template <typename T, int OW>
-int launch_wide(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int Sq, int Sk, int dh, int kv_len,
-                int causal, float scale, int ncb, cudaStream_t stream) {
-  if (dh > ncb * OW) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)wide_smem_floats<OW>();
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel_wide<T, OW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid;
-  if (!flat_grid((long long)((Sq + BQ - 1) / BQ) * Hq * B * ncb, &grid))
-    return (int)cudaErrorInvalidConfiguration;
-  flash_attention_kernel_wide<T, OW><<<grid, dim3(TX, TY), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Sk, dh,
-      kv_len, causal, scale, ncb, B);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1402,12 +1515,13 @@ int launch_wide(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
-// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the tensor-core
-// kernel; q, k, v, o 16-byte aligned, dh a multiple of 8).  q (B, Hq, Sq,
-// dh), k / v (B, Hkv, Sk, dh), o like q, all contiguous; Hq a multiple of
-// Hkv; dh >= 1 (past MAX_DH, column_blocks(dh) blocks of O along tile
-// z); the tiles on grid.cuh's flat grid, so no axis stops at 65,535;
-// bfloat16: B Hq below 2^31 (TMA's 32-bit coordinates).
+// dtype: 0 float32 (the CUDA-core kernel: dh >= 1, past cc::MAX_DH_CC in
+// cc::column_blocks(dh) blocks of O along tile z), 1 bfloat16 (the
+// tensor-core kernel; q, k, v, o 16-byte aligned, dh a multiple of 8, past
+// MAX_DH in column_blocks(dh) blocks).  q (B, Hq, Sq, dh), k / v (B, Hkv,
+// Sk, dh), o like q, all contiguous; Hq a multiple of Hkv; the tiles on
+// grid.cuh's flat grid, so no axis stops at 65,535; bfloat16: B Hq below
+// 2^31 (TMA's 32-bit coordinates).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Hq,
                                       int Hkv, int Sq, int Sk, int dh,
@@ -1415,42 +1529,35 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int dtype, void* stream) {
   if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
-  const int ncb = column_blocks(dh);
-  if (dtype == 1 && (long long)B * Hq > 2147483647LL)
-    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return cc::launch_dh(q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal,
+                         scale, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if ((long long)B * Hq > 2147483647LL)
+    return (int)cudaErrorInvalidConfiguration;
+  const int ncb = column_blocks(dh);
+#define TC_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale
   if (ncb > 1) {
-#define WIDE_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, ncb, s
-    switch (dtype * 1000 + block_width(dh)) {
-      case 160: return launch_wide<float, 160>(WIDE_ARGS);
-      case 192: return launch_wide<float, 192>(WIDE_ARGS);
-      case 256: return launch_wide<float, 256>(WIDE_ARGS);
-      case 1160: return tc::launch_wide<160>(WIDE_ARGS);
-      case 1192: return tc::launch_wide<192>(WIDE_ARGS);
-      case 1256: return tc::launch_wide<256>(WIDE_ARGS);
+    switch (block_width(dh)) {
+      case 160: return tc::launch_wide<160>(TC_ARGS, ncb, s);
+      case 192: return tc::launch_wide<192>(TC_ARGS, ncb, s);
+      case 256: return tc::launch_wide<256>(TC_ARGS, ncb, s);
       default: return (int)cudaErrorInvalidValue;
     }
-#undef WIDE_ARGS
   }
-  switch (dtype) {
-    case 0: return launch_dh<float>(dh, q, k, v, o, B, Hq, Hkv, Sq, Sk,
-                                    kv_len, causal, scale, s);
-    case 1:
-#define TC_ARGS q, k, v, o, B, Hq, Hkv, Sq, Sk, dh, kv_len, causal, scale, s
-      switch (instance_width(dh)) {
-        case 16: return tc::launch<16>(TC_ARGS);
-        case 32: return tc::launch<32>(TC_ARGS);
-        case 64: return tc::launch<64>(TC_ARGS);
-        case 96: return tc::launch<96>(TC_ARGS);
-        case 128: return tc::launch<128>(TC_ARGS);
-        case 160: return tc::launch<160>(TC_ARGS);
-        case 192: return tc::launch<192>(TC_ARGS);
-        case 256: return tc::launch<256>(TC_ARGS);
-        default: return (int)cudaErrorInvalidValue;
-      }
-#undef TC_ARGS
+  switch (instance_width(dh)) {
+    case 16: return tc::launch<16>(TC_ARGS, s);
+    case 32: return tc::launch<32>(TC_ARGS, s);
+    case 64: return tc::launch<64>(TC_ARGS, s);
+    case 96: return tc::launch<96>(TC_ARGS, s);
+    case 128: return tc::launch<128>(TC_ARGS, s);
+    case 160: return tc::launch<160>(TC_ARGS, s);
+    case 192: return tc::launch<192>(TC_ARGS, s);
+    case 256: return tc::launch<256>(TC_ARGS, s);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef TC_ARGS
 }
 
 extern "C" const char* error_string(int e) {

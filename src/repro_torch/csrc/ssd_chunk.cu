@@ -24,21 +24,21 @@
 // Any head width p, any state width n and any chunk q from 1 to MAX_CHUNK
 // runs, as the TPU kernel takes each tile whole: up to 256, X's width is a
 // template instance (16 .. 256) with zero columns past p, n a runtime
-// width, and rows past q (the last tile's) read zeros; past 256 (p or n)
-// the _wide kernels split Y's and the states' p columns into ceil(p / 256)
-// blocks, each on the instance of its share, and sum C B^T over 64-column
-// slices of n, as flash_attention.cu's _wide kernels split O.  Every
-// kernel numbers its tiles on grid.cuh's flat grid, so no batch, head or
-// chunk count stops at 65,535.
+// width, and rows past q (the last tile's) read zeros; past 256 Y's and
+// the states' p columns split into ceil(p / 256) blocks, each on the
+// instance of its share (bf16: the _wide kernel, which also sums C B^T over
+// 64-column slices of n past 256; float32 takes any n in depth chunks).
+// Every kernel numbers its tiles on grid.cuh's flat grid, so no batch,
+// head or chunk count stops at 65,535.
 //
 // Two kernels, chosen by the input's type (never one for the other), as
-// flash_attention.cu chooses:
+// flash_attention.cu chooses, both reading the model's layout in place:
 //
 // * bfloat16 -> ssd_chunk_mma_kernel, on the tensor cores (namespace mma
-//   below), reading the model's layout in place;
-// * float32 -> ssd_chunk_kernel, FP32 FMAs on the CUDA cores, in the tile
-//   layout (b h, c, q, x) the wrapper copies to.  The tensor cores take no
-//   FP32 input, and TF32 (10-bit mantissa) would break the 1e-5 gates.
+//   below);
+// * float32 -> ssd_chunk_kernel, FP32 FMAs on the CUDA cores (namespace
+//   cc below).  The tensor cores take no FP32 input, and TF32 (10-bit
+//   mantissa) would break the 1e-5 gates.
 //
 // Bound on this card (chip_smoke.py, ssd_work): one read of X, Adt, B and
 // C and one write of Y and the float32 states; 2 n FLOP per live (query,
@@ -63,7 +63,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
 }
 
 constexpr int MAX_CHUNK = 4096;  // longest chunk (kernel.py: MAX_CHUNK)
-constexpr int MAX_P = 256;       // widest instance; past it, the _wide kernels
+constexpr int MAX_P = 256;       // widest instance; past it, column blocks
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -107,378 +107,518 @@ __device__ void chunk_cumsum(const T* __restrict__ adt, long long stride,
 }
 
 // ======================================================================
-// float32: the CUDA-core kernel
+// float32: the CUDA-core kernel (namespace cc)
 // ======================================================================
-// Tiles (1 + ceil(q / QT), c, b * h) on the flat grid; blocks of 16 x 16
-// threads.  Every block first scans its chunk's acum into shared memory.
-//   * tile x >= 1: query tile (QT = 64 rows, the heaviest first).  The
-//     block keeps its C rows in shared memory and walks the B / X tiles
-//     of KT = 64 keys at and below its diagonal, staging them as float.
-//     Thread (ty, tx) computes the scores of rows ty + 16 i against keys
-//     tx + 16 j (i, j < 4), writes S = (C B^T) * L to shared memory, and
-//     accumulates Y for rows ty + 16 i, columns tx + 16 c (c < p / 16) in
-//     registers.
-//   * tile x == 0: the chunk's end-state, in passes of 64 state rows;
-//     thread (ty, tx) owns rows ty + 16 a, columns tx + 16 c.
-// B and C come per group, (b g, c, q, n); head hd reads group hd / (h / g).
-// Rows and keys past q are loaded as zeros and never written, so any q
-// works, up to what shared memory holds, and any n up to 256 (state rows
-// in passes of 64); X's width is an instance P, the wrapper zero-padding
-// a narrower p.  Past 256, ssd_chunk_kernel_wide below.  It sits near the 67 TFLOP/s FP32 peak at best (eight
-// shared-memory loads per sixteen FMAs).
-constexpr int QT = 64;           // query rows per block
-constexpr int KT = 64;           // keys per B / X tile
-constexpr int NS = 64;           // state rows per pass of the state block
-constexpr int TX = 16, TY = 16;  // threads: tx over keys / columns, ty rows
-constexpr int NT = TX * TY;
-constexpr int RQ = QT / TY;      // query rows per thread
-constexpr int RK = KT / TX;      // keys per thread
-constexpr int RS = NS / TY;      // state rows per thread
-constexpr int LDS = KT + 1;      // row stride of the score tile
+// It reads X (b, L, h, p), Adt (b, L, h) and B / C (b, L, g, n) in the
+// model's layout by their strides (no tiles copied; p and n multiples of
+// 4, rows on 16 bytes) and writes Y (b, L, h, p) and the states (b, c, h,
+// p, n) contiguous, as the tensor-core kernel does.
+//
+// Tiles (ncb (nq + ns), h / hb, b c) on the flat grid, blocks of 256
+// threads.  A block serves hb heads of one group in one (batch, chunk) and
+// one column block of p (ncb = ceil(p / 256), each on the instance P of
+// its share); it first scans acum of its hb heads into shared memory (warp
+// w: heads w, w + 8, ...).  Tiles are QT rows: 16 where the chunk is at
+// most 16 steps (a 16-step chunk runs without padding rows, many blocks an
+// SM), else 64 (32 at P = 256).
+//   * tile x < nq: the query tile of QT rows (heaviest first).  For each
+//     key tile of QT keys at or below its diagonal, G = C B^T (QT x QT) is
+//     formed once for the block's heads: 4 x 4 register tiles, each entry
+//     one in-order FMA chain over n (the order of the plain version's
+//     cuBLAS product: a split of n moved Y past the elementwise 1e-5 gate
+//     where its terms cancel), C and B staged in depth chunks of 64; G
+//     parked in shared memory (every key tile's, up to what
+//     fits; otherwise formed again for each pass of heads: the wrapper's
+//     choice, kernels/ssd_chunk/kernel.py cc_layout).  Then HPAR heads at a
+//     time, one lane of 256 / HPAR threads each: S = select(i >= j, G
+//     exp(acum_i - acum_j), 0) into shared memory, and Y += S X with X's
+//     key tile from the ring, each thread a 4 x 8 tile of Y (rows tr + RT
+//     i, float4 groups of columns 4 (tc + NTC g)) from float4 reads.
+//   * the other tiles: QT state rows of the end-state each, for every head
+//     state = (B exp(acum_{q-1} - acum))^T X over all q keys, B and X's
+//     key tiles from the ring, B scaled per key in registers (the plain
+//     version's rounding), each thread 4 consecutive state rows x 8
+//     columns.
+// Every chunk (C and B depth slices, X tiles, B and X key tiles) moves by
+// 16-byte cp.async through a ring of STAGES slots, one barrier a chunk.
+// Rows past q read zeros and are never written; acum stays flat past q,
+// so a padded key's decay is finite and its zero B and X keep it out.
+//
+// What bounds it (the H100; tools/kernel_variants.py drops one piece at a
+// time): at the Mamba2-370m prefill no single piece (G costs one head's
+// worth of products per block, not per head: about 22 GFLOP, not 34);
+// without S X the call ran 28 % faster, without the S tiles (their
+// exponentials) 21 %, without the end-states 18 %, without the copies 6 %,
+// while these FMA loops alone run at 81-89 % of the 67 TFLOP/s FP32 peak
+// (tools/fma_patterns.cu): the block's latency between them (a barrier a
+// chunk, one block of eight warps an SM) is the rest.  At q = 16 the
+// float32 end-states' bytes (2.15 GB at b h = 65,536).  Past p = 256 each
+// column block forms G again (no registry model runs that width).
+namespace cc {
 
-// Shared memory (floats): acum (q), a B tile (KT x max(n, NS) + 1), an X
-// tile (KT x P), the C rows (QT x n + 1) and the score tile (QT x KT + 1).
-// The odd row strides keep the column walks free of bank conflicts.  At p
-// = n = 256 it is 4 (q + 53,440) bytes: q = 4,096 fits the 232,448 a
-// block may have (MAX_CHUNK), 4,673 would not.
-__host__ __device__ inline int ldb(int n) { return (n > NS ? n : NS) + 1; }
-__host__ __device__ inline int smem_floats(int q, int n, int P) {
-  return q + KT * ldb(n) + KT * P + QT * (n + 1) + QT * LDS;
+constexpr int NT = 256;     // threads a block
+constexpr int HB_MAX = 8;   // heads a block at most
+
+// rows of a Y / state tile a thread: the most of 4, 2, 1 whose column
+// threads tile P in float4 groups
+constexpr int pick_or(int p, int qt, int lt) {
+  return p % (4 * (lt * 4 / qt)) == 0   ? 4
+         : p % (4 * (lt * 2 / qt)) == 0 ? 2
+                                        : 1;
+}
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+template <int P, int QT>
+struct Geo {
+  // heads a pass: Y's tile of all of them is 32 floats a thread, their S
+  // tiles at most two of 64 x 68
+  static constexpr int HPAR =
+      cmin(cmin(HB_MAX, cmax(1, 8192 / (QT * P))),
+           cmax(1, 2 * 64 * 68 / (QT * (QT + 4))));
+  static constexpr int LT = NT / HPAR;    // threads of a head lane
+  static constexpr int OR = pick_or(P, QT, LT);
+  static constexpr int RT = QT / OR;      // row threads
+  static constexpr int NTC = LT / RT;     // column threads
+  static constexpr int OG = P / (4 * NTC);  // float4 groups a thread
+  // G: 4 x 4 tiles, each entry one in-order FMA chain over n (the plain
+  // version's cuBLAS product sums in that order; a split of n moved Y past
+  // the elementwise 1e-5 gate where its terms cancel)
+  static constexpr int GRG = QT / 4, GKL = QT / 4;
+  static constexpr int GACT = GRG * GKL;  // threads forming G
+  static constexpr int DSL = 64;          // n of a G chunk
+  static constexpr int LDC = DSL + 4;
+  static constexpr int LDS = QT + 4;      // an S tile's rows
+  static constexpr int LDB = QT + 4;      // B rows of a state chunk
+  // the G and X chunks' slot; a state chunk of QT keys, at 64 rows only
+  // where it fits in that slot (else 32)
+  static constexpr int GX = cmax(2 * QT * LDC, HPAR * QT * P);
+  static constexpr int SK =
+      QT < 64 || QT * LDB + HPAR * QT * P <= GX ? QT : QT / 2;
+  static constexpr int SLOT = cmax(GX, SK * LDB + HPAR * SK * P);
+  static constexpr int RED = HPAR * QT * LDS;  // S tiles
+  static constexpr int STAGES = 2;  // chunks in the ring
+  static_assert(OG >= 1 && OG * 4 * NTC == P && GACT <= NT, "tiling");
+};
+
+// floats of shared memory: acum of hb heads, the partial G / S tiles, G
+// (parked: QT x (qa + 4), every key tile; else one key tile) and the ring
+template <int P, int QT>
+__host__ __device__ inline int smem_floats(int q, int hb, bool parked) {
+  using G = Geo<P, QT>;
+  const int qa = round_up(q, QT);
+  return hb * qa + G::RED + QT * ((parked ? qa : QT) + 4) +
+         G::STAGES * G::SLOT;
 }
 
-// rows [r0, r0 + KT) x columns [0, w) of a (q, lds) tile into dst (row
-// stride ld), as float, zeros past q
-__device__ __forceinline__ void stage(const float* __restrict__ src, int lds,
-                                      int r0, int q, int w, float* dst,
-                                      int ld, int tid) {
-  for (int e = tid; e < KT * w; e += NT) {
-    const int r = e / w, c = e % w;
-    dst[r * ld + c] = r0 + r < q ? src[(size_t)(r0 + r) * lds + c] : 0.f;
+struct Args {
+  const float *x, *adt, *bm, *cm;
+  float *y, *st;
+  long long sxb, sxl, sxh, sab, sal, sah, sbb, sbl, sbg, scb, scl, scg;
+  int b, c, q, p, n, h, g, hb, parked, ncb;
+};
+
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float comp(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// rows [r0, r0 + R) x columns [c0, c0 + W) of a row-major float matrix
+// (row stride ld) into dst (row stride ldd) by 16-byte cp.async; rows at
+// or past rlim read as zeros, columns at or past clim are not copied
+// (no product reads them into an output that is stored: G sums n's live
+// depth, state rows past n are skipped, Y's and the states' columns past
+// p are not stored)
+template <int R, int W>
+__device__ __forceinline__ void stage(float* dst, int ldd,
+                                      const float* __restrict__ src,
+                                      long long ld, int r0, int rlim, int c0,
+                                      int clim, int tid) {
+  // a thread copies column c of rows r, r + RS, ... (fixed per thread)
+  constexpr int C4 = W / 4, RS = NT / C4;
+  static_assert(NT % C4 == 0, "a row of 16-byte copies per thread set");
+  const int r = tid / C4, c = 4 * (tid % C4);
+  if (c0 + c >= clim) return;
+  const float* s = src + (r0 + r) * ld + c0 + c;
+  float* d = dst + r * ldd + c;
+#pragma unroll
+  for (int k = 0; k < (R + RS - 1) / RS; ++k) {
+    if (R % RS != 0 && r + k * RS >= R) break;
+    const bool in = r0 + r + k * RS < rlim;
+    cp16(d + k * RS * ldd, in ? s + k * RS * ld : src, in);
   }
 }
 
-// s (rows ty + 16 i, keys tx + 16 j) += C B^T over w columns of the C
-// rows and the B tile in shared memory (row strides ldc, ldb)
-__device__ __forceinline__ void add_cb(float (&s)[RQ][RK], const float* Cs,
-                                       int ldc, const float* Bs, int ldb,
-                                       int w, int tx, int ty) {
-#pragma unroll 8
-  for (int c = 0; c < w; ++c) {
-    float cv[RQ], bv[RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) cv[i] = Cs[(ty + TY * i) * ldc + c];
-#pragma unroll
-    for (int j = 0; j < RK; ++j) bv[j] = Bs[(tx + TX * j) * ldb + c];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = fmaf(cv[i], bv[j], s[i][j]);
-  }
-}
+template <int P, int QT>
+__global__ void __launch_bounds__(NT, 1) ssd_chunk_kernel(const Args a) {
+  using G = Geo<P, QT>;
+  constexpr int HPAR = G::HPAR, LT = G::LT, OR = G::OR, RT = G::RT;
+  constexpr int NTC = G::NTC, OG = G::OG, GRG = G::GRG, GKL = G::GKL;
+  constexpr int DSL = G::DSL, LDC = G::LDC;
+  constexpr int LDS = G::LDS, SK = G::SK, LDB = G::LDB, SLOT = G::SLOT;
+  constexpr int STAGES = G::STAGES;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x;
+  const int q = a.q, n = a.n, hb = a.hb;
+  const int nq = (q + QT - 1) / QT, ns = (n + QT - 1) / QT;
+  int xt, yb;
+  long long z;
+  if (!flat_tile(a.ncb * (nq + ns), a.h / hb, (long long)a.b * a.c, xt, yb,
+                 z))
+    return;
+  const int cb = xt / (nq + ns), xr = xt - cb * (nq + ns);
+  long long bi;
+  int ci;
+  divmod(z, a.c, bi, ci);
+  const int hd0 = yb * hb;                // the block's first head
+  const int gi = hd0 / (a.h / a.g);       // their group
+  const int col0 = cb * P;                // the column block's first column
+  const int qa = round_up(q, QT);
+  const long long t0 = (long long)ci * q;  // the chunk's first step
+  float* acum = reinterpret_cast<float*>(smem4);  // hb x qa
+  float* red = acum + hb * qa;            // S tiles
+  float* park = red + G::RED;             // G
+  float* ring = park + QT * ((a.parked ? qa : QT) + 4);
+  const int ldg = (a.parked ? qa : QT) + 4;
 
-// the score tile: S = s exp(acum_row - acum_key) at and below the
-// diagonal, 0 above it and past q (rows q0 + ty + 16 i, keys k0 + tx + 16 j)
-__device__ __forceinline__ void store_scores(const float (&s)[RQ][RK],
-                                             const float* acum, float* Ss,
-                                             int q, int q0, int k0, int tx,
-                                             int ty) {
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty + TY * i;
-#pragma unroll
-    for (int j = 0; j < RK; ++j) {
-      const int key = k0 + tx + TX * j;
-      float v = 0.f;
-      if (row < q && key <= row) v = s[i][j] * expf(acum[row] - acum[key]);
-      Ss[(ty + TY * i) * LDS + tx + TX * j] = v;
-    }
-  }
-}
+  // acum of the block's heads, warp w: heads w, w + 8, ... (called once
+  // the first chunks are in flight; complete at the next barrier)
+  auto scan = [&]() {
+    const int warp = tid / 32, lane = tid % 32;
+    for (int hh = warp; hh < hb; hh += NT / 32)
+      chunk_cumsum(a.adt + bi * a.sab + t0 * a.sal + (hd0 + hh) * a.sah,
+                   a.sal, q, qa, acum + hh * qa, lane);
+  };
 
-// acc (rows ty + 16 i, columns tx + 16 c) += S X over the tile's KT keys
-template <int P>
-__device__ __forceinline__ void add_sx(float (&acc)[RQ][P / TX],
-                                       const float* Ss, const float* Xs,
-                                       int tx, int ty) {
-#pragma unroll 4
-  for (int kk = 0; kk < KT; ++kk) {
-    float sv[RQ];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) sv[i] = Ss[(ty + TY * i) * LDS + kk];
-#pragma unroll
-    for (int c = 0; c < P / TX; ++c) {
-      const float xv = Xs[kk * P + tx + TX * c];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(sv[i], xv, acc[i][c]);
-    }
-  }
-}
+  const int hl = tid / LT, lt = tid % LT;  // head lane, its thread
+  const int tr = lt / NTC, tc = lt % NTC;
+  const int npass = (hb + HPAR - 1) / HPAR;
+  const float* xb = a.x + bi * a.sxb + t0 * a.sxl;
+  float acc[OR][OG][4];
 
-// Y's rows q0 + ty + 16 i below q (row stride ld), columns tx + 16 c
-template <int P>
-__device__ __forceinline__ void store_y(const float (&acc)[RQ][P / TX],
-                                        float* __restrict__ y, int ld, int q,
-                                        int q0, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty + TY * i;
-    if (row >= q) continue;
-#pragma unroll
-    for (int c = 0; c < P / TX; ++c)
-      y[(size_t)row * ld + tx + TX * c] = acc[i][c];
-  }
-}
-
-template <int P>
-__device__ void query_tile(const float* __restrict__ x,
-                           const float* __restrict__ bm,
-                           const float* __restrict__ cm,
-                           float* __restrict__ y, const float* acum,
-                           float* Bs, float* Xs, float* Cs, float* Ss, int q,
-                           int n, int q0, int tx, int ty, int tid) {
-  const int LDB = ldb(n), LDC = n + 1;
-  for (int e = tid; e < QT * n; e += NT) {
-    const int r = e / n, c = e % n;
-    Cs[r * LDC + c] = q0 + r < q ? cm[(size_t)(q0 + r) * n + c] : 0.f;
-  }
-  float acc[RQ][P / TX] = {};
-
-  const int kend = min(q, q0 + QT);  // keys at or below the last row
-  for (int k0 = 0; k0 < kend; k0 += KT) {
-    __syncthreads();  // the previous tile's B, X and S are consumed
-    stage(bm, n, k0, q, n, Bs, LDB, tid);
-    stage(x, P, k0, q, P, Xs, P, tid);
-    __syncthreads();
-    float s[RQ][RK] = {};
-    add_cb(s, Cs, LDC, Bs, LDB, n, tx, ty);
-    store_scores(s, acum, Ss, q, q0, k0, tx, ty);
-    __syncthreads();  // S complete
-    add_sx<P>(acc, Ss, Xs, tx, ty);
-  }
-  store_y<P>(acc, y, P, q, q0, tx, ty);
-}
-
-// the (n, P) end-state; X's rows and the state's are ldx floats apart
-template <int P>
-__device__ void end_state(const float* __restrict__ x,
-                          const float* __restrict__ bm,
-                          float* __restrict__ st, const float* acum,
-                          float* Bs, float* Xs, int q, int n, int ldx,
-                          int tx, int ty, int tid) {
-  constexpr int CP = P / TX;
-  constexpr int LDD = NS + 1;
-  const float last = acum[q - 1];
-  for (int n0 = 0; n0 < n; n0 += NS) {
-    float acc[RS][CP];
-#pragma unroll
-    for (int a = 0; a < RS; ++a)
-#pragma unroll
-      for (int c = 0; c < CP; ++c) acc[a][c] = 0.f;
-    for (int k0 = 0; k0 < q; k0 += KT) {
-      __syncthreads();  // the previous tile is consumed
-      // Bd = B * exp(acum_{q-1} - acum), rows [k0, k0 + KT), state rows
-      // [n0, n0 + NS)
-      for (int e = tid; e < KT * NS; e += NT) {
-        const int r = e / NS, c = e % NS, t = k0 + r;
-        Bs[r * LDD + c] = t < q && n0 + c < n
-            ? bm[(size_t)t * n + n0 + c] * expf(last - acum[t])
-            : 0.f;
+  if (xr < nq) {
+    // ---------------------------------------------------- a query tile
+    const int qt = nq - 1 - xr, q0 = qt * QT;
+    const int nkt = qt + 1;                 // key tiles at or below
+    const int ngc = (n + DSL - 1) / DSL;    // G chunks a key tile
+    const float* cbase = a.cm + bi * a.scb + t0 * a.scl + gi * a.scg;
+    const float* bbase = a.bm + bi * a.sbb + t0 * a.sbl + gi * a.sbg;
+    // the chunk sequence: pass hp, key tile j: ngc G chunks (pass 0, or
+    // every pass when G is not parked), then one X chunk
+    int ip = 0, ij = 0, ir = 0, ic = 0;     // the fetch cursor
+    auto fetch = [&]() {
+      if (ip < npass) {
+        float* slot = ring + (ic % STAGES) * SLOT;
+        const int gch = ip == 0 || !a.parked ? ngc : 0;
+        if (ir < gch) {
+          stage<QT, DSL>(slot, LDC, cbase, a.scl, q0, q, ir * DSL, n, tid);
+          stage<QT, DSL>(slot + QT * LDC, LDC, bbase, a.sbl, ij * QT, q,
+                         ir * DSL, n, tid);
+        } else {
+          for (int l = 0; l < HPAR; ++l) {
+            const int hh = ip * HPAR + l;
+            if (hh < hb)
+              stage<QT, P>(slot + l * QT * P, P, xb + (hd0 + hh) * a.sxh,
+                           a.sxl, ij * QT, q, col0, a.p, tid);
+          }
+        }
+        if (++ir == gch + 1) {
+          ir = 0;
+          if (++ij == nkt) {
+            ij = 0;
+            ++ip;
+          }
+        }
       }
-      stage(x, ldx, k0, q, P, Xs, P, tid);
-      __syncthreads();
+      ++ic;
+      cp_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) fetch();
+    scan();
+
+    const int rg = tid / GKL, kl = tid % GKL;  // G: rows rg + GRG r, keys
+    const bool gact = tid < G::GACT;           // kl + GKL k
+    int i = 0;                              // the chunk consumed next
+    for (int hp = 0; hp < npass; ++hp) {
+      const int hh = hp * HPAR + hl;        // this lane's head in the block
+      const bool act = hh < hb;
+#pragma unroll
+      for (int r = 0; r < OR; ++r)
+#pragma unroll
+        for (int g = 0; g < OG; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][g][e] = 0.f;
+      for (int j = 0; j < nkt; ++j) {
+        const int k0 = j * QT;
+        float* Gt = park + (a.parked ? k0 : 0);  // this key tile's G
+        if (hp == 0 || !a.parked) {
+          float s[4][4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+          for (int c = 0; c < ngc; ++c, ++i) {
+            cp_wait<STAGES - 2>();
+            __syncthreads();  // chunk i landed; slot i - 1 is free
+            fetch();
+            const float* Cs = ring + (i % STAGES) * SLOT;
+            const float* Bs = Cs + QT * LDC;
+            // the chunk's live depth (columns past n are zeros)
+            const int dl = min(DSL, round_up(n - c * DSL, 4));
+            if (gact) {
 #pragma unroll 4
-      for (int kk = 0; kk < KT; ++kk) {
-        float bv[RS];
+              for (int d = 0; d < dl; d += 4) {
+                float4 cv[4], bv[4];
 #pragma unroll
-        for (int a = 0; a < RS; ++a) bv[a] = Bs[kk * LDD + ty + TY * a];
+                for (int r = 0; r < 4; ++r)
+                  cv[r] = ld4(Cs + (rg + GRG * r) * LDC + d);
 #pragma unroll
-        for (int c = 0; c < CP; ++c) {
-          const float xv = Xs[kk * P + tx + TX * c];
+                for (int k = 0; k < 4; ++k)
+                  bv[k] = ld4(Bs + (kl + GKL * k) * LDC + d);
 #pragma unroll
-          for (int a = 0; a < RS; ++a) acc[a][c] = fmaf(bv[a], xv, acc[a][c]);
+                for (int r = 0; r < 4; ++r)
+#pragma unroll
+                  for (int k = 0; k < 4; ++k) {
+                    s[r][k] = fmaf(cv[r].x, bv[k].x, s[r][k]);
+                    s[r][k] = fmaf(cv[r].y, bv[k].y, s[r][k]);
+                    s[r][k] = fmaf(cv[r].z, bv[k].z, s[r][k]);
+                    s[r][k] = fmaf(cv[r].w, bv[k].w, s[r][k]);
+                  }
+              }
+            }
+          }
+          if (gact)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                Gt[(rg + GRG * r) * ldg + kl + GKL * k] = s[r][k];
+        }
+        cp_wait<STAGES - 2>();
+        __syncthreads();  // X's key tile landed; G complete; S consumed
+        fetch();
+        const float* Xs = ring + (i % STAGES) * SLOT + hl * QT * P;
+        ++i;
+        float* Ss = red + hl * QT * LDS;
+        if (act) {  // S = select(i >= j, G exp(acum_i - acum_j), 0)
+          const float* ac = acum + hh * qa;
+#pragma unroll
+          for (int e = lt; e < QT * QT; e += LT) {
+            const int r = e / QT, k = e % QT;
+            const int row = q0 + r, key = k0 + k;
+            float v = 0.f;
+            if (row < q && key <= row)  // rows past q: whole warps
+              v = Gt[r * ldg + k] * expf(ac[row] - ac[key]);
+            Ss[r * LDS + k] = v;
+          }
+        }
+        __syncthreads();  // S complete
+        // the tile's keys below q and below its last row (S is zero past)
+        const int kn = min(QT, round_up(min(q, q0 + QT) - k0, 4));
+        if (act) {
+#pragma unroll 2
+          for (int kk = 0; kk < kn; kk += 4) {
+            float4 sv[OR];
+#pragma unroll
+            for (int r = 0; r < OR; ++r) sv[r] = ld4(Ss + (tr + RT * r) * LDS + kk);
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+#pragma unroll
+              for (int g = 0; g < OG; ++g) {
+                const float4 xv = ld4(Xs + (kk + u) * P + 4 * (tc + NTC * g));
+#pragma unroll
+                for (int r = 0; r < OR; ++r) {
+                  const float su = comp(sv[r], u);
+                  acc[r][g][0] = fmaf(su, xv.x, acc[r][g][0]);
+                  acc[r][g][1] = fmaf(su, xv.y, acc[r][g][1]);
+                  acc[r][g][2] = fmaf(su, xv.z, acc[r][g][2]);
+                  acc[r][g][3] = fmaf(su, xv.w, acc[r][g][3]);
+                }
+              }
+          }
+        }
+      }
+      if (act) {  // Y's rows below q, columns below p
+        const int hd = hd0 + hh;
+#pragma unroll
+        for (int r = 0; r < OR; ++r) {
+          const int row = q0 + tr + RT * r;
+          if (row >= q) continue;
+          float* yr = a.y + ((bi * a.c * q + t0 + row) * a.h + hd) * a.p;
+#pragma unroll
+          for (int g = 0; g < OG; ++g) {
+            const int col = col0 + 4 * (tc + NTC * g);
+            if (col < a.p)
+              *reinterpret_cast<float4*>(yr + col) =
+                  make_float4(acc[r][g][0], acc[r][g][1], acc[r][g][2],
+                              acc[r][g][3]);
+          }
         }
       }
     }
+  } else {
+    // ------------------------------------ QT state rows of the end-state
+    const int s0 = (xr - nq) * QT;
+    const int nkc = (q + SK - 1) / SK;      // key tiles of a pass
+    const float* bbase = a.bm + bi * a.sbb + t0 * a.sbl + gi * a.sbg;
+    int ip = 0, ij = 0, ic = 0;
+    auto fetch = [&]() {
+      if (ip < npass) {
+        float* slot = ring + (ic % STAGES) * SLOT;
+        stage<SK, QT>(slot, LDB, bbase, a.sbl, ij * SK, q, s0, n, tid);
+        for (int l = 0; l < HPAR; ++l) {
+          const int hh = ip * HPAR + l;
+          if (hh < hb)
+            stage<SK, P>(slot + SK * LDB + l * SK * P, P,
+                         xb + (hd0 + hh) * a.sxh, a.sxl, ij * SK, q, col0,
+                         a.p, tid);
+        }
+        if (++ij == nkc) {
+          ij = 0;
+          ++ip;
+        }
+      }
+      ++ic;
+      cp_commit();
+    };
 #pragma unroll
-    for (int a = 0; a < RS; ++a) {
-      const int r = n0 + ty + TY * a;
-      if (r >= n) continue;
+    for (int s = 0; s < STAGES - 1; ++s) fetch();
+    scan();
+    // acum -> the decay exp(acum_{q-1} - acum) in place, each head's last
+    // first read into red
+    __syncthreads();  // acum complete
+    if (tid < hb) red[tid] = acum[tid * qa + q - 1];
+    __syncthreads();
+    for (int e = tid; e < hb * qa; e += NT)
+      acum[e] = expf(red[e / qa] - acum[e]);
+
+    int i = 0;
+    for (int hp = 0; hp < npass; ++hp) {
+      const int hh = hp * HPAR + hl;
+      const bool act = hh < hb;
+      const float* dec = acum + hh * qa;
 #pragma unroll
-      for (int c = 0; c < CP; ++c)
-        st[(size_t)r * ldx + tx + TX * c] = acc[a][c];
+      for (int r = 0; r < OR; ++r)
+#pragma unroll
+        for (int g = 0; g < OG; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][g][e] = 0.f;
+      for (int j = 0; j < nkc; ++j, ++i) {
+        cp_wait<STAGES - 2>();
+        __syncthreads();  // chunk i landed (and the decay is complete)
+        fetch();
+        const float* Bs = ring + (i % STAGES) * SLOT;
+        const float* Xs = Bs + SK * LDB + hl * SK * P;
+        // a thread whose state rows all lie past n skips (they are never
+        // stored), as do keys past q (their B and X are zeros)
+        if (!act || s0 + OR * tr >= n) continue;
+        const int k0 = j * SK;
+        const int tl = min(SK, q - k0);
+#pragma unroll 4
+        for (int t = 0; t < tl; ++t) {
+          const float d = dec[k0 + t];
+          float bd[OR];
+          if constexpr (OR == 4) {
+            const float4 b4 = ld4(Bs + t * LDB + 4 * tr);
+            bd[0] = b4.x * d;
+            bd[1] = b4.y * d;
+            bd[2] = b4.z * d;
+            bd[3] = b4.w * d;
+          } else {
+#pragma unroll
+            for (int r = 0; r < OR; ++r) bd[r] = Bs[t * LDB + OR * tr + r] * d;
+          }
+#pragma unroll
+          for (int g = 0; g < OG; ++g) {
+            const float4 xv = ld4(Xs + t * P + 4 * (tc + NTC * g));
+#pragma unroll
+            for (int r = 0; r < OR; ++r) {
+              acc[r][g][0] = fmaf(bd[r], xv.x, acc[r][g][0]);
+              acc[r][g][1] = fmaf(bd[r], xv.y, acc[r][g][1]);
+              acc[r][g][2] = fmaf(bd[r], xv.z, acc[r][g][2]);
+              acc[r][g][3] = fmaf(bd[r], xv.w, acc[r][g][3]);
+            }
+          }
+        }
+      }
+      if (act) {  // state rows s0 + OR tr + r below n, (p, n) layout
+        float* sb = a.st + ((bi * a.c + ci) * a.h + hd0 + hh) * (long long)a.p * n;
+        const int sr = s0 + OR * tr;
+#pragma unroll
+        for (int g = 0; g < OG; ++g) {
+          const int col = col0 + 4 * (tc + NTC * g);
+          if (col >= a.p) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float* dst = sb + (long long)(col + e) * n + sr;
+            if constexpr (OR == 4) {
+              if (sr < n)
+                *reinterpret_cast<float4*>(dst) =
+                    make_float4(acc[0][g][e], acc[1][g][e], acc[2][g][e],
+                                acc[3][g][e]);
+            } else {
+#pragma unroll
+              for (int r = 0; r < OR; ++r)
+                if (sr + r < n) dst[r] = acc[r][g][e];
+            }
+          }
+        }
+      }
     }
   }
+  cp_wait<0>();  // no copy in flight past the last chunk
 }
 
-template <int P>
-__global__ void __launch_bounds__(NT)
-ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ adt,
-                 const float* __restrict__ bm, const float* __restrict__ cm,
-                 float* __restrict__ y, float* __restrict__ st, int q, int n,
-                 int h, int g, int c, int BH) {
-  extern __shared__ float smem[];
-  float* acum = smem;
-  float* Bs = acum + q;
-  float* Xs = Bs + KT * ldb(n);
-  float* Cs = Xs + KT * P;
-  float* Ss = Cs + QT * (n + 1);
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  // the (batch * head, chunk) tile; X, Adt, Y and the states are (b h, c,
-  // q, x) contiguous, B and C (b g, c, q, n): head hd reads group
-  // hd / (h / g)
-  const int nx = 1 + (q + QT - 1) / QT;
-  int xt, ci;
-  long long bh;
-  if (!flat_tile(nx, c, BH, xt, ci, bh)) return;
-  const size_t tile = (size_t)bh * c + ci;
-  long long bi;
-  int hd;
-  divmod(bh, h, bi, hd);
-  const size_t gtile = ((size_t)bi * g + hd / (h / g)) * c + ci;
-  x += tile * q * P;
-  adt += tile * q;
-  bm += gtile * q * n;
-  cm += gtile * q * n;
-
-  if (tid < 32) chunk_cumsum(adt, 1, q, q, acum, tid);
-  __syncthreads();
-  if (xt == 0) {
-    end_state<P>(x, bm, st + tile * n * P, acum, Bs, Xs, q, n, P, tx, ty,
-                 tid);
-  } else {
-    const int q0 = (nx - 1 - xt) * QT;
-    query_tile<P>(x, bm, cm, y + tile * q * P, acum, Bs, Xs, Cs, Ss, q, n,
-                  q0, tx, ty, tid);
-  }
-}
-
-template <int P>
-int launch(const void* x, const void* adt, const void* bm, const void* cm,
-           void* y, void* st, int BH, int c, int q, int n, int h, int g,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)smem_floats(q, n, P);
+template <int P, int QT>
+int launch(const Args& a, cudaStream_t stream) {
+  const int smem = (int)sizeof(float) * smem_floats<P, QT>(a.q, a.hb,
+                                                             a.parked != 0);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_chunk_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      ssd_chunk_kernel<P, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid;
-  if (!flat_grid((long long)(1 + (q + QT - 1) / QT) * c * BH, &grid))
-    return (int)cudaErrorInvalidConfiguration;
-  ssd_chunk_kernel<P><<<grid, dim3(TX, TY), smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(adt),
-      static_cast<const float*>(bm), static_cast<const float*>(cm),
-      static_cast<float*>(y), static_cast<float*>(st), q, n, h, g, c, BH);
+  const long long tiles = (long long)a.ncb *
+                          ((a.q + QT - 1) / QT + (a.n + QT - 1) / QT) *
+                          (a.h / a.hb) * a.b * a.c;
+  if (!flat_grid(tiles, &grid)) return (int)cudaErrorInvalidConfiguration;
+  ssd_chunk_kernel<P, QT><<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Widths past 256 (p or n).  The tiles (b h, c, q, x) as above, but X, Y
-// and the states are PX = ncb OW columns wide, ncb = ceil(p / 256) blocks
-// of the instance OW of p's share: a block owns one column block (tiles
-// (ncb (1 + nq), c, b h): tile x = its block x (1 + nq) + the state block
-// or a query tile).  A query block sums S = C B^T over 64-column slices
-// of its C rows and the key tile's B rows, staged in turn (C again for
-// every key tile, so neither is ever whole in shared memory), then stages
-// the key tile's OW columns of X; the state block walks n in passes of 64
-// as above.  Each of the ncb blocks of a query tile recomputes S: a
-// simple kernel first, its times in PERF.md.
-constexpr int LDN = NS + 1;  // row stride of a C or B slice
+// the query rows of a tile: 16 for a chunk of at most 16 steps, else 64
+// (32 at P = 256, where Y's tile of 64 rows would not fit the registers)
+inline int tile_rows(int q, int P) { return q <= 16 ? 16 : P == 256 ? 32 : 64; }
 
-__host__ __device__ inline int wide_smem_floats(int q, int OW) {
-  return q + KT * LDN + KT * OW + QT * LDN + QT * LDS;
-}
-
-template <int OW>
-__device__ void query_tile_wide(const float* __restrict__ x,
-                                const float* __restrict__ bm,
-                                const float* __restrict__ cm,
-                                float* __restrict__ y, const float* acum,
-                                float* Bs, float* Xs, float* Cs, float* Ss,
-                                int q, int n, int q0, int ldx, int tx, int ty,
-                                int tid) {
-  float acc[RQ][OW / TX] = {};
-  const int kend = min(q, q0 + QT);  // keys at or below the last row
-  for (int k0 = 0; k0 < kend; k0 += KT) {
-    float s[RQ][RK] = {};
-    for (int n0 = 0; n0 < n; n0 += NS) {
-      const int w = min(NS, n - n0);
-      __syncthreads();  // the previous slices, X and S are consumed
-      stage(cm + n0, n, q0, q, w, Cs, LDN, tid);  // QT == KT rows
-      stage(bm + n0, n, k0, q, w, Bs, LDN, tid);
-      __syncthreads();
-      add_cb(s, Cs, LDN, Bs, LDN, w, tx, ty);
-    }
-    store_scores(s, acum, Ss, q, q0, k0, tx, ty);
-    stage(x, ldx, k0, q, OW, Xs, OW, tid);
-    __syncthreads();  // S and the X tile complete
-    add_sx<OW>(acc, Ss, Xs, tx, ty);
-  }
-  store_y<OW>(acc, y, ldx, q, q0, tx, ty);
-}
-
-template <int OW>
-__global__ void __launch_bounds__(NT)
-ssd_chunk_kernel_wide(const float* __restrict__ x,
-                      const float* __restrict__ adt,
-                      const float* __restrict__ bm,
-                      const float* __restrict__ cm, float* __restrict__ y,
-                      float* __restrict__ st, int q, int n, int h, int g,
-                      int c, int BH, int ncb) {
-  extern __shared__ float smem[];
-  float* acum = smem;
-  float* Bs = acum + q;
-  float* Xs = Bs + KT * LDN;
-  float* Cs = Xs + KT * OW;
-  float* Ss = Cs + QT * LDN;
-
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  const int nx = 1 + (q + QT - 1) / QT, PX = ncb * OW;
-  int xt, ci;
-  long long bh;
-  if (!flat_tile(ncb * nx, c, BH, xt, ci, bh)) return;
-  const int xb = xt % nx, col0 = (xt / nx) * OW;
-  const size_t tile = (size_t)bh * c + ci;
-  long long bi;
-  int hd;
-  divmod(bh, h, bi, hd);
-  const size_t gtile = ((size_t)bi * g + hd / (h / g)) * c + ci;
-  x += tile * q * PX + col0;
-  adt += tile * q;
-  bm += gtile * q * n;
-  cm += gtile * q * n;
-
-  if (tid < 32) chunk_cumsum(adt, 1, q, q, acum, tid);
-  __syncthreads();
-  if (xb == 0) {
-    end_state<OW>(x, bm, st + tile * n * PX + col0, acum, Bs, Xs, q, n, PX,
-                  tx, ty, tid);
-  } else {
-    query_tile_wide<OW>(x, bm, cm, y + tile * q * PX + col0, acum, Bs, Xs,
-                        Cs, Ss, q, n, (nx - 1 - xb) * QT, PX, tx, ty, tid);
+template <int P>
+int launch_p(const Args& a, cudaStream_t s) {
+  switch (tile_rows(a.q, P)) {
+    case 16: return launch<P, 16>(a, s);
+    case 32: if constexpr (P == 256) return launch<P, 32>(a, s);
+             return (int)cudaErrorInvalidValue;
+    default: if constexpr (P != 256) return launch<P, 64>(a, s);
+             return (int)cudaErrorInvalidValue;
   }
 }
 
-template <int OW>
-int launch_wide(const void* x, const void* adt, const void* bm,
-                const void* cm, void* y, void* st, int BH, int c, int q,
-                int n, int h, int g, int ncb, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)wide_smem_floats(q, OW);
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_chunk_kernel_wide<OW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid;
-  if (!flat_grid((long long)ncb * (1 + (q + QT - 1) / QT) * c * BH, &grid))
-    return (int)cudaErrorInvalidConfiguration;
-  ssd_chunk_kernel_wide<OW><<<grid, dim3(TX, TY), smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(adt),
-      static_cast<const float*>(bm), static_cast<const float*>(cm),
-      static_cast<float*>(y), static_cast<float*>(st), q, n, h, g, c, BH,
-      ncb);
-  return (int)cudaGetLastError();
-}
+}  // namespace cc
 
 }  // namespace
 
@@ -924,7 +1064,7 @@ ssd_chunk_mma_kernel(const Args A) {
   // ring (streamed: with the tile's B rows), one step per (head, key
   // tile), NRING - 1 ahead of the products
   const int steps = A.hb * nkt;
-  auto issue = [&](int s) {
+  auto fetch = [&](int s) {
     const int hh = s / nkt, kt = s % nkt;
     bf16* dst = stage + (s % NRING) * slot;
     load_rows(dst, LDX, A.x + bi * A.sxb + t0 * A.sxl + (h0 + hh) * A.sxh,
@@ -938,12 +1078,12 @@ ssd_chunk_mma_kernel(const Args A) {
     }
     cp_commit();
   };
-  for (int s = 0; s < NRING - 1 && s < steps; ++s) issue(s);
+  for (int s = 0; s < NRING - 1 && s < steps; ++s) fetch(s);
   float acc[P / 8][4];
   for (int s = 0; s < steps; ++s) {
     const int hh = s / nkt, kt = s % nkt;
     if (s + NRING - 1 < steps) {  // its slot was consumed at step s - 1
-      issue(s + NRING - 1);
+      fetch(s + NRING - 1);
       cp_wait<NRING - 1>();
     } else if (NRING > 2 && s + 1 < steps) {
       cp_wait<1>();
@@ -1221,45 +1361,48 @@ inline int p_instance(int w) {
   return w <= 16 ? 16 : w <= 32 ? 32 : w <= 64 ? 64 : w <= 128 ? 128 : 256;
 }
 
-// float32, the CUDA-core kernel: x (BH, c, q, p), adt (BH, c, q), bm / cm
-// (b g, c, q, n) with BH = b h, y like x, st (BH, c, n, p) float32, all
-// contiguous; 1 <= q <= MAX_CHUNK, n >= 1, h % g == 0.  Up to MAX_P (p and
-// n): p in {16, 32, 64, 128, 256} (the wrapper zero-pads a narrower X),
-// ncb = 1; past it the _wide kernel, p = ncb OW with OW an instance.
-extern "C" int ssd_chunk_launch(const void* x, const void* adt,
-                                const void* bm, const void* cm, void* y,
-                                void* st, int BH, int c, int q, int p, int n,
-                                int h, int g, int ncb, void* stream) {
-  if (BH <= 0 || c <= 0 || q <= 0) return 0;
-  if (q > MAX_CHUNK || n < 1 || h <= 0 || g <= 0 || h % g || BH % h ||
-      ncb < 1 || p % ncb)
+// float32, the CUDA-core kernel, in the model's layout: x (b, L, h, p),
+// adt (b, L, h), bm / cm (b, L, g, n) by their strides (in elements; the
+// last axis of x, bm, cm contiguous, rows and bases 16-byte aligned); y
+// (b, L, h, p) and st (b, c, h, p, n) float32 contiguous; L = c q, 1 <= q
+// <= MAX_CHUNK, p and n multiples of 4, h % g == 0, hb heads per block
+// dividing h / g, at most 8; stream: G formed again for each pass of heads
+// instead of parked (the wrapper's choice, where parked G does not fit).
+// p past MAX_P runs in ceil(p / 256) column blocks, each on the instance of
+// its share.
+extern "C" int ssd_chunk_launch(
+    const void* x, const void* adt, const void* bm, const void* cm, void* y,
+    void* st, int b, int c, int q, int p, int n, int h, int g, int hb,
+    int stream_g, long long sxb, long long sxl, long long sxh, long long sab,
+    long long sal, long long sah, long long sbb, long long sbl,
+    long long sbg, long long scb, long long scl, long long scg,
+    void* stream) {
+  if (b <= 0 || c <= 0 || q <= 0 || h <= 0) return 0;
+  if (q > MAX_CHUNK || p < 4 || p % 4 || n < 4 || n % 4 || g <= 0 ||
+      h % g || hb <= 0 || hb > cc::HB_MAX || (h / g) % hb)
     return (int)cudaErrorInvalidValue;
+  const void* ptrs[6] = {x, bm, cm, y, st, adt};
+  for (int i = 0; i < 5; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16)
+      return (int)cudaErrorMisalignedAddress;
+  const long long strides[6] = {sxb, sxl, sbb, sbl, scb, scl};
+  for (long long sd : strides)
+    if (sd % 4) return (int)cudaErrorMisalignedAddress;
+  if (sxh % 4 || sbg % 4 || scg % 4) return (int)cudaErrorMisalignedAddress;
+  const int ncb = p > MAX_P ? (p + MAX_P - 1) / MAX_P : 1;
+  cc::Args a{static_cast<const float*>(x), static_cast<const float*>(adt),
+             static_cast<const float*>(bm), static_cast<const float*>(cm),
+             static_cast<float*>(y), static_cast<float*>(st),
+             sxb, sxl, sxh, sab, sal, sah, sbb, sbl, sbg, scb, scl, scg,
+             b, c, q, p, n, h, g, hb, stream_g ? 0 : 1, ncb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p > MAX_P || n > MAX_P) {
-    const int ow = p / ncb;
-    if (ow != p_instance(ow)) return (int)cudaErrorInvalidValue;
-#define WIDE_ARGS x, adt, bm, cm, y, st, BH, c, q, n, h, g, ncb, s
-    switch (ow) {
-      case 16: return launch_wide<16>(WIDE_ARGS);
-      case 32: return launch_wide<32>(WIDE_ARGS);
-      case 64: return launch_wide<64>(WIDE_ARGS);
-      case 128: return launch_wide<128>(WIDE_ARGS);
-      case 256: return launch_wide<256>(WIDE_ARGS);
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef WIDE_ARGS
+  switch (p_instance((p + ncb - 1) / ncb)) {
+    case 16: return cc::launch_p<16>(a, s);
+    case 32: return cc::launch_p<32>(a, s);
+    case 64: return cc::launch_p<64>(a, s);
+    case 128: return cc::launch_p<128>(a, s);
+    default: return cc::launch_p<256>(a, s);
   }
-  if (ncb != 1) return (int)cudaErrorInvalidValue;
-#define SSD_ARGS x, adt, bm, cm, y, st, BH, c, q, n, h, g, s
-  switch (p) {
-    case 16: return launch<16>(SSD_ARGS);
-    case 32: return launch<32>(SSD_ARGS);
-    case 64: return launch<64>(SSD_ARGS);
-    case 128: return launch<128>(SSD_ARGS);
-    case 256: return launch<256>(SSD_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SSD_ARGS
 }
 
 // bfloat16, the tensor-core kernel, in the model's layout: x (b, L, h, p),

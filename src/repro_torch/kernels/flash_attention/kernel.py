@@ -33,10 +33,10 @@ ROUTES = {torch.float32: "cuda-core (flash_attention_kernel, FP32 FMA)",
           torch.bfloat16: "tensor-core (flash_attention_wgmma_kernel, "
                           "wgmma + TMA)"}
 ROUTE_LAUNCHES = {"cuda-core": 0, "tensor-core": 0}
-# the template instances of the source: a head width up to MAX_DH runs on
-# the narrowest instance at least as wide, its extra columns read as zeros;
-# past MAX_DH, O's columns split into ceil(dh / MAX_DH) blocks along tile
-# z, each on the instance of its share (``column_blocks``)
+# the tensor-core kernel's template instances: a head width up to MAX_DH
+# runs on the narrowest instance at least as wide, its extra columns read
+# as zeros; past MAX_DH, O's columns split into ceil(dh / MAX_DH) blocks
+# along tile z, each on the instance of its share (``column_blocks``)
 HEAD_DIMS = (16, 32, 64, 96, 128, 160, 192, 256)
 MAX_DH = HEAD_DIMS[-1]
 # the tensor-core kernel's TMA maps address (batch, head) rows by a
@@ -44,14 +44,17 @@ MAX_DH = HEAD_DIMS[-1]
 MAX_ROWS = 2 ** 31 - 1
 SMEM_LIMIT = 232448  # bytes of shared memory one block may have (H100)
 # csrc/flash_attention.cu: the tensor-core kernel's query rows, keys per
-# tile (64 past head width 128), ring stages and threads (namespace tc),
-# the CUDA-core kernel's
+# tile (64 past head width 128), ring stages and threads (namespace tc)
 TC_BQ, TC_BK, TC_STAGES, TC_THREADS = 128, 128, 2, 384
 TC_BK_WIDE = 64
-CC_BQ, CC_BK, CC_THREADS = 64, 64, 256
-# past MAX_DH (both kernels): columns of a Q / K slice; the tensor-core
-# kernel's slice and V ring stages
+# past MAX_DH: columns of a Q / K slice; its slice and V ring stages
 WIDE_SLICE, TC_WIDE_STAGES, TC_WIDE_V_STAGES = 64, 4, 2
+# the CUDA-core kernel (namespace cc): its instances, the widest head one
+# block holds whole (past it, O's columns in ``cc_column_blocks``), keys
+# per tile, threads, ring stages, the partial-S row stride
+CC_HEAD_DIMS = (16, 32, 64, 128, 256, 512, 1024)
+CC_MAX_DH = CC_HEAD_DIMS[-1]
+CC_BK, CC_THREADS, CC_STAGES, CC_LDR = 64, 256, 3, 72
 
 
 def column_blocks(dh: int) -> tuple[int, int]:
@@ -71,45 +74,76 @@ def instance_width(dh: int) -> int:
     return column_blocks(dh)[1]
 
 
+def cc_column_blocks(dh: int) -> tuple[int, int]:
+    """-> (blocks of O's columns, the instance each runs on) of the
+    CUDA-core kernel: one block up to ``CC_MAX_DH``, past it ceil(dh /
+    1024) blocks of the instance of ceil(dh / blocks) columns (dh 1100: 2
+    x 1024, the columns past dh never stored)."""
+    if dh < 1:
+        raise ValueError(f"head width {dh} not supported: the kernel takes "
+                         "1 and up")
+    n = -(-dh // CC_MAX_DH)
+    return n, next(w for w in CC_HEAD_DIMS if w >= -(-dh // n))
+
+
+def cc_tiling(DH: int, whole: bool = True) -> dict:
+    """The CUDA-core kernel's tiling of instance DH (``cc::Geo``): ``bq``
+    query rows a block; S in ``split`` depth groups of 4 x 8 register
+    tiles over K chunks of ``depth`` columns; V in chunks of ``vk`` keys;
+    each thread ``rows`` x 4 floats of O (``col_threads`` threads across
+    its columns); ``whole``: Q staged once (else its slices ride in the K
+    chunks); ``floats`` of shared memory."""
+    bq = 64 if DH <= 128 else 32 if DH <= 256 else 16
+    split = 128 // bq
+    ds = min(DH, 128)
+    ldk = ds + 4
+    kch = (CC_BK + (0 if whole else bq)) * ldk
+    vk = next(v for v in (64, 32, 16, 8) if v * DH <= CC_BK * ldk or v == 8)
+    rows = next(r for r in (16, 8, 4, 2, 1)
+                if r <= bq and DH % (4 * (CC_THREADS * r // bq)) == 0)
+    ntc = CC_THREADS // (bq // rows)
+    floats = ((bq * (DH + 4) if whole else 0) + CC_STAGES * max(kch, vk * DH)
+              + split * bq * CC_LDR + 2 * bq)
+    assert 4 * ntc == DH  # one float4 of O's columns a thread
+    return {"bq": bq, "split": split, "depth": ds, "vk": vk, "rows": rows,
+            "col_threads": ntc, "whole": whole, "floats": floats}
+
+
 def launch_geometry(dtype: torch.dtype, B: int, Hq: int, Sq: int,
                     dh: int):
     """-> (route, tiles, threads per block, dynamic shared-memory bytes)
     of one launch.  ``tiles`` is the tile grid (query tiles, heads, batch
     x column blocks), numbered x fastest (heaviest query tile first when
     causal); ``flat_grid(tiles)`` is the launch grid, grid x up to
-    2**31 - 1 blocks.  Raises for a dtype the source has no kernel for, a
-    head width below 1, and in bfloat16 for more than ``MAX_ROWS`` (batch,
-    head) rows."""
+    2**31 - 1 blocks.  bfloat16 splits O's columns past ``MAX_DH``
+    (``column_blocks``), float32 past ``CC_MAX_DH`` (``cc_column_blocks``).
+    Raises for a dtype the source has no kernel for, a head width below 1,
+    and in bfloat16 for more than ``MAX_ROWS`` (batch, head) rows."""
     if dtype not in DTYPE_IDS:
         raise TypeError(f"dtype {dtype} not supported; choose from "
                         f"{list(DTYPE_IDS)}")
+    if dtype == torch.float32:
+        ncb, DH = cc_column_blocks(dh)
+        t = cc_tiling(DH, whole=ncb == 1)
+        tiles = (-(-Sq // t["bq"]), Hq, B * ncb)
+        flat_grid(tiles)  # raises past what a launch grid holds
+        return "cuda-core", tiles, CC_THREADS, 4 * t["floats"]
     ncb, DH = column_blocks(dh)
-    if dtype == torch.bfloat16 and B * Hq > MAX_ROWS:
+    if B * Hq > MAX_ROWS:
         raise ValueError(f"{B} x {Hq} (batch, head) rows exceed the "
                          f"{MAX_ROWS} a TMA coordinate addresses")
-    if dtype == torch.bfloat16:
-        tiles = (-(-Sq // TC_BQ), Hq, B * ncb)
-        bars = 8 * (1 + 2 * TC_STAGES)
-        if ncb > 1:  # Q / K slice ring, V ring of OW columns, barriers
-            tile_bytes = (TC_WIDE_STAGES * 2 * (TC_BQ + TC_BK_WIDE)
-                          * WIDE_SLICE
-                          + TC_WIDE_V_STAGES * 2 * TC_BK_WIDE * DH)
-            bars = 8 * 2 * (TC_WIDE_STAGES + TC_WIDE_V_STAGES)
-        else:  # Q, the K / V ring
-            bk = TC_BK if DH <= 128 else TC_BK_WIDE
-            tile_bytes = 2 * TC_BQ * DH + 2 * TC_STAGES * 2 * bk * DH
-        flat_grid(tiles)  # raises past what a launch grid holds
-        # and slack for 1024-byte alignment
-        return "tensor-core", tiles, TC_THREADS, tile_bytes + bars + 1024
-    tiles = (-(-Sq // CC_BQ), Hq, B * ncb)
-    if ncb > 1:  # Q and K slices, V's OW columns and P as float
-        smem = 4 * (CC_BQ * (WIDE_SLICE + 1) + CC_BK * (WIDE_SLICE + 1)
-                    + CC_BK * DH + CC_BQ * (CC_BK + 1))
-    else:  # Q, K, V and P as float, the padded strides of the source
-        smem = 4 * (CC_BQ * (DH + 1) + CC_BK * (DH + 1) + CC_BK * DH
-                    + CC_BQ * (CC_BK + 1))
-    flat_grid(tiles)
-    return "cuda-core", tiles, CC_THREADS, smem
+    tiles = (-(-Sq // TC_BQ), Hq, B * ncb)
+    bars = 8 * (1 + 2 * TC_STAGES)
+    if ncb > 1:  # Q / K slice ring, V ring of OW columns, barriers
+        tile_bytes = (TC_WIDE_STAGES * 2 * (TC_BQ + TC_BK_WIDE) * WIDE_SLICE
+                      + TC_WIDE_V_STAGES * 2 * TC_BK_WIDE * DH)
+        bars = 8 * 2 * (TC_WIDE_STAGES + TC_WIDE_V_STAGES)
+    else:  # Q, the K / V ring
+        bk = TC_BK if DH <= 128 else TC_BK_WIDE
+        tile_bytes = 2 * TC_BQ * DH + 2 * TC_STAGES * 2 * bk * DH
+    flat_grid(tiles)  # raises past what a launch grid holds
+    # and slack for 1024-byte alignment
+    return "tensor-core", tiles, TC_THREADS, tile_bytes + bars + 1024
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,8 +152,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel: q (B, Hq, Sq, dh), k/v (B, Hkv, Sk, dh) on one
     card, one dtype (float32 or bfloat16), contiguous, Hq a multiple of
     Hkv, dh >= 1, 0 <= kv_len <= Sk -> (B, Hq, Sq, dh) in q's dtype,
-    scores scaled by dh ** -0.5; past ``MAX_DH`` the launch splits O's
-    columns over the grid (``column_blocks``).  Any batch and head count
+    scores scaled by dh ** -0.5; past ``MAX_DH`` (bfloat16) or
+    ``CC_MAX_DH`` (float32) the launch splits O's columns over the grid
+    (``column_blocks``, ``cc_column_blocks``).  Any batch and head count
     runs (``launch_geometry``; bfloat16 up to ``MAX_ROWS`` (batch, head)
     rows).  Raises on anything else.
 

@@ -68,22 +68,36 @@ def test_flash_plain_route_matches_jax_past_256(dh, causal):
     (1024, 4, 256), (4000, 16, 256)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_wide_geometry(dtype, dh, blocks, width):
-    """Past 256, O's columns split into ceil(dh / 256) blocks along grid
-    z, each on the instance of its share; every block holds a column of
-    dh; shared memory no longer grows with dh (bf16: a four-stage ring of
-    64-column Q / K slices and a two-stage V ring, 164,960 bytes at 256
-    columns; float32: Q / K slices, V's columns and P, 115,456)."""
+    """Past 256, bf16 splits O's columns into ceil(dh / 256) blocks along
+    grid z, each on the instance of its share, every block holding a
+    column of dh; shared memory no longer grows with dh (a four-stage ring
+    of 64-column Q / K slices and a two-stage V ring, 164,960 bytes at 256
+    columns).  float32 holds every width up to 1,024 in one block (16
+    query rows past 256: Q once, a three-stage ring of K depth chunks and
+    V key chunks, the partial S tiles; 171,392 bytes at 512, 204,160 at
+    1,024) and splits O's columns only past that (4,000: four blocks of
+    1,024, Q's slices riding with K's)."""
     assert fk.column_blocks(dh) == (blocks, width)
     assert fk.instance_width(dh) == width and width in fk.HEAD_DIMS
     assert blocks * width >= dh > (blocks - 1) * 256
     route, grid, threads, smem = fk.launch_geometry(dtype, 2, 8, 1024, dh)
-    assert grid[1:] == (8, 2 * blocks) and smem <= fk.SMEM_LIMIT
+    assert smem <= fk.SMEM_LIMIT
     if dtype == torch.bfloat16:
+        assert grid[1:] == (8, 2 * blocks)
         assert (route, grid[0], threads) == ("tensor-core", 8, 384)
         assert smem == 4 * 2 * (128 + 64) * 64 + 2 * 2 * 64 * width + 96 + 1024
     else:
-        assert (route, grid[0], threads) == ("cuda-core", 16, 256)
-        assert smem == 4 * (3 * 64 * 65 + 64 * width)
+        ncb, DH = fk.cc_column_blocks(dh)
+        assert (ncb, DH) == ((1, 512) if dh <= 512 else (1, 1024)
+                             if dh <= 1024 else (4, 1024))
+        assert ncb * DH >= dh > (ncb - 1) * fk.CC_MAX_DH
+        assert (route, grid, threads) == ("cuda-core", (64, 8, 2 * ncb), 256)
+        ring = 3 * 64 * 132  # 64 keys x 128 depth columns (+4)
+        if ncb > 1:  # Q's 16-row slices ride in the K chunks
+            ring = 3 * (64 + 16) * 132
+        q = 16 * (DH + 4) if ncb == 1 else 0
+        assert smem == 4 * (q + ring + 8 * 16 * 72 + 2 * 16)
+        assert smem == {512: 171392, 1024: 204160 if ncb == 1 else 163712}[DH]
     # up to 256, the one-block geometry of before
     assert fk.column_blocks(256) == (1, 256)
     assert fk.launch_geometry(dtype, 2, 8, 1024, 256)[1][2] == 2
@@ -181,9 +195,10 @@ def test_ssd_plain_route_matches_jax_any_shape_bf16(chunk):
 def test_ssd_geometry_any_shape(q):
     """Every width from 1 to 256 at every chunk up to ``MAX_CHUNK`` has a
     tensor-core layout within the block's shared memory (G parked while
-    it fits, else streamed) and a CUDA-core one; at chunk 512 the widths
-    of 256 stream G, 8 to 96 park it; a chunk past what fits raises
-    naming the limit."""
+    it fits, else streamed) and a CUDA-core one (tiles of 16 rows to q =
+    16, else 64, 32 at width 256; G parked while it fits, else formed
+    again for each pass of heads); at chunk 512 the widths of 256 stream
+    G, 8 to 96 park it; a chunk past what fits raises naming the limit."""
     for p in (1, 8, 13, 48, 96, 129, 200, 256):
         for n in (1, 8, 24, 96, 256):
             pw, nw = -(-p // 8) * 8, -(-n // 8) * 8
@@ -191,7 +206,14 @@ def test_ssd_geometry_any_shape(q):
                                                       pw, nw)
             assert smem <= sk.SMEM_LIMIT and threads == 128
             assert grid == (-(-q // 64) + -(-nw // 64), 32 // hb, 4)
-            assert sk.cc_smem_bytes(q, n, p) <= sk.SMEM_LIMIT
+            pc, nc = -(-p // 4) * 4, -(-n // 4) * 4
+            grid, threads, smem, hb = sk.cc_geometry(2, 2 * q, 32, 1, q, pc,
+                                                     nc)
+            qt = sk.cc_tile(q, pc)
+            assert smem <= sk.SMEM_LIMIT and threads == 256
+            assert grid == (-(-q // qt) + -(-nc // qt), 32 // hb, 4)
+            assert smem == sk.cc_smem_bytes(
+                q, nc, pc, hb, sk.cc_layout(32, 1, q, pc, nc, 4)[1])
             assert sk.p_instance(p) >= p
     if q == 512:
         assert sk.mma_layout(32, 1, 512, 256, 256) == (8, True)
@@ -202,6 +224,11 @@ def test_ssd_geometry_any_shape(q):
         with pytest.raises(ValueError, match="over the 232448"):
             sk.mma_layout(32, 1, 16 * q, 256, 256)
     assert sk.mma_geometry(8, 2048, 32, 1, 256, 64, 128)[2:] == (108544, 8)
+    # the Mamba2-370m prefill on the CUDA cores: 4 query tiles and 2 state
+    # blocks of 64 rows, 8 heads a block, G parked (179,200 bytes)
+    assert sk.cc_geometry(8, 2048, 32, 1, 256, 64, 128) == (
+        (6, 4, 64), 256, 179200, 8)
+    assert sk.cc_layout(32, 1, 256, 64, 128) == (8, False)
 
 
 # ------------------------------------- a reduced Mamba2 at those widths

@@ -1718,3 +1718,107 @@ def test_flash_past_a_grid_axis_of_65535_matches_plain(cuda, dtype, causal,
     want = attention_ref(q, k, v, causal=causal)
     tol = 2e-2 if dtype == "bfloat16" else 2e-4
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# ------------------- the float32 kernels: every width, views read in place
+F32_FLASH_CASES = [  # (name, B, Hq, Hkv, Sq, Sk, kv_len, causal)
+    ("ragged_full", 2, 4, 2, 70, 90, 77, False),
+    ("causal_gqa", 1, 6, 2, 130, 130, 121, True),
+]
+
+
+@pytest.mark.parametrize("case", F32_FLASH_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("dh", [8, 96, 256, 264, 1024, 1100])
+def test_flash_f32_every_width_matches_plain(cuda, dh, case):
+    """The float32 kernel at head widths 8 (the 16 instance), 96 (on 128),
+    256, 264 (on 512), 1,024 (the widest one block holds: S once per key
+    tile) and 1,100 (two column blocks of 1,024), ragged kv_len, full and
+    causal GQA: one launch on the CUDA-core route within 2e-4 elementwise
+    and 1e-4 of the largest output of ``attention_ref``; the kernel told
+    to keep the keys past kv_len must fail that gate."""
+    from repro_torch.kernels.flash_attention import (KERNEL, ROUTE_LAUNCHES,
+                                                     attention_ref,
+                                                     flash_attention_cuda)
+
+    _, B, Hq, Hkv, Sq, Sk, kv_len, causal = case
+    q, k, v = _attn_inputs(cuda, B, Hq, Hkv, Sq, Sk, dh, torch.float32,
+                           dh + Sq)
+    before, routed = KERNEL.launches, ROUTE_LAUNCHES["cuda-core"]
+    got = flash_attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert (KERNEL.launches, ROUTE_LAUNCHES["cuda-core"]) == (before + 1,
+                                                              routed + 1)
+    want = attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    size = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * size
+    bad = flash_attention_cuda(q, k, v, causal=causal, kv_len=Sk)
+    assert (bad - want).abs().max().item() > 1e-4 * size
+
+
+def _views(cuda, view, b, L, h, g, p, n, seed):
+    """X, Adt, B, C of the model layout as views that are not contiguous:
+    ``L`` a slice along the sequence (steps 8 ..), ``h`` a slice of heads
+    (and of their groups) of larger tensors."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    Lx, hx, gx = (L + 8, h, g) if view == "L" else (L, 2 * h, 2 * g)
+    X = torch.randn(b, Lx, hx, p, generator=gen, device=cuda)
+    Adt = -torch.nn.functional.softplus(torch.randn(b, Lx, hx, generator=gen,
+                                                    device=cuda))
+    B = torch.randn(b, Lx, gx, n, generator=gen, device=cuda)
+    C = torch.randn(b, Lx, gx, n, generator=gen, device=cuda)
+    if view == "L":
+        return X[:, 8:], Adt[:, 8:], B[:, 8:], C[:, 8:]
+    # heads h .. 2 h of 2 h and the groups g .. 2 g they read
+    hs, gs = slice(h, 2 * h), slice(g, 2 * g)
+    return X[:, :, hs], Adt[:, :, hs], B[:, :, gs], C[:, :, gs]
+
+
+F32_SSD_VIEWS = [  # (view, b, L, h, g, q, p, n)
+    ("L", 2, 32, 8, 1, 1, 16, 16),
+    ("h", 2, 64, 4, 2, 16, 64, 128),
+    ("L", 2, 512, 8, 2, 256, 64, 128),
+    ("h", 1, 4096, 2, 1, 4096, 64, 128),
+    ("L", 2, 128, 4, 1, 64, 320, 64),
+    ("h", 1, 64, 4, 2, 32, 64, 300),
+]
+
+
+@pytest.mark.parametrize("case", F32_SSD_VIEWS,
+                         ids=lambda c: f"{c[0]}_g{c[4]}_q{c[5]}_p{c[6]}_n{c[7]}")
+def test_ssd_f32_reads_model_views_in_place(cuda, case, monkeypatch):
+    """The float32 kernel on views of the model layout that are not
+    contiguous (a slice along L, a slice of heads and their groups), B / C
+    in one group and in more, chunks of 1, 16, 256 and 4,096, p or n past
+    256: read where they lie (no copy of X, B or C), one launch on the
+    CUDA-core route, within the plain version's gates (float64 for n past
+    256, as ``_assert_ssd_close`` says); the plain output without the
+    diagonal must fail them."""
+    from repro_torch.kernels.ssd_chunk import (KERNEL, ROUTE_LAUNCHES,
+                                               ssd_chunk_cuda)
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.kernels.ssd_chunk.ops import ssd_plain
+
+    view, b, L, h, g, q, p, n = case
+    X, Adt, B, C = _views(cuda, view, b, L, h, g, p, n, p + n + q)
+    assert not X.is_contiguous() and not B.is_contiguous()
+    assert all(sk.reads_in_place(t) for t in (X, B, C))
+    copies = []
+    clone = torch.Tensor.clone
+    monkeypatch.setattr(torch.Tensor, "clone", lambda self, *a, **k: (
+        copies.append(self.shape), clone(self, *a, **k))[1])
+    before, routed = KERNEL.launches, ROUTE_LAUNCHES["cuda-core"]
+    got = ssd_chunk_cuda(X, Adt, B, C, chunk=q)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert copies == []
+    assert (KERNEL.launches, ROUTE_LAUNCHES["cuda-core"]) == (before + 1,
+                                                              routed + 1)
+    want = ssd_plain(X, Adt, B, C, chunk=q)
+    _assert_ssd_close(got, want, "float32",
+                      _ssd_f64(X, Adt, B, C, q) if n > 256 else None)
+    Yr = want[0]
+    cb = (C * B).sum(-1, keepdim=True).repeat_interleave(h // g, dim=2)
+    bad = Yr - cb * X
+    assert (bad - Yr).abs().max().item() > 1e-5 * Yr.abs().max().item()

@@ -154,8 +154,10 @@ def test_flash_head_width_96_geometry():
     """phi3-mini-3.8b's head width (96, 32 query and 32 kv heads, S =
     2048): both routes take it.  bf16 holds three 32-column blocks per
     tile with the 64-byte swizzle: Q (24 KB), the K / V ring (96 KB), the
-    barriers and the alignment slack; float32 holds Q, K, V and P as
-    padded float tiles (about 89 KB)."""
+    barriers and the alignment slack; float32 runs it on the 128-wide
+    instance, its last 32 columns zeros: Q once (64 rows of 128 + 4), a
+    three-stage ring of 64 x 132 K / V chunks, the two partial S tiles and
+    the rows' statistics (about 169 KB)."""
     from repro_torch.kernels.flash_attention import launch_geometry
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 
@@ -167,7 +169,8 @@ def test_flash_head_width_96_geometry():
     route, grid, threads, smem = launch_geometry(torch.float32, 1, 32,
                                                  2048, 96)
     assert (route, grid, threads) == ("cuda-core", (32, 32, 1), 256)
-    assert smem == 4 * (64 * 97 + 64 * 97 + 64 * 96 + 64 * 65) == 90880
+    assert smem == 4 * (64 * 132 + 3 * 64 * 132 + 2 * 64 * 72 + 2 * 64) \
+        == 172544
 
 
 def test_flash_launch_geometry_refusals_are_unchanged():
@@ -203,19 +206,24 @@ def test_flash_every_head_width_fits_shared_memory(dtype):
     """Every head width from 1 to 256 has a geometry within the 227 KB of
     one block: the narrowest instance at least as wide; past 128 the
     tensor-core kernel walks 64-key tiles (Q 64 KB + a 128 KB ring at
-    256), the CUDA-core kernel 213,760 bytes at 256."""
+    256), the CUDA-core kernel (its instances 16 .. 1,024, powers of two)
+    171,776 bytes at 256 (32 query rows)."""
     from repro_torch.kernels.flash_attention.kernel import (
-        HEAD_DIMS, SMEM_LIMIT, instance_width, launch_geometry)
+        CC_HEAD_DIMS, HEAD_DIMS, SMEM_LIMIT, cc_column_blocks,
+        instance_width, launch_geometry)
 
     for dh in range(1, 257):
         DH = instance_width(dh)
         assert DH >= dh and DH in HEAD_DIMS
         assert all(w < dh for w in HEAD_DIMS if w < DH)
         assert launch_geometry(dtype, 2, 4, 300, dh)[3] <= SMEM_LIMIT
+        cc = cc_column_blocks(dh)
+        assert cc[0] == 1 and cc[1] >= dh and cc[1] in CC_HEAD_DIMS
+        assert all(w < dh for w in CC_HEAD_DIMS if w < cc[1])
     big = launch_geometry(dtype, 1, 1, 128, 256)[3]
     assert big == (2 * 128 * 256 + 2 * 2 * 2 * 64 * 256 + 40 + 1024
                    if dtype == torch.bfloat16 else
-                   4 * (64 * 257 + 64 * 257 + 64 * 256 + 64 * 65))
+                   4 * (32 * 260 + 3 * 64 * 132 + 4 * 32 * 72 + 2 * 32))
 
 
 @pytest.mark.parametrize("dh", [8, 48, 80, 160, 256])

@@ -54,13 +54,16 @@ SSD_CASES = [
 @pytest.mark.parametrize("b,L,h,g,q,p,n", SSD_CASES)
 def test_ssd_geometries_cover_each_tile_once(b, L, h, g, q, p, n):
     """Both routes' geometries take each case (the float32 one at b h =
-    65,536 too, which raised before) and their tiles cover the work:
-    float32 (1 + query tiles, chunks, b h), bf16 (query tiles + state
-    blocks, head blocks, b c)."""
+    65,536 too, which raised before) and their tiles cover the work, each
+    (query tiles + state blocks, head blocks, b c): float32 in tiles of
+    16 rows at q = 16, 64 at q 64 and 256; bf16 in tiles of 64."""
     c = L // q
-    tiles, threads, smem = sk.cc_geometry(b, L, h, g, q, p, n)
-    assert tiles == (1 + -(-q // 64), c, b * h) and threads == 256
-    assert smem <= sk.SMEM_LIMIT
+    tiles, threads, smem, hb = sk.cc_geometry(b, L, h, g, q, p, n)
+    qt = sk.cc_tile(q, p)
+    assert qt == (16 if q == 16 else 64)
+    assert tiles == (-(-q // qt) + -(-n // qt), h // hb, b * c)
+    assert threads == 256 and smem <= sk.SMEM_LIMIT
+    assert (h // g) % hb == 0 and hb == min(8, sk.heads_per_block(h, g))
     if math.prod(tiles) <= 1 << 22:
         _covers_each_tile_once(tiles)
     tiles, threads, smem, hb = sk.mma_geometry(b, L, h, g, q, p, n)
@@ -78,7 +81,8 @@ def test_flash_geometry_covers_each_tile_once(dtype, B, dh):
     grid's 65,535 refused before: tiles (query tiles, heads, B x column
     blocks), each covered once."""
     route, tiles, _, smem = fk.launch_geometry(dtype, B, 1, 16, dh)
-    ncb = fk.column_blocks(dh)[0]
+    ncb = (fk.column_blocks(dh) if dtype == torch.bfloat16 else
+           fk.cc_column_blocks(dh))[0]  # float32: dh 1,024 in one block
     assert tiles == (1, 1, B * ncb) and smem <= fk.SMEM_LIMIT
     _covers_each_tile_once(tiles)
 
@@ -111,10 +115,12 @@ CHUNKS = (1, 7, 24, 100, 256, 300, 512, 1024, 4096)
 @pytest.mark.parametrize("q", CHUNKS)
 def test_ssd_wide_layouts_fit_shared_memory(q):
     """Every p and n in 257 / 320 / 512 / 1,024 (and one of them past 256
-    beside a narrow other) runs on the _wide kernels within the block's
-    232,448 bytes at every chunk of ``test_ssd_geometry_any_shape``: p in
-    ceil(p / 256) column blocks of the instance of its share, n in
-    64-column slices, one head a block in bf16."""
+    beside a narrow other) runs within the block's 232,448 bytes at every
+    chunk of ``test_ssd_geometry_any_shape``: p in ceil(p / 256) column
+    blocks of the instance of its share on both routes; bf16 on the _wide
+    kernel (n in 64-column slices, one head a block), float32 on its one
+    kernel (n in depth chunks and state blocks of the tile's rows, up to
+    4 heads of a group a block)."""
     for p in WIDE + (8, 96):
         for n in WIDE + (8, 128):
             if not sk.is_wide(p, n):
@@ -126,8 +132,10 @@ def test_ssd_wide_layouts_fit_shared_memory(q):
             assert hb == 1 and smem <= sk.SMEM_LIMIT
             assert tiles == (sk.columns(pw)[0] * (-(-q // 64) + -(-nw // 64)),
                              8, 4)
-            tiles, _, smem = sk.cc_geometry(2, 2 * q, 8, 2, q, p, n)
-            assert smem <= sk.SMEM_LIMIT
-            assert tiles == (ncb * (1 + -(-q // 64)), 2, 16)
+            pc, nc = -(-p // 4) * 4, -(-n // 4) * 4
+            tiles, _, smem, hb = sk.cc_geometry(2, 2 * q, 8, 2, q, pc, nc)
+            qt = sk.cc_tile(q, pc)
+            assert smem <= sk.SMEM_LIMIT and 4 % hb == 0
+            assert tiles == (ncb * (-(-q // qt) + -(-nc // qt)), 8 // hb, 4)
     assert sk.columns(320) == (2, 256) and sk.columns(1024) == (4, 256)
     assert sk.columns(256) == (1, 256) and not sk.is_wide(256, 256)
