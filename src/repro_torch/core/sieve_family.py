@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.tree import copy_into, tree_map, vmap
 
 from .functions import LogDet
@@ -263,36 +264,43 @@ class StackedSieve(SieveAlgorithm):
         """
         S, C = X.shape[:2]
         dev = X.device
-        nv = torch.clamp(counts.to(torch.int32), 0, C)
-        cursor = torch.zeros_like(nv)
-        pos = torch.arange(C, device=dev)
         thresholds = vmap(self._thresholds)
         can_accept = vmap(self._can_accept)
         bulk_reject = vmap(self._bulk_reject)
         apply_item = vmap(self._apply_item)
-        act = torch.nonzero(nv > 0).flatten()
+        with obs.hot_span("sieve.sync"):  # the cursors, the first read
+            nv = torch.clamp(counts.to(torch.int32), 0, C)
+            cursor = torch.zeros_like(nv)
+            pos = torch.arange(C, device=dev)
+            act = torch.nonzero(nv > 0).flatten()
         while act.numel():
-            whole = act.numel() == S
-            sub = state if whole else tree_map(
-                lambda l: l.index_select(0, act), state)
-            xs = X if whole else X.index_select(0, act)
-            gains = self._gains_slots(sub, xs)  # (A, n_inst, C)
-            acc = ((gains >= thresholds(sub)[..., None])
-                   & can_accept(sub)[..., None])
-            cur, end = cursor[act], nv[act]
-            acc_item = (acc.any(dim=1) & (pos >= cur[:, None])
-                        & (pos < end[:, None]))
-            hit = acc_item.any(dim=1)
-            p = torch.where(hit, acc_item.to(torch.uint8).argmax(dim=1),
-                            end).to(torch.int32)
-            sub = bulk_reject(sub, p - cur)
-            pc = torch.clamp_max(p, C - 1).long()
-            takes = acc.gather(2, pc[:, None, None].expand(
-                -1, acc.shape[1], 1))[..., 0]
-            rows = torch.arange(act.numel(), device=dev)
-            sub = tree_select(hit, apply_item(sub, xs[rows, pc], takes), sub)
-            copy_into(state, sub, None if whole else act)
-            cursor[act] = torch.where(hit, p + 1, end)
-            act = act[hit & (p + 1 < end)]
+            with obs.hot_span("sieve.round"):
+                whole = act.numel() == S
+                with obs.hot_span("sieve.gain"):
+                    sub = state if whole else tree_map(
+                        lambda l: l.index_select(0, act), state)
+                    xs = X if whole else X.index_select(0, act)
+                    gains = self._gains_slots(sub, xs)  # (A, n_inst, C)
+                with obs.hot_span("sieve.decide"):
+                    acc = ((gains >= thresholds(sub)[..., None])
+                           & can_accept(sub)[..., None])
+                    cur, end = cursor[act], nv[act]
+                    acc_item = (acc.any(dim=1) & (pos >= cur[:, None])
+                                & (pos < end[:, None]))
+                    hit = acc_item.any(dim=1)
+                    p = torch.where(hit,
+                                    acc_item.to(torch.uint8).argmax(dim=1),
+                                    end).to(torch.int32)
+                    sub = bulk_reject(sub, p - cur)
+                    pc = torch.clamp_max(p, C - 1).long()
+                    takes = acc.gather(2, pc[:, None, None].expand(
+                        -1, acc.shape[1], 1))[..., 0]
+                    rows = torch.arange(act.numel(), device=dev)
+                    sub = tree_select(
+                        hit, apply_item(sub, xs[rows, pc], takes), sub)
+                    copy_into(state, sub, None if whole else act)
+                    cursor[act] = torch.where(hit, p + 1, end)
+                with obs.hot_span("sieve.sync"):
+                    act = act[hit & (p + 1 < end)]
         return state
 

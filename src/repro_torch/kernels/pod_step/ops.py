@@ -42,6 +42,7 @@ import os
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sieve_family import StackedSieve
 from repro_torch.core.threesieves import ThreeSieves, TSState
 from repro_torch.tree import copy_into
@@ -125,17 +126,24 @@ def pod_step(algo, state, chunks: torch.Tensor,
                 algo, f=dataclasses.replace(algo.f, backend="cuda"))
         return algo.run_slots(state, chunks, counts)
     C = chunks.shape[1]
-    ints, flts = _tables(state, counts, C)
+    with obs.hot_span("pod_step.tables"):
+        ints, flts = _tables(state, counts, C)
     ld = state.ld
-    # the chunk rounded to the objective's dtype before any use, as the
-    # Pallas body casts it (``chunk_ref[0].astype(dtype)``)
-    iout, fval = pod_step_cuda(chunks.to(algo.f.dtype).contiguous(),
-                               ld.feats, ld.L, ld.Linv, ints, flts,
-                               a=algo.f.a, tier=tier, window=window)
-    ld.n.copy_(iout[:, 0])
-    state.j.copy_(iout[:, 1])
-    state.t.copy_(iout[:, 2])
-    state.n_fused.copy_(iout[:, 3])
-    ld.n_queries.copy_(iout[:, 4])
-    ld.fval.copy_(fval)
+    with obs.hot_span("pod_step.kernel"):
+        # the chunk rounded to the objective's dtype before any use, as
+        # the Pallas body casts it (``chunk_ref[0].astype(dtype)``)
+        iout, fval = pod_step_cuda(chunks.to(algo.f.dtype).contiguous(),
+                                   ld.feats, ld.L, ld.Linv, ints, flts,
+                                   a=algo.f.a, tier=tier, window=window)
+    with obs.hot_span("pod_step.unpack"):
+        if obs.hot_tracing():  # the most fused passes of any session,
+            # worked out when tracing stops from this ingest's columns
+            obs.hot_count("pod_step_passes",
+                          lambda: (iout[:, 3] - ints[:, 3]).max())
+        ld.n.copy_(iout[:, 0])
+        state.j.copy_(iout[:, 1])
+        state.t.copy_(iout[:, 2])
+        state.n_fused.copy_(iout[:, 3])
+        ld.n_queries.copy_(iout[:, 4])
+        ld.fval.copy_(fval)
     return state

@@ -32,6 +32,24 @@ meaningless duration, then never again).
 Thread-safety: the span stack is thread-local (producer threads,
 checkpoint writers and the serve loop each get their own nesting) and
 event emission takes the recorder lock only to append/write.
+
+Hot spans (``hot_span``) are the same recorder's second mode, for the
+ingest path.  Off (the default) ``hot_span`` is one flag check that
+returns one shared no-op context manager: no allocation, no clock, no
+lock, no registry.  ``get_recorder().trace_hot(True)`` turns them on:
+each hot span then appends (name, parent, batch, enter and exit times)
+to its thread's bounded buffer, which counts what it drops
+(:data:`MAX_HOT_RECORDS`), and writes nothing to the registry, does no
+I/O and never synchronises the device.  ``hot_count`` keeps a number,
+a device scalar or a function that makes one beside the spans.
+``trace_hot(False)`` reads the counters (the one device sync) and
+returns every record, also kept in ``hot_records`` for ``dump_jsonl``.  A root span's batch is how many
+roots of its name opened before it in the trace (the n-th ``route`` is
+batch n); a child takes its root's.  Hot spans read
+``time.perf_counter_ns()``; ``trace_hot(True)`` takes one
+(``perf_counter_ns``, ``time_ns``) pair, so each record's ``start_ns``
+/ ``end_ns`` is in Unix nanoseconds, the clock of ``torch.profiler``'s
+Kineto events.
 """
 from __future__ import annotations
 
@@ -49,6 +67,7 @@ from repro_torch.concurrency import make_lock
 from .registry import get_registry
 
 MAX_BUFFERED_EVENTS = 10_000  # ring bound: telemetry must not be a leak
+MAX_HOT_RECORDS = 1 << 18  # a thread's hot spans in one trace; more drop
 
 
 class Span:
@@ -75,6 +94,73 @@ class Span:
         self.attrs.update(attrs)
 
 
+class _NoSpan:
+    """The one span ``hot_span`` returns while hot tracing is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NO_SPAN = _NoSpan()
+
+
+class _HotBuffer:
+    """One thread's hot spans and counters of one trace."""
+
+    __slots__ = ("gen", "thread", "spans", "counters", "stack", "roots",
+                 "dropped")
+
+    def __init__(self, gen: int):
+        self.gen = gen
+        self.thread = threading.get_native_id()
+        self.spans: List[list] = []  # [name, parent, batch, t0_ns, t1_ns]
+        self.counters: List[tuple] = []  # (name, batch, value)
+        self.stack: List[int] = []
+        self.roots: Dict[str, int] = {}
+        self.dropped = 0
+
+
+class _HotSpan:
+    """A hot span's name; the open records live on the thread's buffer,
+    so one of these serves every thread and every entry."""
+
+    __slots__ = ("rec", "name")
+
+    def __init__(self, rec: "SpanRecorder", name: str):
+        self.rec, self.name = rec, name
+
+    def __enter__(self):
+        buf = self.rec._hot_buffer()
+        spans, stack = buf.spans, buf.stack
+        if len(spans) >= MAX_HOT_RECORDS:
+            buf.dropped += 1
+            stack.append(-1)
+            return None
+        parent = stack[-1] if stack else -1
+        if parent >= 0:
+            batch = spans[parent][2]
+        else:
+            batch = buf.roots.get(self.name, 0)
+            buf.roots[self.name] = batch + 1
+        stack.append(len(spans))
+        spans.append([self.name, parent, batch, time.perf_counter_ns(), 0])
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        t = time.perf_counter_ns()
+        buf = getattr(self.rec._local, "hot", None)
+        if buf is not None and buf.stack:
+            i = buf.stack.pop()
+            if i >= 0:
+                buf.spans[i][4] = t
+        return False
+
+
 class SpanRecorder:
     """Collects span events; optionally streams them as JSONL.
 
@@ -91,6 +177,13 @@ class SpanRecorder:
         self._local = threading.local()
         self._next_id = 0
         self._registry = registry
+        self.hot = False  # hot tracing on (``trace_hot``)
+        self.hot_records: List[dict] = []  # the last hot trace's records
+        self.hot_dropped = 0  # hot spans its bounds dropped
+        self._hot_gen = 0
+        self._hot_buffers: List[_HotBuffer] = []
+        self._hot_spans: Dict[str, _HotSpan] = {}
+        self._hot_clock = (0, 0)  # (perf_counter_ns, time_ns) at its start
 
     # ------------------------------------------------------------- plumbing
     def _stack(self) -> List[int]:
@@ -163,6 +256,61 @@ class SpanRecorder:
                 "attrs": sp.attrs,
             })
 
+    # ------------------------------------------------------------ hot spans
+    def _hot_buffer(self) -> _HotBuffer:
+        buf = getattr(self._local, "hot", None)
+        if buf is None or buf.gen != self._hot_gen:
+            buf = self._local.hot = _HotBuffer(self._hot_gen)
+            with self._lock:
+                self._hot_buffers.append(buf)
+        return buf
+
+    def hot_span(self, name: str):
+        """A span of the ingest path (module docstring); the shared no-op
+        while hot tracing is off or ``torch.compile`` traces."""
+        if not self.hot or torch.compiler.is_compiling():
+            return NO_SPAN
+        sp = self._hot_spans.get(name)
+        if sp is None:
+            sp = self._hot_spans[name] = _HotSpan(self, name)
+        return sp
+
+    def hot_count(self, name: str, value) -> None:
+        """Keep ``value`` under ``name`` in the innermost open hot span's
+        batch: a number, a device scalar, or a function of no arguments
+        that returns one, called when tracing stops."""
+        if not self.hot:
+            return
+        buf = self._hot_buffer()
+        batch = buf.spans[buf.stack[-1]][2] if buf.stack else -1
+        buf.counters.append((name, batch, value))
+
+    def trace_hot(self, on: bool = True) -> Optional[List[dict]]:
+        """Turn hot tracing on (a fresh trace: earlier records go) or off.
+        Off returns the trace's records (also kept in ``hot_records``):
+        spans ``{"kind": "hot_span", "name", "path", "span_id",
+        "parent_id", "depth", "batch", "thread", "start_ns", "end_ns"}``
+        with Unix-nanosecond times, counters ``{"kind": "hot_counter",
+        "name", "batch", "thread", "value"}``.  Turn it off while the
+        traced threads are between spans."""
+        with self._lock:
+            if on:
+                self._hot_gen += 1
+                self._hot_buffers = []
+                self.hot_records, self.hot_dropped = [], 0
+                self._hot_clock = (time.perf_counter_ns(), time.time_ns())
+                self.hot = True
+                return None
+            was, self.hot = self.hot, False
+            buffers, self._hot_buffers = self._hot_buffers, []
+        if not was:
+            return list(self.hot_records)
+        records = _export(buffers, self._hot_clock, time.perf_counter_ns())
+        with self._lock:
+            self.hot_records = records
+            self.hot_dropped = sum(b.dropped for b in buffers)
+        return list(records)
+
     # ------------------------------------------------------------ inspection
     def find(self, name: Optional[str] = None,
              outcome: Optional[str] = None) -> List[dict]:
@@ -174,15 +322,17 @@ class SpanRecorder:
     def clear(self) -> None:
         with self._lock:
             self.events.clear()
+            self.hot_records = []
 
     def dump_jsonl(self, path: str) -> Path:
-        """Write every buffered event to ``path`` (the CI artifact)."""
+        """Write every buffered event, then the last hot trace's records,
+        to ``path`` (the CI artifact)."""
         p = Path(path)
         p.parent.mkdir(parents=True, exist_ok=True)
         with self._lock:
             p.write_text("".join(
                 json.dumps(e, sort_keys=True, default=str) + "\n"
-                for e in self.events))
+                for e in self.events + self.hot_records))
         return p
 
     def close(self) -> None:
@@ -190,6 +340,45 @@ class SpanRecorder:
             if self._fh is not None:
                 self._fh.close()
                 self._fh = None
+
+
+def _export(buffers: List[_HotBuffer], clock: tuple, t_end: int
+            ) -> List[dict]:
+    """The buffers' records as dicts on the Unix clock; device counters
+    read with one copy to the host per dtype and device."""
+    shift = clock[1] - clock[0]
+    out, counters, base = [], [], 0
+    for buf in buffers:
+        paths, depths = [], []
+        for i, (name, parent, batch, t0, t1) in enumerate(buf.spans):
+            top = parent < 0
+            paths.append(name if top else paths[parent] + "/" + name)
+            depths.append(0 if top else depths[parent] + 1)
+            out.append({"kind": "hot_span", "name": name, "path": paths[i],
+                        "span_id": base + i,
+                        "parent_id": None if top else base + parent,
+                        "depth": depths[i], "batch": batch,
+                        "thread": buf.thread, "start_ns": t0 + shift,
+                        "end_ns": (t1 or t_end) + shift})
+        base += len(buf.spans)
+        counters += [(name, batch, buf.thread, v)
+                     for name, batch, v in buf.counters]
+        if buf.dropped:
+            counters.append(("hot_spans_dropped", -1, buf.thread,
+                             buf.dropped))
+    values = [v() if callable(v) else v for *_, v in counters]
+    groups: Dict[tuple, List[int]] = {}
+    for k, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            groups.setdefault((v.device, v.dtype), []).append(k)
+    for ks in groups.values():
+        read = torch.stack([values[k].reshape(()) for k in ks]).tolist()
+        for k, v in zip(ks, read):
+            values[k] = v
+    out += [{"kind": "hot_counter", "name": name, "batch": batch,
+             "thread": thread, "value": v}
+            for (name, batch, thread, _), v in zip(counters, values)]
+    return out
 
 
 _RECORDER = SpanRecorder()
@@ -203,3 +392,23 @@ def span(name: str, **attrs: object):
     """``with obs.span("handoff", src=0, dst=1) as sp:`` on the default
     recorder — the one the instrumented serving modules use."""
     return _RECORDER.span(name, **attrs)
+
+
+def hot_span(name: str):
+    """``with obs.hot_span("route"):`` on the default recorder: one flag
+    check while hot tracing is off (module docstring)."""
+    if not _RECORDER.hot:
+        return NO_SPAN
+    return _RECORDER.hot_span(name)
+
+
+def hot_count(name: str, value) -> None:
+    """``obs.hot_count("pod_step_passes", fn)`` on the default recorder
+    (``SpanRecorder.hot_count``)."""
+    if _RECORDER.hot:
+        _RECORDER.hot_count(name, value)
+
+
+def hot_tracing() -> bool:
+    """Whether the default recorder keeps hot spans and counters now."""
+    return _RECORDER.hot

@@ -235,18 +235,21 @@ class SummarizerPod:
         ``init`` of its own hyperparameter row (the JAX pod's
         ``vmap(algo.init)(hp)``; the pod default for an algorithm
         without them)."""
-        mask = mask & state.active
-        hp = getattr(state.algo, "hp", None)
-        fresh = (stack_states(self.algo.init(), self.sessions) if hp is None
-                 else vmap(self.algo.init)(hp))
-        z = self._zeros()
-        return dataclasses.replace(
-            state,
-            algo=tree_select(mask, fresh, state.algo),
-            win_items=torch.where(mask, z, state.win_items),
-            win_accepts=torch.where(mask, z, state.win_accepts),
-            resets=state.resets + mask.to(torch.int32),
-        )
+        with obs.hot_span("rearm"):
+            hp = getattr(state.algo, "hp", None)
+            with obs.hot_span("rearm.init"):
+                fresh = (stack_states(self.algo.init(), self.sessions)
+                         if hp is None else vmap(self.algo.init)(hp))
+            with obs.hot_span("rearm.select"):
+                mask = mask & state.active
+                z = self._zeros()
+                return dataclasses.replace(
+                    state,
+                    algo=tree_select(mask, fresh, state.algo),
+                    win_items=torch.where(mask, z, state.win_items),
+                    win_accepts=torch.where(mask, z, state.win_accepts),
+                    resets=state.resets + mask.to(torch.int32),
+                )
 
     def drift_check(self, state: PodState, *, min_items: int,
                     min_rate: float) -> Tuple[PodState, torch.Tensor]:
@@ -269,32 +272,52 @@ class SummarizerPod:
         session go to a trash row S; a stable sort keeps stream order per
         slot.  ``unknown`` counts items of no live session, ``overflow``
         items past a slot's C, per slot.
+
+        On CUDA tensors the route synchronises with the host: each
+        ``torch.bincount`` reads its input's minimum and maximum back to
+        check and size its output (a copy to pageable memory, which
+        blocks, then one to pinned memory, each followed by a stream
+        sync).  The stable
+        ``argsort`` may synchronise too, but did not on an H100 with
+        PyTorch 2.11.  ``portbench/spantrace.py``'s ``host_syncs`` counts
+        them by span (``route.count``, ``route.sort``).
         """
         S, C = self.sessions, self.chunk
         N = sids.shape[0]
         dev = sids.device
-        match = (sids[:, None] == state.sid[None, :]) & state.active[None, :]
-        found = match.any(1)
-        slot = torch.where(found, match.to(torch.uint8).argmax(1),
-                           torch.full_like(sids, S, dtype=torch.int64))
-        order = torch.argsort(slot, stable=True)
-        sorted_slot = slot[order]
-        seg_start = torch.searchsorted(sorted_slot, sorted_slot, side="left")
-        pos_sorted = torch.arange(N, device=dev) - seg_start
-        pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-
-        keep = found & (pos < C)
-        slot_f = torch.where(keep, slot, S)
-        pos_f = torch.clamp_max(pos, C - 1)
-        chunks = torch.zeros((S + 1, C) + tuple(X.shape[1:]), dtype=X.dtype,
-                             device=dev)
-        chunks[slot_f, pos_f] = X  # duplicates only ever hit the trash row
-        counts = torch.bincount(slot_f, minlength=S + 1)[:S].to(torch.int32)
-        unknown = (~found & (sids >= 0)).sum().to(torch.int32)
-        over_slot = torch.where(found & (pos >= C), slot, S)
-        overflow = torch.bincount(over_slot,
-                                  minlength=S + 1)[:S].to(torch.int32)
-        return chunks[:S], counts, unknown, overflow
+        with obs.hot_span("route"):
+            with obs.hot_span("route.match"):
+                match = ((sids[:, None] == state.sid[None, :])
+                         & state.active[None, :])
+                found = match.any(1)
+                slot = torch.where(found, match.to(torch.uint8).argmax(1),
+                                   torch.full_like(sids, S,
+                                                   dtype=torch.int64))
+            with obs.hot_span("route.sort"):
+                order = torch.argsort(slot, stable=True)
+                sorted_slot = slot[order]
+            with obs.hot_span("route.position"):
+                seg_start = torch.searchsorted(sorted_slot, sorted_slot,
+                                               side="left")
+                pos_sorted = torch.arange(N, device=dev) - seg_start
+                pos = torch.empty_like(pos_sorted).scatter_(0, order,
+                                                            pos_sorted)
+            with obs.hot_span("route.scatter"):
+                keep = found & (pos < C)
+                slot_f = torch.where(keep, slot, S)
+                pos_f = torch.clamp_max(pos, C - 1)
+                chunks = torch.zeros((S + 1, C) + tuple(X.shape[1:]),
+                                     dtype=X.dtype, device=dev)
+                # duplicates only ever hit the trash row
+                chunks[slot_f, pos_f] = X
+            with obs.hot_span("route.count"):
+                counts = torch.bincount(slot_f,
+                                        minlength=S + 1)[:S].to(torch.int32)
+                unknown = (~found & (sids >= 0)).sum().to(torch.int32)
+                over_slot = torch.where(found & (pos >= C), slot, S)
+                overflow = torch.bincount(over_slot,
+                                          minlength=S + 1)[:S].to(torch.int32)
+            return chunks[:S], counts, unknown, overflow
 
     # ----------------------------------------------------------------- ingest
     def ingest(self, state: PodState, sids: torch.Tensor, X: torch.Tensor
@@ -314,21 +337,24 @@ class SummarizerPod:
         # ``summary()[1]``: a multi-rung algorithm's winning rung can
         # switch to a smaller summary); one call on the stacked state is
         # per slot, see ``SieveAlgorithm.insertions``
-        n_before = self.algo.insertions(state.algo).clone()
-        algo2 = pod_step(self.algo, state.algo, chunks, counts)
-        acc = self.algo.insertions(algo2) - n_before
-        unk = unknown.to(torch.int32).sum(dtype=torch.int32)
-        drops_unknown = state.drops_unknown.clone()
-        drops_unknown[0] += unk
-        state2 = dataclasses.replace(
-            state, algo=algo2,
-            items=state.items + counts,
-            accepts=state.accepts + acc,
-            win_items=state.win_items + counts,
-            win_accepts=state.win_accepts + acc,
-            drops_overflow=state.drops_overflow + overflow,
-            drops_unknown=drops_unknown,
-        )
+        with obs.hot_span("pod_step"):
+            with obs.hot_span("pod_step.ledgers"):
+                n_before = self.algo.insertions(state.algo).clone()
+            algo2 = pod_step(self.algo, state.algo, chunks, counts)
+            with obs.hot_span("pod_step.ledgers"):
+                acc = self.algo.insertions(algo2) - n_before
+                unk = unknown.to(torch.int32).sum(dtype=torch.int32)
+                drops_unknown = state.drops_unknown.clone()
+                drops_unknown[0] += unk
+                state2 = dataclasses.replace(
+                    state, algo=algo2,
+                    items=state.items + counts,
+                    accepts=state.accepts + acc,
+                    win_items=state.win_items + counts,
+                    win_accepts=state.win_accepts + acc,
+                    drops_overflow=state.drops_overflow + overflow,
+                    drops_unknown=drops_unknown,
+                )
         return state2, {"counts": counts, "dropped_unknown": unk[None],
                         "dropped_overflow": overflow}
 

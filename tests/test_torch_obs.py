@@ -16,7 +16,6 @@ from repro import obs as jobs  # noqa: E402
 from repro.concurrency import lockdep as jlockdep  # noqa: E402
 from repro_torch import obs as tobs  # noqa: E402
 from repro_torch.concurrency import lockdep as tlockdep  # noqa: E402
-from repro_torch.obs import torchbridge  # noqa: E402
 
 from _torch_port import compile_budget  # noqa: E402, F401  (fixture)
 
@@ -24,8 +23,7 @@ from _torch_port import compile_budget  # noqa: E402, F401  (fixture)
 def pod_families(reg):
     """A snapshot's families without the compile and build accounting,
     which differs by package (``repro/obs/jaxbridge.py`` counts XLA
-    compiles, ``repro_torch/obs/torchbridge.py`` Dynamo compiles and
-    ``kernels/build.py`` nvcc builds)."""
+    compiles, the port's ``kernels/build.py`` nvcc builds)."""
     return [f for f in reg.snapshot().families
             if not f["name"].startswith(("jax_", "xla_", "torch_compile",
                                          "kernel_build"))]
@@ -134,35 +132,7 @@ def test_span_is_a_noop_while_torch_compile_traces(fresh, tmp_path):
     assert path.read_text().count("traced-span") == 1
 
 
-# ------------------------------------------------------- torch bridge
-def test_torch_bridge_installs_exactly_once(fresh):
-    """repro_torch.obs installed the bridge at import; every later
-    install() is a no-op, so no compile is counted twice."""
-    assert torchbridge.installed()
-    assert tobs.install_torch_bridge() is False
-    assert tobs.install_torch_bridge() is False
-    assert torchbridge.registrations() == 1
-
-
-def test_bridge_and_budget_count_the_same_compiles(fresh, compile_budget):
-    """Two independent listeners, one event stream: the bridge's
-    torch_compile_total agrees with the compile budget over a scope that
-    compiles; each compile's duration lands in torch_compile_seconds."""
-    _, treg = fresh
-    with compile_budget.budget(10):
-        f = torch.compile(lambda x: x * 3 + 1, backend="eager")
-        f(torch.arange(11))
-        f(torch.arange(11.0))  # a new dtype: a second compile
-    fresh_compiles = compile_budget.compiles
-    assert fresh_compiles >= 2
-    snap = treg.snapshot()
-    assert snap.get("torch_compile_total") == fresh_compiles
-    hist = next(f for f in snap.families
-                if f["name"] == "torch_compile_seconds")
-    assert hist["series"][0]["count"] == fresh_compiles
-    assert hist["series"][0]["sum"] > 0
-
-
+# ------------------------------------------------------- compile budget
 def test_budget_fails_on_a_fresh_compile_and_passes_on_a_cache_hit(
         fresh, compile_budget):
     f = torch.compile(lambda x: x - 7, backend="eager")
@@ -174,16 +144,6 @@ def test_budget_fails_on_a_fresh_compile_and_passes_on_a_cache_hit(
         f(x)
         f(x + 1)
     assert compile_budget.compiles == 1
-
-
-def test_bridge_binds_the_registry_late(fresh):
-    """The listeners read the default registry when the event arrives:
-    a compile after ``reset_default_registry`` lands in the new one."""
-    _, old = fresh
-    new = tobs.reset_default_registry()
-    torch.compile(lambda x: x * 5, backend="eager")(torch.arange(4))
-    assert new.snapshot().get("torch_compile_total") == 1
-    assert old.snapshot().get("torch_compile_total") is None
 
 
 def test_kernel_builds_are_counted(fresh):
